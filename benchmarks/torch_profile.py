@@ -1,0 +1,105 @@
+"""Where the time goes in the port's quickstart loop on the card.
+
+  python3 benchmarks/torch_profile.py [--out results/torch/profile.json]
+
+Runs each step of ``repro_torch.quickstart`` at full size (27,000-point
+paper grid, VGG-16/CIFAR-10, every preset's fake quantization) and the
+2^20-point WIDE_SPACE sweep once warm, each under its own
+``torch.profiler`` session, and reports per step: host wall time, device
+busy time (sum of the CUDA kernel and copy durations), the device idle
+share, the number of kernel launches, and the top kernels by device
+time.  Writes the full table, top kernels included, to ``--out``.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from collections import Counter
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def profile_step(torch, name, fn):
+    """Run ``fn`` once under the profiler; returns (result, row)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, launches, by_kernel = 0.0, 0, Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy += us
+            launches += 1
+            by_kernel[e.name[:80]] += us
+    row = dict(step=name, wall_s=wall, device_busy_s=busy / 1e6,
+               idle_share=(1.0 - busy / 1e6 / wall) if busy else None,
+               device_events=launches,
+               top_kernels_us=by_kernel.most_common(5))
+    print(f"{name:14s} wall={wall * 1e3:9.3f} ms "
+          f"device_busy={busy / 1e3:9.3f} ms "
+          f"idle={row['idle_share'] if busy else 'not measured'} "
+          f"device_events={launches}")
+    return out, row
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", type=Path,
+                    default=ROOT / "results" / "torch" / "profile.json")
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile needs a CUDA card")
+    from repro_torch import quickstart
+    from repro_torch.core import arch, dse, ppa, workloads
+    from repro_torch.quant import PE_TYPES, fake_quant_weight, preset
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}")
+    dev = torch.device("cuda")
+    quickstart.run(max_points=None, presets=PE_TYPES, device=dev)  # warm-up
+
+    rows = []
+
+    def step(name, fn):
+        out, row = profile_step(torch, name, fn)
+        rows.append(row)
+        return out
+
+    space = step("enumerate", lambda: arch.enumerate_space(device=dev))
+    sample = arch.enumerate_space(max_points=2000, device=dev)
+    models = step("fit", lambda: ppa.fit_ppa_models(
+        sample, degrees=(1, 2), k=4, device=dev))
+    wl = workloads.vgg16("cifar10", device=dev)
+    res = step("dse_oracle", lambda: dse.evaluate_space(space, wl))
+    step("dse_surrogate", lambda: dse.evaluate_space(space, wl,
+                                                     surrogate=models))
+    step("pareto", lambda: np.asarray(dse.pareto_front(res)))
+    weights = quickstart.draw_weights(workloads.weight_shapes(wl), 0, dev)
+    step("fake_quant", lambda: {p: [fake_quant_weight(w, preset(p))
+                                    for w in weights] for p in PE_TYPES})
+    wide = arch.enumerate_space(arch.WIDE_SPACE, max_points=2 ** 20,
+                                device=dev)
+    step("wide_2^20", lambda: dse.evaluate_space(wide, wl, chunk_size=65536))
+
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(dict(card=card, rows=rows), indent=1))
+    print(json.dumps(dict(card=card, rows=[
+        {k: v for k, v in r.items() if k != "top_kernels_us"}
+        for r in rows])))
+
+
+if __name__ == "__main__":
+    main()

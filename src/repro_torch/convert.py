@@ -1,0 +1,61 @@
+"""Carry the JAX package's state into the port's types.
+
+The state arrives as numpy arrays (the caller does the ``np.asarray`` of
+each JAX array), so this module imports neither ``jax`` nor ``repro``.
+It lets both packages work on the same configs, the same workloads and
+the same fitted surrogate coefficients.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.arch import AcceleratorConfig
+from repro_torch.core.ppa import PolyModel, PPAModels
+from repro_torch.core.workloads import LayerSpec, Workload, _IR_DEFAULTS
+from repro_torch.device import resolve_device
+
+
+def config_from_numpy(arrays: dict, device=None) -> AcceleratorConfig:
+    """``{field: array}`` -> AcceleratorConfig (float32 knobs, int32
+    ``pe_type``; a missing ``mapping`` is the legacy code 0)."""
+    device = resolve_device(device)
+    arrays = dict(arrays)
+    arrays.setdefault("mapping", np.zeros_like(
+        np.asarray(arrays["pe_rows"]), np.float32))
+    return AcceleratorConfig(**{
+        f: torch.tensor(np.array(arrays[f]),
+                           dtype=torch.int32 if f == "pe_type"
+                           else torch.float32, device=device)
+        for f in AcceleratorConfig._fields})
+
+
+def workload_from_numpy(name: str, arrays: dict, layer_names,
+                        device=None) -> Workload:
+    """``{LayerSpec field: (L,) array}`` -> Workload; IR fields missing
+    from ``arrays`` take their neutral defaults."""
+    device = resolve_device(device)
+    n = len(np.asarray(arrays["H"]))
+    cols = {f: np.array(arrays[f]) if f in arrays
+            else np.full(n, _IR_DEFAULTS[f]) for f in LayerSpec._fields}
+    layers = LayerSpec(**{f: torch.as_tensor(c, dtype=torch.float32,
+                                             device=device)
+                          for f, c in cols.items()})
+    return Workload(name=name, layers=layers, layer_names=tuple(layer_names))
+
+
+def ppa_models_from_numpy(models: dict, device=None) -> PPAModels:
+    """``{pe_type: {target: {degree, exps, mu, sigma, coef, log_target}}}``
+    with numpy leaves -> PPAModels predicting from the same coefficients."""
+    device = resolve_device(device)
+    f32 = lambda a: torch.tensor(np.array(a), dtype=torch.float32,  # noqa: E731
+                                    device=device)
+    return PPAModels(models={
+        pe: {t: PolyModel(degree=int(m["degree"]),
+                          exps=np.asarray(m["exps"], np.int32),
+                          mu=f32(m["mu"]), sigma=f32(m["sigma"]),
+                          coef=f32(m["coef"]),
+                          log_target=bool(m["log_target"]))
+             for t, m in targets.items()}
+        for pe, targets in models.items()})

@@ -1,0 +1,13 @@
+"""Quantization numerics for the paper's PE types (port of ``repro.quant``;
+the packed-weight codecs of ``repro.quant.pack`` are not ported yet)."""
+
+from repro_torch.quant.qconfig import QuantConfig, preset, PE_TYPES
+from repro_torch.quant.fake_quant import (affine_fake_quant, pow2_fake_quant,
+                                          pow2x2_fake_quant, fake_quant_weight,
+                                          fake_quant_act)
+
+__all__ = [
+    "QuantConfig", "preset", "PE_TYPES", "affine_fake_quant",
+    "pow2_fake_quant", "pow2x2_fake_quant", "fake_quant_weight",
+    "fake_quant_act",
+]

@@ -1,0 +1,110 @@
+"""The port stands alone: no JAX, nothing of repro, no silent CPU."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "src" / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__") for p in PACKAGE.rglob("*.py"))
+
+
+def _env():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("JAX_PLATFORMS", None)
+    return env
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "repro_torch.kernels.fake_quant.fake_quant" in MODULES
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py",
+     ROOT / "examples" / "torch_quickstart.py"]))
+def test_no_jax_or_repro_import_in_source(path):
+    text = (ROOT / path).read_text()
+    assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
+    assert not re.search(r"^\s*(from repro[.\s]|import repro[.\s])", text,
+                         re.M)
+
+
+CREATORS = {
+    "make_config": lambda: _core().make_config(),
+    "space_points": lambda: _core().space_points([0, 1, 2]),
+    "enumerate_space": lambda: _core().enumerate_space(max_points=10),
+    "iter_space_chunks": lambda: next(_core().iter_space_chunks()),
+    "vgg16": lambda: _core().vgg16("cifar10"),
+    "resnet_cifar": lambda: _core().resnet_cifar(20),
+    "fit_ppa_models": lambda: _core().fit_ppa_models(
+        _core().enumerate_space(max_points=50, device="cpu")),
+    "config_from_numpy": lambda: _convert().config_from_numpy(
+        {f: [1.0] for f in _core().AcceleratorConfig._fields}),
+    "ppa_models_from_numpy": lambda: _convert().ppa_models_from_numpy({}),
+    "draw_weights": lambda: _quickstart().draw_weights([(2, 2)]),
+    "quickstart.run": lambda: _quickstart().run(max_points=50),
+}
+
+
+def _core():
+    import repro_torch.core as core
+    return core
+
+
+def _convert():
+    from repro_torch import convert
+    return convert
+
+
+def _quickstart():
+    from repro_torch import quickstart
+    return quickstart
+
+
+@pytest.mark.parametrize("name", sorted(CREATORS))
+def test_creators_raise_without_cuda(name):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a CUDA card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CREATORS[name]()
+
+
+def test_example_runs_on_cpu():
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_quickstart.py"),
+         "--device", "cpu", "--max-points", "400"], env=_env(),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "Pareto front:" in out.stdout and "lightpe1" in out.stdout
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """No card: non-zero exit and no result line; alone in a directory
+    (nothing else of the repo beside it): the same."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a CUDA card")
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             env=_env(), capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
