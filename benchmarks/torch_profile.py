@@ -3,12 +3,15 @@
   python3 benchmarks/torch_profile.py [--out results/torch/profile.json]
 
 Runs each step of ``repro_torch.quickstart`` at full size (27,000-point
-paper grid, VGG-16/CIFAR-10, every preset's fake quantization) and the
-2^20-point WIDE_SPACE sweep once warm, each under its own
-``torch.profiler`` session, and reports per step: host wall time, device
-busy time (sum of the CUDA kernel and copy durations), the device idle
-share, the number of kernel launches, and the top kernels by device
-time.  Writes the full table, top kernels included, to ``--out``.
+paper grid, VGG-16/CIFAR-10, every preset's fake quantization), the
+2^20-point WIDE_SPACE sweep, and one prefill step (4 prompts of 130
+tokens) and one decode step (cache index 130) of SmolLM-135M served on
+LightPE-1 codes, once warm, each under its own ``torch.profiler``
+session, and reports per step: host wall time, device busy time (sum of
+the CUDA kernel and copy durations), the device idle share, the number
+of device events, and the top kernels by device time; the serving steps
+also count the port's own kernel launches.  Writes the full table, top
+kernels included, to ``--out``.
 """
 
 import argparse
@@ -49,6 +52,48 @@ def profile_step(torch, name, fn):
           f"idle={row['idle_share'] if busy else 'not measured'} "
           f"device_events={launches}")
     return out, row
+
+
+def profile_serving(torch, dev):
+    """One prefill step and one decode step of SmolLM-135M on LightPE-1
+    codes (4 slots, bfloat16), warm, with the port's kernel launches."""
+    from repro_torch import convert
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import check, quantize_params
+
+    import numpy as np
+    cfg = get("smollm-135m")
+    params = quantize_params(
+        convert.params_from_numpy(T.numpy_params(cfg, check.PARAM_SEED), dev),
+        "lightpe1", min_size=check.MIN_SIZE)
+    plen = max(check.PROMPT_LENS)
+    toks = torch.as_tensor(np.stack(check.prompts(cfg.vocab, [plen] * 4)),
+                           device=dev)
+    last = toks[:, -1:]
+
+    def cache():
+        return T.init_cache(cfg, check.BATCH_SLOTS, check.MAX_LEN,
+                            torch.float32, device=dev)
+
+    warm = T.prefill(params, toks, cfg, cache())[1]  # warm-up
+    T.decode_step(params, last, cfg, warm)
+    filled, empty = T.prefill(params, toks, cfg, cache())[1], cache()
+    rows = []
+    for name, fn in (
+            ("serve_prefill", lambda: T.prefill(params, toks, cfg, empty)),
+            ("serve_decode", lambda: T.decode_step(params, last, cfg,
+                                                   filled))):
+        counts = (quant_matmul.launches, flash_attention.launches)
+        _, row = profile_step(torch, name, fn)
+        row["quant_matmul_launches"] = quant_matmul.launches - counts[0]
+        row["flash_attention_launches"] = flash_attention.launches - counts[1]
+        print(f"  launches: quant_matmul {row['quant_matmul_launches']}, "
+              f"flash_attention {row['flash_attention_launches']}")
+        rows.append(row)
+    return rows
 
 
 def main():
@@ -93,6 +138,7 @@ def main():
     wide = arch.enumerate_space(arch.WIDE_SPACE, max_points=2 ** 20,
                                 device=dev)
     step("wide_2^20", lambda: dse.evaluate_space(wide, wl, chunk_size=65536))
+    rows.extend(profile_serving(torch, dev))
 
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(card=card, rows=rows), indent=1))

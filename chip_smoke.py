@@ -16,7 +16,24 @@
    weights), with kernel launches counted over that run and the results
    held to ``tests/data/torch_quickstart_ref.json`` (the JAX package's);
    then a 2^20-point subsample of WIDE_SPACE in 65,536-point chunks;
-5. prints a ``{"kernels": [...]}`` line and, last, the device line.
+5. kernel vs plain, slice 2: ``quant_matmul`` (int4, pow2, int8; float32
+   and bfloat16 x) at SmolLM-135M's projection shapes for decode (M = 4)
+   and prefill (M = 4 * 130) and three ragged shapes, held to its plain
+   version within rtol 1e-5 / atol 1e-4; ``flash_attention`` (GQA 9/3,
+   head_dim 64) at the prefill and decode shapes and offsets and three
+   ragged ones, within 2e-5; each timed beside its plain version, a
+   library call and its bound;
+6. the slice of serving: SmolLM-135M at full width (numpy-drawn weights),
+   packed as LightPE-1 and as INT8 and served in bfloat16 and float32 by
+   ``ServeEngine`` (4 prompts of 8-130 tokens in 4 slots, 12 new tokens
+   each; then 6 requests in 4 slots), with the launches of the 4 x 12 run
+   counted (exactly 2,520 ``quant_matmul`` and 360 ``flash_attention``) and
+   every run held to ``tests/data/torch_serve_ref.json`` (the JAX
+   package's); then prefill and decode times, tokens/s and peak memory;
+7. prints a ``{"kernels": [...]}`` line and, last, the device line.
+
+TF32 is off for matrix products and convolutions (``repro_torch`` sets
+both flags at import): the reference tolerances need IEEE float32.
 
 Any failed phase exits non-zero before the last line is printed.
 """
@@ -29,6 +46,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 REF = ROOT / "tests" / "data" / "torch_quickstart_ref.json"
+SERVE_REF = ROOT / "tests" / "data" / "torch_serve_ref.json"
 
 # (R*S*C, K) of VGG-16/CIFAR-10's 15 layers, and two ragged shapes.
 VGG16_SHAPES = [(27, 64), (576, 64), (576, 128), (1152, 128), (1152, 256),
@@ -38,9 +56,30 @@ RAGGED_SHAPES = [(300, 190), (1, 129)]
 KERNEL_MODES = [("affine", 4), ("affine", 8), ("affine", 16), ("pow2", 8)]
 KERNEL_TOL = 1e-6
 H100_BYTES_PER_S = 3.35e12      # HBM3 of the H100 SXM (NVIDIA data sheet)
+H100_F32_FLOPS = 67e12          # float32 outside the tensor cores (same)
 SLEEP_CYCLES = 200_000_000      # ~0.1 s at the H100's ~1.98 GHz clock
 WIDE_POINTS = 2 ** 20
 WIDE_CHUNK = 65536
+
+# Slice 2.  SmolLM-135M's projections (K, N): wq/wo, wk/wv, w_up/w_gate,
+# w_down (each checked with float32 and bfloat16 x: the residual stream
+# is bfloat16, the MLP's hidden float32); ragged shapes of the
+# reference's kernel test.
+QMM_SHAPES = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
+QMM_RAGGED = [(37, 300, 190), (1, 512, 129), (200, 254, 64)]
+QMM_MODES = ("int4", "pow2", "int8")
+QMM_RTOL, QMM_ATOL = 1e-5, 1e-4         # tests/test_kernels.py:45
+FA_TOL = 2e-5                           # tests/test_kernels.py:122
+FA_DECODE_OFFSETS = (0, 63, 255)
+FA_RAGGED = [(100, 100, 32), (64, 256, 16), (1, 128, 64)]
+# Logit tolerances of the serving runs against the JAX package (on the
+# CPU the port is 0.033 / 0.026 from it in bfloat16, 2.8e-4 / 3.3e-6 in
+# float32; bfloat16 rounding turns the order of float32 sums into ~0.04
+# over 30 layers, and in float32 LightPE-1 also carries the few pow2 codes
+# that sit at a log2 tie, which INT8 has none of).
+SERVE_TOL = {"lightpe1": 0.1, "int8": 0.1, "lightpe1/float32": 2e-3,
+             "int8/float32": 1e-4}
+SERVE_LAUNCHES = {"quant_matmul": 12 * 30 * 7, "flash_attention": 12 * 30}
 
 
 def fail(msg: str):
@@ -221,12 +260,321 @@ def run_slice(torch, dev):
     return launches
 
 
+def device_ms(torch, chunks, reps: int = 5, sleep: int = SLEEP_CYCLES // 10):
+    """Mean device milliseconds of calling every function in ``chunks``
+    once.  Each chunk (a few hundred launches at most, within what the
+    stream queues) is queued behind a short sleep kernel, so its events
+    time the device's work back to back, without the gaps of a host
+    slower than the device; the chunks' times are summed."""
+    for fn in chunks:
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        for fn in chunks:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(sleep)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+    return total / reps
+
+
+def bound_ms(nbytes: float, flops: float):
+    """(least milliseconds, what bounds it) at the H100 SXM's HBM rate and
+    float32 CUDA-core rate."""
+    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    by_ops = flops / H100_F32_FLOPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def check_serving_kernels(torch, dev):
+    """Phase 5: quant_matmul and flash_attention against their plain
+    versions on the same tensors on the card."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bh,
+                                                     flash_attention_gqa)
+    from repro_torch.kernels.flash_attention.ref import (ref_attention_gqa,
+                                                         ref_flash_attention)
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels.quant_matmul.ref import ref_quant_matmul
+    from repro_torch.quant.pack import QUANTIZE
+    from repro_torch.serve.check import BATCH_SLOTS, MAX_LEN, PROMPT_LENS
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    prefill_m = BATCH_SLOTS * max(PROMPT_LENS)
+    cases = [(m, k, n) for k, n in QMM_SHAPES
+             for m in (BATCH_SLOTS, prefill_m)] + QMM_RAGGED
+    qmm_err = 0.0
+    for m, k, n in cases:
+        w = randn(k, n) * 0.08
+        for mode in QMM_MODES:
+            codes, scale = QUANTIZE[mode](w)
+            for x_type in (torch.float32, torch.bfloat16):
+                x = randn(m, k).to(x_type)
+                got = quant_matmul(x, codes, scale, mode=mode)
+                want = ref_quant_matmul(x, codes, scale, mode)
+                torch.cuda.synchronize()
+                if got.shape != (m, n) or not bool(torch.isfinite(got).all()):
+                    fail(f"quant_matmul {mode} {(m, k, n)}: bad output")
+                if not torch.allclose(got, want, rtol=QMM_RTOL, atol=QMM_ATOL):
+                    fail(f"quant_matmul {mode} {x_type} {(m, k, n)}: differs "
+                         f"from plain by {float((got - want).abs().max())}")
+                qmm_err = max(qmm_err, float((got - want).abs().max()))
+    print(f"quant_matmul vs plain: {len(cases)} shapes x {len(QMM_MODES)} "
+          f"modes x 2 x types, max_abs_err={qmm_err} (tolerance rtol "
+          f"{QMM_RTOL} / atol {QMM_ATOL})")
+
+    fa_err = 0.0
+
+    def held(name, got, want):
+        nonlocal fa_err
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not bool(torch.isfinite(got).all()) or err > FA_TOL:
+            fail(f"flash_attention {name}: differs from plain by {err}")
+        fa_err = max(fa_err, err)
+
+    b, hq, hkv, d = BATCH_SLOTS, 9, 3, 64
+    for sq, off in [(max(PROMPT_LENS), 0)] + [(1, o) for o in
+                                             FA_DECODE_OFFSETS]:
+        q, k, v = randn(b, sq, hq, d), randn(b, MAX_LEN, hkv, d), \
+            randn(b, MAX_LEN, hkv, d)
+        start = torch.full((b,), off, dtype=torch.int32, device=dev)
+        held(f"gqa Sq={sq} offset={off}", flash_attention_gqa(q, k, v, start),
+             ref_attention_gqa(q, k, v, start))
+    for sq, skv, dh in FA_RAGGED:
+        q, k, v = randn(2, 2, sq, dh), randn(2, 2, skv, dh), randn(2, 2, skv, dh)
+        got = flash_attention_bh(q, k, v)
+        want = torch.stack([torch.stack([ref_flash_attention(q[i, j], k[i, j],
+                                                             v[i, j])
+                                         for j in range(2)]) for i in range(2)])
+        held(f"bh {(sq, skv, dh)}", got, want)
+    q, k, v = randn(128, 32), randn(128, 32), randn(128, 32)
+    held("non-causal", flash_attention(q, k, v, causal=False),
+         ref_flash_attention(q, k, v, causal=False))
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    held("bfloat16", flash_attention(qb, kb, vb),
+         ref_flash_attention(qb, kb, vb))
+    print(f"flash_attention vs plain: prefill, decode at offsets "
+          f"{FA_DECODE_OFFSETS}, GQA {hq}/{hkv}, ragged, non-causal, bf16: "
+          f"max_abs_err={fa_err} (tolerance {FA_TOL})")
+    return qmm_err, fa_err
+
+
+def time_serving_kernels(torch, dev, cfg, packed, index):
+    """The two kernels' device times for one step of the served model
+    (its own LightPE-1 codes, all 30 layers) beside their plain versions,
+    a library call and the bound.  Decode: M = 4 rows against a cache
+    filled to ``index``; prefill: M = 4 * 130 rows from position 0."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import ref_attention_gqa
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels.quant_matmul.ref import ref_quant_matmul
+    from repro_torch.quant.pack import dequantize_pow2
+    from repro_torch.serve.check import BATCH_SLOTS, MAX_LEN, PROMPT_LENS
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(4)
+    lay = packed["layers"]
+    # (packed leaf, the x type it takes on the path)
+    projections = [(lay["attn"][n], torch.bfloat16) for n in
+                   ("wq", "wk", "wv", "wo")] + [
+        (lay["mlp"]["w_up"], torch.bfloat16),
+        (lay["mlp"]["w_gate"], torch.bfloat16),
+        (lay["mlp"]["w_down"], torch.float32)]
+    qmm, fa = {}, {}
+    s_prefill = max(PROMPT_LENS)
+    for phase, m in (("decode", BATCH_SLOTS), ("prefill", BATCH_SLOTS * s_prefill)):
+        calls, nbytes, flops = [], 0, 0
+        for i in range(cfg.n_layers):
+            for leaf, x_type in projections:
+                codes, scale = leaf["codes__pow2"][i], leaf["scale"][i]
+                k, n = codes.shape[0] * 2, codes.shape[1]
+                x = torch.randn((m, k), generator=gen, device=dev).to(x_type)
+                calls.append((x, codes, scale))
+                nbytes += (codes.numel() + scale.numel() * 4
+                           + x.numel() * x.element_size() + m * n * 4)
+                flops += 2 * m * k * n
+        dense = [(x.float(), dequantize_pow2(c, s)) for x, c, s in calls]
+        kernel_ms = device_ms(torch, [lambda: [
+            quant_matmul(x, c, s, mode="pow2") for x, c, s in calls]])
+        plain_ms = device_ms(torch, [
+            (lambda part=calls[j:j + 21]: [ref_quant_matmul(x, c, s, "pow2")
+                                           for x, c, s in part])
+            for j in range(0, len(calls), 21)])
+        library_ms = device_ms(torch, [lambda: [torch.matmul(x, w)
+                                                for x, w in dense]])
+        bound, by = bound_ms(nbytes, flops)
+        qmm[phase] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound, bound_by=by,
+                          launches=len(calls), bytes=nbytes, flops=flops)
+        del dense
+
+    b, hq, hkv, d = BATCH_SLOTS, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    for phase, sq, start in (("decode", 1, index), ("prefill", s_prefill, 0)):
+        q = torch.randn((cfg.n_layers, b, sq, hq, d), generator=gen, device=dev)
+        kv = torch.randn((2, cfg.n_layers, b, MAX_LEN, hkv, d), generator=gen,
+                         device=dev)
+        st = torch.full((b,), start, dtype=torch.int32, device=dev)
+        qpos = start + torch.arange(sq, device=dev)
+        mask = torch.arange(MAX_LEN, device=dev)[None, :] <= qpos[:, None]
+        # SDPA's layout (B, H, S, D), made before the timing
+        tq, tk, tv = (t.transpose(-2, -3).contiguous() for t in (q, kv[0], kv[1]))
+        kernel_ms = device_ms(torch, [lambda: [
+            flash_attention_gqa(q[i], kv[0, i], kv[1, i], st)
+            for i in range(cfg.n_layers)]])
+        plain_ms = device_ms(torch, [lambda: [
+            ref_attention_gqa(q[i], kv[0, i], kv[1, i], st)
+            for i in range(cfg.n_layers)]])
+        library_ms = device_ms(torch, [lambda: [
+            sdpa(tq[i], tk[i], tv[i], attn_mask=mask, enable_gqa=True)
+            for i in range(cfg.n_layers)]])
+        # what this run needs: q and out once, the keys up to the last
+        # query's position (the kernel skips the rest), 2 D-long dot
+        # products per visible (query, key) pair
+        keys = min(MAX_LEN, start + sq)
+        visible = sum(min(MAX_LEN, start + i + 1) for i in range(sq))
+        per_layer_bytes = 4 * (2 * b * sq * hq * d + 2 * b * keys * hkv * d)
+        flops = cfg.n_layers * 4 * b * hq * d * visible
+        bound, by = bound_ms(cfg.n_layers * per_layer_bytes, flops)
+        fa[phase] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound, bound_by=by,
+                         launches=cfg.n_layers, start=start, q_rows=sq)
+    for name, rows in (("quant_matmul", qmm), ("flash_attention", fa)):
+        for phase, r in rows.items():
+            print(f"{name} {phase} step ({r['launches']} launches): kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})")
+    return qmm, fa
+
+
+def run_serving(torch, dev):
+    """Phase 6: SmolLM-135M served on packed weights at full width, held
+    to the JAX package's runs; returns the launch counts of the LightPE-1
+    4 x 12 run, the kernel times and the step numbers."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.models import family_module
+    from repro_torch.serve import (ServeEngine, check, packed_bytes,
+                                   quantize_params)
+
+    ref = json.loads(SERVE_REF.read_text())
+    cfg = get(ref["config"])
+    mod = family_module(cfg)
+    t0 = time.perf_counter()
+    params = convert.params_from_numpy(mod.numpy_params(cfg, ref["param_seed"]),
+                                       dev)
+    packs = {pe: quantize_params(params, pe, min_size=ref["min_size"])
+             for pe in sorted({m["pe_type"] for m in ref["modes"].values()})}
+    torch.cuda.synchronize()
+    print(f"serving: {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads, vocab "
+          f"{cfg.vocab}); weights drawn and packed in "
+          f"{time.perf_counter() - t0:.2f} s; dense {ref['dense_bytes']} B")
+
+    def to_numpy(t):
+        return t.float().cpu().numpy()
+
+    prompts = [np.array(p) for p in ref["prompts"]]
+    reuse = [np.array(p) for p in ref["reuse_prompts"]]
+    launches = None
+    for key, m in ref["modes"].items():
+        packed = packs[m["pe_type"]]
+        if packed_bytes(packed) != m["packed_bytes"]:
+            fail(f"{key}: packed_bytes {packed_bytes(packed)} != the JAX "
+                 f"package's {m['packed_bytes']}")
+        run_cfg = cfg.replace(dtype=m["dtype"])
+
+        def engine():
+            return ServeEngine(run_cfg, mod, packed, ref["batch_slots"],
+                               ref["max_len"])
+
+        quant_matmul.launches = 0
+        flash_attention.launches = 0
+        got = check.record(engine(), prompts, ref["max_new"], to_numpy)
+        counts = {"quant_matmul": quant_matmul.launches,
+                  "flash_attention": flash_attention.launches}
+        if counts != SERVE_LAUNCHES:
+            fail(f"{key}: launches {counts} on the 4 x {ref['max_new']} run, "
+                 f"expected {SERVE_LAUNCHES}")
+        if key == "lightpe1":
+            launches = counts
+        runs = [("run4", got)]
+        if "run6" in m:
+            runs.append(("run6", check.record(engine(), reuse,
+                                              ref["reuse_max_new"], to_numpy)))
+        for name, rec in runs:
+            problems, notes = check.compare(rec, m[name], SERVE_TOL[key])
+            for note in notes:
+                print(f"  tolerated ({key} {name}): {note}")
+            if problems:
+                fail(f"{key} {name} differs from the JAX reference: "
+                     + "; ".join(problems))
+            print(f"{key} {name}: matches the JAX reference (max logit err "
+                  f"{check.max_logit_err(rec, m[name]):.3g}, tolerance "
+                  f"{SERVE_TOL[key]}); tokens of request 0: {rec['tokens'][0]}")
+    if launches is None:
+        fail("the reference has no lightpe1 run")
+    print(f"launches on the LightPE-1 4 x {ref['max_new']} run: {launches}")
+
+    # the served default (LightPE-1 codes, bfloat16), warm, timed per step
+    eng = ServeEngine(cfg, mod, packs["lightpe1"], ref["batch_slots"],
+                      ref["max_len"])
+    steps = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def step(p, t, c):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(p, t, c)
+            torch.cuda.synchronize()
+            steps[name].append(time.perf_counter() - t1)
+            return out
+        return step
+
+    eng._prefill = timed("prefill", eng._prefill)
+    eng._decode = timed("decode", eng._decode)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    reqs = [eng.submit(p, max_new=ref["max_new"]) for p in prompts]
+    eng.run()
+    wall = time.perf_counter() - t1
+    tokens = sum(len(r.out) for r in reqs)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    numbers = dict(prefill_ms=steps["prefill"][0] * 1e3,
+                   decode_ms=float(np.mean(steps["decode"])) * 1e3,
+                   tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                   peak_mib=peak)
+    print(f"serving lightpe1 (warm): prefill {numbers['prefill_ms']:.3f} ms "
+          f"(4 x {max(len(p) for p in prompts)} tokens), decode "
+          f"{numbers['decode_ms']:.3f} ms/step, {tokens} tokens in "
+          f"{wall:.3f} s = {numbers['tokens_per_s']:.1f} tokens/s, peak "
+          f"device memory {peak:.1f} MiB")
+    qmm, fa = time_serving_kernels(torch, dev, cfg, packs["lightpe1"],
+                                   max(len(p) for p in prompts) + 5)
+    return launches, qmm, fa, numbers
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a CUDA card")
-    if not (ROOT / "src" / "repro_torch").is_dir() or not REF.exists():
+    if not (ROOT / "src" / "repro_torch").is_dir() or not REF.exists() \
+            or not SERVE_REF.exists():
         fail("src/repro_torch or the JAX reference results are missing "
              "beside chip_smoke.py")
     sys.path.insert(0, str(ROOT / "src"))
@@ -246,16 +594,39 @@ def main() -> int:
 
     modes = check_kernels(torch, dev)
     launches = run_slice(torch, dev)
+    qmm_err, fa_err = check_serving_kernels(torch, dev)
+    serve_launches, qmm, fa, serving = run_serving(torch, dev)
 
     main_mode = next(m for m in modes if (m["mode"], m["bits"]) == ("affine", 8))
-    print(json.dumps({"kernels": [dict(
+    kernels = [dict(
         name="fake_quant", route="cuda",
         source="src/repro_torch/csrc/fake_quant.cu",
         replaces="src/repro/kernels/fake_quant/fake_quant.py:45",
         launches=launches, max_abs_err=max(m["max_abs_err"] for m in modes),
         ms=main_mode["ms"], kernel_ms=main_mode["ms"], plain_ms=main_mode["plain_ms"],
         bound_ms=main_mode["bound_ms"], bound_by="bytes",
-        library_ms=main_mode["library_ms"], modes=modes)]}))
+        library_ms=main_mode["library_ms"], modes=modes)]
+    # the rows' main numbers are one decode step's (11 of the 12 steps);
+    # the prefill step's stand beside them
+    for name, rows, err, replaces, library in (
+            ("quant_matmul", qmm, qmm_err,
+             "src/repro/kernels/quant_matmul/quant_matmul.py:106",
+             "torch.matmul on the dequantized float32 weights (no single "
+             "call computes the packed product)"),
+            ("flash_attention", fa, fa_err,
+             "src/repro/kernels/flash_attention/flash_attention.py:71",
+             "scaled_dot_product_attention with the same mask, enable_gqa")):
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
+            replaces=replaces, launches=serve_launches[name],
+            max_abs_err=err, ms=rows["decode"]["ms"],
+            plain_ms=rows["decode"]["plain_ms"],
+            bound_ms=rows["decode"]["bound_ms"],
+            bound_by=rows["decode"]["bound_by"],
+            library_ms=rows["decode"]["library_ms"], library=library,
+            unit="one decode step of SmolLM-135M, 4 slots, LightPE-1",
+            prefill=rows["prefill"]))
+    print(json.dumps({"kernels": kernels, "serving": serving}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

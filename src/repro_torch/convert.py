@@ -2,8 +2,8 @@
 
 The state arrives as numpy arrays (the caller does the ``np.asarray`` of
 each JAX array), so this module imports neither ``jax`` nor ``repro``.
-It lets both packages work on the same configs, the same workloads and
-the same fitted surrogate coefficients.
+It lets both packages work on the same configs, the same workloads, the
+same fitted surrogate coefficients and the same model weights.
 """
 
 from __future__ import annotations
@@ -59,3 +59,20 @@ def ppa_models_from_numpy(models: dict, device=None) -> PPAModels:
                           log_target=bool(m["log_target"]))
              for t, m in targets.items()}
         for pe, targets in models.items()})
+
+
+def params_from_numpy(tree, device=None):
+    """A model's parameter pytree with numpy leaves (the JAX package's
+    layout, packed ``{"codes__<mode>": ..., "scale": ...}`` leaves
+    included) -> the same nested dicts and lists of tensors, each leaf
+    keeping its dtype (float32 weights, uint8/int8 codes)."""
+    device = resolve_device(device)
+
+    def f(x):
+        if isinstance(x, dict):
+            return {k: f(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(f(v) for v in x)
+        return torch.tensor(np.array(x), device=device)
+
+    return f(tree)

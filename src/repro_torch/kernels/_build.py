@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-SOURCES = ("fake_quant",)
+SOURCES = ("fake_quant", "quant_matmul", "flash_attention")
 
 
 def library_path(name: str) -> Path:

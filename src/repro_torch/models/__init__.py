@@ -1,0 +1,18 @@
+"""Model families of the port (port of ``repro.models``; so far the
+decoder-only LM that serving runs).
+
+``family_module(cfg)`` dispatches an ArchConfig to its implementation:
+  lm -> transformer (decoder-only, a loop over stacked layers)
+"""
+
+from repro_torch.models import layers, transformer
+
+
+def family_module(cfg):
+    if cfg.family == "lm":
+        return transformer
+    raise ValueError(f"the port has no model family {cfg.family!r} yet "
+                     f"(ROADMAP A)")
+
+
+__all__ = ["layers", "transformer", "family_module"]

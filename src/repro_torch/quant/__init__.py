@@ -1,5 +1,5 @@
-"""Quantization numerics for the paper's PE types (port of ``repro.quant``;
-the packed-weight codecs of ``repro.quant.pack`` are not ported yet)."""
+"""Quantization numerics for the paper's PE types (port of
+``repro.quant``); the packed-weight codecs are in ``repro_torch.quant.pack``."""
 
 from repro_torch.quant.qconfig import QuantConfig, preset, PE_TYPES
 from repro_torch.quant.fake_quant import (affine_fake_quant, pow2_fake_quant,

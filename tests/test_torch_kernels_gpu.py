@@ -75,3 +75,156 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="shape"):
         fake_quant(w, torch.ones(5, device=card))
     assert fake_quant(w[:0], torch.ones(4, device=card)).shape == (0, 4)
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul
+# ---------------------------------------------------------------------------
+
+QMM_CASES = [(4, 576, 576), (4, 1536, 576), (520, 576, 1536), (37, 300, 190),
+             (1, 512, 129), (200, 254, 64), (16, 64, 64), (17, 64, 65)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", QMM_CASES)
+@pytest.mark.parametrize("mode", ["int4", "pow2", "int8"])
+@pytest.mark.parametrize("x_type", [torch.float32, torch.bfloat16])
+def test_quant_matmul_matches_plain(card, m, k, n, mode, x_type):
+    """rtol 1e-5 / atol 1e-4 (tests/test_kernels.py:45): IEEE float32 sums
+    in another order; bfloat16 x is widened exactly, so it is held as
+    tightly.  One launch per call."""
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels.quant_matmul.ref import ref_quant_matmul
+    from repro_torch.quant.pack import QUANTIZE
+    codes, scale = QUANTIZE[mode](_weight((k, n), card, seed=m + n) * 0.8)
+    x = (_weight((m, k), card, seed=k) * 10).to(x_type)
+    before = quant_matmul.launches
+    got = quant_matmul(x, codes, scale, mode=mode)
+    assert quant_matmul.launches == before + 1
+    want = ref_quant_matmul(x, codes, scale, mode)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_quant_matmul_refuses_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    codes = torch.zeros(8, 4, dtype=torch.uint8, device=card)
+    scale = torch.ones(4, device=card)
+    x = torch.ones(3, 16, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul(torch.ones(16, 3, device=card).T, codes, scale)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        quant_matmul(x.half(), codes, scale)
+    with pytest.raises(ValueError, match="uint8"):
+        quant_matmul(x, codes.to(torch.int8), scale, mode="pow2")
+    with pytest.raises(ValueError, match="K=16"):
+        quant_matmul(torch.ones(3, 15, device=card), codes, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul(x, codes, scale.cpu())
+    assert quant_matmul(x[:0], codes, scale).shape == (0, 4)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,start", [
+    (4, 130, 256, 9, 3, 64, 0), (4, 1, 256, 9, 3, 64, 0),
+    (4, 1, 256, 9, 3, 64, 63), (4, 1, 256, 9, 3, 64, 255),
+    (2, 33, 70, 4, 1, 32, 5), (1, 64, 64, 2, 2, 16, 0),
+    (2, 40, 80, 4, 2, 128, 17)])
+def test_flash_attention_matches_plain(card, b, sq, skv, hq, hkv, d, start):
+    """2e-5 (tests/test_kernels.py:122): float32 sums in another order."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_gqa)
+    from repro_torch.kernels.flash_attention.ref import ref_attention_gqa
+    gen = torch.Generator(device=card).manual_seed(skv)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=card)
+    k = torch.randn((b, skv, hkv, d), generator=gen, device=card)
+    v = torch.randn((b, skv, hkv, d), generator=gen, device=card)
+    st = torch.full((b,), start, dtype=torch.int32, device=card)
+    before = flash_attention.launches
+    got = flash_attention_gqa(q, k, v, st)
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got, ref_attention_gqa(q, k, v, st),
+                               rtol=2e-5, atol=2e-5)
+    got = flash_attention_gqa(q, k, v, st, causal=False)
+    torch.testing.assert_close(
+        got, ref_attention_gqa(q, k, v, st, causal=False), rtol=2e-5,
+        atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_flash_attention_one_head_bh_and_bf16(card):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bh)
+    from repro_torch.kernels.flash_attention.ref import ref_flash_attention
+    gen = torch.Generator(device=card).manual_seed(0)
+    q, k, v = (torch.randn((2, 3, 100, 32), generator=gen, device=card)
+               for _ in range(3))
+    got = flash_attention_bh(q, k, v)
+    for i in range(2):
+        for j in range(3):
+            torch.testing.assert_close(
+                got[i, j], ref_flash_attention(q[i, j], k[i, j], v[i, j]),
+                rtol=2e-5, atol=2e-5)
+    qb, kb, vb = (t[0, 0].to(torch.bfloat16) for t in (q, k, v))
+    torch.testing.assert_close(flash_attention(qb, kb, vb),
+                               ref_flash_attention(qb, kb, vb), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    q = torch.zeros(1, 4, 6, 64, device=card)
+    kv = torch.zeros(1, 8, 3, 64, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_gqa(q[..., :48], kv[..., :48], kv[..., :48])
+    with pytest.raises(ValueError, match="one type"):
+        flash_attention_gqa(q, kv.to(torch.bfloat16), kv)
+    with pytest.raises(ValueError, match="int32"):
+        flash_attention_gqa(q, kv, kv, torch.zeros(1, dtype=torch.int64,
+                                                   device=card))
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        flash_attention_gqa(q, kv.transpose(2, 3).contiguous()
+                            .transpose(2, 3), kv)
+
+
+# ---------------------------------------------------------------------------
+# the serving slice
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pe", ["lightpe1", "int8", "int4"])
+def test_packed_model_on_card_matches_cpu(card, pe):
+    """Reduced SmolLM in float32, packed: prefill and two decode steps on
+    the card (both kernels) and on the CPU (their plain versions)."""
+    from repro_torch import convert
+    from repro_torch.configs import reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import quantize_params
+    cfg = reduced("smollm-135m").replace(dtype="float32")
+    arrays = T.numpy_params(cfg, seed=0)
+    runs = {}
+    for dev in ("cpu", card):
+        params = quantize_params(convert.params_from_numpy(arrays, dev), pe,
+                                 min_size=1 << 8)
+        cache = T.init_cache(cfg, 2, 32, torch.float32, device=dev)
+        toks = torch.arange(14, device=dev).reshape(2, 7) * 17 % cfg.vocab
+        before = (quant_matmul.launches, flash_attention.launches)
+        out = [T.prefill(params, toks, cfg, cache)[0]]
+        for step in range(2):
+            out.append(T.decode_step(params, toks[:, step:step + 1], cfg,
+                                     cache)[0])
+        runs[str(dev)] = [o.cpu() for o in out]
+        if dev == card:
+            per_step = cfg.n_layers
+            assert quant_matmul.launches - before[0] == 3 * 7 * per_step
+            assert flash_attention.launches - before[1] == 3 * per_step
+    for a, b in zip(runs["cpu"], runs[str(card)]):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)

@@ -32,13 +32,21 @@ def test_every_module_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "repro_torch.kernels.fake_quant.fake_quant" in MODULES
+    for m in ("repro_torch.kernels.fake_quant.fake_quant",
+              "repro_torch.kernels.quant_matmul.quant_matmul",
+              "repro_torch.kernels.flash_attention.flash_attention",
+              "repro_torch.models", "repro_torch.models.transformer",
+              "repro_torch.serve", "repro_torch.serve.engine",
+              "repro_torch.configs", "repro_torch.quant.pack"):
+        assert m in MODULES, m
 
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
     [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py",
-     ROOT / "examples" / "torch_quickstart.py"]))
+     ROOT / "examples" / "torch_quickstart.py",
+     ROOT / "examples" / "torch_serve_quantized.py",
+     ROOT / "benchmarks" / "torch_profile.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     text = (ROOT / path).read_text()
     assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
@@ -60,6 +68,14 @@ CREATORS = {
     "ppa_models_from_numpy": lambda: _convert().ppa_models_from_numpy({}),
     "draw_weights": lambda: _quickstart().draw_weights([(2, 2)]),
     "quickstart.run": lambda: _quickstart().run(max_points=50),
+    "params_from_numpy": lambda: _convert().params_from_numpy(
+        {"w": [[1.0]]}),
+    "init_params": lambda: _transformer().init_params(
+        _reduced(), torch.Generator()),
+    "init_cache": lambda: _transformer().init_cache(_reduced(), 1, 4),
+    "make_cache": lambda: _layers().make_cache(
+        1, 4, _transformer().attn_spec(_reduced())),
+    "rope_freqs": lambda: _layers().rope_freqs(16),
 }
 
 
@@ -78,6 +94,21 @@ def _quickstart():
     return quickstart
 
 
+def _transformer():
+    from repro_torch.models import transformer
+    return transformer
+
+
+def _layers():
+    from repro_torch.models import layers
+    return layers
+
+
+def _reduced():
+    from repro_torch.configs import reduced
+    return reduced("smollm-135m")
+
+
 @pytest.mark.parametrize("name", sorted(CREATORS))
 def test_creators_raise_without_cuda(name):
     if torch.cuda.is_available():
@@ -93,6 +124,15 @@ def test_example_runs_on_cpu():
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "Pareto front:" in out.stdout and "lightpe1" in out.stdout
+
+
+def test_serving_example_runs_on_cpu():
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_serve_quantized.py"),
+         "--size", "reduced", "--device", "cpu", "--max-new", "3"],
+        env=_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "lightpe1: packed" in out.stdout and "req1: [" in out.stdout
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
