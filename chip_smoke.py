@@ -18,8 +18,10 @@
    then a 2^20-point subsample of WIDE_SPACE in 65,536-point chunks;
 5. kernel vs plain, slice 2: ``quant_matmul`` (int4, pow2, int8; float32
    and bfloat16 x) at SmolLM-135M's projection shapes for decode (M = 4)
-   and prefill (M = 4 * 130) and three ragged shapes, held to its plain
-   version within rtol 1e-5 / atol 1e-4; ``flash_attention`` (GQA 9/3,
+   and prefill (M = 4 * 130), at M = 1, 16, 17 and 64 (the edges of the
+   GEMV and tensor-core variants), three ragged shapes and a layer view
+   off a 16-byte boundary, held to its plain version within rtol 1e-5 /
+   atol 1e-4, and two calls held to the same bits; ``flash_attention`` (GQA 9/3,
    head_dim 64) at the prefill and decode shapes and offsets and three
    ragged ones, within 2e-5; each timed beside its plain version, a
    library call and its bound;
@@ -57,6 +59,7 @@ KERNEL_MODES = [("affine", 4), ("affine", 8), ("affine", 16), ("pow2", 8)]
 KERNEL_TOL = 1e-6
 H100_BYTES_PER_S = 3.35e12      # HBM3 of the H100 SXM (NVIDIA data sheet)
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores (same)
+H100_BF16_FLOPS = 989e12        # bf16 tensor cores, dense (same)
 SLEEP_CYCLES = 200_000_000      # ~0.1 s at the H100's ~1.98 GHz clock
 WIDE_POINTS = 2 ** 20
 WIDE_CHUNK = 65536
@@ -67,6 +70,8 @@ WIDE_CHUNK = 65536
 # reference's kernel test.
 QMM_SHAPES = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
 QMM_RAGGED = [(37, 300, 190), (1, 512, 129), (200, 254, 64)]
+QMM_EDGE_M = (1, 16, 17, 64)
+PROJECTIONS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
 QMM_MODES = ("int4", "pow2", "int8")
 QMM_RTOL, QMM_ATOL = 1e-5, 1e-4         # tests/test_kernels.py:45
 FA_TOL = 2e-5                           # tests/test_kernels.py:122
@@ -283,13 +288,25 @@ def device_ms(torch, chunks, reps: int = 5, sleep: int = SLEEP_CYCLES // 10):
     return total / reps
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = H100_F32_FLOPS):
     """(least milliseconds, what bounds it) at the H100 SXM's HBM rate and
-    float32 CUDA-core rate."""
+    ``peak`` operations a second (default: the float32 CUDA-core rate)."""
     by_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    by_ops = flops / H100_F32_FLOPS * 1e3
+    by_ops = flops / peak * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
+
+
+def ptxas_summary(output: str) -> str:
+    """Kernels, register range and spills from nvcc's ``-Xptxas -v``."""
+    import re
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", output)]
+    spills = sum(int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", output))
+    if not regs:
+        return "no ptxas report"
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"{spills} bytes of spills")
 
 
 def check_serving_kernels(torch, dev):
@@ -300,7 +317,7 @@ def check_serving_kernels(torch, dev):
                                                      flash_attention_gqa)
     from repro_torch.kernels.flash_attention.ref import (ref_attention_gqa,
                                                          ref_flash_attention)
-    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels.quant_matmul import launch_plan, quant_matmul
     from repro_torch.kernels.quant_matmul.ref import ref_quant_matmul
     from repro_torch.quant.pack import QUANTIZE
     from repro_torch.serve.check import BATCH_SLOTS, MAX_LEN, PROMPT_LENS
@@ -312,26 +329,43 @@ def check_serving_kernels(torch, dev):
 
     prefill_m = BATCH_SLOTS * max(PROMPT_LENS)
     cases = [(m, k, n) for k, n in QMM_SHAPES
-             for m in (BATCH_SLOTS, prefill_m)] + QMM_RAGGED
-    qmm_err = 0.0
+             for m in (BATCH_SLOTS, prefill_m) + QMM_EDGE_M] + QMM_RAGGED
+    qmm_err, variants = 0.0, set()
+
+    def held(name, x, codes, scale, mode):
+        nonlocal qmm_err
+        got = quant_matmul(x, codes, scale, mode=mode)
+        again = quant_matmul(x, codes, scale, mode=mode)
+        want = ref_quant_matmul(x, codes, scale, mode)
+        torch.cuda.synchronize()
+        variants.add(launch_plan(x, codes, mode).variant)
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            fail(f"quant_matmul {name}: bad output")
+        if not torch.allclose(got, want, rtol=QMM_RTOL, atol=QMM_ATOL):
+            fail(f"quant_matmul {name}: differs from plain by "
+                 f"{float((got - want).abs().max())}")
+        if not torch.equal(got, again):
+            fail(f"quant_matmul {name}: two calls differ")
+        qmm_err = max(qmm_err, float((got - want).abs().max()))
+
     for m, k, n in cases:
         w = randn(k, n) * 0.08
         for mode in QMM_MODES:
             codes, scale = QUANTIZE[mode](w)
             for x_type in (torch.float32, torch.bfloat16):
-                x = randn(m, k).to(x_type)
-                got = quant_matmul(x, codes, scale, mode=mode)
-                want = ref_quant_matmul(x, codes, scale, mode)
-                torch.cuda.synchronize()
-                if got.shape != (m, n) or not bool(torch.isfinite(got).all()):
-                    fail(f"quant_matmul {mode} {(m, k, n)}: bad output")
-                if not torch.allclose(got, want, rtol=QMM_RTOL, atol=QMM_ATOL):
-                    fail(f"quant_matmul {mode} {x_type} {(m, k, n)}: differs "
-                         f"from plain by {float((got - want).abs().max())}")
-                qmm_err = max(qmm_err, float((got - want).abs().max()))
+                held(f"{mode} {x_type} {(m, k, n)}", randn(m, k).to(x_type),
+                     codes, scale, mode)
+    # a layer's view into stacked codes, 8 bytes off a 16-byte boundary
+    stack, stack_scale = QUANTIZE["pow2"](randn(2, 574, 72) * 0.08)
+    if stack[1].data_ptr() % 16 == 0:
+        fail("the layer view meant to be unaligned is aligned")
+    for m in (BATCH_SLOTS, prefill_m):
+        held(f"pow2 layer view M={m}", randn(m, 574), stack[1], stack_scale[1],
+             "pow2")
     print(f"quant_matmul vs plain: {len(cases)} shapes x {len(QMM_MODES)} "
-          f"modes x 2 x types, max_abs_err={qmm_err} (tolerance rtol "
-          f"{QMM_RTOL} / atol {QMM_ATOL})")
+          f"modes x 2 x types and an unaligned layer view, variants "
+          f"{sorted(variants)}, max_abs_err={qmm_err} (tolerance rtol "
+          f"{QMM_RTOL} / atol {QMM_ATOL}); two calls bitwise equal")
 
     fa_err = 0.0
 
@@ -374,10 +408,14 @@ def time_serving_kernels(torch, dev, cfg, packed, index):
     """The two kernels' device times for one step of the served model
     (its own LightPE-1 codes, all 30 layers) beside their plain versions,
     a library call and the bound.  Decode: M = 4 rows against a cache
-    filled to ``index``; prefill: M = 4 * 130 rows from position 0."""
+    filled to ``index``; prefill: M = 4 * 130 rows from position 0.
+    ``quant_matmul``'s bound is the bytes or the bf16 tensor rate (a
+    float32 x takes three passes), the float32 CUDA-core bound of its first
+    version beside it; the decode step's time is also given per
+    projection."""
     from repro_torch.kernels.flash_attention import flash_attention_gqa
     from repro_torch.kernels.flash_attention.ref import ref_attention_gqa
-    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels.quant_matmul import launch_plan, quant_matmul
     from repro_torch.kernels.quant_matmul.ref import ref_quant_matmul
     from repro_torch.quant.pack import dequantize_pow2
     from repro_torch.serve.check import BATCH_SLOTS, MAX_LEN, PROMPT_LENS
@@ -394,7 +432,7 @@ def time_serving_kernels(torch, dev, cfg, packed, index):
     qmm, fa = {}, {}
     s_prefill = max(PROMPT_LENS)
     for phase, m in (("decode", BATCH_SLOTS), ("prefill", BATCH_SLOTS * s_prefill)):
-        calls, nbytes, flops = [], 0, 0
+        calls, nbytes, flops, tc_flops = [], 0, 0, 0
         for i in range(cfg.n_layers):
             for leaf, x_type in projections:
                 codes, scale = leaf["codes__pow2"][i], leaf["scale"][i]
@@ -404,19 +442,33 @@ def time_serving_kernels(torch, dev, cfg, packed, index):
                 nbytes += (codes.numel() + scale.numel() * 4
                            + x.numel() * x.element_size() + m * n * 4)
                 flops += 2 * m * k * n
+                tc_flops += 2 * m * k * n * (3 if x_type == torch.float32
+                                             else 1)
         dense = [(x.float(), dequantize_pow2(c, s)) for x, c, s in calls]
         kernel_ms = device_ms(torch, [lambda: [
             quant_matmul(x, c, s, mode="pow2") for x, c, s in calls]])
+        per_projection = None
+        if phase == "decode":   # calls are layer-major: projection j at j::7
+            per_projection = {name: device_ms(torch, [lambda j=j: [
+                quant_matmul(x, c, s, mode="pow2")
+                for x, c, s in calls[j::len(projections)]]])
+                for j, name in enumerate(PROJECTIONS)}
         plain_ms = device_ms(torch, [
             (lambda part=calls[j:j + 21]: [ref_quant_matmul(x, c, s, "pow2")
                                            for x, c, s in part])
             for j in range(0, len(calls), 21)])
         library_ms = device_ms(torch, [lambda: [torch.matmul(x, w)
                                                 for x, w in dense]])
-        bound, by = bound_ms(nbytes, flops)
+        bound, by = bound_ms(nbytes, tc_flops, H100_BF16_FLOPS)
+        bound_f32 = bound_ms(nbytes, flops)[0]
+        variant = sorted({launch_plan(x, c, "pow2").variant
+                          for x, c, _ in calls})
         qmm[phase] = dict(ms=kernel_ms, plain_ms=plain_ms,
                           library_ms=library_ms, bound_ms=bound, bound_by=by,
-                          launches=len(calls), bytes=nbytes, flops=flops)
+                          bound_f32_ms=bound_f32, launches=len(calls),
+                          bytes=nbytes, flops=flops, tc_flops=tc_flops,
+                          variant="/".join(variant),
+                          per_projection_ms=per_projection)
         del dense
 
     b, hq, hkv, d = BATCH_SLOTS, cfg.n_heads, cfg.kv_heads, cfg.head_dim
@@ -451,10 +503,16 @@ def time_serving_kernels(torch, dev, cfg, packed, index):
                          launches=cfg.n_layers, start=start, q_rows=sq)
     for name, rows in (("quant_matmul", qmm), ("flash_attention", fa)):
         for phase, r in rows.items():
+            extra = (f"; {r['variant']}, float32 CUDA-core bound "
+                     f"{r['bound_f32_ms']:.4f} ms" if name == "quant_matmul"
+                     else "")
             print(f"{name} {phase} step ({r['launches']} launches): kernel "
                   f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
                   f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']})")
+                  f"({r['bound_by']}){extra}")
+    print("quant_matmul decode step per projection (30 launches each): "
+          + ", ".join(f"{k} {v:.4f} ms"
+                      for k, v in qmm["decode"]["per_projection_ms"].items()))
     return qmm, fa
 
 
@@ -589,8 +647,7 @@ def main() -> int:
     built = _build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(built)}")
     for name, (secs, output) in built.items():
-        info = [ln.strip() for ln in output.splitlines() if "ptxas info" in ln]
-        print(f"  {name}: {secs:.2f} s; " + " | ".join(info))
+        print(f"  {name}: {secs:.2f} s; ptxas: {ptxas_summary(output)}")
 
     modes = check_kernels(torch, dev)
     launches = run_slice(torch, dev)
@@ -626,6 +683,11 @@ def main() -> int:
             library_ms=rows["decode"]["library_ms"], library=library,
             unit="one decode step of SmolLM-135M, 4 slots, LightPE-1",
             prefill=rows["prefill"]))
+        if name == "quant_matmul":
+            kernels[-1].update(
+                variant={p: r["variant"] for p, r in rows.items()},
+                bound_f32_ms=rows["decode"]["bound_f32_ms"],
+                per_projection_ms=rows["decode"]["per_projection_ms"])
     print(json.dumps({"kernels": kernels, "serving": serving}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -81,8 +81,15 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
 # quant_matmul
 # ---------------------------------------------------------------------------
 
-QMM_CASES = [(4, 576, 576), (4, 1536, 576), (520, 576, 1536), (37, 300, 190),
-             (1, 512, 129), (200, 254, 64), (16, 64, 64), (17, 64, 65)]
+# SmolLM-135M's projections (K, N) at every M bucket of the GEMV (1-4,
+# 5-8, 9-16) and the tensor-core product (17 and more); ragged and
+# unaligned shapes (N = 65, 129, 190 give rows off 16-byte boundaries).
+QMM_SMOLLM_KN = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
+QMM_CASES = [(m, k, n) for k, n in QMM_SMOLLM_KN
+             for m in (1, 4, 8, 16, 17, 64, 65, 520)] + [
+    (37, 300, 190), (1, 512, 129), (200, 254, 64), (16, 64, 64), (17, 64, 65),
+    (4, 300, 190), (4, 254, 65), (520, 254, 129), (16, 300, 129),
+    (65, 576, 190)]
 
 
 @pytest.mark.gpu
@@ -104,6 +111,50 @@ def test_quant_matmul_matches_plain(card, m, k, n, mode, x_type):
     want = ref_quant_matmul(x, codes, scale, mode)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 130])
+@pytest.mark.parametrize("mode", ["int4", "pow2", "int8"])
+def test_quant_matmul_layer_view_off_16_bytes(card, m, mode):
+    """A layer's view into stacked codes, as the model indexes them, can
+    start off a 16-byte boundary: the kernel takes narrower loads and gives
+    the plain version's result."""
+    from repro_torch.kernels.quant_matmul import launch_plan, quant_matmul
+    from repro_torch.kernels.quant_matmul.ref import ref_quant_matmul
+    from repro_torch.quant.pack import QUANTIZE
+    k, n = 574, 72     # a layer of 287 x 72 packed bytes: 20664 = 8 mod 16
+    codes, scale = QUANTIZE[mode](_weight((3, k, n), card, seed=7))
+    assert codes.is_contiguous()
+    x = _weight((m, k), card, seed=8) * 10
+    for i in range(3):
+        view = codes[i]
+        p = launch_plan(x, view, mode)
+        if view.data_ptr() % 16:
+            assert p.vec != 16
+        got = quant_matmul(x, view, scale[i], mode=mode)
+        want = ref_quant_matmul(x, view, scale[i], mode)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 576, 192), (4, 1536, 576),
+                                   (520, 576, 192), (520, 576, 1536),
+                                   (17, 1536, 576)])
+@pytest.mark.parametrize("mode", ["int4", "pow2", "int8"])
+@pytest.mark.parametrize("x_type", [torch.float32, torch.bfloat16])
+def test_quant_matmul_is_bitwise_deterministic(card, m, k, n, mode, x_type):
+    """Two calls on the same inputs give the same bits: the split-K sums
+    meet in a fixed order, with no atomics."""
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.quant.pack import QUANTIZE
+    codes, scale = QUANTIZE[mode](_weight((k, n), card, seed=9))
+    x = (_weight((m, k), card, seed=10) * 10).to(x_type)
+    first = quant_matmul(x, codes, scale, mode=mode)
+    second = quant_matmul(x, codes, scale, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
