@@ -22,9 +22,13 @@
    GEMV and tensor-core variants), three ragged shapes and a layer view
    off a 16-byte boundary, held to its plain version within rtol 1e-5 /
    atol 1e-4, and two calls held to the same bits; ``flash_attention`` (GQA 9/3,
-   head_dim 64) at the prefill and decode shapes and offsets and three
-   ragged ones, within 2e-5; each timed beside its plain version, a
-   library call and its bound;
+   head_dim 64) at the prefill shape and at decode (Sq 1 and 2) at offsets
+   0, 1, 63, 135 and 255 (across the cluster's split boundaries), with
+   float32 q and the float32 cache (the served path) and bfloat16 q on
+   the same cache, round_p on and off, and three ragged shapes, within
+   2e-5, two calls held to the same bits; each kernel timed beside its
+   plain version, a library call and its bound (``flash_attention`` at
+   the served types and with bfloat16 q);
 6. the slice of serving: SmolLM-135M at full width (numpy-drawn weights),
    packed as LightPE-1 and as INT8 and served in bfloat16 and float32 by
    ``ServeEngine`` (4 prompts of 8-130 tokens in 4 slots, 12 new tokens
@@ -40,6 +44,7 @@ both flags at import): the reference tolerances need IEEE float32.
 Any failed phase exits non-zero before the last line is printed.
 """
 
+import gc
 import json
 import subprocess
 import sys
@@ -75,7 +80,12 @@ PROJECTIONS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
 QMM_MODES = ("int4", "pow2", "int8")
 QMM_RTOL, QMM_ATOL = 1e-5, 1e-4         # tests/test_kernels.py:45
 FA_TOL = 2e-5                           # tests/test_kernels.py:122
-FA_DECODE_OFFSETS = (0, 63, 255)
+FA_DECODE_OFFSETS = (0, 1, 63, 135, 255)   # across the split boundaries
+FA_DECODE_SQ = (1, 2)                       # the decode plan's Sq at G = 3
+# (q type, K/V type, round_p): the served float32 path, and bfloat16 q
+# with the engine's float32 cache (the model without packed weights)
+FA_PATH_TYPES = [("float32", "float32", False), ("float32", "float32", True),
+                 ("bfloat16", "float32", False), ("bfloat16", "float32", True)]
 FA_RAGGED = [(100, 100, 32), (64, 256, 16), (1, 128, 64)]
 # Logit tolerances of the serving runs against the JAX package (on the
 # CPU the port is 0.033 / 0.026 from it in bfloat16, 2.8e-4 / 3.3e-6 in
@@ -315,6 +325,7 @@ def check_serving_kernels(torch, dev):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bh,
                                                      flash_attention_gqa)
+    from repro_torch.kernels.flash_attention import plan as fa_plan
     from repro_torch.kernels.flash_attention.ref import (ref_attention_gqa,
                                                          ref_flash_attention)
     from repro_torch.kernels.quant_matmul import launch_plan, quant_matmul
@@ -378,13 +389,26 @@ def check_serving_kernels(torch, dev):
         fa_err = max(fa_err, err)
 
     b, hq, hkv, d = BATCH_SLOTS, 9, 3, 64
-    for sq, off in [(max(PROMPT_LENS), 0)] + [(1, o) for o in
-                                             FA_DECODE_OFFSETS]:
-        q, k, v = randn(b, sq, hq, d), randn(b, MAX_LEN, hkv, d), \
-            randn(b, MAX_LEN, hkv, d)
-        start = torch.full((b,), off, dtype=torch.int32, device=dev)
-        held(f"gqa Sq={sq} offset={off}", flash_attention_gqa(q, k, v, start),
-             ref_attention_gqa(q, k, v, start))
+    fa_cases = [(max(PROMPT_LENS), 0)] + [
+        (sq, min(o, MAX_LEN - sq)) for sq in FA_DECODE_SQ
+        for o in FA_DECODE_OFFSETS]
+    plans = set()
+    for q_name, kv_name, round_p in FA_PATH_TYPES:
+        q_type, kv_type = getattr(torch, q_name), getattr(torch, kv_name)
+        for sq, off in fa_cases:
+            q = randn(b, sq, hq, d).to(q_type)
+            k, v = (randn(b, MAX_LEN, hkv, d).to(kv_type) for _ in range(2))
+            start = torch.full((b,), off, dtype=torch.int32, device=dev)
+            name = f"gqa {q_name} q, {kv_name} K/V, round_p={round_p}, " \
+                   f"Sq={sq} offset={off}"
+            got = flash_attention_gqa(q, k, v, start, round_p=round_p)
+            again = flash_attention_gqa(q, k, v, start, round_p=round_p)
+            held(name, got, ref_attention_gqa(q, k, v, start,
+                                              round_p=round_p))
+            if not torch.equal(got, again):
+                fail(f"flash_attention {name}: two calls differ")
+            plans.add(fa_plan(b, sq, MAX_LEN, hq, hkv, d,
+                              q_type == torch.bfloat16).variant)
     for sq, skv, dh in FA_RAGGED:
         q, k, v = randn(2, 2, sq, dh), randn(2, 2, skv, dh), randn(2, 2, skv, dh)
         got = flash_attention_bh(q, k, v)
@@ -398,22 +422,27 @@ def check_serving_kernels(torch, dev):
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
     held("bfloat16", flash_attention(qb, kb, vb),
          ref_flash_attention(qb, kb, vb))
-    print(f"flash_attention vs plain: prefill, decode at offsets "
-          f"{FA_DECODE_OFFSETS}, GQA {hq}/{hkv}, ragged, non-causal, bf16: "
-          f"max_abs_err={fa_err} (tolerance {FA_TOL})")
+    print(f"flash_attention vs plain: prefill, decode (Sq {FA_DECODE_SQ}) at "
+          f"offsets {FA_DECODE_OFFSETS}, GQA {hq}/{hkv}, types "
+          f"{FA_PATH_TYPES}, variants {sorted(plans)}; ragged, non-causal, "
+          f"bf16: max_abs_err={fa_err} (tolerance {FA_TOL}); two calls "
+          f"bitwise equal")
     return qmm_err, fa_err
 
 
 def time_serving_kernels(torch, dev, cfg, packed, index):
     """The two kernels' device times for one step of the served model
     (its own LightPE-1 codes, all 30 layers) beside their plain versions,
-    a library call and the bound.  Decode: M = 4 rows against a cache
-    filled to ``index``; prefill: M = 4 * 130 rows from position 0.
-    ``quant_matmul``'s bound is the bytes or the bf16 tensor rate (a
-    float32 x takes three passes), the float32 CUDA-core bound of its first
-    version beside it; the decode step's time is also given per
-    projection."""
+    a library call and the bound; ``flash_attention`` with the served
+    float32 q and again with bfloat16 q, on the float32 cache.  Decode:
+    M = 4 rows against a cache filled to ``index``; prefill: M = 4 * 130
+    rows from position 0.
+    Each bound is the bytes or the bf16 tensor rate (a float32 operand
+    as three exact bf16 parts), the float32 CUDA-core bound of the
+    kernels' first versions beside it; ``quant_matmul``'s decode step is
+    also timed per projection."""
     from repro_torch.kernels.flash_attention import flash_attention_gqa
+    from repro_torch.kernels.flash_attention import plan as fa_plan
     from repro_torch.kernels.flash_attention.ref import ref_attention_gqa
     from repro_torch.kernels.quant_matmul import launch_plan, quant_matmul
     from repro_torch.kernels.quant_matmul.ref import ref_quant_matmul
@@ -472,47 +501,78 @@ def time_serving_kernels(torch, dev, cfg, packed, index):
         del dense
 
     b, hq, hkv, d = BATCH_SLOTS, cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    for phase, sq, start in (("decode", 1, index), ("prefill", s_prefill, 0)):
-        q = torch.randn((cfg.n_layers, b, sq, hq, d), generator=gen, device=dev)
-        kv = torch.randn((2, cfg.n_layers, b, MAX_LEN, hkv, d), generator=gen,
-                         device=dev)
-        st = torch.full((b,), start, dtype=torch.int32, device=dev)
-        qpos = start + torch.arange(sq, device=dev)
-        mask = torch.arange(MAX_LEN, device=dev)[None, :] <= qpos[:, None]
-        # SDPA's layout (B, H, S, D), made before the timing
-        tq, tk, tv = (t.transpose(-2, -3).contiguous() for t in (q, kv[0], kv[1]))
-        kernel_ms = device_ms(torch, [lambda: [
-            flash_attention_gqa(q[i], kv[0, i], kv[1, i], st)
-            for i in range(cfg.n_layers)]])
-        plain_ms = device_ms(torch, [lambda: [
-            ref_attention_gqa(q[i], kv[0, i], kv[1, i], st)
-            for i in range(cfg.n_layers)]])
-        library_ms = device_ms(torch, [lambda: [
-            sdpa(tq[i], tk[i], tv[i], attn_mask=mask, enable_gqa=True)
-            for i in range(cfg.n_layers)]])
-        # what this run needs: q and out once, the keys up to the last
-        # query's position (the kernel skips the rest), 2 D-long dot
-        # products per visible (query, key) pair
-        keys = min(MAX_LEN, start + sq)
-        visible = sum(min(MAX_LEN, start + i + 1) for i in range(sq))
-        per_layer_bytes = 4 * (2 * b * sq * hq * d + 2 * b * keys * hkv * d)
-        flops = cfg.n_layers * 4 * b * hq * d * visible
-        bound, by = bound_ms(cfg.n_layers * per_layer_bytes, flops)
-        fa[phase] = dict(ms=kernel_ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound, bound_by=by,
-                         launches=cfg.n_layers, start=start, q_rows=sq)
-    for name, rows in (("quant_matmul", qmm), ("flash_attention", fa)):
+    # "float32": the served path (packed weights give float32 q, and the
+    # engine's cache is float32); "bf16_q": bfloat16 q on the same cache
+    # (the model on bfloat16 weights)
+    fa_bf16 = {}
+    for q_name, rows in (("float32", fa), ("bfloat16", fa_bf16)):
+        q_type = getattr(torch, q_name)
+        for phase, sq, start in (("decode", 1, index),
+                                 ("prefill", s_prefill, 0)):
+            q = torch.randn((cfg.n_layers, b, sq, hq, d), generator=gen,
+                            device=dev).to(q_type)
+            kv = torch.randn((2, cfg.n_layers, b, MAX_LEN, hkv, d),
+                             generator=gen, device=dev)
+            st = torch.full((b,), start, dtype=torch.int32, device=dev)
+            qpos = start + torch.arange(sq, device=dev)
+            mask = torch.arange(MAX_LEN, device=dev)[None, :] <= qpos[:, None]
+            kernel_ms = device_ms(torch, [lambda: [
+                flash_attention_gqa(q[i], kv[0, i], kv[1, i], st,
+                                    round_p=True)
+                for i in range(cfg.n_layers)]])
+            plain_ms = device_ms(torch, [lambda: [
+                ref_attention_gqa(q[i], kv[0, i], kv[1, i], st, round_p=True)
+                for i in range(cfg.n_layers)]])
+            library_ms = None
+            if q_type == torch.float32:   # one call of the same function
+                # SDPA's layout (B, H, S, D), made before the timing
+                tq, tk, tv = (t.transpose(-2, -3).contiguous()
+                              for t in (q, kv[0], kv[1]))
+                library_ms = device_ms(torch, [lambda: [
+                    sdpa(tq[i], tk[i], tv[i], attn_mask=mask,
+                         enable_gqa=True) for i in range(cfg.n_layers)]])
+            # what this run needs: q and out once, the keys up to the last
+            # query's position (the kernel skips the rest), 2 D-long dot
+            # products per visible (query, key) pair.  On the bf16 tensor
+            # rate, as quant_matmul's bound: q . k is one pass for bfloat16
+            # q (K rounded to it) and 9 for float32 q and K (three exact
+            # bf16 parts each); P V on the float32 cache is 9 (P rounded to
+            # float32 is P).  The float32 CUDA-core bound stands beside it.
+            keys = min(MAX_LEN, start + sq)
+            visible = sum(min(MAX_LEN, start + i + 1) for i in range(sq))
+            per_layer_bytes = (b * sq * hq * d * (q.element_size() + 4)
+                               + 2 * 4 * b * keys * hkv * d)
+            nbytes = cfg.n_layers * per_layer_bytes
+            half = cfg.n_layers * 2 * b * hq * d * visible
+            qk_passes = 1 if q_type == torch.bfloat16 else 9
+            bound, by = bound_ms(nbytes, half * (qk_passes + 9),
+                                 H100_BF16_FLOPS)
+            qk_peak = (H100_BF16_FLOPS if q_type == torch.bfloat16
+                       else H100_F32_FLOPS)
+            bound_f32 = bound_ms(nbytes, half * H100_F32_FLOPS / qk_peak
+                                 + half)[0]
+            rows[phase] = dict(
+                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound, bound_by=by, bound_f32_ms=bound_f32,
+                launches=cfg.n_layers,
+                start=start, q_rows=sq, q_type=q_name, kv_type="float32",
+                variant=fa_plan(b, sq, MAX_LEN, hq, hkv, d,
+                                q_type == torch.bfloat16).variant)
+    for name, rows in (("quant_matmul", qmm), ("flash_attention", fa),
+                       ("flash_attention bf16 q", fa_bf16)):
         for phase, r in rows.items():
             extra = (f"; {r['variant']}, float32 CUDA-core bound "
-                     f"{r['bound_f32_ms']:.4f} ms" if name == "quant_matmul"
-                     else "")
+                     f"{r['bound_f32_ms']:.4f} ms")
+            if name != "quant_matmul":
+                extra += f", q {r['q_type']}, K/V {r['kv_type']}"
             print(f"{name} {phase} step ({r['launches']} launches): kernel "
                   f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']}){extra}")
     print("quant_matmul decode step per projection (30 launches each): "
           + ", ".join(f"{k} {v:.4f} ms"
                       for k, v in qmm["decode"]["per_projection_ms"].items()))
+    fa["bf16_q"] = fa_bf16
     return qmm, fa
 
 
@@ -605,6 +665,8 @@ def run_serving(torch, dev):
 
     eng._prefill = timed("prefill", eng._prefill)
     eng._decode = timed("decode", eng._decode)
+    gc.collect()   # the peak counts what is alive, garbage included
+    base = torch.cuda.memory_allocated() / 2 ** 20
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     reqs = [eng.submit(p, max_new=ref["max_new"]) for p in prompts]
@@ -615,12 +677,12 @@ def run_serving(torch, dev):
     numbers = dict(prefill_ms=steps["prefill"][0] * 1e3,
                    decode_ms=float(np.mean(steps["decode"])) * 1e3,
                    tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
-                   peak_mib=peak)
+                   peak_mib=peak, base_mib=base)
     print(f"serving lightpe1 (warm): prefill {numbers['prefill_ms']:.3f} ms "
           f"(4 x {max(len(p) for p in prompts)} tokens), decode "
           f"{numbers['decode_ms']:.3f} ms/step, {tokens} tokens in "
           f"{wall:.3f} s = {numbers['tokens_per_s']:.1f} tokens/s, peak "
-          f"device memory {peak:.1f} MiB")
+          f"device memory {peak:.1f} MiB ({base:.1f} MiB before the run)")
     qmm, fa = time_serving_kernels(torch, dev, cfg, packs["lightpe1"],
                                    max(len(p) for p in prompts) + 5)
     return launches, qmm, fa, numbers
@@ -683,6 +745,11 @@ def main() -> int:
             library_ms=rows["decode"]["library_ms"], library=library,
             unit="one decode step of SmolLM-135M, 4 slots, LightPE-1",
             prefill=rows["prefill"]))
+        if name == "flash_attention":
+            kernels[-1].update(variant={p: r["variant"] for p, r in
+                                        rows.items() if p != "bf16_q"},
+                               bound_f32_ms=rows["decode"]["bound_f32_ms"],
+                               bf16_q=rows["bf16_q"])
         if name == "quant_matmul":
             kernels[-1].update(
                 variant={p: r["variant"] for p, r in rows.items()},

@@ -1,2 +1,3 @@
 from repro_torch.kernels.flash_attention.flash_attention import (
-    flash_attention, flash_attention_bh, flash_attention_gqa)
+    Plan, block_keys, block_rows, flash_attention, flash_attention_bh,
+    flash_attention_gqa, plan)

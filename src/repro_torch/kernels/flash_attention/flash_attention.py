@@ -1,27 +1,40 @@
-"""Flash attention forward: the wrapper of the CUDA kernel in
-``repro_torch/csrc/flash_attention.cu`` (which replaces the Pallas kernel
+"""Flash attention forward: the wrapper of the CUDA kernels in
+``repro_torch/csrc/flash_attention.cu`` (which replace the Pallas kernel
 ``repro.kernels.flash_attention.flash_attention``).
 
-Three entry points, one kernel:
+Three entry points, one launch a call:
 
   flash_attention(q, k, v)        one head, (S, D) -- the Pallas signature;
   flash_attention_bh(q, k, v)     (B, H, S, D), as ops.py's vmapped form;
-  flash_attention_gqa(q, k, v, q_start)
+  flash_attention_gqa(q, k, v, q_start, round_p=...)
                                   the model's layout (B, S, H, D) with
-                                  grouped KV heads and a query start
-                                  position per batch row (prompt: 0;
-                                  decode: the cache index).
+                                  grouped KV heads, a query start position
+                                  per batch row (prompt: 0; decode: the
+                                  cache index) and the model's type rules.
 
-A CUDA tensor launches the kernel, or raises: there is no fallback.  A
-CPU tensor takes the plain torch version in ``ref.py``, which the kernel
-is held to on the card.  ``flash_attention.launches`` counts the
-kernel's launches through any of the three.
+A CUDA tensor launches a kernel, or raises: there is no fallback.  A CPU
+tensor takes the plain torch version in ``ref.py``, which the kernels are
+held to on the card.  ``flash_attention.launches`` counts the kernels'
+launches through any of the three.
+
+``plan`` is the launch plan, computed here so that the CPU tests can hold
+it to the shapes.  A block serves rows (query i, head g of one KV head's
+group of G), numbered r = i * G + g, so each K/V row it reads serves all
+G heads.  Variant "split" (CUDA cores, any types): 4 or 8 rows a block,
+the visible keys split across the blocks of a thread-block cluster (at
+most 8) and merged in rank order -- decode (at most 8 rows a KV head).
+Variant "mma" (bf16 tensor cores): more rows (prefill), 64 rows a block,
+keys in chunks of 64, split across a cluster while every block has an SM
+of its own (one fits an SM: ``benchmarks/torch_fa_sweep.py``); float32 q
+and K as three bf16 parts each, so only up to head_dim 64
+(float32 q at 128 takes the split kernel).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,16 +44,102 @@ from repro_torch.kernels.flash_attention.ref import (ref_attention_gqa,
 
 _HEAD_DIMS = (16, 32, 64, 128)
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {"split": 0, "mma": 1}
 _Strides = ctypes.c_longlong * 3
+
+THREADS = 128                # threads of a block, both variants
+SPLIT_MAX_ROWS = 8           # rows a split block holds (buckets 4 and 8)
+MMA_ROWS = 64                # rows of an mma block: 4 warps x 16
+MMA_KEYS = 64                # keys of an mma chunk
+MMA_F32_MAX_D = 64           # float32 q's three bf16 parts fit registers
+SPLIT_BLOCKS = 264           # split keys until about 2 blocks an SM
+SMS = 132                    # streaming multiprocessors of an H100 SXM
+MAX_SPLITS = 8               # a portable cluster size
+
+
+class Plan(NamedTuple):
+    """One launch of ``csrc/flash_attention.cu``.
+
+    variant "split": rows = rows a block (4 or 8), splits = the cluster's
+    blocks along the key axis, chunk = keys a block holds in registers at
+    once, grid = (splits, row tiles, B * Hkv).  variant "mma": rows = 64,
+    splits = the cluster's blocks along the key axis (whole chunks each),
+    chunk = 64 keys, grid = (row tiles * splits, Hkv, B)."""
+    variant: str
+    rows: int
+    splits: int
+    chunk: int
+    grid: tuple
+
+    @property
+    def tiles(self) -> int:
+        """Row tiles of the launch (each a cluster of ``splits`` blocks)."""
+        return self.grid[1] if self.variant == "split" else \
+            self.grid[0] // self.splits
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
+         q_bf16: bool) -> Plan:
+    """The launch plan for q (b, sq, hq, d) against k, v (b, skv, hkv, d).
+
+    The key axis is split by the keys a row tile can see at most (skv);
+    each cluster then divides the keys its rows really see (from q_start,
+    on the card) evenly among its blocks."""
+    rows = (hq // hkv) * sq
+    if rows > SPLIT_MAX_ROWS and (q_bf16 or d <= MMA_F32_MAX_D):
+        tiles = _ceil(rows, MMA_ROWS)
+        splits = max(1, min(MAX_SPLITS, _ceil(skv, MMA_KEYS),
+                            SMS // (tiles * b * hkv)))
+        return Plan("mma", MMA_ROWS, splits, MMA_KEYS,
+                    (tiles * splits, hkv, b))
+    rb = 4 if rows <= 4 else 8
+    lanes = d // 4                       # lanes of a key: 4 columns each
+    chunk = (THREADS // lanes) * (16 // rb)
+    tiles = _ceil(rows, rb)
+    blocks = tiles * b * hkv
+    splits = max(1, min(MAX_SPLITS, _ceil(skv, chunk),
+                        _ceil(SPLIT_BLOCKS, blocks)))
+    return Plan("split", rb, splits, chunk, (splits, tiles, b * hkv))
+
+
+def block_rows(p: Plan, tile: int, g: int, sq: int):
+    """The (query, head-in-group) pairs of row tile ``tile``, by the
+    kernels' formula r = i * G + g."""
+    total = g * sq
+    return [(r // g, r % g)
+            for r in range(tile * p.rows, min(total, (tile + 1) * p.rows))]
+
+
+def block_keys(p: Plan, tile: int, rank: int, g: int, sq: int, skv: int,
+               start: int, causal: bool) -> range:
+    """The keys that block ``rank`` of row tile ``tile``'s cluster visits:
+    [0, kv_end) cut into ``splits`` equal spans (of whole 64-key chunks
+    for the mma kernel), where kv_end is past the last key the tile's last
+    query can see (the kernels' formulas)."""
+    last = min(g * sq, (tile + 1) * p.rows) - 1
+    kv_end = min(skv, start + last // g + 1) if causal else skv
+    if p.variant == "mma":      # whole chunks of 64 keys a block
+        chunks = _ceil(kv_end, p.chunk)
+        span = _ceil(chunks, p.splits)
+        lo = min(chunks, rank * span)
+        return range(lo * p.chunk, min(kv_end, (lo + span) * p.chunk))
+    span = _ceil(kv_end, p.splits)
+    return range(min(kv_end, rank * span), min(kv_end, (rank + 1) * span))
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("flash_attention").flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 7
+                   + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong)] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -63,14 +162,30 @@ def _check(q, k, v, q_start):
                          f"{q_start.device}")
 
 
-def _launch(q, k, v, q_start, causal: bool, scale: float) -> torch.Tensor:
-    """The kernel on (B, S, H, D) views; returns (B, Sq, Hq, D) float32."""
+def _one_type(q, k, v):
+    """The Pallas signature widens q, k and v alike: it takes one type."""
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"flash_attention takes q, k, v of one type, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def _vec_ok(t: torch.Tensor) -> bool:
+    """Rows can be read with vector loads and 16-byte copies: the base
+    and the (batch, sequence, head) strides on a 16-byte boundary."""
+    return (t.data_ptr() % 16 == 0
+            and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3]))
+
+
+def _launch(q, k, v, q_start, causal: bool, scale: float,
+            round_p: bool) -> torch.Tensor:
+    """A kernel on (B, S, H, D) views; returns (B, Sq, Hq, D) float32."""
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
-    if q.dtype not in _TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash attention takes float32 or bfloat16 q, k, v "
-                         f"of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in _TYPES or k.dtype not in _TYPES or v.dtype != k.dtype:
+        raise ValueError(f"flash attention takes float32 or bfloat16 q and "
+                         f"k, v of one type, float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.stride(3) != 1:
             raise ValueError(f"flash attention needs {name} on {q.device} "
@@ -80,7 +195,7 @@ def _launch(q, k, v, q_start, causal: bool, scale: float) -> torch.Tensor:
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash attention takes head_dim in {_HEAD_DIMS}, "
                          f"got {d}")
-    if max(b, sq, skv, hq) >= 2 ** 31:
+    if max(b * hkv, sq * hq, skv) >= 2 ** 31:
         raise ValueError("flash attention: a dimension exceeds int32")
     if q_start is None:
         q_start = torch.zeros(b, dtype=torch.int32, device=q.device)
@@ -88,13 +203,19 @@ def _launch(q, k, v, q_start, causal: bool, scale: float) -> torch.Tensor:
         raise ValueError(f"flash attention needs a contiguous int32 q_start, "
                          f"got {q_start.dtype}")
     out = torch.empty((b, sq, hq, d), dtype=torch.float32, device=q.device)
+    p = plan(b, sq, skv, hq, hkv, d, q.dtype == torch.bfloat16)
+    if max(p.grid[1], p.grid[2]) > 65535:
+        raise ValueError(f"flash attention: grid {p.grid} exceeds the "
+                         f"card's 65535 blocks in y or z")
     strides = [_Strides(*t.stride()[:3]) for t in (q, k, v, out)]
     launch = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    q_start.data_ptr(), _TYPES[q.dtype], b, sq, skv, hq, hkv,
-                    d, *strides, scale or d ** -0.5, int(causal), stream)
+                    q_start.data_ptr(), _TYPES[q.dtype], _TYPES[k.dtype],
+                    b, sq, skv, hq, hkv, d, *strides, scale or d ** -0.5,
+                    int(causal), int(round_p), _VARIANTS[p.variant], p.rows,
+                    p.splits, int(_vec_ok(k) and _vec_ok(v)), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error "
                            f"{rc}")
@@ -104,29 +225,33 @@ def _launch(q, k, v, q_start, causal: bool, scale: float) -> torch.Tensor:
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_start: torch.Tensor | None = None, *,
-                        causal: bool = True,
-                        scale: float = 0.0) -> torch.Tensor:
+                        causal: bool = True, scale: float = 0.0,
+                        round_p: bool = False) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D) float32.
 
     Query head h reads KV head h // (Hq / Hkv).  With ``causal``, query i
     of batch row b sits at position q_start[b] + i (q_start: (B,) int32,
     non-negative; None = 0) and sees keys 0 .. q_start[b] + i.  ``scale``
-    0 means 1/sqrt(D).
+    0 means 1/sqrt(D).  The logits are q . (K rounded to q's type) in
+    float32; ``round_p`` rounds the probabilities to V's type before P V,
+    as the reference model does (a no-op for float32 V).
     """
     _check(q, k, v, q_start)
     if q.device.type == "cpu":
         start = (torch.zeros(q.shape[0], dtype=torch.int32)
                  if q_start is None else q_start)
-        return ref_attention_gqa(q, k, v, start, causal, scale)
-    return _launch(q, k, v, q_start, causal, scale)
+        return ref_attention_gqa(q, k, v, start, causal, scale, round_p)
+    return _launch(q, k, v, q_start, causal, scale, round_p)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float = 0.0) -> torch.Tensor:
     """q: (Sq, D); k, v: (Skv, D) -> (Sq, D) float32.  One head; any Sq and
-    Skv (the kernel masks the ragged tile itself)."""
+    Skv (the kernel masks the ragged tile itself); float32 P, as the
+    Pallas kernel keeps it."""
     if q.ndim != 2 or k.ndim != 2 or v.ndim != 2:
         raise ValueError("flash_attention takes (S, D) q, k, v")
+    _one_type(q, k, v)
     if q.device.type == "cpu":
         _check(q[None, :, None], k[None, :, None], v[None, :, None], None)
         return ref_flash_attention(q, k, v, causal, scale)
@@ -144,7 +269,8 @@ def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, H, Sq, D); k, v: (B, H, Skv, D) -> (B, H, Sq, D) float32.
 
     Unlike the reference's ops.py, nothing is padded: keys past Skv do not
-    exist for any query, causal or not."""
+    exist for any query, causal or not.  Float32 P, as the Pallas kernel."""
+    _one_type(q, k, v)
     out = flash_attention_gqa(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal, scale=scale)
     return out.transpose(1, 2)

@@ -213,9 +213,12 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
         new_cache = {"k": ck, "v": cv, "index": idx + s}
         k, v = ck, cv
 
-    out = flash_attention_gqa(q, k.to(q.dtype), v.to(q.dtype), q_start,
-                              causal=True,
-                              scale=spec.query_scale or 1.0 / float(np.sqrt(dh)))
+    # the reference's type rules: K is rounded to q's type inside the
+    # product, P to V's type before P V; the kernel takes K and V as they
+    # are (a float32 cache is not copied)
+    out = flash_attention_gqa(q, k, v, q_start, causal=True,
+                              scale=spec.query_scale or 1.0 / float(np.sqrt(dh)),
+                              round_p=True)
     out = out.reshape(b, s, hq * dh).to(x.dtype)
     return L.qdense(out, p["wo"], qcfg), new_cache
 

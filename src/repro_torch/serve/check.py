@@ -60,9 +60,12 @@ def record(engine, prompt_list, max_new: int, to_numpy) -> dict:
             return logits, cache
         return step
 
-    engine._prefill = wrap(engine._prefill)
-    engine._decode = wrap(engine._decode)
-    engine.run()
+    prefill, decode = engine._prefill, engine._decode
+    engine._prefill, engine._decode = wrap(prefill), wrap(decode)
+    try:
+        engine.run()
+    finally:   # the wrappers hold the engine: no cycle keeps its cache
+        engine._prefill, engine._decode = prefill, decode
     out = {"tokens": [], "margins": [], "top_logits": [], "logits": []}
     for r in reqs:
         steps = rows[id(r)]

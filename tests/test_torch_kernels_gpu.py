@@ -180,31 +180,136 @@ def test_quant_matmul_refuses_what_the_kernel_does_not_take(card):
 # flash_attention
 # ---------------------------------------------------------------------------
 
+# (b, sq, skv, hq, hkv, d, start): SmolLM-135M's prefill and decode (GQA
+# 9/3, head_dim 64, a 256-row cache) at decode offsets that cross the
+# cluster's split boundaries, each Sq the decode plan takes (1 and 2 for
+# G = 3), and ragged shapes.
+FA_CASES = [(4, 130, 256, 9, 3, 64, 0)] + [
+    (4, sq, 256, 9, 3, 64, start) for sq in (1, 2)
+    for start in (0, 1, 63, 135, 254)] + [
+    (4, 1, 256, 9, 3, 64, 255), (2, 33, 70, 4, 1, 32, 5),
+    (1, 64, 64, 2, 2, 16, 0), (2, 40, 80, 4, 2, 128, 17),
+    (3, 1, 4096, 16, 1, 128, 3000), (2, 9, 300, 6, 2, 32, 200)]
+# (q type, K/V type, round_p): the float32 serving path, bfloat16 q with
+# the engine's float32 cache (round_p on and off: the same function), and
+# bfloat16 K/V, as the model without a cache takes them.
+FA_TYPES = [(torch.float32, torch.float32, False),
+            (torch.float32, torch.float32, True),
+            (torch.bfloat16, torch.float32, False),
+            (torch.bfloat16, torch.float32, True),
+            (torch.bfloat16, torch.bfloat16, False),
+            (torch.bfloat16, torch.bfloat16, True),
+            (torch.float32, torch.bfloat16, True)]
+FA_TOL = 2e-5   # tests/test_kernels.py:122
+
+
+def _fa_inputs(card, b, sq, skv, hq, hkv, d, start, q_type, kv_type):
+    gen = torch.Generator(device=card).manual_seed(skv + sq)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=card).to(q_type)
+    k = torch.randn((b, skv, hkv, d), generator=gen, device=card).to(kv_type)
+    v = torch.randn((b, skv, hkv, d), generator=gen, device=card).to(kv_type)
+    st = torch.full((b,), start, dtype=torch.int32, device=card)
+    return q, k, v, st
+
+
+def _bf16_p_slack(q, k, v, st, causal):
+    """What bf16 P may move an output by: with round_p and bfloat16 V the
+    kernel and the plain version both round each probability to bf16,
+    after float32 sums in another order, so a probability within a few
+    1e-7 of a bf16 rounding boundary may round the other way in one of
+    them.  Per output element: the sum over the probabilities within 4e-6
+    (relative) of a boundary, computed in float64, of the bf16 step there
+    times |v|.  Zero for every other probability."""
+    from repro_torch.kernels.flash_attention.ref import _visible
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, sq, hkv, hq // hkv, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg,
+                          k.to(q.dtype).double()) * d ** -0.5
+    if causal:
+        ok = _visible(st, sq, skv, q.device)
+        logits = torch.where(ok[:, None, None], logits, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    step = ((p * (1 + 4e-6)).to(torch.bfloat16).double()
+            - (p * (1 - 4e-6)).to(torch.bfloat16).double()).abs()
+    slack = torch.einsum("bhgqk,bkhd->bqhgd", step, v.double().abs())
+    return slack.reshape(b, sq, hq, d).float()
+
+
+def _fa_held(got, want, slack=None):
+    """2e-5 (tests/test_kernels.py:122): float32 sums in another order;
+    plus ``slack`` (``_bf16_p_slack``) where both round P to bf16."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    if slack is None:
+        torch.testing.assert_close(got, want, rtol=FA_TOL, atol=FA_TOL)
+        return
+    err = (got - want).abs()
+    bad = err > FA_TOL + FA_TOL * want.abs() + slack
+    assert not bool(bad.any()), (float(err.max()), int(bad.sum()))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,start", [
-    (4, 130, 256, 9, 3, 64, 0), (4, 1, 256, 9, 3, 64, 0),
-    (4, 1, 256, 9, 3, 64, 63), (4, 1, 256, 9, 3, 64, 255),
-    (2, 33, 70, 4, 1, 32, 5), (1, 64, 64, 2, 2, 16, 0),
-    (2, 40, 80, 4, 2, 128, 17)])
-def test_flash_attention_matches_plain(card, b, sq, skv, hq, hkv, d, start):
-    """2e-5 (tests/test_kernels.py:122): float32 sums in another order."""
+@pytest.mark.parametrize("q_type,kv_type,round_p", FA_TYPES)
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,start", FA_CASES)
+def test_flash_attention_matches_plain(card, b, sq, skv, hq, hkv, d, start,
+                                       q_type, kv_type, round_p):
+    """The plan's kernel against the plain version on the same tensors,
+    causal and not: 2e-5 (tests/test_kernels.py:122), float32 sums in
+    another order (with bf16 P, plus ``_bf16_p_slack``).  One launch per
+    call."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_gqa)
     from repro_torch.kernels.flash_attention.ref import ref_attention_gqa
-    gen = torch.Generator(device=card).manual_seed(skv)
-    q = torch.randn((b, sq, hq, d), generator=gen, device=card)
-    k = torch.randn((b, skv, hkv, d), generator=gen, device=card)
-    v = torch.randn((b, skv, hkv, d), generator=gen, device=card)
-    st = torch.full((b,), start, dtype=torch.int32, device=card)
-    before = flash_attention.launches
-    got = flash_attention_gqa(q, k, v, st)
-    assert flash_attention.launches == before + 1
-    torch.testing.assert_close(got, ref_attention_gqa(q, k, v, st),
-                               rtol=2e-5, atol=2e-5)
-    got = flash_attention_gqa(q, k, v, st, causal=False)
-    torch.testing.assert_close(
-        got, ref_attention_gqa(q, k, v, st, causal=False), rtol=2e-5,
-        atol=2e-5)
+    q, k, v, st = _fa_inputs(card, b, sq, skv, hq, hkv, d, start, q_type,
+                             kv_type)
+    for causal in (True, False):
+        before = flash_attention.launches
+        got = flash_attention_gqa(q, k, v, st, causal=causal, round_p=round_p)
+        assert flash_attention.launches == before + 1
+        slack = (_bf16_p_slack(q, k, v, st, causal)
+                 if round_p and kv_type == torch.bfloat16 else None)
+        _fa_held(got, ref_attention_gqa(q, k, v, st, causal=causal,
+                                        round_p=round_p), slack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_type,kv_type,round_p", FA_TYPES)
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,start", [
+    (4, 1, 256, 9, 3, 64, 135), (4, 2, 256, 9, 3, 64, 63),
+    (4, 130, 256, 9, 3, 64, 0), (3, 1, 4096, 16, 1, 128, 3000)])
+def test_flash_attention_is_bitwise_deterministic(card, b, sq, skv, hq, hkv,
+                                                  d, start, q_type, kv_type,
+                                                  round_p):
+    """Two calls on the same inputs give the same bits: the split-KV
+    partials meet in a fixed order, with no atomics."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    q, k, v, st = _fa_inputs(card, b, sq, skv, hq, hkv, d, start, q_type,
+                             kv_type)
+    first = flash_attention_gqa(q, k, v, st, round_p=round_p)
+    second = flash_attention_gqa(q, k, v, st, round_p=round_p)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_type", [torch.float32, torch.bfloat16])
+def test_flash_attention_strided_and_unaligned_views(card, q_type):
+    """(B, S, H, D) views without a copy: a layer of a stacked cache, a
+    cache row slice and a view whose rows sit off a 16-byte boundary
+    (the kernel then takes element loads of K and V)."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import ref_attention_gqa
+    gen = torch.Generator(device=card).manual_seed(1)
+    stack = torch.randn((2, 3, 2, 90, 3, 66), generator=gen, device=card)
+    k, v = stack[0, 1, :, 5:, :, 1:65], stack[1, 1, :, 5:, :, 1:65]
+    assert k.data_ptr() % 16 and k.stride(3) == 1
+    for sq, start in ((1, 40), (30, 0)):
+        q = torch.randn((2, sq, 9, 64), generator=gen,
+                        device=card).to(q_type)
+        st = torch.full((2,), start, dtype=torch.int32, device=card)
+        _fa_held(flash_attention_gqa(q, k, v, st),
+                 ref_attention_gqa(q, k, v, st))
 
 
 @pytest.mark.gpu

@@ -46,7 +46,9 @@ def test_every_module_imports_without_jax_or_repro():
     [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py",
      ROOT / "examples" / "torch_quickstart.py",
      ROOT / "examples" / "torch_serve_quantized.py",
-     ROOT / "benchmarks" / "torch_profile.py"]))
+     ROOT / "benchmarks" / "torch_profile.py",
+     ROOT / "benchmarks" / "torch_fa_sweep.py",
+     ROOT / "benchmarks" / "torch_qmm_sweep.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     text = (ROOT / path).read_text()
     assert not re.search(r"^\s*(import jax|from jax)", text, re.M)

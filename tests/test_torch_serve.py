@@ -6,7 +6,9 @@ reference's un-reset cache index and its clamped writes past ``max_len``
 (ROADMAP C).  Also rebuilds the serving reference at the reduced size and
 checks that its format is the committed file's."""
 
+import gc
 import json
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -193,6 +195,27 @@ def test_engine_matches_jax(weights, dtype, case):
     if case != "more_requests_than_slots":
         assert index == [12] * cfg.n_layers
         assert want[2] != want[0]   # the fault is exercised
+
+
+def test_record_leaves_the_engine_to_reference_counting(weights):
+    """``check.record`` puts the engine's own steps back after its run, so
+    an engine it served is freed as its last reference goes, with the
+    cyclic collector off: its KV cache does not linger into a later run
+    (and into that run's peak device memory)."""
+    cfg = reduced("smollm-135m").replace(dtype="float32")
+    eng = ServeEngine(cfg, T, weights["port"], 2, 32)
+    steps = (eng._prefill, eng._decode)
+    gc.disable()
+    try:
+        got = check.record(eng, [np.array([1, 2, 3]), np.array([4, 5])], 2,
+                           lambda t: t.numpy())
+        assert [len(t) for t in got["tokens"]] == [2, 2]
+        assert (eng._prefill, eng._decode) == steps
+        alive = weakref.ref(eng)
+        del eng
+        assert alive() is None
+    finally:
+        gc.enable()
 
 
 def test_reference_format_is_stable():
