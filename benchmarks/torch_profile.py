@@ -107,7 +107,7 @@ def main():
         raise SystemExit("torch_profile needs a CUDA card")
     from repro_torch import quickstart
     from repro_torch.core import arch, dse, ppa, workloads
-    from repro_torch.quant import PE_TYPES, fake_quant_weight, preset
+    from repro_torch.quant import PE_TYPES, fake_quant_weights, preset
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -133,8 +133,8 @@ def main():
                                                      surrogate=models))
     step("pareto", lambda: np.asarray(dse.pareto_front(res)))
     weights = quickstart.draw_weights(workloads.weight_shapes(wl), 0, dev)
-    step("fake_quant", lambda: {p: [fake_quant_weight(w, preset(p))
-                                    for w in weights] for p in PE_TYPES})
+    step("fake_quant", lambda: {p: fake_quant_weights(weights, preset(p))
+                                for p in PE_TYPES})
     wide = arch.enumerate_space(arch.WIDE_SPACE, max_points=2 ** 20,
                                 device=dev)
     step("wide_2^20", lambda: dse.evaluate_space(wide, wl, chunk_size=65536))

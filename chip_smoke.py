@@ -5,15 +5,23 @@
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every CUDA source of the port with nvcc (in parallel);
-3. kernel vs plain: ``fake_quant`` (affine at 4/8/16 bits, pow2) on the
-   15 VGG-16/CIFAR-10 weight shapes and two ragged ones, held to its
-   plain torch version on the same tensors within 1e-6, and timed beside
-   the plain version, ``torch.fake_quantize_per_channel_affine`` and the
-   memory bound;
+3. kernel vs plain: ``fake_quant`` (affine at 4/8/16 bits, pow2) in
+   float32 and bfloat16 on the 15 VGG-16/CIFAR-10 weight shapes, two
+   ragged ones, a prefill's activations with one scale for the tensor
+   and a view off a 16-byte boundary, launched per tensor and as one
+   group, held to its plain torch version on the same tensors (0
+   differing elements, and within 1e-6), and timed (grouped, per weight,
+   with the L2 flushed) beside the plain version,
+   ``torch.fake_quantize_per_channel_affine`` and the memory bound; then
+   the shapes phase 7 gives it, one by one and as one group, at 0
+   differing elements: SmolLM-135M's projection weights and tied head
+   (576 x 49152) in float32 with a scale a column, and its decode and
+   prefill activations with one scale, in both types;
 4. the slice: the quickstart loop at full size on the card (27,000-point
    paper grid, VGG-16/CIFAR-10, oracle and surrogate DSE, Pareto, report,
    best LightPE-1 design, every preset's fake quantization of VGG-16's
-   weights), with kernel launches counted over that run and the results
+   weights), with kernel launches counted over that run (exactly 5: one
+   grouped launch a quantizing preset, two for LightPE-2) and the results
    held to ``tests/data/torch_quickstart_ref.json`` (the JAX package's);
    then a 2^20-point subsample of WIDE_SPACE in 65,536-point chunks;
 5. kernel vs plain, slice 2: ``quant_matmul`` (int4, pow2, int8; float32
@@ -36,7 +44,19 @@
    counted (exactly 2,520 ``quant_matmul`` and 360 ``flash_attention``) and
    every run held to ``tests/data/torch_serve_ref.json`` (the JAX
    package's); then prefill and decode times, tokens/s and peak memory;
-7. prints a ``{"kernels": [...]}`` line and, last, the device line.
+7. the slice of QAT numerics: SmolLM-135M at full width on its dense
+   weights under INT16, LightPE-1, LightPE-2 and INT8 numerics in
+   bfloat16 and LightPE-1 in float32 (``fake_quant`` on every weight and
+   every activation, bfloat16 activations included), served by
+   ``ServeEngine`` (the 4 prompts in 4 slots, 12 new tokens each), with
+   ``fake_quant`` launches counted per run (exactly 12 steps x (30 x 7
+   projections + the head) x 2 passes, weight and activation; 3 for
+   LightPE-2, whose weights take two) and every run held to the
+   ``qat_modes`` of ``tests/data/torch_serve_ref.json``, with the steps
+   compared and the tolerated near ties recorded; as a control, the
+   bfloat16 LightPE-1 run held to the float32 LightPE-1 reference must
+   fail that comparison;
+8. prints a ``{"kernels": [...]}`` line and, last, the device line.
 
 TF32 is off for matrix products and convolutions (``repro_torch`` sets
 both flags at import): the reference tolerances need IEEE float32.
@@ -60,6 +80,8 @@ VGG16_SHAPES = [(27, 64), (576, 64), (576, 128), (1152, 128), (1152, 256),
                 (2304, 256), (2304, 256), (2304, 512)] + [(4608, 512)] * 5 \
     + [(512, 512), (512, 10)]
 RAGGED_SHAPES = [(300, 190), (1, 129)]
+ACT_SHAPE = (4 * 130, 576)      # a prefill's activations, one scale
+UNALIGNED = (190, 33)           # a view one element off 16 bytes
 KERNEL_MODES = [("affine", 4), ("affine", 8), ("affine", 16), ("pow2", 8)]
 KERNEL_TOL = 1e-6
 H100_BYTES_PER_S = 3.35e12      # HBM3 of the H100 SXM (NVIDIA data sheet)
@@ -95,6 +117,35 @@ FA_RAGGED = [(100, 100, 32), (64, 256, 16), (1, 128, 64)]
 SERVE_TOL = {"lightpe1": 0.1, "int8": 0.1, "lightpe1/float32": 2e-3,
              "int8/float32": 1e-4}
 SERVE_LAUNCHES = {"quant_matmul": 12 * 30 * 7, "flash_attention": 12 * 30}
+QUICKSTART_LAUNCHES = 5         # int16 1, lightpe1 1, lightpe2 2, int8 1
+# Slice 5: the model on dense weights under QAT numerics, held to the JAX
+# package's runs (``qat_modes`` of the serving reference), the comparison
+# coupled across the batch (one activation scale for the whole batch).
+# In bfloat16 the runs take the serving runs' 0.1.  In float32 LightPE-1
+# cannot take their 2e-3: with 8-bit activations a code at a round(x / s)
+# tie flips by one step of absmax / 127 when a float32 sum is taken in
+# another order, and 30 layers carry it on; one float32 ulp on half the
+# embedded tokens moves the card's LightPE-1 logits by up to 0.100
+# (benchmarks/torch_qat_sensitivity.py).  So 0.125: above that, and below
+# what the bfloat16 LightPE-1 run reads against the float32 reference
+# (QAT_CONTROL, which must fail), so the limit still tells the two
+# compute types apart.
+QAT_TOL = {"int16": 0.1, "lightpe1": 0.1, "lightpe2": 0.1, "int8": 0.1,
+           "lightpe1/float32": 0.125}
+# fake_quant launches a projection a step: the weight and the activation
+# (LightPE-2's weight takes two passes); 7 projections a layer and the head
+QAT_PASSES = {"int16": 2, "lightpe1": 2, "lightpe2": 3, "int8": 2}
+QAT_PROJECTIONS = 7
+# the control: a run in the wrong compute type, held to the float32 run
+QAT_CONTROL = ("lightpe1", "lightpe1/float32")
+# Phase 3 at the shapes of phase 7 (SmolLM-135M): the projection weights
+# and the tied head, float32, a scale a column; the activations of decode
+# (4 rows) and prefill (4 x 130 rows), one scale, in both types.  1536 and
+# 49152 columns pass a block's vector stride (1024 float32 elements), so
+# the column counter wraps within a thread.
+SMOLLM_WEIGHTS = [(576, 576), (576, 192), (576, 1536), (1536, 576),
+                  (576, 49152)]
+SMOLLM_ACTS = [(4, 576), (4, 1536), (520, 576), (520, 1536)]
 
 
 def fail(msg: str):
@@ -133,64 +184,171 @@ def time_ms(torch, fn, reps: int = 5, warmup: int = 2,
     return start.elapsed_time(end) / reps
 
 
+def cold_ms(torch, fn, flush, reps: int = 5):
+    """Mean device milliseconds of ``fn()`` with the L2 cache flushed
+    before each call (``flush`` is a buffer larger than the 50 MB L2,
+    zeroed between the calls): sleep, flush, start, fn, end, queued so the
+    events see the device only."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES // 10)
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def check_kernels(torch, dev):
-    """Phase 3: fake_quant against its plain version, and its times."""
-    from repro_torch.kernels.fake_quant import fake_quant
+    """Phase 3: fake_quant against its plain version, per tensor and in
+    one grouped launch, in float32 and bfloat16, and its times."""
+    from repro_torch.kernels.fake_quant import fake_quant, fake_quant_group
     from repro_torch.kernels.fake_quant.ref import (ref_fake_quant_affine,
                                                     ref_fake_quant_pow2)
     from repro_torch.quant.fake_quant import affine_scale, pow2_emax
     from repro_torch.quickstart import draw_weights
 
-    weights = draw_weights(VGG16_SHAPES + RAGGED_SHAPES, seed=1, device=dev)
-    vgg = weights[:len(VGG16_SHAPES)]
-    bytes_moved = sum(w.numel() * 8 + w.shape[1] * 4 for w in vgg)
-    bound_ms = bytes_moved / H100_BYTES_PER_S * 1e3
-    modes = []
-    for mode, bits in KERNEL_MODES:
-        if mode == "affine":
-            scales = [affine_scale(w, bits, axis=0)[0] for w in weights]
-            plain = lambda w, s: ref_fake_quant_affine(w, s, bits)  # noqa: E731
-        else:
-            scales = [pow2_emax(w, axis=0)[0] for w in weights]
-            plain = ref_fake_quant_pow2
-        err, flips = 0.0, 0
-        for w, s in zip(weights, scales):
-            got = fake_quant(w, s, mode=mode, bits=bits)
-            want = plain(w, s)
+    base = draw_weights(VGG16_SHAPES + RAGGED_SHAPES + [ACT_SHAPE], seed=1,
+                        device=dev)
+    base[-1] = base[-1] * 30                       # activations: N(0, 3^2)
+    flat = draw_weights([(UNALIGNED[0] * UNALIGNED[1] + 1,)], seed=2,
+                        device=dev)[0]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    n_vgg = len(VGG16_SHAPES)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        ws = [w.to(dtype) for w in base]
+        # a view one element off a 16-byte boundary (a scalar head)
+        ws.append(flat.to(dtype)[1:].view(UNALIGNED))
+        if ws[-1].data_ptr() % 16 == 0:
+            fail("the view meant to be unaligned is aligned")
+        vgg = ws[:n_vgg]
+        elem = vgg[0].element_size()
+        nbytes = sum(w.numel() * 2 * elem + w.shape[1] * elem for w in vgg)
+        # divide, round, two compares, multiply an element
+        bound, bound_by = bound_ms(nbytes, 5 * sum(w.numel() for w in vgg))
+        for mode, bits in KERNEL_MODES:
+            def scale(w, per_tensor):
+                axis = None if per_tensor else 0
+                s = (affine_scale(w, bits, axis) if mode == "affine"
+                     else pow2_emax(w, axis))
+                return s.reshape(1) if per_tensor else s[0]
+
+            def plain(w, s):
+                return (ref_fake_quant_affine(w, s, bits) if mode == "affine"
+                        else ref_fake_quant_pow2(w, s))
+
+            # the activations take one scale for the whole tensor, as in
+            # the model; every other tensor one a column
+            scales = [scale(w, per_tensor=(i == len(base) - 1))
+                      for i, w in enumerate(ws)]
+            before = fake_quant.launches
+            single = [fake_quant(w, s, mode=mode, bits=bits)
+                      for w, s in zip(ws, scales)]
+            grouped = fake_quant_group(ws, scales, mode=mode, bits=bits)
+            if fake_quant.launches - before != len(ws) + 1:
+                fail(f"fake_quant {name} {mode}{bits}: "
+                     f"{fake_quant.launches - before} launches, expected "
+                     f"{len(ws) + 1}")
+            want = [plain(w, s) for w, s in zip(ws, scales)]
             torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
-                fail(f"fake_quant {mode}{bits} {tuple(w.shape)}: non-finite")
-            diff = (got - want).abs()
-            err = max(err, float(diff.max()))
-            if mode == "pow2":
-                flips += int((got != want).sum())
-        if flips:
-            fail(f"fake_quant pow2: {flips} code flips against plain")
-        if err > KERNEL_TOL:
-            fail(f"fake_quant {mode}{bits}: max abs err {err} > {KERNEL_TOL}")
-        pairs = list(zip(vgg, scales[:len(vgg)]))
-        kernel = lambda: [fake_quant(w, s, mode=mode, bits=bits)  # noqa: E731
-                          for w, s in pairs]
-        ms = time_ms(torch, kernel)
-        host_ms = time_ms(torch, kernel, queued=False)
-        plain_ms = time_ms(torch, lambda: [plain(w, s) for w, s in pairs])
-        library_ms = None
-        if mode == "affine":
-            qmax = 2 ** (bits - 1) - 1
-            zps = [torch.zeros(w.shape[1], dtype=torch.int32, device=dev)
-                   for w in vgg]
-            library_ms = time_ms(torch, lambda: [
-                torch.fake_quantize_per_channel_affine(w, s, z, 1, -qmax, qmax)
-                for (w, s), z in zip(pairs, zps)])
-        modes.append(dict(mode=mode, bits=bits, max_abs_err=err, ms=ms,
-                          host_paced_ms=host_ms, plain_ms=plain_ms,
-                          library_ms=library_ms, bound_ms=bound_ms))
-        print(f"fake_quant {mode}{bits}: max_abs_err={err} kernel={ms:.4f} ms "
-              f"(host-paced {host_ms:.4f} ms) "
-              f"plain={plain_ms:.4f} ms library={library_ms} ms "
-              f"bound={bound_ms:.4f} ms (15 VGG-16 weights, "
-              f"{bytes_moved} bytes)")
-    return modes
+            err, differing = 0.0, 0
+            for got in (single, grouped):
+                for g, w in zip(got, want):
+                    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                        fail(f"fake_quant {name} {mode}{bits}: bad output "
+                             f"{tuple(g.shape)}")
+                    differing += int((g != w).sum())
+                    err = max(err, float((g.float() - w.float()).abs().max()))
+            if differing or err > KERNEL_TOL:
+                fail(f"fake_quant {name} {mode}{bits}: {differing} elements "
+                     f"differ from plain, max abs err {err} (tolerance "
+                     f"{KERNEL_TOL})")
+            pairs = list(zip(vgg, scales[:n_vgg]))
+            group_fn = lambda: fake_quant_group(  # noqa: E731
+                vgg, scales[:n_vgg], mode=mode, bits=bits)
+            each_fn = lambda: [fake_quant(w, s, mode=mode, bits=bits)  # noqa: E731
+                               for w, s in pairs]
+            row = dict(
+                dtype=name, mode=mode, bits=bits, differing=differing,
+                max_abs_err=err, ms=time_ms(torch, group_fn),
+                cold_ms=cold_ms(torch, group_fn, flush),
+                per_weight_ms=time_ms(torch, each_fn),
+                host_paced_ms=time_ms(torch, group_fn, queued=False),
+                plain_ms=time_ms(torch, lambda: [plain(w, s)
+                                                 for w, s in pairs]),
+                library_ms=None, bound_ms=bound, bound_by=bound_by,
+                bytes=nbytes)
+            if mode == "affine" and dtype == torch.float32:
+                qmax = 2 ** (bits - 1) - 1
+                zps = [torch.zeros(w.shape[1], dtype=torch.int32, device=dev)
+                       for w in vgg]
+                row["library_ms"] = time_ms(torch, lambda: [
+                    torch.fake_quantize_per_channel_affine(w, s, z, 1, -qmax,
+                                                           qmax)
+                    for (w, s), z in zip(pairs, zps)])
+            rows[(name, mode, bits)] = row
+            print(f"fake_quant {name} {mode}{bits}: {differing} differing, "
+                  f"max_abs_err={err}; 15 VGG-16 weights: grouped "
+                  f"{row['ms']:.4f} ms (L2 flushed {row['cold_ms']:.4f}, "
+                  f"host-paced {row['host_paced_ms']:.4f}), per weight "
+                  f"{row['per_weight_ms']:.4f} ms, plain {row['plain_ms']:.4f}"
+                  f" ms, library {row['library_ms']} ms, bound "
+                  f"{bound:.4f} ms ({nbytes} bytes)")
+    return rows
+
+
+def check_model_shapes(torch, dev):
+    """Phase 3 at SmolLM-135M's QAT shapes: each tensor alone and all in
+    one group, 0 differing elements from the plain version; returns the
+    count of elements compared."""
+    from repro_torch.kernels.fake_quant import fake_quant, fake_quant_group
+    from repro_torch.kernels.fake_quant.ref import (ref_fake_quant_affine,
+                                                    ref_fake_quant_pow2)
+    from repro_torch.quant.fake_quant import affine_scale, pow2_emax
+    from repro_torch.quickstart import draw_weights
+
+    weights = draw_weights(SMOLLM_WEIGHTS, seed=3, device=dev)
+    acts = [a * 30 for a in draw_weights(SMOLLM_ACTS, seed=4, device=dev)]
+    compared = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        ts = (weights if dtype == torch.float32 else []) + [
+            a.to(dtype) for a in acts]
+        per_tensor = [False] * (len(ts) - len(acts)) + [True] * len(acts)
+        for mode, bits in KERNEL_MODES:
+            def scale(t, one):
+                axis = None if one else 0
+                s = (affine_scale(t, bits, axis) if mode == "affine"
+                     else pow2_emax(t, axis))
+                return s.reshape(1) if one else s[0]
+
+            scales = [scale(t, one) for t, one in zip(ts, per_tensor)]
+            single = [fake_quant(t, s, mode=mode, bits=bits)
+                      for t, s in zip(ts, scales)]
+            grouped = fake_quant_group(ts, scales, mode=mode, bits=bits)
+            for t, s, a, b in zip(ts, scales, single, grouped):
+                want = (ref_fake_quant_affine(t, s, bits) if mode == "affine"
+                        else ref_fake_quant_pow2(t, s))
+                for how, got in (("alone", a), ("grouped", b)):
+                    differing = int((got != want).sum())
+                    if got.shape != want.shape or differing:
+                        fail(f"fake_quant {name} {mode}{bits} at "
+                             f"{tuple(t.shape)} ({how}): {differing} "
+                             f"elements differ from plain")
+                    compared += want.numel()
+    print(f"fake_quant at SmolLM-135M's shapes (weights {SMOLLM_WEIGHTS} "
+          f"float32, activations {SMOLLM_ACTS} float32 and bfloat16, "
+          f"{len(KERNEL_MODES)} modes, alone and grouped): 0 of {compared} "
+          f"elements differ from plain")
+    return compared
 
 
 def run_slice(torch, dev):
@@ -207,8 +365,10 @@ def run_slice(torch, dev):
     launches = fake_quant.launches
     print(f"quickstart (cold): {json.dumps(res.timings)}")
     print(f"fake_quant launches on the path: {launches}")
-    if launches == 0:
-        fail("the quickstart loop launched no fake_quant kernel")
+    if launches != QUICKSTART_LAUNCHES:
+        fail(f"the quickstart loop launched fake_quant {launches} times, "
+             f"expected {QUICKSTART_LAUNCHES} (one grouped launch a "
+             f"quantizing preset, two for LightPE-2)")
 
     print(f"PPA surrogate fit: R2 {json.dumps(res.r2)}")
     problems, notes = quickstart.compare(res, json.loads(REF.read_text()))
@@ -688,6 +848,84 @@ def run_serving(torch, dev):
     return launches, qmm, fa, numbers
 
 
+def run_qat_serving(torch, dev):
+    """Phase 7: SmolLM-135M at full width on its dense numpy-drawn weights
+    under the QAT numerics of every quantizing PE type (fake-quantized
+    float32 weights, activations in the compute type: bfloat16 reaches
+    fake_quant), served by ``ServeEngine`` (4 prompts in 4 slots) and held
+    to the JAX package's runs; fake_quant launches counted per run."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.configs import get
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.models import family_module
+    from repro_torch.serve import ServeEngine, check
+
+    ref = json.loads(SERVE_REF.read_text())
+    cfg = get(ref["config"])
+    mod = family_module(cfg)
+    params = convert.params_from_numpy(mod.numpy_params(cfg, ref["param_seed"]),
+                                       dev)
+    prompts = [np.array(p) for p in ref["prompts"]]
+    runs, records = {}, {}
+    for key, m in ref["qat_modes"].items():
+        run_cfg = cfg.replace(pe_type=m["pe_type"], dtype=m["dtype"])
+        eng = ServeEngine(run_cfg, mod, params, ref["batch_slots"],
+                          ref["max_len"])
+        fake_quant.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = check.record(eng, prompts, ref["max_new"],
+                           lambda t: t.float().cpu().numpy())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fake_quant.launches
+        want = ref["max_new"] * (cfg.n_layers * QAT_PROJECTIONS + 1) \
+            * QAT_PASSES[m["pe_type"]]
+        if launches != want:
+            fail(f"qat {key}: the run launched fake_quant {launches} times, "
+                 f"expected {want}")
+        problems, notes = check.compare(rec, m["run4"], QAT_TOL[key],
+                                        coupled=True)
+        for note in notes:
+            print(f"  tolerated (qat {key}): {note}")
+        if problems:
+            fail(f"qat {key} differs from the JAX reference: "
+                 + "; ".join(problems))
+        err = check.max_logit_err(rec, m["run4"], coupled=True)
+        steps = check.compared_steps(rec, m["run4"], coupled=True)
+        runs[key] = dict(fake_quant_launches=launches, wall_s=wall,
+                         max_logit_err=err, tolerance=QAT_TOL[key],
+                         steps_compared=steps, tolerated=notes)
+        records[key] = rec
+        print(f"qat {key}: matches the JAX reference (max logit err "
+              f"{err:.3g}, tolerance {QAT_TOL[key]}, steps compared "
+              f"{steps} of {ref['max_new']}, {len(notes)} notes); "
+              f"{launches} fake_quant launches, {wall:.3f} s for 4 x "
+              f"{ref['max_new']} tokens; tokens of request 0: "
+              f"{rec['tokens'][0]}")
+
+    # the control: bfloat16 numerics held to the float32 reference must
+    # not pass at the float32 mode's tolerance
+    ran, against = QAT_CONTROL
+    want = ref["qat_modes"][against]["run4"]
+    problems, _ = check.compare(records[ran], want, QAT_TOL[against],
+                                coupled=True)
+    err = check.max_logit_err(records[ran], want, coupled=True)
+    steps = check.compared_steps(records[ran], want, coupled=True)
+    runs["control"] = dict(run=ran, reference=against, max_logit_err=err,
+                           tolerance=QAT_TOL[against], steps_compared=steps,
+                           problems=problems)
+    print(f"qat control: the {ran} run held to the {against} reference: max "
+          f"logit err {err:.3g} (tolerance {QAT_TOL[against]}), steps "
+          f"compared {steps}; {len(problems)} problems")
+    if not problems:
+        fail(f"qat control: the {ran} run passes against the {against} "
+             f"reference at {QAT_TOL[against]}, so that tolerance cannot "
+             f"tell the two compute types apart")
+    return runs
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     import torch
@@ -712,19 +950,32 @@ def main() -> int:
         print(f"  {name}: {secs:.2f} s; ptxas: {ptxas_summary(output)}")
 
     modes = check_kernels(torch, dev)
+    model_shapes = check_model_shapes(torch, dev)
     launches = run_slice(torch, dev)
     qmm_err, fa_err = check_serving_kernels(torch, dev)
     serve_launches, qmm, fa, serving = run_serving(torch, dev)
+    qat = run_qat_serving(torch, dev)
 
-    main_mode = next(m for m in modes if (m["mode"], m["bits"]) == ("affine", 8))
+    # the row's main numbers: one grouped launch over the 15 VGG-16
+    # weights, affine-8, float32; the bfloat16 and per-weight times beside
+    main, bf16 = modes[("float32", "affine", 8)], modes[("bfloat16", "affine", 8)]
     kernels = [dict(
         name="fake_quant", route="cuda",
         source="src/repro_torch/csrc/fake_quant.cu",
         replaces="src/repro/kernels/fake_quant/fake_quant.py:45",
-        launches=launches, max_abs_err=max(m["max_abs_err"] for m in modes),
-        ms=main_mode["ms"], kernel_ms=main_mode["ms"], plain_ms=main_mode["plain_ms"],
-        bound_ms=main_mode["bound_ms"], bound_by="bytes",
-        library_ms=main_mode["library_ms"], modes=modes)]
+        launches=launches, max_abs_err=max(m["max_abs_err"]
+                                           for m in modes.values()),
+        differing=sum(m["differing"] for m in modes.values()),
+        ms=main["ms"], per_weight_ms=main["per_weight_ms"],
+        cold_ms=main["cold_ms"], bf16_ms=bf16["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_bf16_ms=bf16["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"],
+        unit="15 VGG-16/CIFAR-10 weights, one grouped launch",
+        smollm_elements_compared=model_shapes,
+        qat_serving_launches={k: r["fake_quant_launches"]
+                              for k, r in qat.items() if k != "control"},
+        modes=list(modes.values()))]
     # the rows' main numbers are one decode step's (11 of the 12 steps);
     # the prefill step's stand beside them
     for name, rows, err, replaces, library in (
@@ -755,7 +1006,7 @@ def main() -> int:
                 variant={p: r["variant"] for p, r in rows.items()},
                 bound_f32_ms=rows["decode"]["bound_f32_ms"],
                 per_projection_ms=rows["decode"]["per_projection_ms"])
-    print(json.dumps({"kernels": kernels, "serving": serving}))
+    print(json.dumps({"kernels": kernels, "serving": serving, "qat": qat}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

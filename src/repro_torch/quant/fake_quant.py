@@ -12,7 +12,9 @@ The three weight schemes of the paper's PE types:
 The scales (``affine_scale``, ``pow2_emax``) are plain torch reductions.
 The elementwise quantize-dequantize body runs through the fused
 ``fake_quant`` kernel: on a CUDA tensor it launches the CUDA kernel, on
-a CPU tensor it is the kernel's plain torch version.  The STE keeps the
+a CPU tensor it is the kernel's plain torch version.  A list of tensors
+shares its launches (``fake_quant_weights``: one a group, two for
+pow2x2).  The STE keeps the
 reference's expression ``x + (q - x).detach()``, which is not bitwise
 ``q`` in float32.
 """
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fake_quant import fake_quant
+from repro_torch.kernels.fake_quant import fake_quant_group
 from repro_torch.kernels.fake_quant.ref import POW2_LEVELS
 from repro_torch.quant.qconfig import QuantConfig
 
@@ -40,22 +42,26 @@ def _absmax(x: torch.Tensor, axis) -> torch.Tensor:
     return torch.amax(torch.abs(x), dim=axis, keepdim=True)
 
 
-def _fused(x: torch.Tensor, scale: torch.Tensor, mode: str,
-           bits: int = 8) -> torch.Tensor:
-    """The kernel's elementwise body on a tensor of any rank: x viewed as
-    (prod(leading dims), N) with the last axis as the channel axis, and a
-    per-channel (broadcastable to (..., N)) or per-tensor scale."""
-    n = x.shape[-1] if x.ndim else 1
-    if scale.numel() == 1:
-        s = scale.reshape(1).expand(n)
-    elif scale.numel() == n and scale.shape[-1] == n:
-        s = scale.reshape(n)
-    else:
-        raise ValueError(f"scale of shape {tuple(scale.shape)} is neither "
-                         f"per-tensor nor per-channel for {tuple(x.shape)}")
-    out = fake_quant(x.reshape(-1, n).contiguous(), s.contiguous(),
-                     mode=mode, bits=bits)
-    return out.reshape(x.shape)
+def _fused_group(xs, scales, mode: str, bits: int = 8) -> list:
+    """The kernel's elementwise body on tensors of any rank, in one launch:
+    each x viewed as (prod(leading dims), N) with the last axis as the
+    channel axis, with a per-channel (broadcastable to (..., N)) or
+    per-tensor scale (passed as one value, not expanded)."""
+    mats, flat = [], []
+    for x, scale in zip(xs, scales):
+        n = x.shape[-1] if x.ndim else 1
+        if scale.numel() == 1:
+            s = scale.reshape(1)
+        elif scale.numel() == n and scale.shape[-1] == n:
+            s = scale.reshape(n)
+        else:
+            raise ValueError(f"scale of shape {tuple(scale.shape)} is neither "
+                             f"per-tensor nor per-channel for "
+                             f"{tuple(x.shape)}")
+        mats.append(x.reshape(-1, n).contiguous())
+        flat.append(s.contiguous())
+    outs = fake_quant_group(mats, flat, mode=mode, bits=bits)
+    return [out.reshape(x.shape) for out, x in zip(outs, xs)]
 
 
 # ---------------------------------------------------------------------------
@@ -78,9 +84,7 @@ def affine_quantize(x: torch.Tensor, scale: torch.Tensor, bits: int):
 
 
 def affine_fake_quant(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
-    scale = affine_scale(x.detach(), bits, axis)
-    qx = _fused(x.detach(), scale, "affine", bits)
-    return _ste(x, qx)
+    return _fake_quant_group([x], "affine", bits, [axis])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -101,48 +105,77 @@ def pow2_round(x: torch.Tensor, e_max: torch.Tensor) -> torch.Tensor:
     kernel derives itself, so the port takes only ``e_max``.  Values
     below the window floor to +-2^e_min; exact zeros stay zero.
     """
-    return _fused(x, e_max, "pow2")
+    return _fused_group([x], [e_max], "pow2")[0]
 
 
 def pow2_fake_quant(x: torch.Tensor, axis=None) -> torch.Tensor:
-    e_max = pow2_emax(x.detach(), axis)
-    return _ste(x, pow2_round(x.detach(), e_max))
+    return _fake_quant_group([x], "pow2", 0, [axis])[0]
 
 
 # ---------------------------------------------------------------------------
 # Sum of two powers of two (LightPE-2)
 # ---------------------------------------------------------------------------
 
+def _pow2x2_round_group(xs, e_maxs) -> list:
+    """``pow2x2_round`` of each x, the pow2 passes grouped: two launches."""
+    q1s = _fused_group(xs, e_maxs, "pow2")
+    rs = [x - q1 for x, q1 in zip(xs, q1s)]
+    # the residual is < half the value
+    q2s = _fused_group(rs, [e - 1.0 for e in e_maxs], "pow2")
+    out = []
+    for x, q1, q2 in zip(xs, q1s, q2s):
+        # keep the two-term form only when it helps (residual may be tiny)
+        better = torch.abs(x - (q1 + q2)) <= torch.abs(x - q1)
+        out.append(torch.where(better, q1 + q2, q1))
+    return out
+
+
 def pow2x2_round(x: torch.Tensor, e_max: torch.Tensor):
-    q1 = pow2_round(x, e_max)
-    r = x - q1
-    q2 = pow2_round(r, e_max - 1.0)  # residual is < half the value
-    # keep the two-term form only when it helps (residual may be tiny)
-    better = torch.abs(x - (q1 + q2)) <= torch.abs(x - q1)
-    return torch.where(better, q1 + q2, q1)
+    return _pow2x2_round_group([x], [e_max])[0]
 
 
 def pow2x2_fake_quant(x: torch.Tensor, axis=None) -> torch.Tensor:
-    e_max = pow2_emax(x.detach(), axis)
-    return _ste(x, pow2x2_round(x.detach(), e_max))
+    return _fake_quant_group([x], "pow2x2", 0, [axis])[0]
 
 
 # ---------------------------------------------------------------------------
 # Dispatch by QuantConfig
 # ---------------------------------------------------------------------------
 
+def _fake_quant_group(xs, scheme: str, bits: int, axes) -> list:
+    """The STE fake quantization of each x under ``scheme``, x's scale
+    reduced over its own axes; the kernel's passes are shared by the list:
+    one launch, two for pow2x2 (whose second pass needs the residuals)."""
+    ds = [x.detach() for x in xs]
+    if scheme == "affine":
+        qs = _fused_group(ds, [affine_scale(d, bits, a)
+                               for d, a in zip(ds, axes)], "affine", bits)
+    elif scheme == "pow2":
+        qs = _fused_group(ds, [pow2_emax(d, a) for d, a in zip(ds, axes)],
+                          "pow2")
+    elif scheme == "pow2x2":
+        qs = _pow2x2_round_group(ds, [pow2_emax(d, a)
+                                      for d, a in zip(ds, axes)])
+    else:
+        raise ValueError(f"unknown weight scheme {scheme}")
+    return [_ste(x, q) for x, q in zip(xs, qs)]
+
+
+def fake_quant_weights(ws, qcfg: QuantConfig) -> list:
+    """``[fake_quant_weight(w, qcfg) for w in ws]``, bit for bit, in one
+    launch of the kernel (two for pow2x2)."""
+    ws = list(ws)
+    if qcfg.weight_scheme == "none":
+        return ws
+    # per-channel = last axis (output features)
+    axes = [tuple(range(w.ndim - 1)) if qcfg.per_channel else None
+            for w in ws]
+    return _fake_quant_group(ws, qcfg.weight_scheme, qcfg.weight_bits, axes)
+
+
 def fake_quant_weight(w: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
     """Quantize a weight tensor; per-channel = last axis (output features)."""
-    if qcfg.weight_scheme == "none":
-        return w
-    axis = tuple(range(w.ndim - 1)) if qcfg.per_channel else None
-    if qcfg.weight_scheme == "affine":
-        return affine_fake_quant(w, qcfg.weight_bits, axis)
-    if qcfg.weight_scheme == "pow2":
-        return pow2_fake_quant(w, axis)
-    if qcfg.weight_scheme == "pow2x2":
-        return pow2x2_fake_quant(w, axis)
-    raise ValueError(f"unknown weight scheme {qcfg.weight_scheme}")
+    return fake_quant_weights([w], qcfg)[0]
 
 
 def fake_quant_act(x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:

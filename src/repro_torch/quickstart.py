@@ -6,7 +6,7 @@
    and under the surrogate,
 4. take the Pareto front and the paper's INT16-normalized report,
 5. pick the best LightPE-1 design,
-6. apply the numerics that design implies: ``fake_quant_weight`` on the
+6. apply the numerics that design implies: ``fake_quant_weights`` on the
    workload's real weight shapes, drawn from a seed.
 
 ``run`` drives the loop on one device; ``summary`` reduces a run to the
@@ -25,7 +25,7 @@ import torch
 from repro_torch.core import arch, dse, ppa, workloads
 from repro_torch.core.synth import synthesize
 from repro_torch.device import resolve_device
-from repro_torch.quant import fake_quant_weight, preset
+from repro_torch.quant import fake_quant_weights, preset
 
 # examples/quickstart.py's settings: seed 0, surrogates fit on a
 # 2000-point sample with degrees (1, 2) chosen by 4-fold CV.
@@ -125,8 +125,7 @@ def run(max_points: int | None = 2000, presets=("lightpe1",),
     # 6. the numerics that hardware implies, on the real weight shapes
     weights = draw_weights(workloads.weight_shapes(wl), SEED, device)
     quantized = step("fake_quant", lambda: {
-        p: [fake_quant_weight(w, preset(p)) for w in weights]
-        for p in presets})
+        p: fake_quant_weights(weights, preset(p)) for p in presets})
     return QuickstartResult(
         space=space, models=models, r2=r2, oracle=oracle, surrogate=surrogate,
         front=front, front_surrogate=front_s, report=report,

@@ -90,15 +90,34 @@ def _logit_err(got: dict, want: dict, i: int, t: int) -> float:
                                                want["logits"][i][t])))))
 
 
-def compare(got: dict, want: dict, tol: float):
-    """(problems, notes) of ``got`` against the reference ``want``."""
+def compare(got: dict, want: dict, tol: float, coupled: bool = False):
+    """(problems, notes) of ``got`` against the reference ``want``.
+
+    ``coupled``: the requests share numbers across the batch (QAT
+    numerics: one activation scale for the whole batch), so a token that
+    differs in one request moves the logits of all from the next step on;
+    then no request is compared past the first step at which any token
+    differed.  The requests must have run in lockstep (all admitted at
+    the first step, with the same ``max_new``), so that step t of every
+    request is the same engine step."""
     problems, notes = [], []
+    last = None
+    if coupled:
+        firsts = [next((t for t, (a, b) in enumerate(zip(gt, wt)) if a != b),
+                       None)
+                  for gt, wt in zip(got["tokens"], want["tokens"])]
+        if any(f is not None for f in firsts):
+            last = min(f for f in firsts if f is not None)
     for i, (gt, wt) in enumerate(zip(got["tokens"], want["tokens"])):
         if len(gt) != len(wt):
             problems.append(f"request {i}: {len(gt)} tokens, reference "
                             f"{len(wt)}")
             continue
         for t, (a, b) in enumerate(zip(gt, wt)):
+            if last is not None and t > last:
+                notes.append(f"request {i}: not compared after step {last}, "
+                             f"where a token of the batch differed")
+                break
             err = _logit_err(got, want, i, t)
             if err > tol:
                 problems.append(f"request {i} step {t}: logits differ by "
@@ -117,13 +136,27 @@ def compare(got: dict, want: dict, tol: float):
     return problems, notes
 
 
-def max_logit_err(got: dict, want: dict) -> float:
-    """Largest logit difference over the steps where both runs had fed
-    the same tokens so far."""
-    err = 0.0
+def compared_steps(got: dict, want: dict, coupled: bool = False) -> list:
+    """Steps of each request that ``max_logit_err`` reads: up to and
+    including the first at which the request's tokens differ
+    (``coupled``: at which any request's did), all of them where none
+    did."""
+    firsts = [next((t for t, (a, b) in enumerate(zip(gt, wt)) if a != b),
+                   None)
+              for gt, wt in zip(got["tokens"], want["tokens"])]
+    stop = [f for f in firsts if f is not None]
+    steps = []
     for i, (gt, wt) in enumerate(zip(got["tokens"], want["tokens"])):
-        for t in range(min(len(gt), len(wt))):
-            err = max(err, _logit_err(got, want, i, t))
-            if gt[t] != wt[t]:
-                break
-    return err
+        last = min(stop) if coupled and stop else firsts[i]
+        n = min(len(gt), len(wt))
+        steps.append(n if last is None else min(n, last + 1))
+    return steps
+
+
+def max_logit_err(got: dict, want: dict, coupled: bool = False) -> float:
+    """Largest logit difference over the steps where both runs had fed
+    the same tokens so far (``coupled``: in every request of the batch,
+    as ``compare`` takes it)."""
+    return max((_logit_err(got, want, i, t)
+                for i, n in enumerate(compared_steps(got, want, coupled))
+                for t in range(n)), default=0.0)

@@ -6,7 +6,10 @@ JAX package's ``quantize_params`` as ``lightpe1`` and as ``int8``, serves
 the smoke's prompts through the JAX package's ``ServeEngine`` (4 prompts
 in 4 slots, then 6 in 4 for slot reuse), in the config's bfloat16 and
 again in float32, and records every step with
-``repro_torch.serve.check.record``.  ``tests/data/torch_serve_ref.json``
+``repro_torch.serve.check.record``.  Under ``qat_modes`` it serves the
+4 prompts again on the dense weights under the QAT numerics of a PE type
+(``cfg.pe_type``: fake-quantized weights and activations), for every
+quantizing PE type in bfloat16 and for LightPE-1 in float32.  ``tests/data/torch_serve_ref.json``
 holds its full-size result, which ``chip_smoke.py`` holds the port to on
 a machine without JAX; ``tests/test_torch_serve.py`` rebuilds it at the
 reduced size to keep the format honest.
@@ -33,11 +36,15 @@ PE_TYPES = ("lightpe1", "int8")
 # in the order of a sum into logits ~0.04 apart, the float32 one keeps
 # them ~5e-6 apart
 DTYPES = ("bfloat16", "float32")
+# (pe_type, dtype) of the runs on dense weights under QAT numerics
+QAT_MODES = (("int16", "bfloat16"), ("lightpe1", "bfloat16"),
+             ("lightpe2", "bfloat16"), ("int8", "bfloat16"),
+             ("lightpe1", "float32"))
 NO_EXCESS_PRECISION = "--xla_allow_excess_precision=false"
 
 
 def build_reference(size: str = "full", pe_types=PE_TYPES,
-                    dtypes=DTYPES) -> dict:
+                    dtypes=DTYPES, qat_modes=QAT_MODES) -> dict:
     import jax
     import jax.numpy as jnp
     from repro.configs import get, reduced
@@ -80,6 +87,14 @@ def build_reference(size: str = "full", pe_types=PE_TYPES,
                 runs["run6"] = check.record(engine(), reuse,
                                             check.REUSE_MAX_NEW, np.asarray)
             out["modes"][check.mode_key(pe, dtype)] = runs
+    out["qat_modes"] = {}
+    for pe, dtype in qat_modes:
+        run_cfg = cfg.replace(pe_type=pe, dtype=dtype)
+        out["qat_modes"][check.mode_key(pe, dtype)] = dict(
+            pe_type=pe, dtype=dtype,
+            run4=check.record(ServeEngine(run_cfg, mod, params,
+                                          check.BATCH_SLOTS, check.MAX_LEN),
+                              prompts, check.MAX_NEW, np.asarray))
     return out
 
 

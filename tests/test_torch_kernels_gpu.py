@@ -38,8 +38,8 @@ def _weight(shape, device, seed=0):
 @pytest.mark.parametrize("k,n", SHAPES)
 @pytest.mark.parametrize("mode,bits", MODES)
 def test_kernel_matches_plain(card, k, n, mode, bits):
-    """Bit-identical in pow2 (both use CUDA's log2f/exp2f), within 1e-6
-    in affine; one launch per call."""
+    """Bit-identical (both use IEEE division and CUDA's log2f/exp2f), so
+    within 1e-6 too; one launch per call."""
     w = _weight((k, n), card)
     s = (tfq.affine_scale(w, bits, axis=0)[0] if mode == "affine"
          else tfq.pow2_emax(w, axis=0)[0])
@@ -49,9 +49,132 @@ def test_kernel_matches_plain(card, k, n, mode, bits):
     want = (ref_fake_quant_affine(w, s, bits) if mode == "affine"
             else ref_fake_quant_pow2(w, s))
     torch.cuda.synchronize()
-    if mode == "pow2":
-        assert torch.equal(got, want)
+    assert torch.equal(got, want)
     torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+
+def _scale(w, mode, bits, per_tensor=False):
+    axis = None if per_tensor else 0
+    s = (tfq.affine_scale(w, bits, axis) if mode == "affine"
+         else tfq.pow2_emax(w, axis))
+    return s.reshape(1) if per_tensor else s[0]
+
+
+def _plain(w, s, mode, bits):
+    return (ref_fake_quant_affine(w, s, bits) if mode == "affine"
+            else ref_fake_quant_pow2(w, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", SHAPES)
+@pytest.mark.parametrize("mode,bits", MODES)
+@pytest.mark.parametrize("per_tensor", [False, True])
+def test_kernel_matches_plain_bf16(card, k, n, mode, bits, per_tensor):
+    """bfloat16 weights or activations (N(0, 3^2), the scale of the
+    model's residual stream), per-channel and per-tensor scales: 0
+    differing elements from the plain version, which rounds to bfloat16
+    after every torch op."""
+    w = (_weight((k, n), card, seed=k + n) * 30).to(torch.bfloat16)
+    s = _scale(w, mode, bits, per_tensor)
+    assert s.dtype == torch.bfloat16
+    before = fake_quant.launches
+    got = fake_quant(w, s, mode=mode, bits=bits)
+    assert fake_quant.launches == before + 1
+    want = _plain(w, s, mode, bits)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert int((got != want).sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,bits", MODES)
+def test_group_matches_plain(card, dtype, mode, bits):
+    """One launch over ragged shapes, views off 16 bytes (a scalar head;
+    the output at the same offset), a tensor shorter than its head, and a
+    per-tensor scale: each output equals the plain version's."""
+    from repro_torch.kernels.fake_quant import fake_quant_group
+    flat = _weight((1 << 16,), card, seed=9).to(dtype)
+    ws = [_weight(s, card, seed=i).to(dtype) for i, s in
+          enumerate([(27, 64), (300, 190), (1, 129), (4608, 512)])]
+    ws += [flat[1:1 + 190 * 33].view(190, 33),       # off 16 bytes
+           flat[1:3].view(1, 2)]                      # all of it head
+    assert ws[-2].data_ptr() % 16 and ws[-1].data_ptr() % 16
+    scales = [_scale(w, mode, bits, per_tensor=(i == 1))
+              for i, w in enumerate(ws)]
+    before = fake_quant.launches
+    got = fake_quant_group(ws, scales, mode=mode, bits=bits)
+    assert fake_quant.launches == before + 1
+    torch.cuda.synchronize()
+    for g, w, s in zip(got, ws, scales):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert g.data_ptr() % 16 == w.data_ptr() % 16
+        assert int((g != _plain(w, s, mode, bits)).sum()) == 0
+
+
+# SmolLM-135M's QAT path: the projection weights and the tied head in
+# float32 with a scale a column, the activations of decode (4 rows) and
+# prefill (4 x 130 rows) with one scale, in both types.  1536 and 49152
+# columns pass a block's vector stride (1024 float32, 2048 bfloat16
+# elements), so the kernel's column counter wraps within a thread.
+SMOLLM_WEIGHTS = [(576, 576), (576, 192), (576, 1536), (1536, 576),
+                  (576, 49152)]
+SMOLLM_ACTS = [(4, 576), (4, 1536), (520, 576), (520, 1536)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,bits", MODES)
+def test_kernel_matches_plain_at_smollm_shapes(card, dtype, mode, bits):
+    """Each tensor alone and all of them in one group: 0 differing
+    elements."""
+    from repro_torch.kernels.fake_quant import fake_quant_group
+    ws = [_weight(s, card, seed=i) for i, s in enumerate(SMOLLM_WEIGHTS)
+          ] if dtype == torch.float32 else []
+    acts = [(_weight(s, card, seed=10 + i) * 30).to(dtype)
+            for i, s in enumerate(SMOLLM_ACTS)]
+    scales = ([_scale(w, mode, bits) for w in ws]
+              + [_scale(a, mode, bits, per_tensor=True) for a in acts])
+    ts = ws + acts
+    single = [fake_quant(t, s, mode=mode, bits=bits)
+              for t, s in zip(ts, scales)]
+    before = fake_quant.launches
+    grouped = fake_quant_group(ts, scales, mode=mode, bits=bits)
+    assert fake_quant.launches == before + 1
+    torch.cuda.synchronize()
+    for a, b, t, s in zip(single, grouped, ts, scales):
+        want = _plain(t, s, mode, bits)
+        assert int((a != want).sum()) == 0, tuple(t.shape)
+        assert int((b != want).sum()) == 0, tuple(t.shape)
+
+
+@pytest.mark.gpu
+def test_group_past_group_max_launches_twice(card):
+    from repro_torch.kernels.fake_quant import GROUP_MAX, fake_quant_group
+    ws = [_weight((5, 7 + i), card, seed=i) for i in range(GROUP_MAX + 6)]
+    scales = [_scale(w, "affine", 8) for w in ws]
+    before = fake_quant.launches
+    got = fake_quant_group(ws, scales, mode="affine", bits=8)
+    assert fake_quant.launches == before + 2
+    torch.cuda.synchronize()
+    for g, w, s in zip(got, ws, scales):
+        assert torch.equal(g, _plain(w, s, "affine", 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pe", ["int16", "lightpe1", "lightpe2", "int8"])
+def test_fake_quant_weights_on_card_groups_the_launches(card, pe):
+    """The list form equals the per-weight form bit for bit, in one launch
+    (two for LightPE-2)."""
+    ws = [_weight(s, card, seed=i) for i, s in
+          enumerate([(3, 3, 16, 24), (576, 128), (512, 10)])]
+    want = [tfq.fake_quant_weight(w, preset(pe)) for w in ws]
+    before = fake_quant.launches
+    got = tfq.fake_quant_weights(ws, preset(pe))
+    assert fake_quant.launches - before == (2 if pe == "lightpe2" else 1)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu
@@ -75,6 +198,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="shape"):
         fake_quant(w, torch.ones(5, device=card))
     assert fake_quant(w[:0], torch.ones(4, device=card)).shape == (0, 4)
+    # bfloat16 is taken, with a scale of its type
+    wb = w.to(torch.bfloat16)
+    out = fake_quant(wb, torch.ones(4, device=card, dtype=torch.bfloat16))
+    assert out.dtype == torch.bfloat16 and torch.equal(out, wb)
+    with pytest.raises(ValueError, match="scale"):
+        fake_quant(wb, torch.ones(4, device=card))
 
 
 # ---------------------------------------------------------------------------
@@ -384,3 +513,27 @@ def test_packed_model_on_card_matches_cpu(card, pe):
             assert flash_attention.launches - before[1] == 3 * per_step
     for a, b in zip(runs["cpu"], runs[str(card)]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pe", ["int16", "lightpe1", "lightpe2", "int8"])
+def test_qat_model_on_card_matches_cpu_bf16(card, pe):
+    """Reduced SmolLM under QAT numerics in the config's bfloat16 (the
+    activations reach fake_quant in bfloat16): the forward on the card
+    equals the CPU's within the serving tests' bfloat16 tolerance, and
+    launches the kernel twice a projection."""
+    from repro_torch import convert
+    from repro_torch.configs import reduced
+    from repro_torch.models import transformer as T
+    cfg = reduced("smollm-135m").replace(pe_type=pe)
+    assert cfg.dtype == "bfloat16"
+    arrays = T.numpy_params(cfg, seed=0)
+    toks = torch.arange(18).reshape(2, 9) * 17 % cfg.vocab
+    want = T.forward(convert.params_from_numpy(arrays, "cpu"), toks, cfg)
+    before = fake_quant.launches
+    got = T.forward(convert.params_from_numpy(arrays, card), toks.to(card),
+                    cfg)
+    projections = cfg.n_layers * 7 + 1
+    assert fake_quant.launches - before == projections * (
+        3 if pe == "lightpe2" else 2)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-2)

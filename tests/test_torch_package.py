@@ -48,6 +48,8 @@ def test_every_module_imports_without_jax_or_repro():
      ROOT / "examples" / "torch_serve_quantized.py",
      ROOT / "benchmarks" / "torch_profile.py",
      ROOT / "benchmarks" / "torch_fa_sweep.py",
+     ROOT / "benchmarks" / "torch_fq_sweep.py",
+     ROOT / "benchmarks" / "torch_qat_sensitivity.py",
      ROOT / "benchmarks" / "torch_qmm_sweep.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     text = (ROOT / path).read_text()

@@ -29,7 +29,7 @@ from repro_torch.serve import (ServeEngine, check, dequantize_params,
                                is_packed, packed_bytes, quantize_params)
 
 from _torch_helpers import log2_ties
-from _torch_serve_ref import REF_PATH, build_reference
+from _torch_serve_ref import QAT_MODES, REF_PATH, build_reference
 
 MIN_SIZE = 1 << 8   # packs every weight of the reduced model
 # Logit tolerances against the JAX package on the CPU.  float32: the two
@@ -226,12 +226,16 @@ def test_reference_format_is_stable():
     assert ref["size"] == "full" and ref["config"] == "smollm-135m"
     assert "--xla_allow_excess_precision=false" in ref["xla_flags"]
     small = build_reference("reduced", pe_types=("int8",),
-                            dtypes=("float32",))
+                            dtypes=("float32",),
+                            qat_modes=(("lightpe1", "float32"),))
     assert small.keys() == ref.keys()
     key = check.mode_key("int8", "float32")
-    assert small["modes"][key].keys() == ref["modes"][key].keys()
-    for name in ("run4",):
-        a, b = small["modes"][key][name], ref["modes"][key][name]
+    qat = check.mode_key("lightpe1", "float32")
+    assert sorted(ref["qat_modes"]) == sorted(
+        check.mode_key(pe, dt) for pe, dt in QAT_MODES)
+    for modes, k in (("modes", key), ("qat_modes", qat)):
+        assert small[modes][k].keys() == ref[modes][k].keys()
+        a, b = small[modes][k]["run4"], ref[modes][k]["run4"]
         assert a.keys() == b.keys()
         for field in a:
             assert [len(x) for x in a[field]] == [len(x) for x in b[field]]
@@ -254,3 +258,39 @@ def test_reference_format_is_stable():
                        check.MAX_NEW, lambda t: t.numpy())
     problems, _ = check.compare(got, small["modes"][key]["run4"], 1e-4)
     assert not problems, problems
+    # the QAT run on the dense weights, compared as the smoke compares it
+    dense = convert.params_from_numpy(T.numpy_params(cfg, check.PARAM_SEED),
+                                      "cpu")
+    got = check.record(ServeEngine(cfg.replace(pe_type="lightpe1"), T, dense,
+                                   check.BATCH_SLOTS, check.MAX_LEN),
+                       [np.array(p) for p in small["prompts"]],
+                       check.MAX_NEW, lambda t: t.numpy())
+    problems, _ = check.compare(got, small["qat_modes"][qat]["run4"], 1e-4,
+                                coupled=True)
+    assert not problems, problems
+
+
+def test_coupled_compare_stops_every_request_at_the_first_difference():
+    """Two requests of 4 steps whose tokens differ in request 1 at step 1
+    at a near tie: uncoupled, request 0 is compared at every step;
+    coupled, neither is compared past step 1, so a logit difference of
+    request 0 at step 3 goes unread, and the steps read are counted."""
+    def rec(tokens, top):
+        return {"tokens": tokens, "margins": [[1.0] * 4, [1.0, 0.01, 1, 1]],
+                "top_logits": top, "logits": [[[0.0]] * 4, [[0.0]] * 4]}
+    want = rec([[1, 2, 3, 4], [5, 6, 7, 8]], [[0.0] * 4, [0.0] * 4])
+    got = rec([[1, 2, 3, 4], [5, 9, 7, 8]], [[0, 0, 0, 0.5], [0.0] * 4])
+    assert check.compared_steps(got, want) == [4, 2]
+    assert check.compared_steps(got, want, coupled=True) == [2, 2]
+    assert check.max_logit_err(got, want) == 0.5
+    assert check.max_logit_err(got, want, coupled=True) == 0.0
+    problems, _ = check.compare(got, want, 0.1)
+    assert problems == ["request 0 step 3: logits differ by 0.5 > 0.1"]
+    problems, notes = check.compare(got, want, 0.1, coupled=True)
+    assert not problems
+    assert notes == [
+        "request 0: not compared after step 1, where a token of the batch "
+        "differed",
+        "request 1 step 1: token 9 vs 6 at a near tie (margin 0.01); not "
+        "compared further"]
+    assert check.compared_steps(want, want, coupled=True) == [4, 4]
