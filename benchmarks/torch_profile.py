@@ -1,6 +1,7 @@
 """Where the time goes in the port's quickstart loop on the card.
 
   python3 benchmarks/torch_profile.py [--out results/torch/profile.json]
+      [--only quickstart|serving|coexplore]
 
 Runs each step of ``repro_torch.quickstart`` at full size (27,000-point
 paper grid, VGG-16/CIFAR-10, every preset's fake quantization), the
@@ -11,7 +12,12 @@ session, and reports per step: host wall time, device busy time (sum of
 the CUDA kernel and copy durations), the device idle share, the number
 of device events, and the top kernels by device time; the serving steps
 also count the port's own kernel launches.  Writes the full table, top
-kernels included, to ``--out``.
+kernels included, to ``--out``.  The ``coexplore`` steps profile the
+joint walk of the 13-model ``default_model_set`` on the paper grid
+(oracle): one full bucket-16 and one full bucket-64 mixed chunk
+(``dse.evaluate_chunk`` with model ids, 4,096 lanes) and the whole
+351,000-point ``coexplore_front``, then the walk's wall time split into
+decode, evaluation and fold.  ``--only`` runs one group.
 """
 
 import argparse
@@ -96,32 +102,107 @@ def profile_serving(torch, dev):
     return rows
 
 
+def profile_coexplore(torch, dev, step):
+    """One bucket-16 and one bucket-64 chunk of the mixed joint walk, then
+    the whole walk, each warm."""
+    from repro_torch.core import coexplore, dse
+    models = coexplore.default_model_set(device=dev)
+    coexplore.coexplore_front(models)  # warm-up
+    walk = coexplore.plan_joint_walk(models)
+    chunks = {}
+    for depth, wl, model_ids, _, cfg, idx in walk.chunks():
+        if len(idx) == walk.chunk_size:
+            chunks.setdefault(depth, (wl, model_ids, cfg))
+    for depth in (16, 64):
+        wl, model_ids, cfg = chunks[depth]
+        step(f"coex_chunk_L{depth}", lambda: dse.evaluate_chunk(
+            cfg, wl, pad_to=walk.chunk_size, model_ids=model_ids))
+    step("coexplore_351k", lambda: coexplore.coexplore_front(models))
+    return host_phases(torch, models, walk)
+
+
+def host_phases(torch, models, walk):
+    """Wall time of the mixed walk's phases, the walk's own loop timed
+    piece by piece: the mixed-radix decode and upload, the evaluation
+    (dispatch, wait, host float64 columns) and the fold (objectives,
+    archive, per-(model, PE) bests)."""
+    import numpy as np
+    from repro_torch.core import coexplore as C, dse
+    acc = C.accuracy_matrix(models)
+    archive, best = dse.ParetoArchive(3), {}
+    t = dict(decode=0.0, evaluate=0.0, fold=0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks = walk.chunks()
+    while True:
+        a = time.perf_counter()
+        try:
+            _, wl, model_ids, mids, cfg, idx = next(chunks)
+        except StopIteration:
+            break
+        codes = cfg.pe_type.cpu().numpy().astype(np.int64)
+        b = time.perf_counter()
+        res = dse.evaluate_chunk(cfg, wl, pad_to=walk.chunk_size,
+                                 model_ids=model_ids)
+        c = time.perf_counter()
+        obj = C._joint_objectives(res, acc[mids, codes])
+        archive.update(obj, idx)
+        C._update_per_model_best(best, models, acc, mids, codes, obj)
+        d = time.perf_counter()
+        t["decode"] += b - a
+        t["evaluate"] += c - b
+        t["fold"] += d - c
+    t["total"] = time.perf_counter() - t0
+    print("coexplore host phases (s): " + json.dumps(t))
+    return t
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=Path,
                     default=ROOT / "results" / "torch" / "profile.json")
+    ap.add_argument("--only", choices=("quickstart", "serving", "coexplore"),
+                    default=None, help="profile one group of steps")
     args = ap.parse_args()
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile needs a CUDA card")
-    from repro_torch import quickstart
-    from repro_torch.core import arch, dse, ppa, workloads
-    from repro_torch.quant import PE_TYPES, fake_quant_weights, preset
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
     dev = torch.device("cuda")
-    quickstart.run(max_points=None, presets=PE_TYPES, device=dev)  # warm-up
-
     rows = []
 
     def step(name, fn):
         out, row = profile_step(torch, name, fn)
         rows.append(row)
         return out
+
+    if args.only in (None, "quickstart"):
+        profile_quickstart(torch, dev, step)
+    if args.only in (None, "serving"):
+        rows.extend(profile_serving(torch, dev))
+    phases = None
+    if args.only in (None, "coexplore"):
+        phases = profile_coexplore(torch, dev, step)
+
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(dict(card=card, rows=rows,
+                                        coexplore_phases_s=phases), indent=1))
+    print(json.dumps(dict(card=card, rows=[
+        {k: v for k, v in r.items() if k != "top_kernels_us"}
+        for r in rows])))
+
+
+def profile_quickstart(torch, dev, step):
+    """The quickstart's steps at full size and the WIDE_SPACE sweep."""
+    import numpy as np
+    from repro_torch import quickstart
+    from repro_torch.core import arch, dse, ppa, workloads
+    from repro_torch.quant import PE_TYPES, fake_quant_weights, preset
+    quickstart.run(max_points=None, presets=PE_TYPES, device=dev)  # warm-up
 
     space = step("enumerate", lambda: arch.enumerate_space(device=dev))
     sample = arch.enumerate_space(max_points=2000, device=dev)
@@ -138,13 +219,6 @@ def main():
     wide = arch.enumerate_space(arch.WIDE_SPACE, max_points=2 ** 20,
                                 device=dev)
     step("wide_2^20", lambda: dse.evaluate_space(wide, wl, chunk_size=65536))
-    rows.extend(profile_serving(torch, dev))
-
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps(dict(card=card, rows=rows), indent=1))
-    print(json.dumps(dict(card=card, rows=[
-        {k: v for k, v in r.items() if k != "top_kernels_us"}
-        for r in rows])))
 
 
 if __name__ == "__main__":

@@ -56,7 +56,20 @@
    compared and the tolerated near ties recorded; as a control, the
    bfloat16 LightPE-1 run held to the float32 LightPE-1 reference must
    fail that comparison;
-8. prints a ``{"kernels": [...]}`` line and, last, the device line.
+8. the slice of joint co-exploration (no kernel of its own: the
+   evaluator is eager torch): ``coexplore_front`` over the 13-model
+   ``default_model_set`` x the 27,000-point paper grid (351,000 joint
+   points, oracle) with mixed-model lanes, held to
+   ``tests/data/torch_coexplore_ref.json`` (the JAX package's front as
+   an index set up to near ties, objectives at 1e-5, front counts, layer
+   buckets, per-(model, PE) bests and the LightPE claim for every
+   model); the same walk per model, bitwise equal; under
+   ``Budget(area_mm2=0.9)`` two-stage and single-stage, bitwise equal to
+   each other and held to the reference's counts and front; 4,500
+   points under ``Budget(area_mm2=2.0, power_mw=250.0)`` held to the
+   reference; and 4,500 points under phase 4's fitted surrogate, mixed
+   and per model, bitwise equal; each walk's wall time and points/s;
+9. prints a ``{"kernels": [...]}`` line and, last, the device line.
 
 TF32 is off for matrix products and convolutions (``repro_torch`` sets
 both flags at import): the reference tolerances need IEEE float32.
@@ -74,6 +87,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 REF = ROOT / "tests" / "data" / "torch_quickstart_ref.json"
 SERVE_REF = ROOT / "tests" / "data" / "torch_serve_ref.json"
+COEX_REF = ROOT / "tests" / "data" / "torch_coexplore_ref.json"
 
 # (R*S*C, K) of VGG-16/CIFAR-10's 15 layers, and two ragged shapes.
 VGG16_SHAPES = [(27, 64), (576, 64), (576, 128), (1152, 128), (1152, 256),
@@ -432,7 +446,7 @@ def run_slice(torch, dev):
     print(f"WIDE_SPACE sweep: {WIDE_POINTS} points in {dt:.3f} s = "
           f"{WIDE_POINTS / dt:.0f} points/s, peak device memory "
           f"{peak_mb:.1f} MiB, front {n_front} points")
-    return launches
+    return launches, warm.models
 
 
 def device_ms(torch, chunks, reps: int = 5, sleep: int = SLEEP_CYCLES // 10):
@@ -926,13 +940,88 @@ def run_qat_serving(torch, dev):
     return runs
 
 
+def run_coexplore(torch, dev, surrogate):
+    """Phase 8: the joint co-exploration walks at full size, held to the
+    JAX package's results and to the port's bitwise contracts."""
+    import numpy as np
+    from repro_torch import coexplore_check as check
+    from repro_torch.core import coexplore
+    from repro_torch.core.constraints import Budget
+
+    ref = json.loads(COEX_REF.read_text())
+    models = coexplore.default_model_set(device=dev)
+    if [m.name for m in models] != ref["models"]:
+        fail(f"default_model_set {[m.name for m in models]} != reference")
+    if not np.array_equal(coexplore.accuracy_matrix(models),
+                          np.asarray(ref["accuracy_matrix"])):
+        fail("the accuracy matrix differs from the JAX reference")
+    walks = {}
+    card = card_line()
+
+    def walk(tag, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        front = coexplore.coexplore_front(models, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = front.points_evaluated
+        walks[tag] = dict(points=n, wall_s=dt, points_per_s=n / dt,
+                          front=len(front.archive))
+        print(f"coexplore {tag}: {n} joint points in {dt:.3f} s = "
+              f"{n / dt:.0f} points/s, front {len(front.archive)} ({card})")
+        return front
+
+    def held(tag, front, run):
+        problems, notes = check.compare(
+            check.summary(front, coexplore.coexplore_report(front)),
+            ref["runs"][run])
+        for n in notes:
+            print(f"tolerated: {tag}: {n}")
+        if problems:
+            fail(f"coexplore {tag} differs from the JAX reference: "
+                 + "; ".join(problems))
+        print(f"coexplore {tag} matches the JAX reference ({run})")
+
+    def same(tag, a, b):
+        diff = check.identical(a, b)
+        if diff:
+            fail(f"coexplore {tag} differ: " + "; ".join(diff))
+        print(f"coexplore {tag}: bitwise equal")
+
+    mixed = walk("mixed")
+    held("mixed", mixed, "unconstrained")
+    claim = coexplore.lightpe_claim(mixed)
+    oks = [v["ok"] for v in claim["per_model"].values()]
+    print(f"LightPE claim holds for {sum(o is True for o in oks)} of "
+          f"{len(oks)} models; front by PE type "
+          f"{coexplore.coexplore_report(mixed)['front_counts']['by_pe_type']}")
+    same("mixed / per-model", mixed, walk("per-model", mix_models=False))
+    area = Budget(area_mm2=0.9)
+    pruned = walk("area<=0.9 two-stage", budget=area)
+    held("area<=0.9 two-stage", pruned, "area_0.9")
+    print(f"area<=0.9: {pruned.budget_stats}")
+    same("area<=0.9 two-stage / single-stage", pruned,
+         walk("area<=0.9 single-stage", budget=area, prune=False))
+    spec = check.RUNS["budget_4500"]
+    sub = walk("4500 area<=2 power<=250", max_points=spec["max_points"],
+               budget=Budget(**spec["budget"]))
+    held("4500 area<=2 power<=250", sub, "budget_4500")
+    print(f"4500 area<=2 power<=250: {sub.budget_stats}")
+    same("surrogate mixed / per-model",
+         walk("surrogate 4500 mixed", surrogate=surrogate,
+              max_points=check.SUBSAMPLE),
+         walk("surrogate 4500 per-model", surrogate=surrogate,
+              max_points=check.SUBSAMPLE, mix_models=False))
+    return walks
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a CUDA card")
     if not (ROOT / "src" / "repro_torch").is_dir() or not REF.exists() \
-            or not SERVE_REF.exists():
+            or not SERVE_REF.exists() or not COEX_REF.exists():
         fail("src/repro_torch or the JAX reference results are missing "
              "beside chip_smoke.py")
     sys.path.insert(0, str(ROOT / "src"))
@@ -951,10 +1040,13 @@ def main() -> int:
 
     modes = check_kernels(torch, dev)
     model_shapes = check_model_shapes(torch, dev)
-    launches = run_slice(torch, dev)
+    launches, surrogate = run_slice(torch, dev)
     qmm_err, fa_err = check_serving_kernels(torch, dev)
     serve_launches, qmm, fa, serving = run_serving(torch, dev)
     qat = run_qat_serving(torch, dev)
+    t8 = time.perf_counter()
+    coex = run_coexplore(torch, dev, surrogate)
+    print(f"phase 8 (co-exploration): {time.perf_counter() - t8:.2f} s")
 
     # the row's main numbers: one grouped launch over the 15 VGG-16
     # weights, affine-8, float32; the bfloat16 and per-weight times beside
@@ -1006,7 +1098,8 @@ def main() -> int:
                 variant={p: r["variant"] for p, r in rows.items()},
                 bound_f32_ms=rows["decode"]["bound_f32_ms"],
                 per_projection_ms=rows["decode"]["per_projection_ms"])
-    print(json.dumps({"kernels": kernels, "serving": serving, "qat": qat}))
+    print(json.dumps({"kernels": kernels, "serving": serving, "qat": qat,
+                      "coexplore": coex}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

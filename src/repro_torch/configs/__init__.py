@@ -1,6 +1,8 @@
-"""Architecture configs of the port (port of ``repro.configs``; only the
-configs the port serves)."""
+"""Architecture configs of the port (port of ``repro.configs``): one
+module per assigned architecture, copied with its ``reduced()``."""
 
-from repro_torch.configs.base import ArchConfig, ARCH_IDS, get, reduced
+from repro_torch.configs.base import (ArchConfig, ARCH_IDS, ASSIGNED, get,
+                                      reduced, list_archs)
 
-__all__ = ["ArchConfig", "ARCH_IDS", "get", "reduced"]
+__all__ = ["ArchConfig", "ARCH_IDS", "ASSIGNED", "get", "reduced",
+           "list_archs"]

@@ -2,10 +2,12 @@
 ``repro.configs.base``).
 
 The port keeps its own copy of the ``ArchConfig`` schema, field for
-field, so a config means the same thing in both packages.  The registry
-names only the configs the port has (``smollm_135m``); ``get(name)``
-loads one by CLI id or module name and ``reduced(name)`` its small
-same-family config for the CPU tests.
+field, and of every architecture config, so a config means the same
+thing in both packages.  ``get(name)`` loads one by CLI id or module
+name and ``reduced(name)`` its small same-family config for the CPU
+tests.  The workload IR (``core.workloads.llm_decode`` / ``llm_moe``)
+reads every config; the model stack serves the dense all-global ones
+(``models.transformer.check_supported``).
 """
 
 from __future__ import annotations
@@ -94,9 +96,24 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
-# canonical CLI ids (--arch <id>) -> module names, for the configs ported
+ASSIGNED = (
+    "qwen3_32b", "gemma3_1b", "gemma2_9b", "smollm_135m", "phi35_moe",
+    "deepseek_moe_16b", "rwkv6_1b6", "qwen2_vl_72b", "whisper_medium",
+    "zamba2_7b",
+)
+
+# canonical CLI ids (--arch <id>) -> module names
 ARCH_IDS = {
+    "qwen3-32b": "qwen3_32b",
+    "gemma3-1b": "gemma3_1b",
+    "gemma2-9b": "gemma2_9b",
     "smollm-135m": "smollm_135m",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "rwkv6-1.6b": "rwkv6_1b6",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "whisper-medium": "whisper_medium",
+    "zamba2-7b": "zamba2_7b",
 }
 
 
@@ -116,3 +133,7 @@ def get(name: str) -> ArchConfig:
 def reduced(name: str) -> ArchConfig:
     """Small same-family config for CPU tests."""
     return _module(name).reduced()
+
+
+def list_archs():
+    return list(ARCH_IDS)

@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.core.arch import AcceleratorConfig
 from repro_torch.core.ppa import PolyModel, PPAModels
-from repro_torch.core.workloads import LayerSpec, Workload, _IR_DEFAULTS
+from repro_torch.core.workloads import (LayerSpec, StackedWorkload, Workload,
+                                        _IR_DEFAULTS)
 from repro_torch.device import resolve_device
 
 
@@ -43,6 +44,19 @@ def workload_from_numpy(name: str, arrays: dict, layer_names,
                                              device=device)
                           for f, c in cols.items()})
     return Workload(name=name, layers=layers, layer_names=tuple(layer_names))
+
+
+def stacked_workload_from_numpy(names, arrays: dict, n_layers,
+                                device=None) -> StackedWorkload:
+    """``{LayerSpec field: (M, L) array}`` -> StackedWorkload (the JAX
+    package's ``stack_workloads`` result, field for field)."""
+    device = resolve_device(device)
+    layers = LayerSpec(**{f: torch.as_tensor(np.array(arrays[f]),
+                                             dtype=torch.float32,
+                                             device=device)
+                          for f in LayerSpec._fields})
+    return StackedWorkload(names=tuple(names), layers=layers,
+                           n_layers=tuple(int(n) for n in n_layers))
 
 
 def ppa_models_from_numpy(models: dict, device=None) -> PPAModels:

@@ -92,6 +92,25 @@ def stack_configs(configs: Sequence[AcceleratorConfig]) -> AcceleratorConfig:
         for f in AcceleratorConfig._fields])
 
 
+def concat_configs(configs: Sequence[AcceleratorConfig]) -> AcceleratorConfig:
+    """Concatenate batched configs along the lane axis (field dtypes and
+    the device kept): the survivor buffer of the two-stage pruned walk."""
+    return AcceleratorConfig(*[
+        torch.cat([torch.as_tensor(getattr(c, f)) for c in configs])
+        for f in AcceleratorConfig._fields])
+
+
+def take_config(cfg: AcceleratorConfig, rows) -> AcceleratorConfig:
+    """Row-select a batched config by a slice, a boolean mask or an index
+    array (numpy or tensor), on the config's device."""
+    def take(f):
+        f = torch.as_tensor(f)
+        if isinstance(rows, slice):
+            return f[rows]
+        return f[torch.as_tensor(rows, device=f.device)]
+    return AcceleratorConfig(*[take(f) for f in cfg])
+
+
 # ---------------------------------------------------------------------------
 # The paper's design space (Sec. III-C) and the wider grids.
 # ---------------------------------------------------------------------------
@@ -210,6 +229,122 @@ def enumerate_space(space: dict | None = None,
     if idx is None:
         idx = np.arange(n, dtype=np.int64)
     return space_points(idx, space, device)
+
+
+# ---------------------------------------------------------------------------
+# The joint (model x accelerator) space: the co-exploration axis.
+#
+# The model is one more mixed-radix digit, the SLOWEST one: joint flat
+# index = model_id * space_size(space) + accelerator_index.  The decode
+# stays host int64 numpy, index for index the reference's; only the
+# decoded config columns go to the device.
+# ---------------------------------------------------------------------------
+
+def joint_space_size(space: dict | None = None, num_models: int = 1) -> int:
+    """Number of (model, accelerator-config) points in the joint space."""
+    if num_models < 1:
+        raise ValueError(f"num_models must be >= 1, got {num_models}")
+    return num_models * space_size(space)
+
+
+def joint_space_points(
+        indices: np.ndarray, space: dict | None = None,
+        num_models: int = 1,
+        device: str | torch.device | None = None,
+) -> tuple[np.ndarray, AcceleratorConfig]:
+    """Decode flat joint indices into (host model ids, batched config):
+    ``model_id = idx // A`` and ``space_points(idx % A)``."""
+    a = space_size(space)
+    idx = np.asarray(indices, np.int64)
+    if idx.size and (idx.min() < 0 or idx.max() >= num_models * a):
+        raise ValueError(
+            f"joint index out of range for {num_models} models x {a} configs")
+    return idx // a, space_points(idx % a, space, device)
+
+
+def _validate_model_groups(model_groups, num_models: int) -> tuple:
+    groups = tuple(tuple(int(m) for m in g) for g in model_groups)
+    flat = [m for g in groups for m in g]
+    if any(m < 0 or m >= num_models for m in flat):
+        raise ValueError(f"model_groups reference models outside "
+                         f"[0, {num_models}): {groups}")
+    if len(flat) != len(set(flat)):
+        raise ValueError(f"model_groups assign a model twice: {groups}")
+    return groups
+
+
+def iter_joint_space_chunks(
+        space: dict | None = None,
+        num_models: int = 1,
+        chunk_size: int = 4096,
+        max_points: int | None = None,
+        seed: int = 0,
+        group_by_model: bool = False,
+        model_groups: Sequence[Sequence[int]] | None = None,
+        start_chunk: int = 0,
+        device: str | torch.device | None = None,
+) -> Iterator[tuple[int | np.ndarray, AcceleratorConfig, np.ndarray]]:
+    """Lazily yield ``(model_ids, config_chunk, flat_joint_indices)``.
+
+    The default (mixed) walk yields dense chunks that cross model
+    boundaries, ``model_ids`` an int64 array aligned with the lanes;
+    ``model_groups`` (disjoint tuples of model ids, walked in order)
+    restricts mixing to within each group.  ``group_by_model=True`` yields
+    a scalar model id a chunk and never mixes.  ``max_points`` subsamples
+    the JOINT space with the same RNG stream in both walks, so they visit
+    the same points; ``start_chunk`` skips the first chunks by index
+    arithmetic.  Chunk boundaries and indices are the reference's.
+    """
+    device = resolve_device(device)
+    a = space_size(space)
+    n = joint_space_size(space, num_models)
+    keep = subsample_indices(n, max_points, seed)
+    skip = int(start_chunk)
+    if group_by_model:
+        for m in range(num_models):
+            if keep is None:
+                midx = np.arange(m * a, (m + 1) * a, dtype=np.int64)
+            else:
+                midx = keep[(keep >= m * a) & (keep < (m + 1) * a)]
+            n_chunks = -(-len(midx) // chunk_size)
+            if skip >= n_chunks:
+                skip -= n_chunks
+                continue
+            for lo in range(skip * chunk_size, len(midx), chunk_size):
+                idx = midx[lo:lo + chunk_size]
+                yield m, space_points(idx - m * a, space, device), idx
+            skip = 0
+        return
+    if model_groups is None:
+        groups = (tuple(range(num_models)),)
+    else:
+        groups = _validate_model_groups(model_groups, num_models)
+    for group in groups:
+        g = np.asarray(group, np.int64)
+        if keep is None:
+            # lazy decode of the group's local enumeration:
+            # local index l -> (model g[l // a], accel l % a)
+            g_n = len(g) * a
+            n_chunks = -(-g_n // chunk_size)
+            if skip >= n_chunks:
+                skip -= n_chunks
+                continue
+            for lo in range(skip * chunk_size, g_n, chunk_size):
+                loc = np.arange(lo, min(lo + chunk_size, g_n), dtype=np.int64)
+                mids = g[loc // a]
+                yield (mids, space_points(loc % a, space, device),
+                       mids * a + loc % a)
+            skip = 0
+        else:
+            gidx = keep[np.isin(keep // a, g)]
+            n_chunks = -(-len(gidx) // chunk_size)
+            if skip >= n_chunks:
+                skip -= n_chunks
+                continue
+            for lo in range(skip * chunk_size, len(gidx), chunk_size):
+                idx = gidx[lo:lo + chunk_size]
+                yield idx // a, space_points(idx % a, space, device), idx
+            skip = 0
 
 
 def config_rows(cfg: AcceleratorConfig) -> Iterable[dict]:

@@ -52,6 +52,21 @@ PE_CTRL_ENERGY_PJ = 0.05       # per active cycle
 SPAD_E_PER_BIT_PJ = 1.0 / 16.0   # 1 pJ per 16-bit access
 SPAD_AREA_PER_BIT_UM2 = 0.50
 
+# --- accuracy proxy -----------------------------------------------------------
+# Mean top-1 accuracy deltas vs FP32 (percentage points) from the paper's
+# Figs. 5-6 narrative, keyed by PE-type NAME so a reordering of
+# PE_TYPE_NAMES can never misalign a delta; ACC_DELTA_PP is the derived
+# positional view (gather by pe_type code).  ``accuracy.AccuracySurrogate``
+# reads the dict.
+ACC_DELTA_BY_NAME = {
+    "fp32": 0.0,
+    "int16": -0.1,
+    "lightpe1": -0.9,
+    "lightpe2": -0.4,
+    "int8": -0.5,
+}
+ACC_DELTA_PP = torch.tensor([ACC_DELTA_BY_NAME[n] for n in PE_TYPE_NAMES])
+
 _TABLES = dict(act=ACT_BITS, weight=WEIGHT_BITS, psum=PSUM_BITS,
                mac_energy=MAC_ENERGY_PJ, mac_area=MAC_AREA_UM2,
                mac_delay=MAC_DELAY_NS)

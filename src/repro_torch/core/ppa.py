@@ -132,8 +132,9 @@ def surrogate_ppa(params, cfg: AcceleratorConfig):
     max-degree design matrix is evaluated once over all lanes; each
     target contracts its leading ``len(coef)`` columns (a lower degree's
     basis is a prefix of the max-degree one), and each lane then takes
-    its own type's prediction.  Lanes of unfitted types must be refused
-    beforehand by ``PPAModels.validate``.
+    its own type's prediction.  Every lane's value depends on its own
+    config only, never on its position in the chunk.  Lanes of unfitted
+    types must be refused beforehand by ``PPAModels.validate``.
     """
     x = config_features(cfg)
     pos = params["pos"][torch.atleast_1d(cfg.pe_type).long()]
@@ -144,7 +145,11 @@ def surrogate_ppa(params, cfg: AcceleratorConfig):
         preds = []
         for entry, a in zip(params["types"], shared):
             coef, log = entry["targets"][t]
-            v = a[:, :coef.shape[0]] @ coef
+            # a per-lane product and row sum, not a matrix-vector
+            # product: a BLAS GEMV blocks rows by position (on the CPU a
+            # lane's value changed with its place in a ragged chunk),
+            # and the joint walks need a lane's result wherever it sits
+            v = (a[:, :coef.shape[0]] * coef).sum(-1)
             preds.append(torch.exp(v) if log else v)
         out.append(torch.gather(torch.stack(preds), 0, pos[None, :])[0])
     power, clock, area = out                        # TARGETS order

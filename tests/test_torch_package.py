@@ -37,7 +37,12 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.kernels.flash_attention.flash_attention",
               "repro_torch.models", "repro_torch.models.transformer",
               "repro_torch.serve", "repro_torch.serve.engine",
-              "repro_torch.configs", "repro_torch.quant.pack"):
+              "repro_torch.configs", "repro_torch.quant.pack",
+              "repro_torch.core.accuracy", "repro_torch.core.coexplore",
+              "repro_torch.core.constraints", "repro_torch.coexplore_check",
+              "repro_torch.configs.qwen3_32b",
+              "repro_torch.configs.deepseek_moe_16b",
+              "repro_torch.configs.phi35_moe"):
         assert m in MODULES, m
 
 
@@ -46,6 +51,7 @@ def test_every_module_imports_without_jax_or_repro():
     [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py",
      ROOT / "examples" / "torch_quickstart.py",
      ROOT / "examples" / "torch_serve_quantized.py",
+     ROOT / "examples" / "torch_coexplore_pareto.py",
      ROOT / "benchmarks" / "torch_profile.py",
      ROOT / "benchmarks" / "torch_fa_sweep.py",
      ROOT / "benchmarks" / "torch_fq_sweep.py",
@@ -80,6 +86,19 @@ CREATORS = {
     "make_cache": lambda: _layers().make_cache(
         1, 4, _transformer().attn_spec(_reduced())),
     "rope_freqs": lambda: _layers().rope_freqs(16),
+    "default_model_set": lambda: _core().default_model_set(),
+    "llm_decode": lambda: _core().llm_decode("qwen3-32b"),
+    "llm_moe": lambda: _core().llm_moe(),
+    "transformer_gemm": lambda: _core().transformer_gemm(),
+    "resnet34": lambda: _core().resnet34(),
+    "resnet50": lambda: _core().resnet50(),
+    "iter_joint_space_chunks": lambda: next(
+        _core().iter_joint_space_chunks(num_models=2)),
+    "joint_space_points": lambda: _core().joint_space_points([0, 1]),
+    "delta_array": lambda: _core().AccuracySurrogate().delta_array(),
+    "stacked_workload_from_numpy":
+        lambda: _convert().stacked_workload_from_numpy(
+            ["m"], {f: [[1.0]] for f in _core().LayerSpec._fields}, [1]),
 }
 
 
@@ -137,6 +156,18 @@ def test_serving_example_runs_on_cpu():
         env=_env(), capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "lightpe1: packed" in out.stdout and "req1: [" in out.stdout
+
+
+def test_coexplore_example_runs_on_cpu(tmp_path):
+    out_csv = tmp_path / "front.csv"
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_coexplore_pareto.py"),
+         "--device", "cpu", "--max-points", "3000", "--area-mm2", "2.0",
+         "--out", str(out_csv)], env=_env(), capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "paper claim" in out.stdout and "feasible" in out.stdout
+    assert out_csv.read_text().startswith("model,pe_type,accuracy")
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -82,7 +82,11 @@ def test_config_is_the_reference_config(size):
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     assert ours.padded_vocab == theirs.padded_vocab
     with pytest.raises(ValueError, match="no config"):
-        get("gemma3-1b")
+        get("no-such-arch")
+    # every config is ported for the workload IR; the model refuses
+    # those it does not run
+    with pytest.raises(NotImplementedError, match="does not run"):
+        T.check_supported(get("gemma3-1b"))
     for unsupported in (dict(moe_experts=4), dict(window=8,
                                                   layer_pattern="gemma3"),
                         dict(attn_softcap=50.0), dict(attn_flash=True)):
