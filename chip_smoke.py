@@ -69,7 +69,27 @@
    points under ``Budget(area_mm2=2.0, power_mw=250.0)`` held to the
    reference; and 4,500 points under phase 4's fitted surrogate, mixed
    and per model, bitwise equal; each walk's wall time and points/s;
-9. prints a ``{"kernels": [...]}`` line and, last, the device line.
+9. DSE at scale (``core/shard``, ``core/search``, ``serve/frontserver``,
+   ``obs``; no kernel of its own but the serving run's): the 351,000-point
+   joint walk sharded 4 ways with 2 chunks a shard in flight (a CUDA
+   stream a shard) and a ``Tracer``, bitwise equal to phase 8's walk
+   (front, bests, claim), with 4 shard lanes in its Chrome trace and its
+   ``SweepReport`` phases within its wall time; the same sharded under
+   ``Budget(area_mm2=0.9)``; killed after 40 chunks and resumed from its
+   checkpoint, bitwise equal, and a wrong signature refused; 2^20 points
+   of WIDE_SPACE sharded 4 ways with the front streamed to CSV, bitwise
+   equal to the unsharded walk; ``search_front`` (evolve, halving) at
+   40,000 evaluations over 3 models x ``MAPPED_SPACE``, shards 1 and 4
+   bitwise equal, held to ``tests/data/torch_scale_ref.json`` generation
+   by generation up to the first near tie, with ``hv_ratio`` and
+   coverage against the ``REF_SPACE`` front (itself held to the
+   reference's); the 12-query
+   storm on one ``FrontServer`` walk held to the same file, queries 1
+   and 3 bitwise equal to standalone walks, a repeat and a restored
+   cache answering with 0 chunk evaluations; and phase 6's LightPE-1
+   run with telemetry on, bitwise equal to the run with it off, with the
+   launches and ``serve.*`` counts; each step's wall time and points/s;
+10. prints a ``{"kernels": [...]}`` line and, last, the device line.
 
 TF32 is off for matrix products and convolutions (``repro_torch`` sets
 both flags at import): the reference tolerances need IEEE float32.
@@ -88,6 +108,10 @@ ROOT = Path(__file__).resolve().parent
 REF = ROOT / "tests" / "data" / "torch_quickstart_ref.json"
 SERVE_REF = ROOT / "tests" / "data" / "torch_serve_ref.json"
 COEX_REF = ROOT / "tests" / "data" / "torch_coexplore_ref.json"
+SCALE_REF = ROOT / "tests" / "data" / "torch_scale_ref.json"
+SCALE_SHARDS = 4
+SCALE_DEPTH = 2
+KILL_AFTER = 40
 
 # (R*S*C, K) of VGG-16/CIFAR-10's 15 layers, and two ragged shapes.
 VGG16_SHAPES = [(27, 64), (576, 64), (576, 128), (1152, 128), (1152, 256),
@@ -1012,7 +1036,332 @@ def run_coexplore(torch, dev, surrogate):
               max_points=check.SUBSAMPLE),
          walk("surrogate 4500 per-model", surrogate=surrogate,
               max_points=check.SUBSAMPLE, mix_models=False))
-    return walks
+    return walks, dict(mixed=mixed, pruned=pruned)
+
+
+def run_scale(torch, dev, fronts):
+    """Phase 9: DSE at scale (sharded, checkpointed, searched and served
+    walks, telemetry), held to phase 8's walks, to the port's bitwise
+    contracts and to ``tests/data/torch_scale_ref.json``."""
+    import csv
+    import itertools
+    import tempfile
+
+    import numpy as np
+    from repro_torch import coexplore_check as check
+    from repro_torch import scale_check as S
+    from repro_torch.core import coexplore, dse, search, workloads
+    from repro_torch.core.arch import (DEFAULT_SPACE, MAPPED_SPACE,
+                                       WIDE_SPACE)
+    from repro_torch.core.constraints import Budget
+    from repro_torch.obs import (Tracer, build_sweep_report, chrome_trace,
+                                 trace_lanes)
+    from repro_torch.serve import FrontCache, FrontServer
+
+    ref = json.loads(SCALE_REF.read_text())
+    models = coexplore.default_model_set(device=dev)
+    if [m.name for m in models] != ref["models"]:
+        fail(f"default_model_set {[m.name for m in models]} != reference")
+    card = card_line()
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_scale_"))
+
+    def timed(tag, fn, points=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = points(res) if points is not None else res.points_evaluated
+        out[tag] = dict(points=n, wall_s=dt, points_per_s=n / dt)
+        print(f"scale {tag}: {n} points in {dt:.3f} s = {n / dt:.0f} "
+              f"points/s ({card})")
+        return res
+
+    def same(tag, a, b, rows=False):
+        diff = check.identical(a, b)
+        if rows and not diff and not (
+                np.array_equal(a.archive.indices, b.archive.indices)
+                and np.array_equal(a.archive.objectives,
+                                   b.archive.objectives)):
+            diff = ["row order"]
+        if diff:
+            fail(f"scale {tag} differ: " + "; ".join(diff))
+        print(f"scale {tag}: bitwise equal" + (", row order included"
+                                               if rows else ""))
+
+    # 1. the sharded joint walk with telemetry, against phase 8's walks
+    shard_kw = dict(shards=SCALE_SHARDS, pipeline_depth=SCALE_DEPTH)
+    tr = Tracer(rss_interval_s=0.25)
+    sharded = timed("sharded joint walk", lambda: coexplore.coexplore_front(
+        models, telemetry=tr, **shard_kw))
+    wall = out["sharded joint walk"]["wall_s"]
+    tr.close()
+    same("sharded (4) / phase 8 mixed", sharded, fronts["mixed"])
+    if coexplore.lightpe_claim(sharded) != coexplore.lightpe_claim(
+            fronts["mixed"]):
+        fail("scale: the sharded walk's LightPE claim differs from phase 8's")
+    lanes = sorted(k for k in trace_lanes(chrome_trace(tr))
+                   if k.startswith("shard"))
+    if lanes != [f"shard{i}" for i in range(SCALE_SHARDS)]:
+        fail(f"scale: Chrome trace lanes {lanes}, expected "
+             f"{SCALE_SHARDS} shard lanes")
+    report = build_sweep_report(tr, wall_s=wall)
+    phases = {k: report.attribution.get(k, {}).get("seconds", 0.0)
+              for k in ("decode", "dispatch", "device_wait", "archive")}
+    if any(v > wall for v in phases.values()) or \
+            sum(phases.values()) > wall * 1.05:
+        fail(f"scale: report phases {phases} do not fit in the wall time "
+             f"{wall:.3f} s")
+    out["sharded joint walk"].update(
+        report={k: dict(seconds=v["seconds"], share=v["share"],
+                        count=v["count"])
+                for k, v in report.attribution.items()},
+        coverage=report.coverage, n_compiles=report.n_compiles,
+        lanes=len(lanes))
+    print(f"scale sharded joint walk report (trace lanes {lanes}):")
+    print(report.render())
+    area = Budget(area_mm2=0.9)
+    pruned = timed("sharded area<=0.9 two-stage",
+                   lambda: coexplore.coexplore_front(models, budget=area,
+                                                     **shard_kw))
+    same("sharded area<=0.9 / phase 8", pruned, fronts["pruned"])
+    st = pruned.budget_stats
+    if (st.feasible, st.pruned) != (60_216, 290_784):
+        fail(f"scale: sharded area<=0.9 feasible/pruned {st.feasible}/"
+             f"{st.pruned}, expected 60216/290784")
+    print(f"scale sharded area<=0.9: {st}")
+
+    # 2. kill and resume from the checkpoint
+    ck = str(tmp / "joint")
+    part = timed("killed after 40 chunks", lambda: coexplore.coexplore_front(
+        models, checkpoint_dir=ck, max_chunks=KILL_AFTER, **shard_kw))
+    resumed = timed("resumed", lambda: coexplore.coexplore_front(
+        models, checkpoint_dir=ck, **shard_kw))
+    head = sum(len(c[-1]) for c in itertools.islice(
+        coexplore.plan_joint_walk(models).chunks(), KILL_AFTER))
+    if part.points_evaluated != head:
+        fail(f"scale: the killed walk evaluated {part.points_evaluated} "
+             f"points, not its first {KILL_AFTER} chunks' {head}")
+    same("resumed / uninterrupted", resumed, sharded, rows=True)
+    try:
+        coexplore.coexplore_front(models, checkpoint_dir=ck, shards=2)
+    except ValueError as e:
+        if "different sweep" not in str(e):
+            raise
+        print("scale: a checkpoint of another sweep is refused")
+    else:
+        fail("scale: a checkpoint with another signature was resumed")
+
+    # 3. the wide sweep, sharded, the front streamed to CSV
+    wl = workloads.vgg16("cifar10", device=dev)
+    wide_kw = dict(max_points=WIDE_POINTS, chunk_size=WIDE_CHUNK)
+    csv_path = tmp / "wide_front.csv"
+    plain_wide = timed("WIDE 2^20 unsharded", lambda: dse.pareto_front_streaming(
+        wl, WIDE_SPACE, **wide_kw)[0], points=lambda a: WIDE_POINTS)
+    wide = timed("WIDE 2^20 sharded", lambda: dse.pareto_front_streaming(
+        wl, WIDE_SPACE, shards=SCALE_SHARDS, csv_path=str(csv_path),
+        **wide_kw)[0], points=lambda a: WIDE_POINTS)
+    o1, o2 = np.argsort(plain_wide.indices), np.argsort(wide.indices)
+    if not (np.array_equal(plain_wide.indices[o1], wide.indices[o2])
+            and np.array_equal(plain_wide.objectives[o1],
+                               wide.objectives[o2])):
+        fail("scale: the sharded WIDE_SPACE front differs from the unsharded")
+    with open(csv_path) as f:
+        rows = list(csv.DictReader(f))
+    if [int(r["index"]) for r in rows] != wide.indices.tolist() or any(
+            [float(r[m]) for m in ("perf_per_area", "neg_energy_j")]
+            != wide.objectives[i].tolist() for i, r in enumerate(rows)):
+        fail("scale: the CSV rows are not the sharded front")
+    print(f"scale WIDE 2^20: sharded / unsharded bitwise equal, front "
+          f"{len(wide)} points, CSV rows = front")
+
+    # 4. budgeted search over 3 models x MAPPED_SPACE
+    three = models[:S.N_MODELS]
+    ref_front = ref["ref_space"]["front"]
+    enum = timed("REF_SPACE enumeration", lambda: coexplore.coexplore_front(
+        three, space=S.ref_space(DEFAULT_SPACE), seed=S.SEED))
+    ok, ties, bad = S._archives_close(S.front_data(enum.archive), ref_front,
+                                      check.RTOL)
+    if bad:
+        fail(f"scale: the REF_SPACE front differs from the reference: {bad}")
+    print(f"scale REF_SPACE front: {len(enum.archive)} points, "
+          f"{len(ties)} near ties against the reference")
+    out["search"] = {}
+    for name, make in S.DRIVERS.items():
+        runs = []
+        for shards in (None, SCALE_SHARDS):
+            rec = S.Recorder(make(search))
+            if shards is None:
+                first = rec
+            front = timed(f"search {name} shards={shards or 1}",
+                          lambda: search.search_front(
+                              three, space=MAPPED_SPACE, driver=rec,
+                              max_evals=S.SEARCH_EVALS, seed=S.SEED,
+                              shards=shards))
+            runs.append((rec, front))
+        (_, front), (_, front4) = runs
+        rec = first
+        if not (np.array_equal(front.archive.indices, front4.archive.indices)
+                and np.array_equal(front.archive.objectives,
+                                   front4.archive.objectives)):
+            fail(f"scale: search {name}: shards 1 and 4 differ")
+        # against the port's REF_SPACE front (held to the reference's
+        # above): coverage's ">= in every objective" is exact, so a
+        # searched point that is itself a REF_SPACE front point covers
+        # it only against objectives of the same package
+        got = dict(log=rec.log, front=S.front_data(front.archive),
+                   points_evaluated=int(front.points_evaluated),
+                   **S.quality(search.hypervolume, search.front_coverage,
+                               front.archive.objectives,
+                               enum.archive.objectives))
+        want = ref["search"][name]
+        problems, notes = S.compare_search(
+            got, want, explain=lambda g, p, rec=rec: S.halving_ties(rec, g, p),
+            order_matters=name == "evolve")
+        for n in notes:
+            print(f"  tolerated (search {name}): {n}")
+        if problems:
+            fail(f"scale: search {name} differs from the JAX reference: "
+                 + "; ".join(problems))
+        out["search"][name] = dict(
+            front=len(front.archive), hv_ratio=got["hv_ratio"],
+            coverage=got["coverage"], ref_hv_ratio=want["hv_ratio"],
+            ref_coverage=want["coverage"], generations=len(rec.log),
+            notes=notes)
+        print(f"scale search {name}: front {len(front.archive)}, hv_ratio "
+              f"{got['hv_ratio']:.6f} (reference {want['hv_ratio']:.6f}), "
+              f"coverage {got['coverage']:.3f} (reference "
+              f"{want['coverage']:.3f}), shards 1 / 4 bitwise equal, "
+              f"{len(notes)} notes")
+
+    # 5. the front server: the 12-query storm on one shared walk
+    budgets = [None if b is None else Budget(**b)
+               for b in S.DISTINCT_BUDGETS]
+    srv = FrontServer(models)
+    qs = []
+
+    def storm():
+        qs.extend(srv.submit(budgets[i]) for i in S.STORM)
+        srv.run()
+        return srv
+    timed("front server storm (12 queries)", storm,
+          points=lambda _: max(q.response.points_evaluated for q in qs))
+    n_chunks = sum(1 for _ in srv._plan.chunks())
+    if srv.chunk_evals != n_chunks or srv.chunk_evals != \
+            ref["storm"]["chunk_evals"]:
+        fail(f"scale: the storm took {srv.chunk_evals} chunk evaluations, "
+             f"not one walk of {n_chunks}")
+    for i, want in enumerate(ref["storm"]["responses"]):
+        problems, notes = S.compare_storm(S.storm_data(qs[i].response), want,
+                                          want["near_bound"])
+        for n in notes:
+            print(f"  tolerated (storm {want['budget']}): {n}")
+        if problems:
+            fail(f"scale: storm query {want['budget']} differs from the JAX "
+                 f"reference: " + "; ".join(problems))
+    print(f"scale storm: 12 queries in one walk of {srv.chunk_evals} chunks; "
+          f"the 8 distinct fronts match the JAX reference")
+    for i in S.SPOT_CHECK:
+        alone = coexplore.coexplore_front(models, budget=budgets[S.STORM[i]],
+                                          prune=False)
+        resp = qs[i].response
+        if not (np.array_equal(resp.archive.indices, alone.archive.indices)
+                and np.array_equal(resp.archive.objectives,
+                                   alone.archive.objectives)):
+            fail(f"scale: storm query {i} differs from its standalone walk")
+    print(f"scale storm: queries {S.SPOT_CHECK} bitwise equal to standalone "
+          f"walks, row order included")
+    evals = srv.chunk_evals
+    again = srv.query(budgets[1])
+    if srv.chunk_evals != evals or again.served_from != "cache:repeat":
+        fail(f"scale: a repeat query took {srv.chunk_evals - evals} chunk "
+             f"evaluations ({again.served_from})")
+    cache_dir = str(tmp / "frontcache")
+    srv.cache.save(cache_dir)
+    fresh = FrontServer(models, cache=FrontCache())
+    fresh.cache.load(cache_dir)
+    restored = fresh.query(budgets[1])
+    if fresh.chunk_evals != 0 or not np.array_equal(
+            restored.archive.indices, qs[1].response.archive.indices):
+        fail("scale: a restored cache did not answer with 0 chunk "
+             "evaluations")
+    print("scale storm: a repeat and a restored cache answer with 0 chunk "
+          "evaluations")
+    out["storm"] = dict(chunk_evals=srv.chunk_evals,
+                        fronts=[len(qs[i].response.archive)
+                                for i in range(len(budgets))])
+
+    # 6. phase 6's LightPE-1 bfloat16 run with telemetry on
+    out["serving_telemetry"] = serve_with_telemetry(torch, dev)
+    return out
+
+
+def serve_with_telemetry(torch, dev):
+    """Phase 6's LightPE-1 4 x 12 run twice, telemetry off and on: tokens
+    and logits bitwise equal, the kernels launched as on the main path
+    and the engine's counts."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.models import family_module
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import ServeEngine, check, quantize_params
+
+    ref = json.loads(SERVE_REF.read_text())
+    cfg = get(ref["config"])
+    mod = family_module(cfg)
+    params = convert.params_from_numpy(mod.numpy_params(cfg, ref["param_seed"]),
+                                       dev)
+    packed = quantize_params(params, "lightpe1", min_size=ref["min_size"])
+    prompts = [np.array(p) for p in ref["prompts"]]
+
+    def run(tr):
+        eng = ServeEngine(cfg, mod, packed, ref["batch_slots"],
+                          ref["max_len"], telemetry=tr)
+        return check.record(eng, prompts, ref["max_new"],
+                            lambda t: t.float().cpu().numpy())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = run(None)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    tr = Tracer(rss_interval_s=0)
+    quant_matmul.launches = 0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    traced = run(tr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"quant_matmul": quant_matmul.launches,
+              "flash_attention": flash_attention.launches}
+    if counts != SERVE_LAUNCHES:
+        fail(f"serving with telemetry: launches {counts}, expected "
+             f"{SERVE_LAUNCHES}")
+    if traced["tokens"] != plain["tokens"] or any(
+            not np.array_equal(np.asarray(a), np.asarray(b))
+            for a, b in zip(traced["logits"], plain["logits"])):
+        fail("serving with telemetry: tokens or logits differ from the run "
+             "with telemetry off")
+    reg = tr.registry
+    got = (reg.counters["serve.requests"].value,
+           reg.counters["serve.tokens"].value)
+    if got != (len(prompts), len(prompts) * ref["max_new"]):
+        fail(f"serving with telemetry: serve.requests / serve.tokens {got}")
+    spans = {k: reg.histograms[f"serve.{k}"].summary()
+             for k in ("prefill", "decode")}
+    print(f"serving with telemetry: tokens and logits bitwise equal to the "
+          f"run without; launches {counts}; serve.requests {got[0]:.0f}, "
+          f"serve.tokens {got[1]:.0f}; prefill p50 "
+          f"{spans['prefill']['p50'] * 1e3:.3f} ms, decode p50 "
+          f"{spans['decode']['p50'] * 1e3:.3f} ms; {wall:.3f} s traced, "
+          f"{plain_wall:.3f} s without")
+    return dict(launches=counts, requests=got[0], tokens=got[1],
+                wall_s=wall, plain_wall_s=plain_wall, prefill=spans["prefill"],
+                decode=spans["decode"])
 
 
 def main() -> int:
@@ -1021,7 +1370,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a CUDA card")
     if not (ROOT / "src" / "repro_torch").is_dir() or not REF.exists() \
-            or not SERVE_REF.exists() or not COEX_REF.exists():
+            or not SERVE_REF.exists() or not COEX_REF.exists() \
+            or not SCALE_REF.exists():
         fail("src/repro_torch or the JAX reference results are missing "
              "beside chip_smoke.py")
     sys.path.insert(0, str(ROOT / "src"))
@@ -1045,8 +1395,11 @@ def main() -> int:
     serve_launches, qmm, fa, serving = run_serving(torch, dev)
     qat = run_qat_serving(torch, dev)
     t8 = time.perf_counter()
-    coex = run_coexplore(torch, dev, surrogate)
+    coex, fronts = run_coexplore(torch, dev, surrogate)
     print(f"phase 8 (co-exploration): {time.perf_counter() - t8:.2f} s")
+    t9 = time.perf_counter()
+    scale = run_scale(torch, dev, fronts)
+    print(f"phase 9 (DSE at scale): {time.perf_counter() - t9:.2f} s")
 
     # the row's main numbers: one grouped launch over the 15 VGG-16
     # weights, affine-8, float32; the bfloat16 and per-weight times beside
@@ -1099,7 +1452,7 @@ def main() -> int:
                 bound_f32_ms=rows["decode"]["bound_f32_ms"],
                 per_projection_ms=rows["decode"]["per_projection_ms"])
     print(json.dumps({"kernels": kernels, "serving": serving, "qat": qat,
-                      "coexplore": coex}))
+                      "coexplore": coex, "scale": scale}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

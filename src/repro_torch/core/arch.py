@@ -18,7 +18,7 @@ from typing import Iterable, Iterator, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from repro_torch.device import host, resolve_device
+from repro_torch.device import same_device, host, resolve_device
 
 # PE type codes (index into the constant tables in pe.py).
 PE_FP32 = 0
@@ -56,11 +56,38 @@ class AcceleratorConfig(NamedTuple):
 
 
 def _cols_to_config(cols: dict, device: torch.device) -> AcceleratorConfig:
-    return AcceleratorConfig(**{
+    cfg = AcceleratorConfig(**{
         f: torch.as_tensor(np.asarray(cols[f]),
                            dtype=torch.int32 if f == "pe_type"
-                           else torch.float32, device=device)
+                           else torch.float32)
         for f in AcceleratorConfig._fields})
+    return config_to(cfg, device)[0]
+
+
+def config_to(cfg: AcceleratorConfig,
+              device: torch.device) -> tuple[AcceleratorConfig, tuple]:
+    """A batched config on ``device``.  From the CPU to a card the fields
+    go through ONE pinned (fields, N) float32 buffer and one copy queued
+    on the current stream, so the host does not wait for the stream
+    (``pe_type`` codes are small integers: exact through float32).
+    Returns ``(config, staged)``: keep ``staged`` alive until the stream
+    has passed the copy."""
+    src = torch.as_tensor(cfg.pe_rows).device
+    if same_device(src, device):
+        return AcceleratorConfig(*[torch.as_tensor(f, device=src)
+                                   for f in cfg]), ()
+    if torch.device(device).type != "cuda" or src.type != "cpu":
+        return AcceleratorConfig(*[torch.as_tensor(f, device=src).to(device)
+                                   for f in cfg]), ()
+    shape = tuple(torch.as_tensor(cfg.pe_rows).shape)
+    buf = torch.empty((len(cfg),) + shape, dtype=torch.float32,
+                      pin_memory=True)
+    for i, f in enumerate(cfg):
+        buf[i] = torch.as_tensor(f)
+    dev = buf.to(device, non_blocking=True)
+    return AcceleratorConfig(*[
+        dev[i].to(torch.int32) if name == "pe_type" else dev[i]
+        for i, name in enumerate(AcceleratorConfig._fields)]), (buf,)
 
 
 def make_config(

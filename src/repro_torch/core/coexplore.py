@@ -18,20 +18,21 @@ The (model, accelerator-config) pair is the unit of exploration:
 per-model walk) bit for bit, and ``prune=True`` equals ``prune=False``
 under a budget: same front indices, objectives, budget counts and
 per-(model, PE) bests.  The walk runs on the device of the models'
-workloads (``default_model_set(device=...)``).
+workloads (``default_model_set(device=...)``); chunks are decoded on the
+host and go to the device with their evaluation.  The sharded,
+pipelined and checkpointed walk (``shards=`` ... ``max_chunks=``),
+budgeted search (``driver=``, ``repro_torch.core.search``) and
+``telemetry=`` behave as the reference's, with fronts bit-identical to
+the plain walk's.
 
 ``lightpe_claim`` checks the paper's claim on the sweep: per model, the
 best LightPE beats the best INT16 on both hardware metrics within 1pp of
 FP32 accuracy.
-
-Not ported yet: the sharded / checkpointed walk (``shards=``,
-``devices=``, ``pipeline_depth=``, ``checkpoint_dir=``, ``csv_path=``,
-``max_chunks=``; ROADMAP A7), budgeted search (``driver=``; A8) and
-telemetry (``telemetry=``; A3).  The first two raise ``ValueError``.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -44,14 +45,15 @@ from repro_torch.core.arch import (AcceleratorConfig, PE_TYPE_NAMES,
 from repro_torch.core.constraints import Budget, BudgetStats
 from repro_torch.core.costmodel import CostModel, as_cost_model
 from repro_torch.core.dse import (DEFAULT_CHUNK_SIZE, ParetoArchive,
-                                  TwoStagePruner, _not_ported, evaluate_chunk,
-                                  fold_budget_chunk)
+                                  TwoStagePruner, _traced_dispatch,
+                                  _traced_finish, dispatch_chunk,
+                                  finish_chunk, fold_budget_chunk)
 from repro_torch.core.ppa import PPAModels
 from repro_torch.core.workloads import (Workload, acc_class_mix, layer_bucket,
                                         llm_decode, llm_moe, resnet_cifar,
                                         stack_workloads, transformer_gemm,
                                         vgg16, workload_layers, workload_macs)
-from repro_torch.device import host
+from repro_torch.obs import as_tracer, timed_iter
 
 # The joint objectives, all HIGHER-IS-BETTER (column order of the archive).
 COEXPLORE_METRICS = ("accuracy", "macs_per_s_per_mm2", "neg_energy_per_mac_pj")
@@ -242,18 +244,19 @@ class JointWalk(NamedTuple):
     stacked: dict | None           # mixed: bucket depth -> StackedWorkload
     local: np.ndarray | None       # mixed: global id -> position in stack
     buckets_meta: tuple = ()       # (padded depth, model names) per group
-    device: torch.device | None = None  # where the chunks' configs go
 
     def chunks(self, start_chunk: int = 0):
         """Yield ``(wl_key, workload, model_ids, mids, cfg, idx)`` from
-        ``start_chunk`` on; ``wl_key`` names the workload (bucket depth
-        when mixing, model id otherwise)."""
+        ``start_chunk`` on (resumable by index arithmetic); ``wl_key``
+        names the workload (bucket depth when mixing, model id
+        otherwise).  The configs are decoded on the host; the dispatch
+        takes them to the workload's device."""
         if self.mix_models:
             for mids, cfg, idx in iter_joint_space_chunks(
                     self.space, num_models=len(self.models),
                     chunk_size=self.chunk_size, max_points=self.max_points,
                     seed=self.seed, model_groups=self.group_ids,
-                    start_chunk=start_chunk, device=self.device):
+                    start_chunk=start_chunk, device="cpu"):
                 b = self.bucket_of[int(mids[0])]
                 yield b, self.stacked[b], self.local[mids], mids, cfg, idx
             return
@@ -261,9 +264,17 @@ class JointWalk(NamedTuple):
                 self.space, num_models=len(self.models),
                 chunk_size=self.chunk_size, max_points=self.max_points,
                 seed=self.seed, group_by_model=True,
-                start_chunk=start_chunk, device=self.device):
+                start_chunk=start_chunk, device="cpu"):
             mids = np.full(len(idx), int(m), np.int64)
             yield int(m), self.models[m].workload, None, mids, cfg, idx
+
+    def workload_for(self, wl_key):
+        """The (stacked) workload behind a ``chunks()`` key: checkpoint
+        restore of an interrupted pruner buffer."""
+        if wl_key is None:
+            return None
+        return self.stacked[int(wl_key)] if self.mix_models \
+            else self.models[int(wl_key)].workload
 
 
 def plan_joint_walk(models: Sequence[ModelEntry],
@@ -276,8 +287,7 @@ def plan_joint_walk(models: Sequence[ModelEntry],
                     ) -> JointWalk:
     """Plan the joint walk once: bucket the model axis (mixed mode) and
     freeze every enumeration parameter, so multiple drivers — or repeated
-    passes of one driver — replay the exact same chunk stream.  The
-    chunks' configs go to the models' device."""
+    passes of one driver — replay the exact same chunk stream."""
     models = tuple(models)
     bucket_of = group_ids = stacked = local = None
     buckets_meta = ()
@@ -288,8 +298,7 @@ def plan_joint_walk(models: Sequence[ModelEntry],
                      max_points=max_points, seed=int(seed),
                      mix_models=bool(mix_models), group_ids=group_ids,
                      bucket_of=None if bucket_of is None else tuple(bucket_of),
-                     stacked=stacked, local=local, buckets_meta=buckets_meta,
-                     device=models[0].workload.layers.H.device)
+                     stacked=stacked, local=local, buckets_meta=buckets_meta)
 
 
 def coexplore_front(
@@ -308,9 +317,11 @@ def coexplore_front(
         devices=None,
         pipeline_depth: int | None = None,
         checkpoint_dir: str | None = None,
+        checkpoint_every: int = 64,
         csv_path: str | None = None,
         max_chunks: int | None = None,
-        driver=None) -> CoexploreFront:
+        driver=None,
+        telemetry=None) -> CoexploreFront:
     """Stream the joint (model x accelerator) space into a 3-objective
     non-dominated archive, on the device of the models' workloads.
 
@@ -329,16 +340,57 @@ def coexplore_front(
     two-stage (``dse.TwoStagePruner``) unless ``prune=False``, with the
     same front, bests, evaluated counts and config-stage kills.
     ``points_evaluated`` counts every visited (pre-mask) lane.
+
+    Any of ``shards`` / ``devices`` / ``pipeline_depth`` /
+    ``checkpoint_dir`` (with ``checkpoint_every``) / ``csv_path`` /
+    ``max_chunks`` engages the sharded, pipelined, checkpointable walk
+    (``_sharded_coexplore_front``): the same point set and a bit-identical
+    front.  ``telemetry=`` (a ``repro_torch.obs.Tracer``) times the walk's
+    phases and counts points and kills without touching a value.
+
+    ``driver`` (a ``search.SearchDriver`` or a registered name,
+    ``"evolve"`` / ``"halving"``) replaces enumeration with budgeted
+    search (``search.search_front``; ``max_points`` becomes the
+    full-evaluation budget).  ``csv_path``, ``max_chunks`` and
+    ``mix_models=False`` have no meaning for a search and raise with it.
     """
     models = tuple(models)
     if not models:
         raise ValueError("need at least one ModelEntry on the model axis")
     if driver is not None:
-        raise ValueError("driver=: the port has no budgeted search yet "
-                         "(core/search.py, ROADMAP A8)")
-    _not_ported(shards=shards, devices=devices, pipeline_depth=pipeline_depth,
-                checkpoint_dir=checkpoint_dir, csv_path=csv_path,
-                max_chunks=max_chunks)
+        unsupported = [kw for kw, v in (("csv_path", csv_path),
+                                        ("max_chunks", max_chunks))
+                       if v is not None]
+        if not mix_models:
+            unsupported.append("mix_models=False")
+        if unsupported:
+            raise ValueError(
+                f"driver= is incompatible with {', '.join(unsupported)}: "
+                f"a budgeted search has no enumeration cursor to stream "
+                f"or truncate and always mixes models; drop the kwarg or "
+                f"use search_front directly")
+        from repro_torch.core.search import search_front
+        return search_front(
+            models, space=space, driver=driver, surrogate=surrogate,
+            accuracy=accuracy, chunk_size=chunk_size,
+            max_evals=(joint_space_size(space, len(models))
+                       if max_points is None else int(max_points)),
+            seed=seed, budget=budget, layer_buckets=layer_buckets,
+            shards=shards, devices=devices, pipeline_depth=pipeline_depth,
+            checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+            telemetry=telemetry)
+    if (shards is not None or devices is not None
+            or checkpoint_dir is not None or csv_path is not None
+            or max_chunks is not None):
+        return _sharded_coexplore_front(
+            models, space=space, surrogate=surrogate, accuracy=accuracy,
+            chunk_size=chunk_size, max_points=max_points, seed=seed,
+            mix_models=mix_models, layer_buckets=layer_buckets,
+            budget=budget, prune=prune, shards=shards, devices=devices,
+            pipeline_depth=pipeline_depth, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, csv_path=csv_path,
+            max_chunks=max_chunks, telemetry=telemetry)
+    tr = as_tracer(telemetry)
     cost_model = as_cost_model(surrogate)
     acc_matrix = accuracy_matrix(models, accuracy)
     walk = plan_joint_walk(models, space=space, chunk_size=chunk_size,
@@ -350,8 +402,8 @@ def coexplore_front(
     stats = BudgetStats() if budget is not None else None
     engage = (budget is not None and prune
               and bool(budget.config_constraints()))
-    pruner = TwoStagePruner(budget, chunk_size, cost_model, stats) \
-        if engage else None
+    pruner = TwoStagePruner(budget, chunk_size, cost_model, stats,
+                            telemetry=telemetry) if engage else None
     total = 0
 
     def _fold_chunk(res, idx, mids, codes):
@@ -361,24 +413,26 @@ def coexplore_front(
         obj = _joint_objectives(res, lane_acc)
         obj, idx, (mids, codes) = fold_budget_chunk(
             archive, obj, idx, result=res, budget=budget, accuracy=lane_acc,
-            stats=stats, aux=(mids, codes))
+            stats=stats, aux=(mids, codes), telemetry=tr)
         _update_per_model_best(per_model_best, models, acc_matrix,
                                mids, codes, obj)
 
     def _fold_flush(res, idx, aux):
         """One fully-feasible two-stage flush -> archive + bests."""
         obj = _joint_objectives(res, aux["accuracy"])
-        fold_budget_chunk(archive, obj, idx)
+        fold_budget_chunk(archive, obj, idx, telemetry=tr)
         _update_per_model_best(per_model_best, models, acc_matrix,
                                aux["mids"], aux["codes"], obj)
 
-    for _, wl, model_ids, mids, cfg, idx in walk.chunks():
-        codes = host(cfg.pe_type).astype(np.int64)
+    for _, wl, model_ids, mids, cfg, idx in timed_iter(walk.chunks(), tr):
+        codes = np.asarray(cfg.pe_type).astype(np.int64)
         total += len(idx)
+        if tr.enabled:
+            tr.counter("sweep.points", len(idx))
         if not engage:
-            res = evaluate_chunk(cfg, wl, cost_model, pad_to=chunk_size,
-                                 model_ids=model_ids)
-            _fold_chunk(res, idx, mids, codes)
+            pending = _traced_dispatch(tr, cfg, wl, cost_model, chunk_size,
+                                       model_ids=model_ids)
+            _fold_chunk(_traced_finish(tr, pending), idx, mids, codes)
             continue
         aux = dict(accuracy=acc_matrix[mids, codes], mids=mids, codes=codes)
         for out in pruner.feed(cfg, idx, wl, model_ids=model_ids, aux=aux):
@@ -391,6 +445,239 @@ def coexplore_front(
                           per_model_best=per_model_best,
                           points_evaluated=total, buckets=walk.buckets_meta,
                           budget=budget, budget_stats=stats)
+
+
+def _merge_best(dest: dict, src: dict) -> None:
+    """Fold one shard's (model, PE-type) best-seen aggregates into the
+    merged dict: max / min are exact, so the merge equals the
+    single-process fold bit for bit."""
+    for key, e in src.items():
+        d = dest.get(key)
+        if d is None:
+            dest[key] = dict(e)
+        else:
+            d["macs_per_s_per_mm2"] = max(d["macs_per_s_per_mm2"],
+                                          e["macs_per_s_per_mm2"])
+            d["energy_per_mac_pj"] = min(d["energy_per_mac_pj"],
+                                         e["energy_per_mac_pj"])
+
+
+def _sharded_coexplore_front(
+        models: tuple, space, surrogate, accuracy, chunk_size, max_points,
+        seed, mix_models, layer_buckets, budget, prune, shards, devices,
+        pipeline_depth, checkpoint_dir, checkpoint_every, csv_path,
+        max_chunks, telemetry=None) -> CoexploreFront:
+    """The sharded / pipelined / durable joint walk behind
+    ``coexplore_front``.
+
+    The default walk's chunk sequence, dealt round-robin across S shards;
+    each shard folds into its own archive, (model, PE) bests, counters
+    and (when the budget engages two-stage pruning) its own
+    ``TwoStagePruner``, and runs its chunks on its own device and CUDA
+    stream (``repro_torch.core.shard``).  Unpruned chunks are pipelined:
+    up to ``shards * pipeline_depth`` in flight, finished oldest-first.
+    Per-shard state merges exactly (archive reduction, max / min bests,
+    additive stats), so the front is bit-identical to the plain walk's.
+
+    Every ``checkpoint_every`` retired chunks the complete per-shard
+    state (archives, bests, counters, stats, pruner buffers and their
+    active bucket / model) and the cursor are written atomically; an
+    existing checkpoint in ``checkpoint_dir`` resumes the walk from its
+    cursor and reproduces the uninterrupted front.  ``max_chunks`` stops
+    the walk after a final checkpoint.
+    """
+    from repro_torch.core import shard as _shard
+    tr = as_tracer(telemetry)
+    cost_model = as_cost_model(surrogate)
+    acc_matrix = accuracy_matrix(models, accuracy)
+    home = models[0].workload.layers.H.device
+    n_shards, devs = _shard._resolve_for(shards, devices, home)
+    lanes = _shard._make_shards(n_shards, devs, home)
+    depth = _shard.DEFAULT_PIPELINE_DEPTH if pipeline_depth is None \
+        else pipeline_depth
+    engage = (budget is not None and prune
+              and bool(budget.config_constraints()))
+    archives = [ParetoArchive(len(COEXPLORE_METRICS))
+                for _ in range(n_shards)]
+    bests: list[dict] = [{} for _ in range(n_shards)]
+    totals = [0] * n_shards
+    stats = [BudgetStats() for _ in range(n_shards)] \
+        if budget is not None else None
+
+    walk = plan_joint_walk(models, space=space, chunk_size=chunk_size,
+                           max_points=max_points, seed=seed,
+                           mix_models=mix_models,
+                           layer_buckets=layer_buckets)
+
+    ckpt = None
+    cursor = 0
+    pruner_states = wl_keys = None
+    if checkpoint_dir is not None:
+        ckpt = _shard.SweepCheckpointer(
+            checkpoint_dir, every=checkpoint_every,
+            signature=dict(
+                kind="joint", mix=bool(mix_models), shards=n_shards,
+                chunk_size=int(chunk_size), max_points=max_points,
+                seed=int(seed), metrics=list(COEXPLORE_METRICS),
+                prune=bool(engage),
+                budget=None if budget is None else budget.spec(),
+                space=_shard.space_signature(space),
+                models=[m.name for m in models],
+                workloads=_shard.workloads_signature(models)))
+        loaded = ckpt.load(telemetry=telemetry)
+        if loaded is not None:
+            cursor = int(loaded["cursor"])
+            archives = [ParetoArchive.from_state(a)
+                        for a in loaded["archives"]]
+            bests = [{(m, pe): dict(e) for m, pe, e in shard_best}
+                     for shard_best in loaded["best"]]
+            totals = [int(t) for t in loaded["totals"]]
+            if stats is not None and loaded.get("stats") is not None:
+                stats = [BudgetStats.from_dict(d) for d in loaded["stats"]]
+            pruner_states = loaded.get("pruners")
+            wl_keys = loaded.get("wl_keys")
+    pruners = None
+    if engage:
+        pruners = [TwoStagePruner(budget, chunk_size,
+                                  sh.placed(cost_model), stats[s],
+                                  telemetry=telemetry, track=f"shard{s}")
+                   for s, sh in enumerate(lanes)]
+        if pruner_states is not None:
+            for s, (p, st) in enumerate(zip(pruners, pruner_states)):
+                k = wl_keys[s] if wl_keys is not None else None
+                wl = walk.workload_for(k)
+                p.restore_state(st, None if wl is None
+                                else lanes[s].placed(wl))
+    active_keys: list = list(wl_keys) if wl_keys is not None \
+        else [None] * n_shards
+
+    def _fold(s, res, idx, mids, codes):
+        lane_acc = acc_matrix[mids, codes]
+        obj = _joint_objectives(res, lane_acc)
+        totals[s] += len(idx)
+        obj, idx, (mids, codes) = fold_budget_chunk(
+            archives[s], obj, idx, result=res, budget=budget,
+            accuracy=lane_acc, stats=None if stats is None else stats[s],
+            aux=(mids, codes), telemetry=tr)
+        _update_per_model_best(bests[s], models, acc_matrix, mids,
+                               codes, obj)
+
+    def _fold_flush(s, res, idx, aux):
+        obj = _joint_objectives(res, aux["accuracy"])
+        fold_budget_chunk(archives[s], obj, idx, telemetry=tr)
+        _update_per_model_best(bests[s], models, acc_matrix,
+                               aux["mids"], aux["codes"], obj)
+
+    def _state() -> dict:
+        st = dict(cursor=cursor,
+                  archives=[a.state_dict() for a in archives],
+                  best=[[[m, pe, dict(e)] for (m, pe), e in b.items()]
+                        for b in bests],
+                  totals=list(totals))
+        if stats is not None:
+            st["stats"] = [s_.as_dict() for s_ in stats]
+        if pruners is not None:
+            st["pruners"] = [p.state_dict() for p in pruners]
+            st["wl_keys"] = list(active_keys)
+        return st
+
+    def _merged_archive() -> ParetoArchive:
+        return _shard.merge_archives(archives, len(COEXPLORE_METRICS))
+
+    def _snapshot() -> None:
+        if ckpt is not None:
+            with tr.span("checkpoint", cursor=cursor):
+                ckpt.save(cursor, _state(), telemetry=telemetry)
+        if csv_path is not None:
+            with tr.span("csv"):
+                _shard.export_front_csv(csv_path, _merged_archive(),
+                                        COEXPLORE_METRICS, space=space,
+                                        models=models)
+
+    start = cursor            # cursor advances as chunks retire
+    inflight: deque = deque()
+    cap = max(1, n_shards * max(1, depth))
+    completed = True
+    traced = tr.enabled
+    t_disp: dict[int, int] = {}
+
+    def _finish_one() -> int:
+        c, s, pending, idx, mids, codes = inflight.popleft()
+        res = _traced_finish(tr, pending, track=f"shard{s}") \
+            if traced else finish_chunk(pending)
+        if traced:
+            tr.complete("chunk", t_disp.pop(c), tr.now_ns(), cat="pipeline",
+                        track=f"shard{s}", chunk=c)
+            tr.gauge("pipeline.in_flight", len(inflight))
+        _fold(s, res, idx, mids, codes)
+        return c
+
+    def _retire(c: int) -> None:
+        nonlocal cursor
+        cursor = c + 1
+        if ckpt is not None and ckpt.due(cursor):
+            _snapshot()
+
+    for c, (wl_key, wl, model_ids, mids, cfg, idx) in enumerate(
+            timed_iter(walk.chunks(start), tr), start=start):
+        if max_chunks is not None and c - start >= max_chunks:
+            completed = False
+            break
+        s = c % n_shards
+        sh = lanes[s]
+        wl = sh.placed(wl)
+        codes = np.asarray(cfg.pe_type).astype(np.int64)
+        if traced:
+            tr.counter("sweep.points", len(idx))
+        if engage:
+            active_keys[s] = wl_key
+            totals[s] += len(idx)
+            aux = dict(accuracy=acc_matrix[mids, codes], mids=mids,
+                       codes=codes)
+            with sh.active():
+                for out in pruners[s].feed(cfg, idx, wl,
+                                           model_ids=model_ids, aux=aux):
+                    _fold_flush(s, *out)
+            _retire(c)
+            continue
+        with sh.active():
+            if traced:
+                t_disp[c] = tr.now_ns()
+                pending = _traced_dispatch(tr, cfg, wl,
+                                           sh.placed(cost_model),
+                                           chunk_size, model_ids=model_ids,
+                                           track=f"shard{s}")
+            else:
+                pending = dispatch_chunk(cfg, wl, sh.placed(cost_model),
+                                         pad_to=chunk_size,
+                                         model_ids=model_ids)
+        inflight.append((c, s, pending, idx, mids, codes))
+        if traced:
+            tr.gauge("pipeline.in_flight", len(inflight))
+        while len(inflight) >= cap:
+            _retire(_finish_one())
+    while inflight:
+        _retire(_finish_one())
+    if engage and completed:
+        for s in range(n_shards):
+            with lanes[s].active():
+                for out in pruners[s].finish():
+                    _fold_flush(s, *out)
+    _snapshot()
+
+    merged_best: dict = {}
+    for b in bests:
+        _merge_best(merged_best, b)
+    merged_stats = _shard.merge_budget_stats(stats) \
+        if stats is not None else None
+    with tr.span("archive_merge"):
+        merged = _merged_archive()
+    return CoexploreFront(archive=merged, models=models,
+                          space=space, metrics=COEXPLORE_METRICS,
+                          per_model_best=merged_best,
+                          points_evaluated=sum(totals),
+                          buckets=walk.buckets_meta, budget=budget,
+                          budget_stats=merged_stats)
 
 
 def lightpe_claim(front: CoexploreFront) -> dict:

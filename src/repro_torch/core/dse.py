@@ -27,14 +27,24 @@ contracts of the joint walk rest on:
 The streaming half walks a space lazily (``evaluate_space_streaming``),
 folds every chunk into a non-dominated ``ParetoArchive`` and applies
 deployment budgets (``constraints``), two-stage when the budget has
-config-stage bounds.  The walk runs on the device of the workload.
+config-stage bounds.  The walk runs on the device of the workload; its
+chunks are decoded on the host and each goes to the device with its
+evaluation (``dispatch_chunk``), so a sharded walk can keep a chunk's
+whole work on its shard's stream (``repro_torch.core.shard``).
 
-Not ported: the reference's trace counters (``trace_count``,
-``ppa_trace_count``) count XLA compilations, and eager torch compiles
-nothing; the telemetry hooks (``telemetry=``, ROADMAP A3); and the
-sharded / checkpointed variants (``shards=``, ``devices=``,
-``pipeline_depth=``, ``checkpoint_dir=``, ``csv_path=``, ``max_chunks=``,
-ROADMAP A7), which raise ``ValueError``.
+Asynchrony on a card: ``dispatch_chunk`` uploads a chunk's configs from
+a pinned buffer, queues both stages and the copy of the sums into a
+pinned host buffer on the current stream, and records an event after
+it; ``finish_chunk`` waits on that event only.  So the host is free from
+dispatch to finish (a pageable copy would have waited for the stream).
+
+Telemetry (``telemetry=``, a ``repro_torch.obs.Tracer``) keeps the
+reference's spans and counters: ``decode``, ``dispatch``,
+``device_wait``, ``archive``, ``prune_stage1`` / ``prune_stage2``;
+``sweep.points``, ``budget.killed``, ``budget.kill.<constraint>``,
+``prune.flushes`` and the ``prune.buffered`` gauge.  The reference's
+compile counters (``trace_count``, ``compile.L<n>``, ``sweep.compiles``)
+count XLA traces; eager torch compiles nothing, so the port emits none.
 """
 
 from __future__ import annotations
@@ -53,8 +63,10 @@ from repro_torch.core.costmodel import CostModel, as_cost_model
 from repro_torch.core.dataflow import LayerCost, layer_cost, reduce_layer_costs
 from repro_torch.core.ppa import PPAModels
 from repro_torch.core.synth import LEAKAGE_MW_PER_MM2
+from repro_torch.core.arch import config_to
 from repro_torch.core.workloads import LayerSpec, StackedWorkload, Workload
-from repro_torch.device import host
+from repro_torch.device import host, stage
+from repro_torch.obs import as_tracer, timed_iter
 
 # Default number of design points evaluated per chunk.
 DEFAULT_CHUNK_SIZE = 4096
@@ -142,13 +154,53 @@ def _finish(cost, clock_ghz, area_mm2, leak_mw) -> DseResult:
 
 
 class PendingChunk(NamedTuple):
-    """A dispatched chunk: device tensors queued on the current stream,
-    not yet copied to the host.  ``finish_chunk`` waits for them."""
+    """A dispatched chunk: both stages and the copy of their sums to the
+    host queued on the current stream.  ``finish_chunk`` waits for it."""
     cost: object                 # dataflow LayerCost sums (device tensors)
     clock: object
     area: object
     leak: object
     n: int                       # real (unpadded) lane count
+    rows: object = None          # host (pinned on a card) copy of the sums
+    done: object = None          # CUDA event after the copy (None: ready)
+    staged: tuple = ()           # pinned upload buffers, alive until done
+
+
+def _queue_transfer(cost, clock, area, leak, n: int,
+                    staged: tuple = ()) -> PendingChunk:
+    """Queue the copy of a chunk's sums to the host: on a card into a
+    pinned buffer, on the current stream, with an event recorded after
+    it; on the CPU the rows are already there."""
+    rows = torch.stack([*cost, clock, area, leak])[:, :n]
+    if rows.device.type != "cuda":
+        return PendingChunk(cost, clock, area, leak, n, rows, None, staged)
+    buf = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+    buf.copy_(rows, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(rows.device))
+    return PendingChunk(cost, clock, area, leak, n, buf, done, staged)
+
+
+def _traced_dispatch(tr, cfg, workload, model, pad_to, model_ids=None,
+                     track: str | None = None) -> PendingChunk:
+    """``dispatch_chunk`` under a ``dispatch`` span."""
+    if not tr.enabled:
+        return dispatch_chunk(cfg, workload, model, pad_to=pad_to,
+                              model_ids=model_ids)
+    with tr.span("dispatch", track=track):
+        return dispatch_chunk(cfg, workload, model, pad_to=pad_to,
+                              model_ids=model_ids)
+
+
+def _traced_finish(tr, pending: PendingChunk,
+                   track: str | None = None) -> "DseResult":
+    """``finish_chunk`` under a ``device_wait`` span: on a card the host
+    blocked on the chunk's event (the device time the pipeline did not
+    hide); on the CPU only the host copy, since dispatch did the work."""
+    if not tr.enabled:
+        return finish_chunk(pending)
+    with tr.span("device_wait", track=track):
+        return finish_chunk(pending)
 
 
 def _pad_config(cfg: AcceleratorConfig, pad: int) -> AcceleratorConfig:
@@ -199,21 +251,27 @@ def _pad_ids(mids: np.ndarray, pad: int) -> np.ndarray:
     return np.concatenate([mids, np.broadcast_to(mids[-1:], (pad,))])
 
 
+def _host_config(cfg: AcceleratorConfig) -> AcceleratorConfig:
+    """Every field a tensor on the config's own device (numpy: the CPU)."""
+    src = torch.as_tensor(cfg.pe_rows).device
+    return AcceleratorConfig(*[torch.as_tensor(f, device=src) for f in cfg])
+
+
 def dispatch_chunk(cfg: AcceleratorConfig,
                    workload: Workload | StackedWorkload,
                    surrogate: PPAModels | CostModel | str | None = None,
                    pad_to: int | None = None,
                    model_ids=None) -> PendingChunk:
-    """Validate, pad and queue both stages of one chunk; returns before
-    the device has finished."""
+    """Validate, pad and queue one chunk on the workload's device and the
+    current stream: the upload of its configs, both stages and the copy
+    of the sums to the host.  Returns before the device has finished."""
     stacked = isinstance(workload, StackedWorkload)
     if stacked != (model_ids is not None):
         raise ValueError("model_ids must be given with a StackedWorkload "
                          "and only with one")
     model = as_cost_model(surrogate)
     model.validate(cfg)
-    cfg = AcceleratorConfig(*[torch.as_tensor(f, device=cfg.pe_rows.device)
-                              for f in cfg])
+    cfg = _host_config(cfg)
     if cfg.pe_rows.ndim == 0:  # single unbatched point: lift to (1,)
         cfg = AcceleratorConfig(*[f.reshape(1) for f in cfg])
     n = int(cfg.pe_rows.shape[0])
@@ -226,22 +284,26 @@ def dispatch_chunk(cfg: AcceleratorConfig,
         cfg = _pad_config(cfg, pad_to - n)
         if mids is not None:
             mids = _pad_ids(mids, pad_to - n)
+    dev = _workload_device(workload)
+    cfg, staged = config_to(cfg, dev)
     power, clock, area, leak = _ppa_stage(model.ppa_fn, model.ppa_params, cfg)
     del power  # nominal-activity power; the result's power column is
     #            derived from chip energy over runtime in _finish
-    cost = _network_stage(cfg, clock, workload, None if mids is None else
-                          torch.as_tensor(mids, device=cfg.pe_rows.device))
-    return PendingChunk(cost, clock, area, leak, n)
+    if mids is not None:
+        mids, pinned = stage(mids, dev)
+        staged += (pinned,)
+    cost = _network_stage(cfg, clock, workload, mids)
+    return _queue_transfer(cost, clock, area, leak, n, staged)
 
 
 def finish_chunk(pending: PendingChunk) -> DseResult:
-    """Copy a dispatched chunk's sums to the host in one transfer and
-    derive the float64 columns."""
+    """Wait for a dispatched chunk's copy to the host (its event, not the
+    whole stream) and derive the float64 columns."""
     if pending.n == 0:
         return _empty_result()
-    rows = torch.stack([*pending.cost, pending.clock, pending.area,
-                        pending.leak])[:, :pending.n]
-    rows = host(rows)
+    if pending.done is not None:
+        pending.done.synchronize()
+    rows = pending.rows.numpy()
     k = len(LayerCost._fields)
     res = _finish(LayerCost(*rows[:k]), *rows[k:])
     return DseResult(*[np.asarray(col, RESULT_DTYPES[f])
@@ -280,15 +342,6 @@ def evaluate_space(cfg: AcceleratorConfig, workload: Workload,
     return DseResult(*[np.concatenate(c) for c in cols])
 
 
-def _not_ported(**knobs) -> None:
-    """Refuse the sharded / checkpointed walk knobs by name."""
-    given = [k for k, v in knobs.items() if v is not None]
-    if given:
-        raise ValueError(
-            f"{', '.join(given)}: the port has no sharded, pipelined or "
-            f"checkpointed walk yet (core/shard.py, ROADMAP A7)")
-
-
 def chunk_dominators(obj: np.ndarray, block: int = 512):
     """``(front, dom)`` of one chunk's objective rows: ``front`` the rows
     of the chunk's own non-dominated front, ``dom[k, r]`` True when row
@@ -311,7 +364,8 @@ def chunk_dominators(obj: np.ndarray, block: int = 512):
 
 
 def fold_budget_chunk(archive, obj, idx, result=None, budget=None,
-                      accuracy=None, stats=None, aux=(), dom=None):
+                      accuracy=None, stats=None, aux=(), dom=None,
+                      telemetry=None, track=None):
     """Mask one evaluated chunk by ``budget`` and fold the survivors into
     ``archive``: the fold every budget-aware walk shares.
 
@@ -321,13 +375,17 @@ def fold_budget_chunk(archive, obj, idx, result=None, budget=None,
     ``dom`` (a ``chunk_dominators`` result) drops rows a feasible front
     row of the same chunk dominates first.  A ``None`` budget folds the
     chunk unmasked.  Returns the ``(obj, idx, aux)`` that reached the
-    archive.
+    archive.  ``telemetry`` counts the kills and times the ``archive``
+    span.
     """
+    tr = as_tracer(telemetry)
     mask = None
     if budget is not None:
         mask, kills = budget.feasibility(result, accuracy=accuracy)
         if stats is not None:
             stats.record(mask, kills)
+        if tr.enabled:
+            _count_kills(tr, len(mask) - int(np.count_nonzero(mask)), kills)
         if mask.all():
             mask = None
     if dom is not None:
@@ -340,8 +398,18 @@ def fold_budget_chunk(archive, obj, idx, result=None, budget=None,
     if mask is not None:
         obj, idx = obj[mask], idx[mask]
         aux = tuple(a[mask] for a in aux)
-    archive.update(obj, idx)
+    with tr.span("archive", track=track):
+        archive.update(obj, idx)
     return obj, idx, aux
+
+
+def _count_kills(tr, killed: int, kills: dict) -> None:
+    """The ``budget.killed`` / ``budget.kill.<constraint>`` counters."""
+    if killed:
+        tr.counter("budget.killed", killed)
+    for cname, k in kills.items():
+        if k:
+            tr.counter(f"budget.kill.{cname}", k)
 
 
 class _PPAView(NamedTuple):
@@ -356,25 +424,28 @@ class TwoStagePruner:
     Stage 1 runs the PPA stage on every raw chunk (padded to the fixed
     chunk shape), applies the budget's CONFIG-stage bounds (chip area;
     per-lane accuracy on joint walks) to the host float32 PPA columns,
-    and buffers the survivors: config rows (on the device), clock / area
-    / leakage (host float32), global indices, stacked-model ids and any
-    ``aux`` arrays.  Whenever a full chunk of survivors is buffered,
-    stage 2 folds the dataflow over exactly those lanes at the same
-    chunk shape (a trailing partial flush repeats its last lane), with
-    stage 1's clock / area / leakage passed through, not recomputed.
+    and buffers the survivors on the host: config rows, clock / area /
+    leakage (float32), global indices, stacked-model ids and any ``aux``
+    arrays.  Whenever a full chunk of survivors is buffered, stage 2
+    folds the dataflow over exactly those lanes at the same chunk shape
+    (a trailing partial flush repeats its last lane), with stage 1's
+    clock / area / leakage passed through, not recomputed.
     Workload-stage bounds then mask each flush, so yielded chunks hold
-    fully feasible lanes only.
+    fully feasible lanes only.  Both stages run on the workload's device
+    and the current stream; stage 1 waits for its PPA columns.
 
     Every lane's columns equal its single-stage values bit for bit:
     pruning only removes rows.  Accounting (``BudgetStats``): every raw
     lane counts as evaluated, config-stage kills are counted over all of
     them, stage-1 casualties land in ``pruned``, and workload-stage kills
-    are counted over the survivors only.
+    are counted over the survivors only.  ``state_dict`` /
+    ``restore_state`` round-trip the survivor buffer for checkpoints.
     """
 
     def __init__(self, budget: Budget, chunk_size: int,
                  model: CostModel | PPAModels | str | None = None,
-                 stats: BudgetStats | None = None):
+                 stats: BudgetStats | None = None,
+                 telemetry=None, track: str | None = None):
         config_cons = budget.config_constraints()
         if not config_cons:
             raise ValueError("TwoStagePruner needs a budget with at least "
@@ -385,6 +456,8 @@ class TwoStagePruner:
         self.chunk_size = int(chunk_size)
         self.model = as_cost_model(model)
         self.stats = stats
+        self._tr = as_tracer(telemetry)
+        self._track = track
         self._config_cons = config_cons
         self._workload_cons = budget.workload_constraints()
         if stats is not None:
@@ -394,6 +467,10 @@ class TwoStagePruner:
         self._mixed = None              # mixed vs plain, pinned per buffer
         self._frags: list[dict] = []    # buffered survivor fragments
         self._n = 0                     # buffered survivor count
+
+    def __len__(self) -> int:
+        """Currently buffered (config-feasible, not yet folded) lanes."""
+        return self._n
 
     def feed(self, cfg: AcceleratorConfig, indices, workload,
              model_ids=None, aux: dict | None = None):
@@ -419,17 +496,22 @@ class TwoStagePruner:
             raise ValueError(f"chunk of {n} lanes exceeds the pruner's "
                              f"chunk shape ({self.chunk_size}): feed chunks "
                              f"at most chunk_size long")
-        self.model.validate(cfg)
-        cfg_p = _pad_config(cfg, self.chunk_size - n) \
-            if n < self.chunk_size else cfg
-        _, clock, area, leak = _ppa_stage(self.model.ppa_fn,
-                                          self.model.ppa_params, cfg_p)
-        clock, area, leak = host(torch.stack([clock, area, leak])[:, :n])
-        accuracy = None if aux is None else aux.get("accuracy")
-        mask, kills = self.budget.feasibility(
-            _PPAView(area_mm2=area), accuracy=accuracy,
-            constraints=self._config_cons)
+        with self._tr.span("prune_stage1", track=self._track):
+            self.model.validate(cfg)
+            cfg = _host_config(cfg)
+            cfg_p = _pad_config(cfg, self.chunk_size - n) \
+                if n < self.chunk_size else cfg
+            cfg_p, _staged = config_to(cfg_p, _workload_device(workload))
+            _, clock, area, leak = _ppa_stage(self.model.ppa_fn,
+                                              self.model.ppa_params, cfg_p)
+            clock, area, leak = host(torch.stack([clock, area, leak])[:, :n])
+            accuracy = None if aux is None else aux.get("accuracy")
+            mask, kills = self.budget.feasibility(
+                _PPAView(area_mm2=area), accuracy=accuracy,
+                constraints=self._config_cons)
         kept = int(np.count_nonzero(mask))
+        if self._tr.enabled:
+            _count_kills(self._tr, n - kept, kills)
         if self.stats is not None:
             self.stats.record_evaluated(n, kills)
             self.stats.record_pruned(n - kept)
@@ -446,6 +528,8 @@ class TwoStagePruner:
             {k: np.asarray(v)[rows] for k, v in aux.items()}
         self._frags.append(frag)
         self._n += kept
+        if self._tr.enabled:
+            self._tr.gauge("prune.buffered", self._n, track=self._track)
         while self._n >= self.chunk_size:
             out = self._flush(self.chunk_size)
             if out is not None:
@@ -454,6 +538,47 @@ class TwoStagePruner:
     def finish(self):
         """Drain the final partial buffer (padded to the chunk shape)."""
         yield from self._drain()
+
+    def state_dict(self) -> dict:
+        """The buffered survivors as checkpointable plain data (host
+        arrays).  The stage-2 fold target (``workload``) is not
+        serialized: the caller re-binds it on restore."""
+        state = dict(n=int(self._n), mixed=self._mixed)
+        if self._n:
+            m = self._merged()
+            frag = dict(cfg={f: host(getattr(m["cfg"], f))
+                             for f in AcceleratorConfig._fields},
+                        clock=m["clock"], area=m["area"], leak=m["leak"],
+                        idx=m["idx"],
+                        aux={k: np.asarray(v) for k, v in m["aux"].items()})
+            if self._mixed:
+                frag["model_ids"] = m["model_ids"]
+            state["frag"] = frag
+        return state
+
+    def restore_state(self, state: dict, workload) -> None:
+        """Rebuild the survivor buffer from ``state_dict()`` and re-bind
+        the stage-2 fold target: ``workload`` must be the one the walk
+        was feeding when it saved."""
+        self._n = int(state["n"])
+        self._mixed = state["mixed"]
+        self._workload = workload if self._n else None
+        self._frags = []
+        if self._n:
+            f = state["frag"]
+            cfg = AcceleratorConfig(**{
+                k: torch.as_tensor(np.asarray(v), dtype=torch.int32
+                                   if k == "pe_type" else torch.float32)
+                for k, v in f["cfg"].items()})
+            frag = dict(cfg=cfg,
+                        clock=np.asarray(f["clock"]),
+                        area=np.asarray(f["area"]),
+                        leak=np.asarray(f["leak"]),
+                        idx=np.asarray(f["idx"], np.int64),
+                        aux={k: np.asarray(v) for k, v in f["aux"].items()})
+            if self._mixed:
+                frag["model_ids"] = np.asarray(f["model_ids"], np.int64)
+            self._frags = [frag]
 
     def _drain(self):
         while self._n:
@@ -493,28 +618,39 @@ class TwoStagePruner:
                 head[k], tail[k] = v[:count], v[count:]
         self._frags = [tail] if self._n > count else []
         self._n -= count
+        if self._tr.enabled:
+            self._tr.counter("prune.flushes")
         return self._stage2(head, count)
 
     def _stage2(self, lanes: dict, n: int):
         pad = self.chunk_size - n
         cfg = lanes["cfg"]
-        dev = cfg.pe_rows.device
+        dev = _workload_device(self._workload)
         ppa = np.stack([lanes["clock"], lanes["area"], lanes["leak"]])
         mids = lanes.get("model_ids")
         if pad:
             cfg = _pad_config(cfg, pad)
             ppa = np.concatenate([ppa, np.repeat(ppa[:, -1:], pad, 1)], 1)
             mids = None if mids is None else _pad_ids(mids, pad)
-        clock, area, leak = torch.as_tensor(ppa, device=dev)
-        cost = _network_stage(cfg, clock, self._workload, None if mids is None
-                              else torch.as_tensor(mids, device=dev))
-        res = finish_chunk(PendingChunk(cost, clock, area, leak, n))
+        with self._tr.span("prune_stage2", track=self._track):
+            cfg, staged = config_to(cfg, dev)
+            ppa, pinned = stage(ppa, dev)
+            staged += (pinned,)
+            if mids is not None:
+                mids, pinned = stage(mids, dev)
+                staged += (pinned,)
+            clock, area, leak = ppa
+            cost = _network_stage(cfg, clock, self._workload, mids)
+            res = finish_chunk(_queue_transfer(cost, clock, area, leak, n,
+                                               staged))
         idx, aux = lanes["idx"], lanes["aux"]
         if self._workload_cons:
             # workload-stage bounds never read "accuracy" (config-stage)
             mask, kills = self.budget.feasibility(
                 res, constraints=self._workload_cons)
             kept = int(np.count_nonzero(mask))
+            if self._tr.enabled:
+                _count_kills(self._tr, n - kept, kills)
             if self.stats is not None:
                 self.stats.merge_kills(kills)
                 self.stats.record_feasible(kept)
@@ -544,6 +680,7 @@ def evaluate_space_streaming(
         shards: int | None = None,
         devices=None,
         pipeline_depth: int | None = None,
+        telemetry=None,
 ) -> Iterator[tuple[DseResult, np.ndarray]]:
     """Lazily evaluate the cartesian design space chunk by chunk, on the
     device of ``workload``.
@@ -556,24 +693,50 @@ def evaluate_space_streaming(
     collects the counts.  A budget with config-stage bounds runs
     two-stage (``TwoStagePruner``) unless ``prune=False``: same feasible
     lanes, same columns, different chunk boundaries.
+
+    ``shards=`` / ``devices=`` / ``pipeline_depth=`` route the walk
+    through the pipelined multi-stream walk of ``repro_torch.core.shard``
+    (same point set, every lane bit-identical).  ``telemetry=`` times the
+    decode / dispatch / device-wait / pruner phases and counts points
+    and budget kills; yielded chunks are bit-identical with it on or off.
     """
-    _not_ported(shards=shards, devices=devices, pipeline_depth=pipeline_depth)
+    tr = as_tracer(telemetry)
+    if shards is not None or devices is not None:
+        from repro_torch.core import shard as _shard
+        yield from _shard.sharded_space_stream(
+            workload, space, surrogate, chunk_size=chunk_size,
+            max_points=max_points, seed=seed, budget=budget,
+            budget_stats=budget_stats, prune=prune, shards=shards,
+            devices=devices,
+            pipeline_depth=(_shard.DEFAULT_PIPELINE_DEPTH
+                            if pipeline_depth is None else pipeline_depth),
+            telemetry=telemetry)
+        return
     model = as_cost_model(surrogate)
-    device = _workload_device(workload)
-    chunks = iter_space_chunks(space, chunk_size=chunk_size,
-                               max_points=max_points, seed=seed, device=device)
+    chunks = timed_iter(iter_space_chunks(space, chunk_size=chunk_size,
+                                          max_points=max_points, seed=seed,
+                                          device="cpu"), tr)
     if budget is not None and prune and budget.config_constraints():
-        pruner = TwoStagePruner(budget, chunk_size, model, budget_stats)
+        pruner = TwoStagePruner(budget, chunk_size, model, budget_stats,
+                                telemetry=telemetry)
         for cfg, idx in chunks:
+            if tr.enabled:
+                tr.counter("sweep.points", len(idx))
             for res, fidx, _aux in pruner.feed(cfg, idx, workload):
                 yield res, fidx
         for res, fidx, _aux in pruner.finish():
             yield res, fidx
         return
     for cfg, idx in chunks:
-        res = evaluate_chunk(cfg, workload, model, pad_to=chunk_size)
+        n_raw = len(idx)
+        if tr.enabled:
+            tr.counter("sweep.points", n_raw)
+        res = _traced_finish(tr, _traced_dispatch(tr, cfg, workload, model,
+                                                  chunk_size))
         if budget is not None:
             res, idx = apply_budget(res, idx, budget, stats=budget_stats)
+            if tr.enabled and len(idx) < n_raw:
+                tr.counter("budget.killed", n_raw - len(idx))
             if len(idx) == 0:
                 continue
         yield res, idx
@@ -822,8 +985,10 @@ def pareto_front_streaming(
         devices=None,
         pipeline_depth: int | None = None,
         checkpoint_dir: str | None = None,
+        checkpoint_every: int = 64,
         csv_path: str | None = None,
         max_chunks: int | None = None,
+        telemetry=None,
 ) -> tuple[ParetoArchive, AcceleratorConfig]:
     """Pareto front of an arbitrarily large design space in O(chunk)
     memory: ``evaluate_space_streaming`` folded into a ``ParetoArchive``.
@@ -832,16 +997,39 @@ def pareto_front_streaming(
     front configs (on the workload's device).  With ``budget`` set it is
     the front of the FEASIBLE subset, bit-identical to filtering an
     unconstrained walk post hoc.
+
+    Any of ``shards`` / ``devices`` / ``pipeline_depth`` (round-robin
+    shards with their own archives and streams, chunks in flight),
+    ``checkpoint_dir`` / ``checkpoint_every`` (atomic snapshots; an
+    existing checkpoint resumes the walk), ``csv_path`` (the decoded
+    front streamed to CSV) or ``max_chunks`` (stop after that many
+    chunks, a preemption) routes the walk through
+    ``repro_torch.core.shard.sharded_pareto_front``, whose front is
+    bit-identical (indices and objectives) to this fold.  ``telemetry=``
+    instruments the walk without touching a value.
     """
-    _not_ported(shards=shards, devices=devices, pipeline_depth=pipeline_depth,
-                checkpoint_dir=checkpoint_dir, csv_path=csv_path,
-                max_chunks=max_chunks)
+    if (shards is not None or devices is not None
+            or checkpoint_dir is not None or csv_path is not None
+            or max_chunks is not None):
+        from repro_torch.core import shard as _shard
+        return _shard.sharded_pareto_front(
+            workload, space, metrics=metrics, surrogate=surrogate,
+            chunk_size=chunk_size, max_points=max_points, seed=seed,
+            budget=budget, budget_stats=budget_stats, prune=prune,
+            shards=shards, devices=devices,
+            pipeline_depth=(_shard.DEFAULT_PIPELINE_DEPTH
+                            if pipeline_depth is None else pipeline_depth),
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, csv_path=csv_path,
+            max_chunks=max_chunks, telemetry=telemetry)
+    tr = as_tracer(telemetry)
     archive = ParetoArchive(len(metrics))
     for res, idx in evaluate_space_streaming(
             workload, space, surrogate=surrogate, chunk_size=chunk_size,
             max_points=max_points, seed=seed, budget=budget,
-            budget_stats=budget_stats, prune=prune):
-        archive.update(_objective_columns(res, metrics), idx)
+            budget_stats=budget_stats, prune=prune, telemetry=telemetry):
+        with tr.span("archive"):
+            archive.update(_objective_columns(res, metrics), idx)
     return archive, space_points(archive.indices, space,
                                  _workload_device(workload))
 

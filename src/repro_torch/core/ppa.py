@@ -69,7 +69,10 @@ class PolyModel:
 def _fit_coef(a: torch.Tensor, y: torch.Tensor, ridge: float = 1e-6):
     m = a.shape[1]
     ata = a.T @ a + ridge * torch.eye(m, dtype=a.dtype, device=a.device)
-    return torch.linalg.solve(ata, a.T @ y)
+    # solve_ex: a singular fold gives non-finite coefficients (its CV
+    # error then loses the degree selection), as XLA's solve does,
+    # instead of raising
+    return torch.linalg.solve_ex(ata, a.T @ y)[0]
 
 
 def fit_poly(x: torch.Tensor, y: torch.Tensor, degree: int,
@@ -135,21 +138,30 @@ def surrogate_ppa(params, cfg: AcceleratorConfig):
     its own type's prediction.  Every lane's value depends on its own
     config only, never on its position in the chunk.  Lanes of unfitted
     types must be refused beforehand by ``PPAModels.validate``.
+
+    A type whose targets cannot share one basis (the per-target layout
+    of ``_pack_type_entry``) evaluates each target's own design matrix.
     """
     x = config_features(cfg)
     pos = params["pos"][torch.atleast_1d(cfg.pe_type).long()]
     shared = [design_matrix(x, e["exps"], e["mu"], e["sigma"])
+              if "targets" in e else None
               for e in params["types"]]
     out = []
     for t in TARGETS:
         preds = []
         for entry, a in zip(params["types"], shared):
-            coef, log = entry["targets"][t]
+            if a is not None:
+                coef, log = entry["targets"][t]
+                a = a[:, :coef.shape[0]]
+            else:
+                exps, mu, sigma, coef, log = entry[t]
+                a = design_matrix(x, exps, mu, sigma)
             # a per-lane product and row sum, not a matrix-vector
             # product: a BLAS GEMV blocks rows by position (on the CPU a
             # lane's value changed with its place in a ragged chunk),
             # and the joint walks need a lane's result wherever it sits
-            v = (a[:, :coef.shape[0]] * coef).sum(-1)
+            v = (a * coef).sum(-1)
             preds.append(torch.exp(v) if log else v)
         out.append(torch.gather(torch.stack(preds), 0, pos[None, :])[0])
     power, clock, area = out                        # TARGETS order
@@ -157,27 +169,37 @@ def surrogate_ppa(params, cfg: AcceleratorConfig):
 
 
 def _pack_type_entry(ms: Dict[str, PolyModel]) -> dict:
-    """One PE type's targets as a ``surrogate_ppa`` params entry: one
-    shared max-degree basis (``exps``/``mu``/``sigma``) and each target's
-    ``(coef, log_target)``.
+    """One PE type's targets as a ``surrogate_ppa`` params entry.
 
-    Sharing needs every target standardized identically and each exponent
-    set a prefix of the widest, which ``fit_ppa_models`` always gives (one
-    fit sample per type).  Models that break it are refused: the
-    reference's per-target fallback layout is not ported.
+    The shared layout (``exps``/``mu``/``sigma`` of one max-degree basis
+    and each target's ``(coef, log_target)``) when every target is
+    standardized identically and each exponent set is a prefix of the
+    widest, which ``fit_ppa_models`` always gives (one fit sample per
+    type).  Hand-assembled models that break either property get the
+    per-target layout, ``{target: (exps, mu, sigma, coef, log_target)}``,
+    each target with its own basis.
     """
     mx = max(ms.values(), key=lambda m: len(m.exps))
-    for t, m in ms.items():
-        if not (torch.equal(m.mu, mx.mu) and torch.equal(m.sigma, mx.sigma)
-                and np.array_equal(m.exps, mx.exps[:len(m.exps)])):
-            raise ValueError(
-                f"target {t!r} does not share its PE type's standardization "
-                f"and basis; fit all targets of a type on one sample")
+    shareable = all(
+        torch.equal(m.mu, mx.mu)
+        and torch.equal(m.sigma, mx.sigma)
+        and np.array_equal(m.exps, mx.exps[:len(m.exps)])
+        for m in ms.values())
+    if not shareable:
+        return {t: (torch.as_tensor(m.exps, dtype=torch.float32,
+                                    device=m.mu.device),
+                    m.mu, m.sigma, m.coef, bool(m.log_target))
+                for t, m in ms.items()}
     return {"exps": torch.as_tensor(mx.exps, dtype=torch.float32,
                                     device=mx.mu.device),
             "mu": mx.mu, "sigma": mx.sigma,
             "targets": {t: (m.coef, bool(m.log_target))
                         for t, m in ms.items()}}
+
+
+def _entry_device(entry: dict) -> torch.device:
+    """The device of a packed type entry (either layout)."""
+    return (entry["mu"] if "mu" in entry else next(iter(entry.values()))[1]).device
 
 
 @dataclass
@@ -219,7 +241,7 @@ class PPAModels:
             for row, (code, name) in enumerate(fitted):
                 pos[code] = row
                 types.append(_pack_type_entry(self.models[name]))
-            device = types[0]["mu"].device
+            device = _entry_device(types[0])
             self._params = {"pos": torch.as_tensor(pos, device=device),
                             "types": tuple(types)}
         return self._params

@@ -29,3 +29,32 @@ def host(x):
     if torch.is_tensor(x):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices name the same place (``cuda`` without an index
+    is the current card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == \
+        (cur if b.index is None else b.index)
+
+
+def stage(x, device: torch.device):
+    """A host array or CPU tensor on ``device``, copied without blocking
+    the host: a copy to a card reads from a pinned buffer and is queued
+    on the current stream (a copy from pageable memory would first wait
+    for the stream to drain).  Returns ``(tensor, pinned)``: keep
+    ``pinned`` alive until the stream has passed the copy."""
+    t = torch.as_tensor(x)
+    if same_device(t.device, device):
+        return t, None
+    if torch.device(device).type != "cuda" or t.device.type != "cpu":
+        return t.to(device), None
+    pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    pinned.copy_(t)
+    return pinned.to(device, non_blocking=True), pinned

@@ -11,13 +11,13 @@ codes and never a dense copy of the weights.
 finished requests free their slot, queued prompts claim it).  Its slot,
 admission, prefill/decode and cache-index behaviour is the reference's,
 including that the cache index is never reset between requests (ROADMAP
-C).  Telemetry (``repro.obs``) is not ported yet: the engine takes no
-``telemetry=``.
+C), and so is its telemetry (``telemetry=``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Deque, List, Optional
 
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.layers import packed_mode
+from repro_torch.obs import as_tracer
 from repro_torch.quant.pack import DEQUANTIZE, QUANTIZE
 
 
@@ -117,6 +118,9 @@ class Request:
     max_new: int
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
+    # telemetry stamps (perf_counter seconds; 0.0 = never stamped)
+    t_submit: float = 0.0
+    t_admit: float = 0.0
 
 
 class ServeEngine:
@@ -124,10 +128,18 @@ class ServeEngine:
 
     The KV cache lives on the device of ``params`` (the embedding), in
     float32 as the reference's engine asks for.
+
+    ``telemetry=`` (a ``repro_torch.obs.Tracer``; default off) records the
+    reference's serving metrics: the ``serve.requests`` and
+    ``serve.tokens`` counters, per-request queue latency
+    (``serve.queue_s``) and end-to-end latency (``serve.request_s``), the
+    ``serve.slot_occupancy`` gauge and the ``prefill`` / ``decode`` step
+    spans (each up to its tokens on the host).  It reads clocks and host
+    scalars only: tokens and logits are the same with it on or off.
     """
 
     def __init__(self, cfg, mod, params, batch_slots: int = 8,
-                 max_len: int = 256):
+                 max_len: int = 256, telemetry=None):
         self.cfg = cfg
         self.mod = mod
         self.params = params
@@ -138,23 +150,36 @@ class ServeEngine:
                                     device=self.device)
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.queue: Deque[Request] = deque()
+        self._tr = as_tracer(telemetry)
         self._decode = lambda p, t, c: mod.decode_step(p, t, cfg, c)
         self._prefill = lambda p, t, c: mod.prefill(p, t, cfg, c)
 
     def submit(self, prompt: np.ndarray, max_new: int = 16) -> Request:
         req = Request(prompt=np.asarray(prompt), max_new=max_new)
+        if self._tr.enabled:
+            req.t_submit = time.perf_counter()
+            self._tr.counter("serve.requests")
         self.queue.append(req)
         return req
 
     def _admit(self):
         for i in range(self.batch):
             if self.slots[i] is None and self.queue:
-                self.slots[i] = self.queue.popleft()
+                req = self.queue.popleft()
+                if self._tr.enabled:
+                    req.t_admit = time.perf_counter()
+                    if req.t_submit:
+                        self._tr.observe("serve.queue_s",
+                                         req.t_admit - req.t_submit)
+                self.slots[i] = req
 
     def step(self):
         """One engine iteration: admit, prefill new, decode one token."""
+        tr = self._tr
         self._admit()
         active = [r for r in self.slots if r is not None]
+        if tr.enabled:
+            tr.gauge("serve.slot_occupancy", len(active) / self.batch)
         if not active:
             return False
         # simple synchronous batch: prompts left-padded to the same length
@@ -164,24 +189,32 @@ class ServeEngine:
             if r is not None:
                 toks[i, -len(r.prompt):] = r.prompt
         if all(not r.out for r in active):           # first step: prefill
-            logits, self.cache = self._prefill(
-                self.params, torch.as_tensor(toks, device=self.device),
-                self.cache)
+            with tr.span("prefill", cat="serve", tokens=int(plen)):
+                logits, self.cache = self._prefill(
+                    self.params, torch.as_tensor(toks, device=self.device),
+                    self.cache)
+                nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
         else:
             last = np.zeros((self.batch, 1), np.int64)
             for i, r in enumerate(self.slots):
                 if r is not None and r.out:
                     last[i, 0] = r.out[-1]
-            logits, self.cache = self._decode(
-                self.params, torch.as_tensor(last, device=self.device),
-                self.cache)
-        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            with tr.span("decode", cat="serve"):
+                logits, self.cache = self._decode(
+                    self.params, torch.as_tensor(last, device=self.device),
+                    self.cache)
+                nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
         for i, r in enumerate(self.slots):
             if r is None:
                 continue
             r.out.append(int(nxt[i]))
+            if tr.enabled:
+                tr.counter("serve.tokens")
             if len(r.out) >= r.max_new:
                 r.done = True
+                if tr.enabled and r.t_submit:
+                    tr.observe("serve.request_s",
+                               time.perf_counter() - r.t_submit)
                 self.slots[i] = None               # free the slot
         return True
 

@@ -383,9 +383,30 @@ class TestCoexploreReport:
     @pytest.mark.parametrize("kw,item", [
         (dict(shards=2), "A7"), (dict(checkpoint_dir="ck"), "A7"),
         (dict(max_chunks=1), "A7"), (dict(driver="evolve"), "A8")])
-    def test_unported_knobs_raise(self, tiny_models, kw, item):
-        with pytest.raises(ValueError, match=item):
-            coexplore_front(tiny_models, TINY_SPACE, **kw)
+    def test_unported_knobs_raise(self, tiny_models, kw, item, tmp_path):
+        """The knobs of ROADMAP A7 / A8 are ported: the sharded and
+        checkpointed walks give the plain walk's front bit for bit,
+        ``max_chunks`` stops after that many chunks, and a search with
+        the whole space as its budget recovers the enumerated front."""
+        if "checkpoint_dir" in kw:
+            kw = dict(checkpoint_dir=str(tmp_path / kw["checkpoint_dir"]))
+        want = coexplore_front(tiny_models, TINY_SPACE, chunk_size=16)
+        got = coexplore_front(tiny_models, TINY_SPACE, chunk_size=16, **kw)
+        if "max_chunks" in kw:
+            assert got.points_evaluated == 16
+            return
+        if item == "A8":
+            assert sorted(got.archive.indices.tolist()) == \
+                sorted(want.archive.indices.tolist())
+            return
+        # a merged front's row order is the merge's: compare by index
+        go, wo = np.argsort(got.archive.indices), np.argsort(
+            want.archive.indices)
+        np.testing.assert_array_equal(got.archive.indices[go],
+                                      want.archive.indices[wo])
+        np.testing.assert_array_equal(got.archive.objectives[go],
+                                      want.archive.objectives[wo])
+        assert got.per_model_best == want.per_model_best
 
 
 class TestReferenceFile:

@@ -200,9 +200,25 @@ class TestNotPorted:
                                     dict(checkpoint_dir="x"),
                                     dict(csv_path="x.csv"),
                                     dict(max_chunks=1)])
-    def test_scale_out_knobs_raise(self, workload, kw):
-        with pytest.raises(ValueError, match="A7"):
-            pareto_front_streaming(workload, SMALL_SPACE, **kw)
+    def test_scale_out_knobs_raise(self, workload, kw, tmp_path):
+        """The scale-out knobs are ported (``core/shard.py``): each one
+        gives the plain walk's front bit for bit, ``max_chunks`` the
+        front of the chunks it walked."""
+        kw = {k: str(tmp_path / v) if k in ("checkpoint_dir", "csv_path")
+              else v for k, v in kw.items()}
+        want, _ = pareto_front_streaming(workload, SMALL_SPACE, chunk_size=13)
+        if "max_chunks" in kw:
+            res, idx = next(evaluate_space_streaming(workload, SMALL_SPACE,
+                                                     chunk_size=13))
+            want = ParetoArchive(2)
+            want.update(np.stack([res.perf_per_area, -res.energy_j], -1), idx)
+        got, _ = pareto_front_streaming(workload, SMALL_SPACE, chunk_size=13,
+                                        **kw)
+        # a merged front's row order is the merge's: compare by index
+        go, wo = np.argsort(got.indices), np.argsort(want.indices)
+        np.testing.assert_array_equal(got.indices[go], want.indices[wo])
+        np.testing.assert_array_equal(got.objectives[go],
+                                      want.objectives[wo])
 
     def test_pruner_needs_a_config_stage_bound(self):
         with pytest.raises(ValueError, match="config-stage"):

@@ -42,7 +42,12 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.core.constraints", "repro_torch.coexplore_check",
               "repro_torch.configs.qwen3_32b",
               "repro_torch.configs.deepseek_moe_16b",
-              "repro_torch.configs.phi35_moe"):
+              "repro_torch.configs.phi35_moe",
+              "repro_torch.obs", "repro_torch.obs.tracer",
+              "repro_torch.obs.export", "repro_torch.obs.report",
+              "repro_torch.checkpoint.manager", "repro_torch.core.shard",
+              "repro_torch.core.search", "repro_torch.serve.frontserver",
+              "repro_torch.scale_check"):
         assert m in MODULES, m
 
 
@@ -52,6 +57,9 @@ def test_every_module_imports_without_jax_or_repro():
      ROOT / "examples" / "torch_quickstart.py",
      ROOT / "examples" / "torch_serve_quantized.py",
      ROOT / "examples" / "torch_coexplore_pareto.py",
+     ROOT / "examples" / "torch_trace_sweep.py",
+     ROOT / "examples" / "torch_search_front.py",
+     ROOT / "examples" / "torch_query_front.py",
      ROOT / "benchmarks" / "torch_profile.py",
      ROOT / "benchmarks" / "torch_fa_sweep.py",
      ROOT / "benchmarks" / "torch_fq_sweep.py",
@@ -95,6 +103,7 @@ CREATORS = {
     "iter_joint_space_chunks": lambda: next(
         _core().iter_joint_space_chunks(num_models=2)),
     "joint_space_points": lambda: _core().joint_space_points([0, 1]),
+    "resolve_shards": lambda: _core().resolve_shards(),
     "delta_array": lambda: _core().AccuracySurrogate().delta_array(),
     "stacked_workload_from_numpy":
         lambda: _convert().stacked_workload_from_numpy(
@@ -168,6 +177,24 @@ def test_coexplore_example_runs_on_cpu(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "paper claim" in out.stdout and "feasible" in out.stdout
     assert out_csv.read_text().startswith("model,pe_type,accuracy")
+
+
+@pytest.mark.parametrize("script,args,expect", [
+    ("torch_trace_sweep.py", ["--max-points", "2000", "--shards", "2"],
+     "front bit-identical with telemetry off: True"),
+    ("torch_search_front.py", ["--evals", "1500", "--models", "2"],
+     "non-dominated"),
+    ("torch_query_front.py", ["--max-points", "1500"],
+     "served_from=cache:repeat")])
+def test_scale_examples_run_on_cpu(tmp_path, script, args, expect):
+    """The three DSE-at-scale examples on the CPU at small sizes (they
+    write under results/ of their working directory)."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / script), "--device", "cpu",
+         *args], cwd=tmp_path, env=_env(), capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert expect in out.stdout
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
