@@ -1,7 +1,7 @@
 """Where the time goes in the port's quickstart loop on the card.
 
   python3 benchmarks/torch_profile.py [--out results/torch/profile.json]
-      [--only quickstart|serving|coexplore]
+      [--only quickstart|serving|coexplore|training]
 
 Runs each step of ``repro_torch.quickstart`` at full size (27,000-point
 paper grid, VGG-16/CIFAR-10, every preset's fake quantization), the
@@ -17,7 +17,11 @@ joint walk of the 13-model ``default_model_set`` on the paper grid
 (oracle): one full bucket-16 and one full bucket-64 mixed chunk
 (``dse.evaluate_chunk`` with model ids, 4,096 lanes) and the whole
 351,000-point ``coexplore_front``, then the walk's wall time split into
-decode, evaluation and fold.  ``--only`` runs one group.
+decode, evaluation and fold.  The ``training`` step profiles one
+train step of full-width SmolLM-135M under LightPE-1 at the example's
+16 x 256 tokens (``make_train_step``, AdamW), warm, with its
+``fake_quant`` and ``flash_attention`` forward and backward launches.
+``--only`` runs one group.
 """
 
 import argparse
@@ -102,6 +106,40 @@ def profile_serving(torch, dev):
     return rows
 
 
+def profile_training(torch, dev):
+    """One warm train step of SmolLM-135M (LightPE-1, 16 x 256, AdamW)."""
+    from repro_torch.configs import get
+    from repro_torch.data import lm_pipeline
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import family_module
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = get("smollm-135m").replace(pe_type="lightpe1")
+    mod = family_module(cfg)
+    opt = adamw(warmup_cosine(3e-4, 20, 200))
+    state = init_state(cfg, mod, opt,
+                       torch.Generator(device=dev).manual_seed(0), device=dev)
+    train_step = make_train_step(cfg, mod, opt)
+    pipe = lm_pipeline(cfg, 16, 256, device=dev)
+    for _ in range(2):                                  # warm-up
+        state, _ = train_step(state, next(pipe))
+    batch = next(pipe)
+    counts = (fake_quant.launches, flash_attention.launches,
+              flash_attention.backward_launches)
+    (state, _), row = profile_step(torch, "train_step",
+                                   lambda: train_step(state, batch))
+    row["fake_quant_launches"] = fake_quant.launches - counts[0]
+    row["flash_attention_launches"] = flash_attention.launches - counts[1]
+    row["flash_attention_backward_launches"] = \
+        flash_attention.backward_launches - counts[2]
+    print(f"  launches: fake_quant {row['fake_quant_launches']}, "
+          f"flash_attention {row['flash_attention_launches']}, backward "
+          f"{row['flash_attention_backward_launches']}")
+    return [row]
+
+
 def profile_coexplore(torch, dev, step):
     """One bucket-16 and one bucket-64 chunk of the mixed joint walk, then
     the whole walk, each warm."""
@@ -161,7 +199,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=Path,
                     default=ROOT / "results" / "torch" / "profile.json")
-    ap.add_argument("--only", choices=("quickstart", "serving", "coexplore"),
+    ap.add_argument("--only", choices=("quickstart", "serving", "coexplore",
+                                       "training"),
                     default=None, help="profile one group of steps")
     args = ap.parse_args()
     import torch
@@ -187,6 +226,8 @@ def main():
     phases = None
     if args.only in (None, "coexplore"):
         phases = profile_coexplore(torch, dev, step)
+    if args.only in (None, "training"):
+        rows.extend(profile_training(torch, dev))
 
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(card=card, rows=rows,

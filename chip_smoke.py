@@ -89,7 +89,25 @@
    cache answering with 0 chunk evaluations; and phase 6's LightPE-1
    run with telemetry on, bitwise equal to the run with it off, with the
    launches and ``serve.*`` counts; each step's wall time and points/s;
-10. prints a ``{"kernels": [...]}`` line and, last, the device line.
+10. training (``data``, ``optim``, ``models/cnn``, ``train``, the
+   training checkpoints): the ``flash_attention`` backward kernel against
+   its plain version at the training shape (16 x 256, 9/3 heads, float32
+   q, k, v as the QAT model gives them, and bfloat16) and at the
+   reference file's shape, two calls bitwise equal, timed beside the
+   plain version, SDPA's backward and its bound; the full-width LM
+   (FP32, LightPE-1) and ResNet-8 (four PE types) steps held to
+   ``tests/data/torch_train_ref.json`` (the JAX package's) at
+   ``TRAIN_LM_RTOL`` / ``TRAIN_CNN_RTOL``, with two controls that must
+   fail (the attention's output detached, the parent's behaviour; the
+   LightPE-1 run against the FP32 reference); 20 steps of full-width
+   SmolLM-135M under LightPE-1 at 16 x 256 (AdamW), with exactly 422
+   ``fake_quant``, 30 forward and 30 backward ``flash_attention`` launches
+   a step and a falling loss (step time, tokens/s, peak memory); 10 steps
+   straight against 5, a checkpoint, a restore and 5 more, bitwise; and
+   the Figs. 5-6 run (``--mode cnn`` at its defaults), its table loaded
+   by the port's ``AccuracySurrogate`` and held to the paper's story;
+11. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
+   last, the device line.
 
 TF32 is off for matrix products and convolutions (``repro_torch`` sets
 both flags at import): the reference tolerances need IEEE float32.
@@ -109,6 +127,7 @@ REF = ROOT / "tests" / "data" / "torch_quickstart_ref.json"
 SERVE_REF = ROOT / "tests" / "data" / "torch_serve_ref.json"
 COEX_REF = ROOT / "tests" / "data" / "torch_coexplore_ref.json"
 SCALE_REF = ROOT / "tests" / "data" / "torch_scale_ref.json"
+TRAIN_REF = ROOT / "tests" / "data" / "torch_train_ref.json"
 SCALE_SHARDS = 4
 SCALE_DEPTH = 2
 KILL_AFTER = 40
@@ -184,6 +203,14 @@ QAT_CONTROL = ("lightpe1", "lightpe1/float32")
 SMOLLM_WEIGHTS = [(576, 576), (576, 192), (576, 1536), (1536, 576),
                   (576, 49152)]
 SMOLLM_ACTS = [(4, 576), (4, 1536), (520, 576), (520, 1536)]
+# Phase 10: training at the example's settings (examples/torch_train_qat.py)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 256, 20
+TRAIN_FQ_PER_STEP = (30 * 7 + 1) * 2   # LightPE-1: 211 projections x (w, x)
+TRAIN_MIN_DROP = 0.5                   # mean of the last 3 losses vs first 3
+RESUME_BATCH = 4
+# the card's LM / CNN steps against tests/data/torch_train_ref.json
+TRAIN_LM_RTOL = 1e-2
+TRAIN_CNN_RTOL = 1e-2
 
 
 def fail(msg: str):
@@ -1364,6 +1391,256 @@ def serve_with_telemetry(torch, dev):
                 decode=spans["decode"])
 
 
+def check_attention_backward(torch, dev):
+    """Phase 10.1: the flash attention backward kernel against its plain
+    version at the training shape (float32, the training path's type:
+    float32 QAT weights give float32 q, k, v; and bfloat16) and at the
+    reference file's shape, two calls bitwise equal; timed beside the
+    plain version, SDPA's backward and its bound."""
+    from repro_torch.kernels.flash_attention import (attention_backward,
+                                                     flash_attention_gqa)
+    from repro_torch.kernels.flash_attention.ref import ref_attention_gqa_bwd
+    from repro_torch.train_check import (LM_BATCH, LM_SEQ,
+                                         attention_grad_errors)
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    hq, hkv, d = 9, 3, 64
+    rows = {}
+    for name, b, s, dtype in (("train_f32", TRAIN_BATCH, TRAIN_SEQ,
+                               torch.float32),
+                              ("train_bf16", TRAIN_BATCH, TRAIN_SEQ,
+                               torch.bfloat16),
+                              ("ref_f32", LM_BATCH, LM_SEQ, torch.float32)):
+        q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+        do = torch.randn((b, s, hq, d), generator=gen, device=dev)
+        st = torch.zeros(b, dtype=torch.int32, device=dev)
+        got = attention_backward(q, k, v, st, do, round_p=True)
+        again = attention_backward(q, k, v, st, do, round_p=True)
+        torch.cuda.synchronize()
+        want = ref_attention_gqa_bwd(q, k, v, st, do, True, 0.0, True)
+        err = attention_grad_errors(got, want, do)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        if not err["ok"] or not same:
+            fail(f"flash attention backward {name}: {err}, two calls "
+                 f"bitwise equal: {same}")
+        kernel_ms = time_ms(torch, lambda: attention_backward(
+            q, k, v, st, do, round_p=True))
+        plain_ms = time_ms(torch, lambda: ref_attention_gqa_bwd(
+            q, k, v, st, do, True, 0.0, True))
+        # the library's backward of the same function: SDPA's graph made
+        # once, its backward called alone (layout (B, H, S, D))
+        tq, tk, tv = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = sdpa(tq, tk, tv, is_causal=True, enable_gqa=True)
+        tdo = do.transpose(1, 2).to(out.dtype)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, (tq, tk, tv), tdo, retain_graph=True))
+        fwd_bwd_ms = time_ms(torch, lambda: _fa_fwd_bwd(
+            torch, flash_attention_gqa, q, k, v, st, do))
+        # each input read once and each gradient written once; the
+        # operations the gradient needs on these inputs: q.k and dO.v
+        # again, then dV, dK and dQ: 5 products of 2 D flops over the
+        # visible (query head, key) pairs, at the peak for the inputs' type
+        pairs = b * hq * s * (s + 1) // 2
+        el = q.element_size()
+        nbytes = (2 * el * (q.numel() + k.numel() + v.numel())
+                  + 4 * do.numel())
+        bound, by = bound_ms(nbytes, 5 * 2 * d * pairs,
+                             H100_BF16_FLOPS if dtype == torch.bfloat16
+                             else H100_F32_FLOPS)
+        rows[name] = dict(shape=[b, s, hq, hkv, d], dtype=str(dtype),
+                          max_abs_err=err["max_abs_err"], ms=kernel_ms,
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          fwd_bwd_ms=fwd_bwd_ms, bound_ms=bound,
+                          bound_by=by)
+        print(f"flash_attention backward {name} {rows[name]['shape']}: "
+              f"max |err| {err['max_abs_err']:.3g} vs plain, two calls "
+              f"bitwise equal; kernel {kernel_ms:.4f} ms (forward + "
+              f"backward {fwd_bwd_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"SDPA backward {library_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by})")
+    return rows
+
+
+def _fa_fwd_bwd(torch, fa, q, k, v, st, do):
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa(*leaves, st, round_p=True)
+    return torch.autograd.grad(out, leaves, do)
+
+
+def run_training(torch, dev):
+    """Phase 10: QAT training on the card (see the module docstring)."""
+    import tempfile
+
+    from repro_torch import train_check as tc
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get
+    from repro_torch.core.accuracy import AccuracySurrogate
+    from repro_torch.data import lm_pipeline
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import family_module
+    from repro_torch.optim import adamw, tree_leaves, warmup_cosine
+    from repro_torch.train import (fit, init_state, make_train_step,
+                                   resume)
+    from repro_torch.train import qat
+
+    out = {}
+    bwd = check_attention_backward(torch, dev)
+    out["backward"] = bwd
+
+    # 2. held to the JAX package: the reference file's runs and controls
+    ref = json.loads(TRAIN_REF.read_text())
+    cfg = get("smollm-135m")
+    t0 = time.perf_counter()
+    held = {}
+    for pe in tc.LM_PE_TYPES:
+        rows = tc.run_lm(cfg, pe, dev)
+        held[f"lm/{pe}"] = dict(rows=rows, **tc.compare(
+            rows, ref["lm"]["runs"][pe], TRAIN_LM_RTOL))
+    with tc.detached_attention():
+        rows = tc.run_lm(cfg, "fp32", dev)
+    held["control/detached"] = dict(rows=rows, **tc.compare(
+        rows, ref["lm"]["runs"]["fp32"], TRAIN_LM_RTOL))
+    held["control/lightpe1_vs_fp32"] = tc.compare(
+        held["lm/lightpe1"]["rows"], ref["lm"]["runs"]["fp32"],
+        TRAIN_LM_RTOL)
+    for pe in tc.CNN_PE_TYPES:
+        rows = tc.run_cnn(pe, dev)
+        held[f"cnn/{pe}"] = dict(rows=rows, **tc.compare(
+            rows, ref["cnn"]["runs"][pe], TRAIN_CNN_RTOL))
+    for key, r in held.items():
+        print(f"training held to the reference, {key}: loss rel "
+              f"{r['loss_rel']:.3g}, grad norm rel {r['gnorm_rel']:.3g} "
+              f"({'within' if r['ok'] else 'outside'} the tolerance)")
+    bad = [k for k, r in held.items() if r["ok"] == k.startswith("control/")]
+    if bad:
+        fail(f"training against tests/data/torch_train_ref.json: {bad} "
+             f"(controls must fail, runs must pass)")
+    out["held"] = {k: {f: v for f, v in r.items() if f != "rows"}
+                   for k, r in held.items()}
+    out["held_s"] = time.perf_counter() - t0
+
+    # 3. the example's settings: full width under LightPE-1, the main path
+    cfg = get("smollm-135m").replace(pe_type="lightpe1")
+    mod = family_module(cfg)
+    opt = adamw(warmup_cosine(3e-4, 20, TRAIN_STEPS))
+    state = init_state(cfg, mod, opt,
+                       torch.Generator(device=dev).manual_seed(0), device=dev)
+    step = make_train_step(cfg, mod, opt)
+    pipe = lm_pipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, device=dev)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_mb = torch.cuda.memory_allocated() / 2 ** 20
+    fake_quant.launches = 0
+    flash_attention.launches = 0
+    flash_attention.backward_launches = 0
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, m = step(state, next(pipe))
+        losses.append(m["loss"].item())
+        times.append(time.perf_counter() - t1)
+    counts = dict(fake_quant=fake_quant.launches,
+                  flash_attention=flash_attention.launches,
+                  flash_attention_backward=flash_attention.backward_launches)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    want = dict(fake_quant=TRAIN_STEPS * TRAIN_FQ_PER_STEP,
+                flash_attention=TRAIN_STEPS * cfg.n_layers,
+                flash_attention_backward=TRAIN_STEPS * cfg.n_layers)
+    if counts != want:
+        fail(f"training launches {counts}, want {want}")
+    if not all(map(lambda x: x == x and abs(x) < 1e4, losses)):
+        fail(f"training loss not finite: {losses}")
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not last < first - TRAIN_MIN_DROP:
+        fail(f"training loss did not fall: {losses}")
+    p50 = sorted(times[2:])[len(times[2:]) // 2]
+    out["train"] = dict(
+        config="smollm-135m", pe_type="lightpe1", batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=TRAIN_STEPS, losses=losses,
+        step_ms=[t * 1e3 for t in times], step_p50_ms=p50 * 1e3,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / p50, peak_mb=peak_mb,
+        allocated_before_mb=before_mb,
+        launches=counts,
+        launches_per_step={k: v / TRAIN_STEPS for k, v in counts.items()})
+    print(f"training SmolLM-135M lightpe1 {TRAIN_BATCH}x{TRAIN_SEQ}: "
+          f"{TRAIN_STEPS} steps, p50 step {p50 * 1e3:.1f} ms = "
+          f"{TRAIN_BATCH * TRAIN_SEQ / p50:.0f} tokens/s, peak device "
+          f"memory {peak_mb:.1f} MiB ({before_mb:.1f} before), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches a step "
+          f"{out['train']['launches_per_step']}")
+    del state, step, pipe, m
+    gc.collect()
+
+    # 4. exact resume on the card: 10 steps straight against 5, a
+    # checkpoint, a restore and 5 more
+    t0 = time.perf_counter()
+    cfg = get("smollm-135m").replace(pe_type="lightpe1")
+    opt = adamw(warmup_cosine(1e-3, 5, 100))
+    step = make_train_step(cfg, mod, opt)
+
+    def fresh():
+        return init_state(cfg, mod, opt,
+                          torch.Generator(device=dev).manual_seed(1),
+                          device=dev)
+
+    quiet = lambda _msg: None  # noqa: E731
+    straight = fit(fresh(), step, lm_pipeline(cfg, RESUME_BATCH, TRAIN_SEQ,
+                                              device=dev), 10, log_fn=quiet)
+    with tempfile.TemporaryDirectory() as tmp:
+        fit(fresh(), step, lm_pipeline(cfg, RESUME_BATCH, TRAIN_SEQ,
+                                       device=dev), 5,
+            ckpt_dir=tmp, ckpt_every=5, log_fn=quiet)
+        pipe = lm_pipeline(cfg, RESUME_BATCH, TRAIN_SEQ, device=dev)
+        resumed = resume(cfg, mod, opt, tmp, pipe, device=dev)
+        if int(resumed.step) != 5 or pipe.state.step != 5 or \
+                ckpt.all_steps(tmp) != [5]:
+            fail("resume did not restore step 5 and the pipeline")
+        resumed = fit(resumed, step, pipe, 10, log_fn=quiet)
+    pairs = list(zip(tree_leaves(straight.params)
+                     + tree_leaves(straight.opt_state),
+                     tree_leaves(resumed.params)
+                     + tree_leaves(resumed.opt_state)))
+    differing = sum(int((a != b).sum()) for a, b in pairs)
+    if differing:
+        fail(f"exact resume: {differing} elements differ after 10 steps")
+    out["resume"] = dict(batch=RESUME_BATCH, seq=TRAIN_SEQ, steps=10,
+                         leaves=len(pairs), differing=0,
+                         seconds=time.perf_counter() - t0)
+    print(f"exact resume: 10 steps straight == 5 + checkpoint + restore + "
+          f"5, bitwise ({len(pairs)} tensors) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del straight, resumed, pairs
+    gc.collect()
+
+    # 5. the Figs. 5-6 run: examples/torch_train_qat.py --mode cnn at its
+    # defaults, and the port's AccuracySurrogate loads the table
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "torch_qat_pareto.json")
+        table = qat.run_cnn(steps=300, depth=8, trials=2, out=path,
+                            device=dev)
+        loaded = AccuracySurrogate().load_qat_results(path=path)
+    if loaded != 4:
+        fail(f"AccuracySurrogate loaded {loaded} entries of the table")
+    top1 = {pe: r["top1_mean"] for pe, r in table.items()}
+    story = (all(a > 0.5 for a in top1.values())
+             and abs(top1["fp32"] - top1["lightpe1"]) <= 0.1
+             and abs(top1["int16"] - top1["lightpe1"]) <= 0.1)
+    if not story:
+        fail(f"Figs. 5-6: top-1 {top1} breaks the paper's story (every "
+             f"type > 0.5, LightPE-1 within 0.1 of FP32 and INT16)")
+    out["figs56"] = dict(table=table, seconds=time.perf_counter() - t0)
+    print(f"Figs. 5-6 (ResNet-8, 300 steps, 2 trials): top-1 {top1}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     import torch
@@ -1371,7 +1648,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke needs a CUDA card")
     if not (ROOT / "src" / "repro_torch").is_dir() or not REF.exists() \
             or not SERVE_REF.exists() or not COEX_REF.exists() \
-            or not SCALE_REF.exists():
+            or not SCALE_REF.exists() or not TRAIN_REF.exists():
         fail("src/repro_torch or the JAX reference results are missing "
              "beside chip_smoke.py")
     sys.path.insert(0, str(ROOT / "src"))
@@ -1400,6 +1677,9 @@ def main() -> int:
     t9 = time.perf_counter()
     scale = run_scale(torch, dev, fronts)
     print(f"phase 9 (DSE at scale): {time.perf_counter() - t9:.2f} s")
+    t10 = time.perf_counter()
+    training = run_training(torch, dev)
+    print(f"phase 10 (training): {time.perf_counter() - t10:.2f} s")
 
     # the row's main numbers: one grouped launch over the 15 VGG-16
     # weights, affine-8, float32; the bfloat16 and per-weight times beside
@@ -1451,8 +1731,27 @@ def main() -> int:
                 variant={p: r["variant"] for p, r in rows.items()},
                 bound_f32_ms=rows["decode"]["bound_f32_ms"],
                 per_projection_ms=rows["decode"]["per_projection_ms"])
+    bwd = training["backward"]
+    main_bwd = bwd["train_f32"]
+    kernels.append(dict(
+        name="flash_attention_backward", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:71",
+        launches=training["train"]["launches"]["flash_attention_backward"],
+        max_abs_err=max(r["max_abs_err"] for r in bwd.values()),
+        ms=main_bwd["ms"], plain_ms=main_bwd["plain_ms"],
+        bound_ms=main_bwd["bound_ms"], bound_by=main_bwd["bound_by"],
+        library_ms=main_bwd["library_ms"],
+        library="the backward of scaled_dot_product_attention(is_causal="
+                "True, enable_gqa=True) through autograd",
+        unit="one layer of SmolLM-135M training, 16 x 256 tokens, float32 "
+             "q, k, v (the gradient of the Pallas kernel's function; the "
+             "Pallas kernel has no backward)",
+        fwd_bwd_ms=main_bwd["fwd_bwd_ms"], shapes=bwd))
     print(json.dumps({"kernels": kernels, "serving": serving, "qat": qat,
                       "coexplore": coex, "scale": scale}))
+    print(json.dumps({"train": {k: v for k, v in training.items()
+                                if k != "backward"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

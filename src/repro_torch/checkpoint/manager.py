@@ -1,22 +1,31 @@
-"""Template-free state checkpoints (port of the state half of
+"""Checkpoints: atomic, keep-k, restartable (port of
 ``repro.checkpoint.manager``).
 
-Long-running DSE sweeps checkpoint state that has no template: archive
-fronts, walk cursors, pruner buffers and driver state are ragged,
-dtype-mixed and absent until the walk produces them.  ``save_state`` /
-``load_state`` self-describe: arrays are stored one ``.npy`` per leaf
-(dtype and shape travel in the file, never through pickle) and a JSON
-manifest records the nesting plus every scalar/string leaf.
+Two kinds, in the reference's on-disk layouts, so each package restores
+the other's checkpoints:
 
-The on-disk layout is the reference's: ``<dir>/step_<n>/state.json``
-beside ``a<k>.npy``, written under ``<dir>/tmp.<n>`` and renamed into
-place only when complete (a crash mid-save never corrupts the latest
-checkpoint), with keep-k garbage collection of older steps.  So each
-package reads the other's checkpoints.  A torch tensor is stored as its
-host numpy array (``repro_torch.device.host``); a load returns numpy.
+  * training checkpoints (``save`` / ``restore``): a step directory
+    ``<dir>/step_<n>/`` holds ``manifest.json`` (the step, the caller's
+    ``extra`` state such as the data pipeline's, and the leaf keys of each
+    group) beside ``params/`` and ``opt/``, one ``.npy`` a leaf of the
+    params and optimizer-state trees, named by the leaf's path
+    (``layers__attn__wq.npy``, ``mu__blocks__0__c1.npy``, ``step.npy``).
+    ``restore`` needs templates of the trees (the trainer holds them):
+    each leaf comes back with its template's dtype, on ``device``.  The
+    reference's ``shardings=`` (elastic restore onto another mesh) waits
+    for the port's launch layer.
+  * template-free state checkpoints (``save_state`` / ``load_state``) for
+    the sweeps: archive fronts, walk cursors, pruner buffers and driver
+    state are ragged, dtype-mixed and absent until the walk produces
+    them, so they self-describe: arrays one ``.npy`` a leaf (dtype and
+    shape travel in the file, never through pickle) and a JSON manifest
+    of the nesting plus every scalar/string leaf (``state.json``).
 
-The training ``save`` / ``restore`` (params and optimizer state) are not
-ported yet: they wait for the port's trainer.
+Both are written under ``<dir>/tmp.<n>`` and renamed into place only when
+complete (a crash mid-save never corrupts the latest checkpoint), with
+keep-k garbage collection of older steps; ``all_steps`` / ``latest_step``
+see both.  A torch tensor is stored as its host numpy array
+(``repro_torch.device.host``).
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.device import host
+from repro_torch.device import host, resolve_device
 from repro_torch.obs import as_tracer
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -73,6 +82,118 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     steps = all_steps(ckpt_dir)
     return steps[-1] if steps else None
 
+
+# ---------------------------------------------------------------------------
+# training checkpoints
+# ---------------------------------------------------------------------------
+
+def _paths(tree, prefix=()):
+    """(path, leaf) of every leaf of a tree of dicts and lists, in the
+    reference's order (``jax.tree_util.tree_flatten_with_path``: dict keys
+    sorted, lists in order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, prefix + (str(i),))
+    else:
+        yield prefix, tree
+
+
+def _flatten(tree) -> dict:
+    """{"a/b/0/c": leaf} in the reference's key format and order."""
+    return {"/".join(path): leaf for path, leaf in _paths(tree)}
+
+
+def _publish(ckpt_dir: str, step: int, keep: int, telemetry, write) -> str:
+    """``write(tmp)`` fills ``<dir>/tmp.<step>``, which is then renamed to
+    ``step_<step>`` (atomic publish) and older steps garbage collected
+    past ``keep``; returns the final path."""
+    tr = as_tracer(telemetry)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    tmp = os.path.join(ckpt_dir, f"tmp.{step}")
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    with tr.span("save", cat="checkpoint", step=step):
+        write(tmp)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)          # atomic publish
+    if tr.enabled:
+        tr.observe("checkpoint.bytes", _dir_bytes(final))
+    _gc(ckpt_dir, keep, telemetry=telemetry)
+    return final
+
+
+def save(ckpt_dir: str, step: int, params, opt_state=None,
+         extra: Optional[dict] = None, keep: int = 3,
+         telemetry=None) -> str:
+    """Write one training checkpoint atomically; returns the final path."""
+    def write(tmp):
+        manifest = {"step": step, "extra": extra or {}, "arrays": {}}
+        for group, tree in (("params", params), ("opt", opt_state)):
+            if tree is None:
+                continue
+            os.makedirs(os.path.join(tmp, group), exist_ok=True)
+            for key, leaf in _flatten(tree).items():
+                fn = key.replace("/", "__") + ".npy"
+                np.save(os.path.join(tmp, group, fn), host(leaf))
+                manifest["arrays"].setdefault(group, []).append(key)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+
+    return _publish(ckpt_dir, step, keep, telemetry, write)
+
+
+def _dtype_of(leaf):
+    """The torch dtype of a template leaf (a tensor or a numpy array)."""
+    if torch.is_tensor(leaf):
+        return leaf.dtype
+    return torch.from_numpy(np.zeros((), np.asarray(leaf).dtype)).dtype
+
+
+def _restore_tree(path: str, template, device):
+    def load(prefix, leaf):
+        key = "/".join(prefix)
+        arr = np.load(os.path.join(path, key.replace("/", "__") + ".npy"))
+        return torch.from_numpy(arr).to(device=device, dtype=_dtype_of(leaf))
+
+    def build(tree, prefix=()):
+        if isinstance(tree, dict):
+            return {k: build(v, prefix + (str(k),)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(build(v, prefix + (str(i),))
+                              for i, v in enumerate(tree))
+        return load(prefix, tree)
+
+    return build(template)
+
+
+def restore(ckpt_dir: str, step: int, params_template, opt_template=None,
+            device=None):
+    """Load checkpoint ``step`` shaped like the templates (trees whose
+    leaves are tensors or numpy arrays: each restored leaf takes its
+    template's dtype), on ``device`` (default: the CUDA card).
+    Returns (params, opt_state, extra_dict)."""
+    device = resolve_device(device)
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    params = _restore_tree(os.path.join(path, "params"), params_template,
+                           device)
+    opt_state = None
+    if opt_template is not None and "opt" in manifest["arrays"]:
+        opt_state = _restore_tree(os.path.join(path, "opt"), opt_template,
+                                  device)
+    return params, opt_state, manifest["extra"]
+
+
+# ---------------------------------------------------------------------------
+# template-free state checkpoints
+# ---------------------------------------------------------------------------
 
 def _encode_state(node, arrays: dict, path: str):
     if isinstance(node, (np.ndarray, torch.Tensor)):
@@ -126,27 +247,15 @@ def save_state(ckpt_dir: str, step: int, state, keep: int = 3,
     duration (span ``checkpoint.save``, histogram ``checkpoint.bytes``)
     and a warning event for every snapshot the keep-k GC removes.
     """
-    tr = as_tracer(telemetry)
-    os.makedirs(ckpt_dir, exist_ok=True)
-    tmp = os.path.join(ckpt_dir, f"tmp.{step}")
-    final = os.path.join(ckpt_dir, f"step_{step}")
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    arrays: dict[str, np.ndarray] = {}
-    with tr.span("save", cat="checkpoint", step=step):
+    def write(tmp):
+        arrays: dict[str, np.ndarray] = {}
         tree = _encode_state(state, arrays, "")
         for key, arr in arrays.items():
             np.save(os.path.join(tmp, key + ".npy"), arr)
         with open(os.path.join(tmp, "state.json"), "w") as f:
             json.dump({"step": step, "state": tree}, f)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)          # atomic publish
-    if tr.enabled:
-        tr.observe("checkpoint.bytes", _dir_bytes(final))
-    _gc(ckpt_dir, keep, telemetry=telemetry)
-    return final
+
+    return _publish(ckpt_dir, step, keep, telemetry, write)
 
 
 def load_state(ckpt_dir: str, step: Optional[int] = None, telemetry=None):

@@ -90,3 +90,16 @@ def params_from_numpy(tree, device=None):
         return torch.tensor(np.array(x), device=device)
 
     return f(tree)
+
+
+def train_state_from_numpy(params, opt_state, step, device=None):
+    """The JAX package's training state (params and optimizer state as
+    trees of numpy arrays, the step as an int) -> the port's
+    ``TrainState``: the CNN's ``blocks`` lists and the optimizer's
+    ``{"mu", "nu", "step"}`` keep their layout, each leaf its dtype."""
+    from repro_torch.train.trainer import TrainState
+    device = resolve_device(device)
+    return TrainState(params=params_from_numpy(params, device),
+                      opt_state=params_from_numpy(opt_state, device),
+                      step=torch.tensor(int(step), dtype=torch.int32,
+                                        device=device))

@@ -25,7 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-SOURCES = ("fake_quant", "quant_matmul", "flash_attention")
+SOURCES = ("fake_quant", "quant_matmul", "flash_attention",
+           "flash_attention_bwd")
 
 
 def library_path(name: str) -> Path:

@@ -1,3 +1,3 @@
 from repro_torch.kernels.flash_attention.flash_attention import (
-    Plan, block_keys, block_rows, flash_attention, flash_attention_bh,
-    flash_attention_gqa, plan)
+    BWD_HEAD_DIMS, Plan, attention_backward, block_keys, block_rows,
+    flash_attention, flash_attention_bh, flash_attention_gqa, plan)

@@ -17,6 +17,16 @@ tensor takes the plain torch version in ``ref.py``, which the kernels are
 held to on the card.  ``flash_attention.launches`` counts the kernels'
 launches through any of the three.
 
+The gradient: on CUDA tensors that need one (autograd on),
+``flash_attention_gqa`` is a ``torch.autograd.Function`` whose forward is
+the kernel above, unchanged, and whose backward is the CUDA kernel pair
+of ``csrc/flash_attention_bwd.cu`` (``attention_backward``; one entry,
+two kernels: rows, then keys; counted once a backward in
+``flash_attention.backward_launches``).  It takes q, k, v of one type
+(float32 or bfloat16) and head_dim 64 or 128, and raises otherwise.  On
+CPU tensors autograd runs through the plain version.  A call without
+gradients (serving) launches the forward only, as before.
+
 ``plan`` is the launch plan, computed here so that the CPU tests can hold
 it to the shapes.  A block serves rows (query i, head g of one KV head's
 group of G), numbered r = i * G + g, so each K/V row it reads serves all
@@ -40,9 +50,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (ref_attention_gqa,
+                                                     ref_attention_gqa_bwd,
                                                      ref_flash_attention)
 
 _HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = (64, 128)    # the backward kernel's instances
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"split": 0, "mma": 1}
 _Strides = ctypes.c_longlong * 3
@@ -223,6 +235,102 @@ def _launch(q, k, v, q_start, causal: bool, scale: float,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_bwd(q, k, v):
+    """What the backward kernel takes: q, k, v of one type, float32 or
+    bfloat16, and head_dim 64 or 128."""
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in _TYPES:
+        raise ValueError(f"the flash attention backward takes q, k, v of one "
+                         f"type, float32 or bfloat16, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if q.shape[3] not in BWD_HEAD_DIMS:
+        raise ValueError(f"the flash attention backward takes head_dim in "
+                         f"{BWD_HEAD_DIMS}, got {q.shape[3]}")
+
+
+def _launch_bwd(q, k, v, q_start, dout, causal: bool, scale: float,
+                round_p: bool):
+    """The backward kernels on contiguous copies; returns (dq, dk, dv) in
+    the inputs' type."""
+    _check_bwd(q, k, v)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if b > 65535 or max(b * sq * hq * d, b * skv * hkv * d) >= 2 ** 31:
+        raise ValueError("flash attention backward: a dimension exceeds the "
+                         "kernel's grid or int32 indices")
+    if dout.shape != q.shape or dout.device != q.device:
+        raise ValueError(f"flash attention backward: dout {tuple(dout.shape)} "
+                         f"on {dout.device} does not match q {tuple(q.shape)}")
+    if q_start is None:
+        q_start = torch.zeros(b, dtype=torch.int32, device=q.device)
+    elif q_start.dtype != torch.int32:
+        raise ValueError(f"flash attention needs an int32 q_start, got "
+                         f"{q_start.dtype}")
+    q, k, v, q_start = (t.contiguous() for t in (q, k, v, q_start))
+    dout = dout.to(torch.float32).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stats = torch.empty(3 * b * sq * hq, dtype=torch.float32, device=q.device)
+    launch = _bwd_entry()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                    q_start.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), stats.data_ptr(),
+                    int(q.dtype == torch.bfloat16), b, sq, skv, hq, hkv, d,
+                    scale or d ** -0.5, int(causal), int(round_p), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash attention backward launch failed: CUDA "
+                           f"error {rc}")
+    flash_attention.backward_launches += 1
+    return dq, dk, dv
+
+
+def attention_backward(q, k, v, q_start, dout, *, causal: bool = True,
+                       scale: float = 0.0, round_p: bool = False):
+    """(dq, dk, dv) of ``flash_attention_gqa(q, k, v, q_start, ...)``
+    against the float32 output gradient ``dout``, each in its input's
+    type: the backward kernel for CUDA tensors, the plain version's
+    autograd for CPU tensors."""
+    _check(q, k, v, q_start)
+    if q.device.type == "cpu":
+        start = (torch.zeros(q.shape[0], dtype=torch.int32)
+                 if q_start is None else q_start)
+        return ref_attention_gqa_bwd(q, k, v, start, dout, causal, scale,
+                                     round_p)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on CUDA or CPU tensors, got "
+                         f"{q.device}")
+    return _launch_bwd(q, k, v, q_start, dout, causal, scale, round_p)
+
+
+class _Attention(torch.autograd.Function):
+    """The kernel's forward, and the backward kernel for its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_start, causal, scale, round_p):
+        _check_bwd(q, k, v)
+        ctx.save_for_backward(q, k, v, q_start)
+        ctx.opts = (causal, scale, round_p)
+        return _launch(q, k, v, q_start, causal, scale, round_p)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_start = ctx.saved_tensors
+        causal, scale, round_p = ctx.opts
+        dq, dk, dv = _launch_bwd(q, k, v, q_start, dout, causal, scale,
+                                 round_p)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_start: torch.Tensor | None = None, *,
                         causal: bool = True, scale: float = 0.0,
@@ -235,12 +343,18 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     0 means 1/sqrt(D).  The logits are q . (K rounded to q's type) in
     float32; ``round_p`` rounds the probabilities to V's type before P V,
     as the reference model does (a no-op for float32 V).
+
+    Differentiable: on CUDA tensors that need a gradient the backward is
+    the backward kernel (``attention_backward``), on CPU tensors autograd
+    of the plain version.
     """
     _check(q, k, v, q_start)
     if q.device.type == "cpu":
         start = (torch.zeros(q.shape[0], dtype=torch.int32)
                  if q_start is None else q_start)
         return ref_attention_gqa(q, k, v, start, causal, scale, round_p)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attention.apply(q, k, v, q_start, causal, scale, round_p)
     return _launch(q, k, v, q_start, causal, scale, round_p)
 
 
@@ -261,6 +375,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.backward_launches = 0
 
 
 def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

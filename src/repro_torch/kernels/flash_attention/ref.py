@@ -1,9 +1,11 @@
-"""Plain torch versions of the flash attention kernel: the port of
+"""Plain torch versions of the flash attention kernels: the port of
 ``repro.kernels.flash_attention.ref`` (one head) and the same masked
 softmax in the model's layout, with grouped KV heads and a query start
 position per batch row (the attention of ``repro.models.transformer``);
-and the kernels' own arithmetic written out (``emulate_attention``), so
-that the CPU can test it."""
+its gradient by autograd (``ref_attention_gqa_bwd``, the backward
+kernel's plain version); and the kernels' own arithmetic written out
+(``emulate_attention``, ``emulate_attention_bwd``), so that the CPU can
+test it."""
 
 from __future__ import annotations
 
@@ -68,6 +70,54 @@ def ref_attention_gqa(q, k, v, q_start, causal: bool = True,
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(torch.float32),
                        v.to(torch.float32))
     return out.reshape(b, sq, hq, d)
+
+
+def ref_attention_gqa_bwd(q, k, v, q_start, dout, causal: bool = True,
+                          scale: float = 0.0, round_p: bool = False):
+    """(dq, dk, dv) of ``ref_attention_gqa`` against the float32 output
+    gradient ``dout``, by autograd: the plain version of the backward
+    kernel (``csrc/flash_attention_bwd.cu``).  Each gradient comes back in
+    its input's type."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = ref_attention_gqa(*ins, q_start, causal, scale, round_p)
+        return torch.autograd.grad(out, ins, dout)
+
+
+def emulate_attention_bwd(q, k, v, q_start, dout, causal: bool = True,
+                          scale: float = 0.0, round_p: bool = False):
+    """The backward kernel's formulas, in float32 torch: the rows' max M
+    and sum L of exponentials, P = exp(s - M) / L, dP = dout . v (rounded
+    to bfloat16 with ``round_p`` and a bfloat16 V, and then P too for
+    dV), D = rowsum(P dP), dS = P (dP - D) scale; dq = dS K, and dk, dv
+    summed over every query head of a KV head's group.  Not the kernel's
+    order of sums."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    rnd = round_p and v.dtype == torch.bfloat16
+    qf = q.to(torch.float32).reshape(b, sq, hkv, g, d)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    of = dout.to(torch.float32).reshape(b, sq, hkv, g, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * _scale(d, scale)
+    if causal:
+        ok = _visible(q_start, sq, skv, q.device)[:, None, None]
+    else:
+        ok = torch.ones_like(s, dtype=torch.bool)
+    s = torch.where(ok, s, -torch.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = e / e.sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", of, vf)
+    if rnd:
+        dp = dp.to(torch.bfloat16).to(torch.float32)
+    dsum = (p * dp).sum(dim=-1, keepdim=True)
+    ds = torch.where(ok, p * (dp - dsum), 0.0) * _scale(d, scale)
+    pv = p.to(torch.bfloat16).to(torch.float32) if rnd else p
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, hq, d)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", pv, of)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _parts(x: torch.Tensor, exact_bf16: bool):

@@ -1,11 +1,12 @@
 """Model families of the port (port of ``repro.models``; so far the
-decoder-only LM that serving runs).
+decoder-only LM and the paper's CNNs).
 
 ``family_module(cfg)`` dispatches an ArchConfig to its implementation:
   lm -> transformer (decoder-only, a loop over stacked layers)
+The CNNs (``cnn``) take no ArchConfig: ``resnet_*`` and ``vgg16_*``.
 """
 
-from repro_torch.models import layers, transformer
+from repro_torch.models import cnn, layers, transformer
 
 
 def family_module(cfg):
@@ -15,4 +16,4 @@ def family_module(cfg):
                      f"(ROADMAP A)")
 
 
-__all__ = ["layers", "transformer", "family_module"]
+__all__ = ["cnn", "layers", "transformer", "family_module"]

@@ -1,5 +1,5 @@
 """Shared model layers with quantization hooks (port of the parts of
-``repro.models.layers`` that the serving path runs).
+``repro.models.layers`` that the serving and training paths run).
 
 Every dense projection goes through ``qdense`` so a model runs under any
 of the paper's PE-type numerics (QuantConfig), or on packed weight codes.
@@ -7,8 +7,8 @@ Params are plain nested dicts of tensors, keyed like the reference's
 pytree; init functions draw from a ``torch.Generator``.
 
 Not ported (ROADMAP A): the activation-sharding and ``compute_dtype``
-contexts, M-RoPE, ``layernorm``, the unified ``attention`` (the
-transformer's own attention is ported) and ``softmax_xent``.
+contexts, M-RoPE, ``layernorm`` and the unified ``attention`` (the
+transformer's own attention is ported).
 """
 
 from __future__ import annotations
@@ -201,3 +201,18 @@ def mlp(params: Params, x: torch.Tensor, qcfg: QuantConfig,
     else:
         h = _act(up, act)
     return qdense(h, params["w_down"], qcfg)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 softcap: float = 0.0) -> torch.Tensor:
+    """Mean next-token cross entropy. logits: (..., V); labels: (...) int."""
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    return torch.mean(logz - gold)

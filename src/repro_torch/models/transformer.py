@@ -13,6 +13,7 @@ reference leaves it to XLA.
 Entry points, as in the reference:
 
   forward(params, tokens, cfg)             -- logits of every position
+  loss_fn(params, batch, cfg)              -- next-token cross entropy
   prefill(params, tokens, cfg, cache)      -- fill KV caches, last logits
   decode_step(params, token, cfg, cache)   -- one-token serve step
 
@@ -283,6 +284,18 @@ def forward(params, tokens, cfg, positions=None):
     x = _embed(params, tokens, cfg)
     x, _ = _backbone(params, x, cfg, positions, zero)
     return _logits(params, x, cfg)
+
+
+def loss_fn(params, batch, cfg):
+    """batch: {'tokens': (B, S), 'labels': (B, S)} -> scalar CE loss.
+
+    Differentiable on the card: the attention's backward is the
+    ``flash_attention`` backward kernel.  The reference rematerializes
+    each layer in its scan (``jax.checkpoint``), which changes no value;
+    the port keeps the activations (SmolLM-135M at batch 16 x 256 fits
+    the card many times over)."""
+    logits = forward(params, batch["tokens"], cfg, batch.get("positions"))
+    return L.softmax_xent(logits, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,198 @@
+"""The gradient of the port's attention: the plain backward (autograd of
+``ref_attention_gqa``, the backward kernel's plain version) against
+``jax.vjp`` of the JAX model's attention, and the backward kernel's
+formulas (``emulate_attention_bwd``: row max and sum, D = rowsum(P dP)
+with dP rounded to bfloat16 under ``round_p``, dS, the group sums of dk
+and dv) against the plain backward.  The kernel itself runs only on the
+card (``test_torch_train_gpu.py``, ``chip_smoke.py`` phase 10).
+
+Tolerances: float32 gradients at 2e-6 of the largest gradient (sums of
+at most 40 products in another order); bfloat16 gradients as
+``tests/_torch_attention_grad_ref.py`` writes them with XLA's excess
+precision off: at most 1% of the elements differ (a probability at a
+bfloat16 rounding tie, where the packages' exp differ in the last bit,
+moves a row of dv), each by at most one bfloat16 ulp (a float32 sum
+rounded to bfloat16 from the other side of a tie), by 1e-4 of the
+largest for a gradient that cancels to near 0 (dP is rounded to
+bfloat16 in both packages, from float32 sums in another order, so a dP
+at a tie moves dS by one ulp of dP times P; measured up to 3.6e-5) and,
+in dv, by one ulp of that probability times dout."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS,
+                                                 attention_backward,
+                                                 flash_attention,
+                                                 flash_attention_gqa)
+from repro_torch.kernels.flash_attention.flash_attention import _check_bwd
+from repro_torch.kernels.flash_attention.ref import (emulate_attention_bwd,
+                                                     ref_attention_gqa,
+                                                     ref_attention_gqa_bwd)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _inputs(rng, b, sq, skv, hq, hkv, d):
+    return (rng.standard_normal((b, sq, hq, d), dtype=np.float32),
+            rng.standard_normal((b, skv, hkv, d), dtype=np.float32),
+            rng.standard_normal((b, skv, hkv, d), dtype=np.float32),
+            rng.standard_normal((b, sq, hq, d), dtype=np.float32))
+
+
+def _close(got, want, dtype, tie=0.0):
+    """``tie``: how far one probability rounded to bfloat16 from the other
+    side of a tie may move an element (dv only)."""
+    got = got.to(torch.float32).numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=2e-6 * np.abs(want).max())
+        return
+    diff = got != want
+    assert diff.mean() <= 1e-2, diff.sum()
+    assert (np.abs(got - want) <= np.abs(want) * 2.0 ** -7
+            + 1e-4 * np.abs(want).max() + tie).all()
+
+
+JAX_CASES = [(dtype, hq, hkv, s) for dtype in ("float32", "bfloat16")
+             for hq, hkv, s in ((6, 2, 37), (8, 2, 33))]
+
+
+@pytest.fixture(scope="module")
+def jax_grads(tmp_path_factory):
+    """Each JAX_CASES case's inputs and jax.vjp's results, from one
+    subprocess (XLA's excess precision is turned off when JAX starts)."""
+    rng = np.random.default_rng(7)
+    tmp = tmp_path_factory.mktemp("attn_grad")
+    cases, args = {}, []
+    for i, (dtype, hq, hkv, s) in enumerate(JAX_CASES):
+        d = 64
+        q, k, v, do = _inputs(rng, 2, s, s, hq, hkv, d)
+        src, dst = tmp / f"in{i}.npz", tmp / f"out{i}.npz"
+        np.savez(src, q=q, k=k, v=v, dout=do, dtype=dtype, causal=True,
+                 scale=1 / np.sqrt(d))
+        cases[(dtype, hq, hkv, s)] = (q, k, v, do, dst)
+        args += [str(src), str(dst)]
+    run = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "_torch_attention_grad_ref.py"),
+         *args], env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    return {key: (*c[:4], np.load(c[4])) for key, c in cases.items()}
+
+
+@pytest.mark.parametrize("case", JAX_CASES)
+def test_plain_backward_matches_jax_vjp(jax_grads, case):
+    """Causal, GQA groups 3 and 4, in both types, against jax.vjp of the
+    JAX model's attention (group 1 and more shapes: the kernel formulas
+    below, and the card's tests)."""
+    dtype = case[0]
+    q, k, v, do, want = jax_grads[case]
+    t = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(t) for x in (q, k, v))
+    start = torch.zeros(2, dtype=torch.int32)
+    out = ref_attention_gqa(tq, tk, tv, start, True, 0.0, True)
+    # bfloat16: a probability at a bf16 rounding tie (the packages' exp
+    # differ in the last bit) may round to its neighbour, one ulp of P
+    atol = 1e-6 if dtype == "float32" else 2.0 ** -8 * np.abs(v).max()
+    np.testing.assert_allclose(out.numpy(), want["out"], rtol=0, atol=atol)
+    grads = ref_attention_gqa_bwd(tq, tk, tv, start, torch.from_numpy(do),
+                                  True, 0.0, True)
+    for g, name in zip(grads, ("dq", "dk", "dv")):
+        assert g.dtype == t
+        # a P at a tie (dv = P^T dout): one ulp of P (<= 2^-8) times dout
+        _close(g, want[name], dtype,
+               2.0 ** -8 * np.abs(do).max() if name == "dv" else 0.0)
+
+
+CASES = [  # (b, sq, skv, hq, hkv, d, q_start, causal)
+    (2, 37, 37, 6, 2, 64, (0, 0), True),
+    (2, 17, 40, 6, 2, 64, (0, 23), True),
+    (1, 33, 33, 4, 1, 128, (0,), True),
+    (3, 9, 9, 3, 3, 64, (0, 0, 0), True),
+    (1, 20, 29, 8, 2, 128, (0,), False),
+]
+
+
+@pytest.mark.parametrize("round_p", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_formulas_match_the_plain_backward(rng, case, dtype, round_p):
+    b, sq, skv, hq, hkv, d, start, causal = case
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _inputs(rng, b, sq, skv, hq, hkv, d))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    qs = torch.tensor(start, dtype=torch.int32)
+    want = ref_attention_gqa_bwd(q, k, v, qs, do, causal, 0.0, round_p)
+    got = emulate_attention_bwd(q, k, v, qs, do, causal, 0.0, round_p)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype
+        g, w = g.float(), w.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=2e-6 * w.abs().max().item())
+        else:   # one bf16 ulp, from float32 sums in another order
+            assert ((g - w).abs() <= w.abs() * 2.0 ** -7
+                    + 1e-6 * w.abs().max()).all()
+            assert (g != w).float().mean() <= 2e-2
+
+
+def test_d_needs_the_rounded_dp(rng):
+    """With round_p and a bfloat16 V, D = rowsum(P dP) with dP rounded to
+    bfloat16 is what autograd computes; rowsum(dout * out), FA-2's
+    textbook D, is not."""
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _inputs(rng, 1, 64, 64, 3, 1, 64))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    qs = torch.zeros(1, dtype=torch.int32)
+    want = ref_attention_gqa_bwd(q, k, v, qs, do, True, 0.0, True)[0].float()
+    out = ref_attention_gqa(q, k, v, qs, True, 0.0, True)
+    qf = q.float().reshape(1, 64, 1, 3, 64)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) / 8.0
+    ok = torch.arange(64)[None, :] <= torch.arange(64)[:, None]
+    p = torch.softmax(torch.where(ok, s, -torch.inf), -1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do.reshape(1, 64, 1, 3, 64),
+                      v.float())
+    d_fa2 = (do * out).sum(-1).reshape(1, 64, 1, 3).permute(0, 2, 3, 1)
+    ds = p * (dp - d_fa2[..., None]) / 8.0
+    textbook = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()).reshape(
+        1, 64, 3, 64).bfloat16().float()
+    assert (textbook != want).float().mean() > 0.05
+    emulated = emulate_attention_bwd(q, k, v, qs, do, True, 0.0, True)[0]
+    assert (emulated.float() != want).float().mean() < 0.02
+
+
+def test_cpu_autograd_is_the_plain_version_and_launches_nothing(rng):
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _inputs(rng, 2, 12, 12, 6, 2, 64))
+    qs = torch.zeros(2, dtype=torch.int32)
+    before = (flash_attention.launches, flash_attention.backward_launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention_gqa(*leaves, qs, round_p=True).backward(do)
+    want = ref_attention_gqa_bwd(q, k, v, qs, do, True, 0.0, True)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+    got = attention_backward(q, k, v, qs, do, round_p=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (flash_attention.launches,
+            flash_attention.backward_launches) == before
+
+
+def test_backward_refuses_what_its_kernel_does_not_take():
+    f32 = torch.zeros(1, 4, 3, 64)
+    _check_bwd(f32, f32[:, :, :1], f32[:, :, :1])
+    with pytest.raises(ValueError, match="one type"):
+        _check_bwd(f32, f32[:, :, :1].bfloat16(), f32[:, :, :1].bfloat16())
+    with pytest.raises(ValueError, match="head_dim"):
+        small = torch.zeros(1, 4, 3, 32)
+        _check_bwd(small, small, small)
+    with pytest.raises(ValueError, match="one type"):
+        h = torch.zeros(1, 4, 3, 64, dtype=torch.float16)
+        _check_bwd(h, h, h)
+    assert BWD_HEAD_DIMS == (64, 128)

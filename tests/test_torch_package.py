@@ -47,7 +47,12 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.obs.export", "repro_torch.obs.report",
               "repro_torch.checkpoint.manager", "repro_torch.core.shard",
               "repro_torch.core.search", "repro_torch.serve.frontserver",
-              "repro_torch.scale_check"):
+              "repro_torch.scale_check", "repro_torch.data",
+              "repro_torch.data.synthetic", "repro_torch.data.pipeline",
+              "repro_torch.optim", "repro_torch.optim.optimizers",
+              "repro_torch.optim.schedule", "repro_torch.models.cnn",
+              "repro_torch.train", "repro_torch.train.trainer",
+              "repro_torch.train.qat", "repro_torch.train_check"):
         assert m in MODULES, m
 
 
@@ -60,6 +65,7 @@ def test_every_module_imports_without_jax_or_repro():
      ROOT / "examples" / "torch_trace_sweep.py",
      ROOT / "examples" / "torch_search_front.py",
      ROOT / "examples" / "torch_query_front.py",
+     ROOT / "examples" / "torch_train_qat.py",
      ROOT / "benchmarks" / "torch_profile.py",
      ROOT / "benchmarks" / "torch_fa_sweep.py",
      ROOT / "benchmarks" / "torch_fq_sweep.py",
@@ -108,7 +114,44 @@ CREATORS = {
     "stacked_workload_from_numpy":
         lambda: _convert().stacked_workload_from_numpy(
             ["m"], {f: [[1.0]] for f in _core().LayerSpec._fields}, [1]),
+    "train_state_from_numpy": lambda: _convert().train_state_from_numpy(
+        {"w": [[1.0]]}, {"step": 0}, 0),
+    "conv_init": lambda: _cnn().conv_init(torch.Generator(), 3, 4),
+    "resnet_init": lambda: _cnn().resnet_init(torch.Generator(), depth=8),
+    "vgg16_init": lambda: _cnn().vgg16_init(torch.Generator()),
+    "init_state": lambda: _train().init_state(
+        _reduced(), _transformer(), _optim().adamw(_optim().constant(1e-3)),
+        torch.Generator()),
+    "lm_pipeline": lambda: _data().lm_pipeline(_reduced(), 2, 8),
+    "cifar_pipeline": lambda: _data().cifar_pipeline(2),
+    "run_lm": lambda: _qat().run_lm("reduced", steps=1),
+    "run_cnn": lambda: _qat().run_cnn(steps=1, trials=1, out=None),
 }
+
+
+def _cnn():
+    from repro_torch.models import cnn
+    return cnn
+
+
+def _train():
+    import repro_torch.train as train
+    return train
+
+
+def _optim():
+    import repro_torch.optim as optim
+    return optim
+
+
+def _data():
+    import repro_torch.data as data
+    return data
+
+
+def _qat():
+    from repro_torch.train import qat
+    return qat
 
 
 def _core():
