@@ -94,7 +94,11 @@
    its plain version at the training shape (16 x 256, 9/3 heads, float32
    q, k, v as the QAT model gives them, and bfloat16) and at the
    reference file's shape, two calls bitwise equal, timed beside the
-   plain version, SDPA's backward and its bound; the full-width LM
+   plain version, SDPA's backward, the CUDA-core kernel it replaced (a
+   constant, printed only) and two bounds: the gradient's 5 products as
+   kept bf16 part products on the tensor cores (``bound_ms``) and on the
+   float32 CUDA cores; beside them the part products the kernel issues,
+   which are its work and no bound; the full-width LM
    (FP32, LightPE-1) and ResNet-8 (four PE types) steps held to
    ``tests/data/torch_train_ref.json`` (the JAX package's) at
    ``TRAIN_LM_RTOL`` / ``TRAIN_CNN_RTOL``, with two controls that must
@@ -208,6 +212,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 256, 20
 TRAIN_FQ_PER_STEP = (30 * 7 + 1) * 2   # LightPE-1: 211 projections x (w, x)
 TRAIN_MIN_DROP = 0.5                   # mean of the last 3 losses vs first 3
 RESUME_BATCH = 4
+# The backward kernel's time at phase 10.1's training shapes before its
+# tensor-core redesign: the CUDA-core kernel's chip run, NVIDIA H100 80GB
+# HBM3, 700.00 W
+CUDA_CORE_BWD_MS = {"train_f32": 0.6762, "train_bf16": 0.6682}
 # the card's LM / CNN steps against tests/data/torch_train_ref.json
 TRAIN_LM_RTOL = 1e-2
 TRAIN_CNN_RTOL = 1e-2
@@ -1443,26 +1451,68 @@ def check_attention_backward(torch, dev):
         # each input read once and each gradient written once; the
         # operations the gradient needs on these inputs: q.k and dO.v
         # again, then dV, dK and dQ: 5 products of 2 D flops over the
-        # visible (query head, key) pairs, at the peak for the inputs' type
+        # visible (query head, key) pairs.  bound_ms: those products as
+        # the kept bf16 part products of a float32-accurate product on the
+        # tensor cores (30 a pair and column in float32, 13 in bfloat16),
+        # the least the card takes; bound_plain_ms: the 5 products at the
+        # type's own peak (float32 on the CUDA cores)
         pairs = b * hq * s * (s + 1) // 2
         el = q.element_size()
+        bf16 = dtype == torch.bfloat16
         nbytes = (2 * el * (q.numel() + k.numel() + v.numel())
                   + 4 * do.numel())
-        bound, by = bound_ms(nbytes, 5 * 2 * d * pairs,
-                             H100_BF16_FLOPS if dtype == torch.bfloat16
-                             else H100_F32_FLOPS)
+        flops = 5 * 2 * d * pairs
+        bound, by = bound_ms(nbytes, bwd_part_products(bf16, False) * 2 * d
+                             * pairs, H100_BF16_FLOPS)
+        bound_plain, by_plain = bound_ms(
+            nbytes, flops, H100_BF16_FLOPS if bf16 else H100_F32_FLOPS)
+        # the design's issued work, not a bound: its part products (q.k and
+        # dO.v three times each; 54 a pair and column in float32, 21 in
+        # bfloat16) at the tensor cores' peak
+        issued = bwd_part_products(bf16, True) * 2 * d * pairs
         rows[name] = dict(shape=[b, s, hq, hkv, d], dtype=str(dtype),
                           max_abs_err=err["max_abs_err"], ms=kernel_ms,
                           plain_ms=plain_ms, library_ms=library_ms,
                           fwd_bwd_ms=fwd_bwd_ms, bound_ms=bound,
-                          bound_by=by)
+                          bound_by=by, bound_share=bound / kernel_ms,
+                          bound_plain_ms=bound_plain,
+                          bound_plain_by=by_plain,
+                          issued_ms=issued / H100_BF16_FLOPS * 1e3,
+                          tflops=flops / kernel_ms / 1e9,
+                          tc_tflops=issued / kernel_ms / 1e9)
+        before = (f", the CUDA-core kernel before it "
+                  f"{CUDA_CORE_BWD_MS[name]:.4f} ms (a constant: its own "
+                  f"chip run)" if name in CUDA_CORE_BWD_MS else "")
         print(f"flash_attention backward {name} {rows[name]['shape']}: "
               f"max |err| {err['max_abs_err']:.3g} vs plain, two calls "
               f"bitwise equal; kernel {kernel_ms:.4f} ms (forward + "
-              f"backward {fwd_bwd_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-              f"SDPA backward {library_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({by})")
+              f"backward {fwd_bwd_ms:.4f} ms){before}, plain {plain_ms:.4f} "
+              f"ms, SDPA backward {library_ms:.4f} ms; bound {bound:.4f} ms "
+              f"({by}, the kept part products on the bf16 tensor cores; "
+              f"{bound / kernel_ms:.1%} of it), bound of the plain products "
+              f"{bound_plain:.4f} ms ({by_plain}, "
+              f"{'bf16 tensor cores' if bf16 else 'float32 CUDA cores'}); "
+              f"the issued part products take {rows[name]['issued_ms']:.4f} "
+              f"ms at the tensor cores' peak; {rows[name]['tflops']:.2f} "
+              f"TFLOP/s of the gradient, {rows[name]['tc_tflops']:.1f} "
+              f"TFLOP/s of part products")
     return rows
+
+
+def bwd_part_products(bf16: bool, issued: bool) -> int:
+    """The bf16 part products with round_p for each visible (query head,
+    key) pair and column: the gradient's 5 products (q.k, dout.v, dq, dk,
+    dv), or with ``issued`` the backward kernel's 9 (q.k and dout.v three
+    times each: rows passes 1 and 2, keys); each of operands with 3 parts
+    (float32) or 1 (bf16, and P rounded to bf16 for a bfloat16 V), the
+    kept pairs of ``ref.PAIRS``."""
+    from repro_torch.kernels.flash_attention.ref import PAIRS
+
+    def kept(a, b):
+        return sum(1 for pa, pb in PAIRS if pa < a and pb < b)
+    xp, times = (1 if bf16 else 3), (3 if issued else 1)
+    return (times * kept(xp, xp) + times * kept(3, xp) + 2 * kept(3, xp)
+            + kept(1 if bf16 else 3, 3))
 
 
 def _fa_fwd_bwd(torch, fa, q, k, v, st, do):
@@ -1742,6 +1792,10 @@ def main() -> int:
         ms=main_bwd["ms"], plain_ms=main_bwd["plain_ms"],
         bound_ms=main_bwd["bound_ms"], bound_by=main_bwd["bound_by"],
         library_ms=main_bwd["library_ms"],
+        bound_share=main_bwd["bound_share"],
+        bound_plain_ms=main_bwd["bound_plain_ms"],
+        issued_ms=main_bwd["issued_ms"], tflops=main_bwd["tflops"],
+        tc_tflops=main_bwd["tc_tflops"],
         library="the backward of scaled_dot_product_attention(is_causal="
                 "True, enable_gqa=True) through autograd",
         unit="one layer of SmolLM-135M training, 16 x 256 tokens, float32 "

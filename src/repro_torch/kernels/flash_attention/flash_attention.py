@@ -21,10 +21,11 @@ The gradient: on CUDA tensors that need one (autograd on),
 ``flash_attention_gqa`` is a ``torch.autograd.Function`` whose forward is
 the kernel above, unchanged, and whose backward is the CUDA kernel pair
 of ``csrc/flash_attention_bwd.cu`` (``attention_backward``; one entry,
-two kernels: rows, then keys; counted once a backward in
-``flash_attention.backward_launches``).  It takes q, k, v of one type
-(float32 or bfloat16) and head_dim 64 or 128, and raises otherwise.  On
-CPU tensors autograd runs through the plain version.  A call without
+two kernels on the bf16 tensor cores: rows, then keys; counted once a
+backward in ``flash_attention.backward_launches``; ``emulate_attention_bwd``
+in ``ref.py`` writes out their arithmetic and tiles).  It takes q, k,
+v of one type (float32 or bfloat16) and head_dim 64 or 128, and raises
+otherwise.  On CPU tensors autograd runs through the plain version.  A call without
 gradients (serving) launches the forward only, as before.
 
 ``plan`` is the launch plan, computed here so that the CPU tests can hold
@@ -277,6 +278,10 @@ def _launch_bwd(q, k, v, q_start, dout, causal: bool, scale: float,
                          f"{q_start.dtype}")
     q, k, v, q_start = (t.contiguous() for t in (q, k, v, q_start))
     dout = dout.to(torch.float32).contiguous()
+    # the kernels copy rows 16 bytes at a time: a view off that boundary
+    # is copied
+    q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (q, k, v, dout))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     stats = torch.empty(3 * b * sq * hq, dtype=torch.float32, device=q.device)
     launch = _bwd_entry()

@@ -16,6 +16,12 @@ import torch
 from repro_torch.kernels.quant_matmul.ref import split_bf16x3
 
 MASKED = -1e30
+# the backward kernel's tiles by head_dim (``Cfg`` in
+# ``csrc/flash_attention_bwd.cu``; the card test of the kernel against
+# ``emulate_attention_bwd`` holds the two to each other)
+BWD_CHUNK = {64: 64, 128: 32}   # keys a chunk of its rows kernel
+BWD_ROW_TILE = {64: 64, 128: 32}  # rows a tile of its keys kernel,
+BWD_ROW_SPLIT = {64: 2, 128: 1}   # summed in this many parts
 
 
 def _scale(d: int, scale: float) -> float:
@@ -84,39 +90,115 @@ def ref_attention_gqa_bwd(q, k, v, q_start, dout, causal: bool = True,
         return torch.autograd.grad(out, ins, dout)
 
 
+# The part products the backward kernel issues for two operands of (up to)
+# three bf16 parts each, (a part, b part), in its order: 6 of the 9, those
+# whose weight reaches float32 rounding (mid.lo, lo.mid, lo.lo are below
+# 2^-26 of |a||b|).  With one part on a side, the pairs that exist.
+PAIRS = ((0, 2), (1, 1), (0, 1), (2, 0), (1, 0), (0, 0))
+
+
+def _mma(a_parts, b_parts):
+    """sum over k of A[..., m, k] B[..., k, n] from A's and B's bf16 parts
+    (``_parts``), as the backward kernel's tensor cores sum it: 16-deep
+    steps in order, each the sum of the kept part products (``PAIRS``)
+    added to the float32 total."""
+    a_parts = [p.to(torch.float32) for p in a_parts]
+    b_parts = [p.to(torch.float32) for p in b_parts]
+    depth = a_parts[0].shape[-1]
+    acc = None
+    for k0 in range(0, depth, 16):
+        t = None
+        for pa, pb in PAIRS:
+            if pa < len(a_parts) and pb < len(b_parts):
+                x = a_parts[pa][..., k0:k0 + 16] @ b_parts[pb][..., k0:k0 + 16, :]
+                t = x if t is None else t + x
+        acc = t if acc is None else acc + t
+    return acc
+
+
 def emulate_attention_bwd(q, k, v, q_start, dout, causal: bool = True,
                           scale: float = 0.0, round_p: bool = False):
-    """The backward kernel's formulas, in float32 torch: the rows' max M
-    and sum L of exponentials, P = exp(s - M) / L, dP = dout . v (rounded
-    to bfloat16 with ``round_p`` and a bfloat16 V, and then P too for
-    dV), D = rowsum(P dP), dS = P (dP - D) scale; dq = dS K, and dk, dv
-    summed over every query head of a KV head's group.  Not the kernel's
-    order of sums."""
+    """The backward kernel's arithmetic (``csrc/flash_attention_bwd.cu``),
+    in float32 torch.  Every product runs on bf16 parts (``_mma``): a
+    bfloat16 q, k, v as itself, a float32 one, dout, P and dS as three
+    parts, P rounded to bfloat16 (``round_p`` with a bfloat16 V) as
+    itself, with the kernel's kept part products, 16 deep at a time.  The
+    rows r = i * G + g of a KV head walk the keys in the rows kernel's
+    chunks (``BWD_CHUNK``), each half of a chunk with its own online max
+    m, sum l of exp(s - m) and d = sum exp(s - m) dP, rescaled as m
+    grows; the halves merge (half 0 first) into M, L and D = d / L.  Then
+    P = exp(s - M) / L, dP = dout . v (rounded to bfloat16 with ``round_p``
+    and a bfloat16 V), dS = P (dP - D) scale; dq = dS K summed per half
+    and then half 0 + half 1, and dk = dS^T q, dv = P^T dout over the rows
+    in order (every query head of the group), in ``BWD_ROW_SPLIT`` parts
+    of each ``BWD_ROW_TILE`` rows, added part 0 first.  It follows the
+    kernels' parts, products, chunks, halves and order of 16-deep steps,
+    not the order of the sums inside a step or across a chunk's lanes."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
+    sc = _scale(d, scale)
     rnd = round_p and v.dtype == torch.bfloat16
-    qf = q.to(torch.float32).reshape(b, sq, hkv, g, d)
-    kf, vf = k.to(torch.float32), v.to(torch.float32)
-    of = dout.to(torch.float32).reshape(b, sq, hkv, g, d)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * _scale(d, scale)
-    if causal:
-        ok = _visible(q_start, sq, skv, q.device)[:, None, None]
-    else:
-        ok = torch.ones_like(s, dtype=torch.bool)
-    s = torch.where(ok, s, -torch.inf)
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - m)
-    p = e / e.sum(dim=-1, keepdim=True)
-    dp = torch.einsum("bqhgd,bkhd->bhgqk", of, vf)
+    exact = q.dtype == torch.bfloat16     # q, k, v are one part each
+
+    def rows(x):   # (B, Sq, Hq, D) -> (B, Hkv, Sq * G, D), r = i * G + g
+        return (x.to(torch.float32).reshape(b, sq, hkv, g, d)
+                .permute(0, 2, 1, 3, 4).reshape(b, hkv, sq * g, d))
+
+    qp, op = _parts(rows(q), exact), _parts(rows(dout), False)
+    kp = _parts(k.to(torch.float32).permute(0, 2, 1, 3), exact)
+    vp = _parts(v.to(torch.float32).permute(0, 2, 1, 3), exact)
+    s = _mma(qp, [x.transpose(-1, -2) for x in kp]) * sc    # (B, Hkv, R, Skv)
+    dp = _mma(op, [x.transpose(-1, -2) for x in vp])
     if rnd:
         dp = dp.to(torch.bfloat16).to(torch.float32)
-    dsum = (p * dp).sum(dim=-1, keepdim=True)
-    ds = torch.where(ok, p * (dp - dsum), 0.0) * _scale(d, scale)
+    if causal:
+        qpos = (q_start.to(torch.long)[:, None]
+                + torch.arange(sq * g, device=q.device)[None, :] // g)
+        ok = (torch.arange(skv, device=q.device)[None, None, :]
+              <= qpos[:, :, None])[:, None]                 # (B, 1, R, Skv)
+    else:
+        ok = torch.ones((1, 1, 1, skv), dtype=torch.bool, device=q.device)
+    s = torch.where(ok, s, -torch.inf)
+    half = BWD_CHUNK[d] // 2
+    halves = []                     # each half's (m, l, d) over the chunks
+    for h in (0, 1):
+        m = torch.full(s.shape[:-1], -torch.inf, device=q.device)
+        l = torch.zeros(s.shape[:-1], device=q.device)
+        dsum = torch.zeros(s.shape[:-1], device=q.device)
+        for c0 in range(h * half, skv, 2 * half):
+            sc_, dpc = s[..., c0:c0 + half], dp[..., c0:c0 + half]
+            mn = torch.maximum(m, sc_.amax(dim=-1))
+            f = torch.where(m == -torch.inf, 0.0, torch.exp(m - mn))
+            e = torch.where(sc_ == -torch.inf, 0.0,
+                            torch.exp(sc_ - mn[..., None]))
+            l = l * f + e.sum(dim=-1)
+            dsum = dsum * f + (e * dpc).sum(dim=-1)
+            m = mn
+        halves.append((m, l, dsum))
+    m = torch.maximum(halves[0][0], halves[1][0])
+    fs = [torch.where(mh == -torch.inf, 0.0, torch.exp(mh - m))
+          for mh, _, _ in halves]
+    l = halves[0][1] * fs[0] + halves[1][1] * fs[1]
+    big_d = (halves[0][2] * fs[0] + halves[1][2] * fs[1]) / l
+    p = torch.where(ok, torch.exp(s - m[..., None]) / l[..., None], 0.0)
+    ds = torch.where(ok, (p * (dp - big_d[..., None])) * sc, 0.0)
     pv = p.to(torch.bfloat16).to(torch.float32) if rnd else p
-    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, hq, d)
-    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", pv, of)
+    in_half = (torch.arange(skv, device=q.device) // half) % 2
+    dq = sum(_mma(_parts(torch.where(in_half == h, ds, 0.0), False), kp)
+             for h in (0, 1))                                # (B, Hkv, R, D)
+    tile, split = BWD_ROW_TILE[d], BWD_ROW_SPLIT[d]
+    part = (torch.arange(sq * g, device=q.device) % tile) // (tile // split)
+    dk = dv = 0
+    for h in range(split):                                  # (B, Hkv, Skv, D)
+        in_part = (part == h)[:, None]
+        dk = dk + _mma(_parts(torch.where(in_part, ds, 0.0).transpose(-1, -2),
+                              False), qp)
+        dv = dv + _mma(_parts(torch.where(in_part, pv, 0.0).transpose(-1, -2),
+                              rnd), op)
+    dq = dq.reshape(b, hkv, sq, g, d).permute(0, 2, 1, 3, 4).reshape(
+        b, sq, hq, d)
+    dk, dv = dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

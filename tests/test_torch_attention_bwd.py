@@ -1,10 +1,12 @@
 """The gradient of the port's attention: the plain backward (autograd of
 ``ref_attention_gqa``, the backward kernel's plain version) against
 ``jax.vjp`` of the JAX model's attention, and the backward kernel's
-formulas (``emulate_attention_bwd``: row max and sum, D = rowsum(P dP)
-with dP rounded to bfloat16 under ``round_p``, dS, the group sums of dk
-and dv) against the plain backward.  The kernel itself runs only on the
-card (``test_torch_train_gpu.py``, ``chip_smoke.py`` phase 10).
+arithmetic (``emulate_attention_bwd``: bf16 parts and the kept part
+products, the online row max, sum and D = d / L over chunks and halves,
+dP rounded to bfloat16 under ``round_p``, dS, the group sums of dk and
+dv in the keys kernel's row parts) against the plain backward, across
+the kernels' tile edges.  The kernel itself runs only on the card
+(``test_torch_train_gpu.py``, ``chip_smoke.py`` phase 10).
 
 Tolerances: float32 gradients at 2e-6 of the largest gradient (sums of
 at most 40 products in another order); bfloat16 gradients as
@@ -18,6 +20,7 @@ bfloat16 in both packages, from float32 sums in another order, so a dP
 at a tie moves dS by one ulp of dP times P; measured up to 3.6e-5) and,
 in dv, by one ulp of that probability times dout."""
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -117,6 +120,17 @@ CASES = [  # (b, sq, skv, hq, hkv, d, q_start, causal)
     (1, 33, 33, 4, 1, 128, (0,), True),
     (3, 9, 9, 3, 3, 64, (0, 0, 0), True),
     (1, 20, 29, 8, 2, 128, (0,), False),
+    # the kernels' tile edges: 64 rows and 64 keys (32 at head_dim 128)
+    (1, 63, 63, 3, 1, 64, (0,), True),
+    (1, 64, 64, 3, 1, 64, (0,), True),
+    (1, 65, 65, 3, 1, 64, (0,), True),
+    (1, 129, 129, 2, 1, 64, (0,), True),
+    (1, 65, 65, 2, 1, 128, (0,), True),
+    # a single key: dq and dk exactly 0 (the bound is 0 of a 0 gradient)
+    (2, 1, 1, 9, 3, 64, (0, 0), True),
+    # offsets past a chunk of keys, and every key visible across chunks
+    (2, 30, 100, 4, 2, 64, (70, 5), True),
+    (1, 65, 129, 3, 1, 64, (0,), False),
 ]
 
 
@@ -196,3 +210,34 @@ def test_backward_refuses_what_its_kernel_does_not_take():
         h = torch.zeros(1, 4, 3, 64, dtype=torch.float16)
         _check_bwd(h, h, h)
     assert BWD_HEAD_DIMS == (64, 128)
+
+
+def _load(path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("bf16, issued, want", [
+    (False, False, 30), (True, False, 13), (False, True, 54), (True, True, 21)])
+def test_part_products_of_the_backward_bounds(bf16, issued, want):
+    """``chip_smoke.py``'s count of bf16 part products a (pair, column):
+    the gradient's 5 products with 6 of 9 kept (30 in float32; 13 in
+    bfloat16: q.k 1, dout.v 3, dq 3, dk 3, dv 3 with P rounded) bound the
+    kernel; the kernel issues q.k and dout.v three times each."""
+    smoke = _load(ROOT / "chip_smoke.py")
+    assert smoke.bwd_part_products(bf16, issued) == want
+
+
+def test_probe_lines_cover_every_phase_of_both_kernels():
+    """``benchmarks/torch_fa_bwd.py --probe`` turns the kernel source's
+    ``// PROBE`` comment lines into clock reads: 10 phases of the rows
+    kernel, 6 of the keys kernel, each kernel's start and dump."""
+    bench = _load(ROOT / "benchmarks" / "torch_fa_bwd.py")
+    src = (ROOT / "src" / "repro_torch" / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+    probed = bench.probed_source(src)
+    assert "// PROBE" not in probed
+    assert probed.count("PROBE(") == 1 + 10 + 6     # the macro, the calls
+    assert probed.count("clock64() - t0_") == 2
