@@ -61,8 +61,8 @@ def main():
         rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    st.data_ptr(), _TYPES[q.dtype], _TYPES[k.dtype], b, sq,
                    k.shape[1], hq, k.shape[2], d, *strides, d ** -0.5, 1, 1,
-                   variant, rb, splits, int(_vec_ok(k) and _vec_ok(v)),
-                   stream)
+                   0, 0.0, variant, rb, splits,
+                   int(_vec_ok(k) and _vec_ok(v)), stream)
         if rc:
             raise RuntimeError(f"launch failed ({rc}) for {variant, rb, splits}")
         return out

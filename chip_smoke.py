@@ -110,7 +110,27 @@
    straight against 5, a checkpoint, a restore and 5 more, bitwise; and
    the Figs. 5-6 run (``--mode cnn`` at its defaults), its table loaded
    by the port's ``AccuracySurrogate`` and held to the paper's story;
-11. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
+11. the decoder family (``models/moe``, windows, soft-caps and head_dim
+   256 in ``flash_attention``): 11.1 the kernel with a sliding window
+   and head_dim 256 at Gemma-3-1B's shapes (4/1 heads, window 512) and
+   with a soft-cap of 50 and a query scale of 1/16 at Gemma-2-9B's (16/8
+   heads, window 4096), decode and prefill past the window (S = 900 and
+   4608), float32 and bfloat16 q on a float32 cache, held to its plain
+   version within 2e-5, two calls bitwise equal, timed beside the plain
+   version, its bound and SDPA with the window as a boolean mask (no
+   library call computes the soft-cap); 11.2 Gemma-3-1B at full width and
+   depth, packed as LightPE-1 and INT8 and served by ``ServeEngine`` (4
+   prompts of 64-900 tokens, a 1024-row cache, 12 new tokens) in
+   bfloat16 and float32, held to ``tests/data/torch_gemma3_ref.json``
+   with exactly 182 ``quant_matmul`` and 26 ``flash_attention`` launches
+   a step, then timed warm (step latencies, tokens/s, peak memory); 11.3
+   DeepSeek-MoE-16B at full width with its depth cut to 3 layers (1
+   dense + 2 MoE) on dense float32 weights, served in bfloat16 under FP32,
+   LightPE-1 and INT8 numerics, held to ``tests/data/torch_moe_ref.json``
+   (routing included, up to router near ties, which are counted) with
+   exactly 3 ``flash_attention`` and, under QAT numerics, 56
+   ``fake_quant`` launches a step;
+12. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
    last, the device line.
 
 TF32 is off for matrix products and convolutions (``repro_torch`` sets
@@ -132,6 +152,8 @@ SERVE_REF = ROOT / "tests" / "data" / "torch_serve_ref.json"
 COEX_REF = ROOT / "tests" / "data" / "torch_coexplore_ref.json"
 SCALE_REF = ROOT / "tests" / "data" / "torch_scale_ref.json"
 TRAIN_REF = ROOT / "tests" / "data" / "torch_train_ref.json"
+GEMMA_REF = ROOT / "tests" / "data" / "torch_gemma3_ref.json"
+MOE_REF = ROOT / "tests" / "data" / "torch_moe_ref.json"
 SCALE_SHARDS = 4
 SCALE_DEPTH = 2
 KILL_AFTER = 40
@@ -219,6 +241,31 @@ CUDA_CORE_BWD_MS = {"train_f32": 0.6762, "train_bf16": 0.6682}
 # the card's LM / CNN steps against tests/data/torch_train_ref.json
 TRAIN_LM_RTOL = 1e-2
 TRAIN_CNN_RTOL = 1e-2
+# Phase 11.1: (name, b, sq, skv, hq, hkv, d, start, window, softcap,
+# scale) of the windowed kernel: Gemma-3-1B's local layers (the serving
+# run's 1024-row cache) and Gemma-2-9B's (its 4096 window passed by a
+# 4608-token sequence), decode and prefill
+WINDOW_SHAPES = [
+    ("gemma3-1b decode", 4, 1, 1024, 4, 1, 256, 905, 512, 0.0, 0.0),
+    ("gemma3-1b prefill", 4, 900, 1024, 4, 1, 256, 0, 512, 0.0, 0.0),
+    ("gemma2-9b decode", 1, 1, 4608, 16, 8, 256, 4607, 4096, 50.0, 1 / 16),
+    ("gemma2-9b prefill", 1, 4608, 4608, 16, 8, 256, 0, 4096, 50.0,
+     1 / 16)]
+# Phase 11.2: Gemma-3-1B's runs take the SmolLM-135M serving runs'
+# tolerances (bfloat16 0.1, LightPE-1 float32 2e-3), on the reference's
+# codes at the log2 ties
+GEMMA_TOL = {"lightpe1": 0.1, "int8": 0.1, "lightpe1/float32": 2e-3}
+GEMMA_PROJECTIONS = 7           # wq, wk, wv, wo, w_up, w_gate, w_down
+# Phase 11.3: DeepSeek-MoE-16B in bfloat16, the reference's experts pinned
+# at its router near ties.  The FP32 preset takes phase 7's 0.1.  Under
+# QAT numerics in bfloat16 two correct runs sit ~0.1 apart: the port on
+# the CPU (the kernels' plain versions, other float32 sum orders) reads
+# 0.1011 (LightPE-1) and 0.1051 (INT8) against the reference
+# (benchmarks/torch_router_noise.py --serve --device cpu), so 0.125.  The
+# experts' fake quantization is held by check_expert_fake_quant, not by
+# this limit: with the stacks quantized as one tensor the runs read
+# 0.1058 / 0.1195 (--stack-as-one), inside it.
+MOE_TOL = {"fp32": 0.1, "lightpe1": 0.125, "int8": 0.125}
 
 
 def fail(msg: str):
@@ -540,6 +587,36 @@ def bound_ms(nbytes: float, flops: float, peak: float = H100_F32_FLOPS):
                                    else "operations")
 
 
+def kept_part_products(a_parts: int, b_parts: int) -> int:
+    """The bf16 part products of one float32 product whose operands are
+    ``a_parts`` and ``b_parts`` exact bf16 parts (3 for float32, 1 for
+    bf16): the kept pairs of ``ref.PAIRS``, as the backward kernel forms
+    them (6 for two float32 operands)."""
+    from repro_torch.kernels.flash_attention.ref import PAIRS
+    return sum(1 for pa, pb in PAIRS if pa < a_parts and pb < b_parts)
+
+
+def attention_bound(b, hq, hkv, d, rows, q_bf16: bool, layers: int = 1):
+    """(bound ms, what bounds it, bytes, half the pair products) of the
+    served forward attention, ``layers`` calls alike.  ``rows``: each
+    query's visible keys [lo, hi).  Bytes: q and the float32 out once, the
+    keys the rows see once (K and V of the float32 cache).  Operations: 2
+    D-long dot products a visible (query head, key) pair, as kept bf16
+    part products on the tensor cores (``kept_part_products``): q . k one
+    for bfloat16 q (K rounded to it) and 6 for float32 q and K; P V 6 (P
+    and V in three parts each)."""
+    sq = len(rows)
+    visible = sum(hi - lo for lo, hi in rows)
+    keys = max(hi for _, hi in rows) - min(lo for lo, _ in rows)
+    nbytes = layers * (b * sq * hq * d * ((2 if q_bf16 else 4) + 4)
+                       + 2 * 4 * b * keys * hkv * d)
+    half = layers * 2 * b * hq * d * visible
+    qk = kept_part_products(1, 1) if q_bf16 else kept_part_products(3, 3)
+    bound, by = bound_ms(nbytes, half * (qk + kept_part_products(3, 3)),
+                         H100_BF16_FLOPS)
+    return bound, by, nbytes, half
+
+
 def ptxas_summary(output: str) -> str:
     """Kernels, register range and spills from nvcc's ``-Xptxas -v``."""
     import re
@@ -764,22 +841,12 @@ def time_serving_kernels(torch, dev, cfg, packed, index):
                 library_ms = device_ms(torch, [lambda: [
                     sdpa(tq[i], tk[i], tv[i], attn_mask=mask,
                          enable_gqa=True) for i in range(cfg.n_layers)]])
-            # what this run needs: q and out once, the keys up to the last
-            # query's position (the kernel skips the rest), 2 D-long dot
-            # products per visible (query, key) pair.  On the bf16 tensor
-            # rate, as quant_matmul's bound: q . k is one pass for bfloat16
-            # q (K rounded to it) and 9 for float32 q and K (three exact
-            # bf16 parts each); P V on the float32 cache is 9 (P rounded to
-            # float32 is P).  The float32 CUDA-core bound stands beside it.
-            keys = min(MAX_LEN, start + sq)
-            visible = sum(min(MAX_LEN, start + i + 1) for i in range(sq))
-            per_layer_bytes = (b * sq * hq * d * (q.element_size() + 4)
-                               + 2 * 4 * b * keys * hkv * d)
-            nbytes = cfg.n_layers * per_layer_bytes
-            half = cfg.n_layers * 2 * b * hq * d * visible
-            qk_passes = 1 if q_type == torch.bfloat16 else 9
-            bound, by = bound_ms(nbytes, half * (qk_passes + 9),
-                                 H100_BF16_FLOPS)
+            # the keys up to the last query's position (the kernel skips
+            # the rest); the float32 CUDA-core bound stands beside it
+            bound, by, nbytes, half = attention_bound(
+                b, hq, hkv, d, [(0, min(MAX_LEN, start + i + 1))
+                                for i in range(sq)],
+                q_type == torch.bfloat16, cfg.n_layers)
             qk_peak = (H100_BF16_FLOPS if q_type == torch.bfloat16
                        else H100_F32_FLOPS)
             bound_f32 = bound_ms(nbytes, half * H100_F32_FLOPS / qk_peak
@@ -1506,10 +1573,7 @@ def bwd_part_products(bf16: bool, issued: bool) -> int:
     times each: rows passes 1 and 2, keys); each of operands with 3 parts
     (float32) or 1 (bf16, and P rounded to bf16 for a bfloat16 V), the
     kept pairs of ``ref.PAIRS``."""
-    from repro_torch.kernels.flash_attention.ref import PAIRS
-
-    def kept(a, b):
-        return sum(1 for pa, pb in PAIRS if pa < a and pb < b)
+    kept = kept_part_products
     xp, times = (1 if bf16 else 3), (3 if issued else 1)
     return (times * kept(xp, xp) + times * kept(3, xp) + 2 * kept(3, xp)
             + kept(1 if bf16 else 3, 3))
@@ -1691,6 +1755,483 @@ def run_training(torch, dev):
     return out
 
 
+def check_window_kernel(torch, dev):
+    """Phase 11.1: the flash_attention kernel with a sliding window, a
+    soft-cap and head_dim 256 against its plain version on the card, at
+    Gemma-3-1B's and Gemma-2-9B's shapes past their windows, decode and
+    prefill, float32 and bfloat16 q on the engine's float32 cache; each
+    timed beside the plain version, its bound and SDPA with an explicit
+    boolean window mask (no library call computes the soft-cap)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_gqa)
+    from repro_torch.kernels.flash_attention import plan as fa_plan
+    from repro_torch.kernels.flash_attention.ref import ref_attention_gqa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for row in WINDOW_SHAPES:
+        name, b, sq, skv, hq, hkv, d, start, window, softcap, scale = row
+        k = torch.randn((b, skv, hkv, d), generator=gen, device=dev)
+        v = torch.randn((b, skv, hkv, d), generator=gen, device=dev)
+        st = torch.full((b,), start, dtype=torch.int32, device=dev)
+        for q_name in ("float32", "bfloat16"):
+            q = torch.randn((b, sq, hq, d), generator=gen,
+                            device=dev).to(getattr(torch, q_name))
+
+            def kernel():
+                return flash_attention_gqa(q, k, v, st, round_p=True,
+                                           scale=scale, window=window,
+                                           softcap=softcap)
+
+            def plain():
+                return ref_attention_gqa(q, k, v, st, round_p=True,
+                                         scale=scale, window=window,
+                                         softcap=softcap)
+
+            before = flash_attention.launches
+            got = kernel()
+            again = kernel()
+            launches = flash_attention.launches - before
+            want = plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if launches != 2 or not torch.equal(got, again) \
+                    or not bool(torch.isfinite(got).all()) or err > FA_TOL:
+                fail(f"flash_attention {name} q {q_name}: max_abs_err "
+                     f"{err} (tolerance {FA_TOL}), {launches} launches for "
+                     f"2 calls, bitwise repeat {torch.equal(got, again)}")
+            del want, got, again
+            ms = time_ms(torch, kernel)
+            plain_ms = time_ms(torch, plain, reps=3, warmup=1)
+            library_ms = None
+            if not softcap:   # SDPA on the same function, the window a mask
+                qpos = start + torch.arange(sq, device=dev)[:, None]
+                kpos = torch.arange(skv, device=dev)[None, :]
+                mask = (kpos <= qpos) & (kpos > qpos - window)
+                tq = q.float().transpose(1, 2).contiguous()
+                tk, tv = (t.transpose(1, 2).contiguous() for t in (k, v))
+                library_ms = time_ms(torch, lambda: sdpa(
+                    tq, tk, tv, attn_mask=mask, scale=scale or None,
+                    enable_gqa=True))
+                del tq, tk, tv, mask
+            bound, by, nbytes, half = attention_bound(
+                b, hq, hkv, d, [(max(0, start + i - window + 1) if window
+                                 else 0, min(skv, start + i + 1))
+                                for i in range(sq)],
+                q_name == "bfloat16")
+            p = fa_plan(b, sq, skv, hq, hkv, d, q_name == "bfloat16", window)
+            rows.append(dict(
+                name=name, q_type=q_name, b=b, sq=sq, skv=skv, hq=hq,
+                hkv=hkv, d=d, start=start, window=window, softcap=softcap,
+                max_abs_err=err, launches=launches, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound, bound_by=by,
+                bytes=nbytes, visible_pairs=half // (2 * b * hq * d),
+                variant=p.variant,
+                splits=p.splits))
+            lib = (f"SDPA with the window mask {library_ms:.4f} ms"
+                   if library_ms is not None
+                   else "no library call computes the soft-cap")
+            print(f"flash_attention {name} q {q_name} ({p.variant}, "
+                  f"{p.splits} splits): max_abs_err={err:.3g}, kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} "
+                  f"ms ({by}), {lib}")
+    return rows
+
+
+def serve_runs(torch, ref, engine_for, launch_counters, want_counts, tol,
+               router=None, coupled=False):
+    """Serve the reference's prompts for each of the reference's modes and
+    hold each run to its reference record; the launches of each run
+    counted from 0 and held to ``want_counts(mode)`` exactly.  ``router``
+    (an MoE model's capacity for a token count): the routing is recorded
+    and held too (``check.compare``'s ``router_tol``), the reference's
+    experts pinned at its router near ties (``RoutePins``).  A run of
+    which no step was compared fails."""
+    from contextlib import nullcontext
+
+    import numpy as np
+    from repro_torch.models.moe import RoutePins, RouterLog
+    from repro_torch.serve import check
+
+    prompts = [np.array(p) for p in ref["prompts"]]
+    out = {}
+    for key, m in ref["modes"].items():
+        eng = engine_for(m)
+        for c in launch_counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pins = RoutePins(ref["router_tol"]) if router else None
+        with RouterLog() as log, (pins or nullcontext()):
+            rec = check.record(eng, prompts, ref["max_new"],
+                               lambda t: t.float().cpu().numpy(),
+                               router=log if router else None, pins=pins,
+                               want=m["run4"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {c.__name__: c.launches for c in launch_counters}
+        if counts != want_counts(m):
+            fail(f"{ref['config']} {key}: launches {counts}, expected "
+                 f"{want_counts(m)}")
+        del eng
+        cuts = None
+        kw = dict(coupled=coupled(m) if callable(coupled) else coupled)
+        if router:
+            kw.update(router_tol=ref["router_tol"], capacity=router)
+            cuts = check.route_cut(rec, m["run4"], **kw)[0]
+        routing = route_summary(rec, m, ref, pins) if router else None
+        problems, notes = check.compare(rec, m["run4"], tol[key], **kw)
+        for note in notes:
+            print(f"  tolerated ({ref['config']} {key}): {note}")
+        if problems:
+            fail(f"{ref['config']} {key} differs from the JAX reference: "
+                 + "; ".join(problems))
+        err = check.max_logit_err(rec, m["run4"], kw["coupled"], cuts)
+        steps = check.compared_steps(rec, m["run4"], kw["coupled"], cuts)
+        if not sum(steps):
+            fail(f"{ref['config']} {key}: no step was compared with the JAX "
+                 f"reference ({len(notes)} notes)")
+        out[key] = dict(launches=counts, wall_s=wall, max_logit_err=err,
+                        tolerance=tol[key], steps_compared=steps,
+                        notes=len(notes), tokens0=rec["tokens"][0])
+        print(f"{ref['config']} {key}: matches the JAX reference (max logit "
+              f"err {err:.3g}, tolerance {tol[key]}, steps compared {steps} "
+              f"of {ref['max_new']}, {len(notes)} notes); launches {counts}; "
+              f"{wall:.3f} s; tokens of request 0: {rec['tokens'][0]}")
+        if router:
+            out[key]["routing"] = routing
+    return out
+
+
+def route_summary(rec, mode, ref, pins):
+    """The port's run's router margins below the reference file's
+    tolerance and its steps' drops past capacity, beside the reference's
+    counts (the same routing gives the same drops); the tokens that took
+    the reference's experts at a near tie (``pins``); and the router's
+    noise: the largest difference of a margin from the reference's at the
+    prefill's first MoE layer, over the tokens routed alike there on
+    their own (only the dense layer before it, so no routing difference
+    feeds it)."""
+    import numpy as np
+    from repro_torch.configs import get
+    from repro_torch.models.moe import dropped
+    cfg = get(ref["config"]).replace(n_layers=ref["n_layers"])
+    margins = np.array([x for req in rec["route_margins"] for step in req
+                        for layer in step for x in layer])
+    drops = [[dropped(np.array([req[t][layer] for req in rec["routes"]]),
+                      cfg) for layer in range(len(rec["routes"][0][t]))]
+             for t in range(len(rec["routes"][0]))]
+    want = mode["run4"]
+    ids = np.array([req[0][0] for req in rec["routes"]])
+    ids_ref = np.array([req[0][0] for req in want["routes"]])
+    first = pins.masks[0]                     # the prefill's first MoE layer
+    alike = np.all(ids == ids_ref, axis=-1) & ~first
+    delta = np.abs(np.array([req[0][0] for req in rec["route_margins"]])
+                   - np.array([req[0][0] for req in want["route_margins"]]))
+    summary = dict(near_ties=int((margins < ref["router_tol"]).sum()),
+                   margins=int(margins.size), dropped_prefill=drops[0],
+                   ref_near_ties=mode["routing"]["near_ties"],
+                   ref_dropped_prefill=mode["routing"]["dropped"][0],
+                   first_layer_tokens_alike=int(alike.sum()),
+                   first_layer_tokens=int(alike.size),
+                   first_layer_pinned=int(first.sum()), pinned=pins.pinned,
+                   margin_noise=float(delta[alike].max()))
+    print(f"  routing: {summary['near_ties']} of {margins.size} router "
+          f"margins below {ref['router_tol']} (reference "
+          f"{summary['ref_near_ties']}); prefill drops past capacity "
+          f"{drops[0]} (reference {summary['ref_dropped_prefill']}); first "
+          f"MoE layer: {alike.sum()} of {alike.size} prefill tokens routed "
+          f"alike on their own ({first.sum()} pinned), their margins within "
+          f"{summary['margin_noise']:.3g} of the reference's; "
+          f"{pins.pinned} tokens of all steps and layers took the "
+          f"reference's experts at a near tie")
+    return summary
+
+
+def run_gemma(torch, dev):
+    """Phase 11.2: Gemma-3-1B at full width and depth, packed as
+    LightPE-1 and INT8 codes and served by ``ServeEngine`` (4 prompts of
+    64-900 tokens, a 1024-row cache, 12 new tokens) in bfloat16 and
+    float32, held to ``tests/data/torch_gemma3_ref.json`` with exactly 182
+    ``quant_matmul`` and 26 ``flash_attention`` launches a step; then the
+    LightPE-1 bfloat16 run warm: step latencies, tokens/s, peak memory."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.models import family_module
+    from repro_torch.serve import (ServeEngine, check, packed_bytes,
+                                   quantize_params)
+
+    ref = json.loads(GEMMA_REF.read_text())
+    cfg = get(ref["config"])
+    mod = family_module(cfg)
+    t0 = time.perf_counter()
+    params = convert.params_from_numpy(
+        mod.numpy_params(cfg, ref["param_seed"]), dev)
+    packs = {pe: quantize_params(params, pe, min_size=ref["min_size"])
+             for pe in sorted({m["pe_type"] for m in ref["modes"].values()})}
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    print(f"gemma: {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads "
+          f"of {cfg.head_dim}, window {cfg.window}, vocab {cfg.vocab}); "
+          f"weights drawn and packed in {time.perf_counter() - t0:.2f} s")
+    for key, m in ref["modes"].items():
+        got = packed_bytes(packs[m["pe_type"]])
+        if got != m["packed_bytes"]:
+            fail(f"gemma {key}: packed_bytes {got} != the JAX package's "
+                 f"{m['packed_bytes']}")
+    # the reference's LightPE-1 codes where log2|w| is at a tie: the served
+    # comparison then runs on the JAX package's codes
+    pins = check.pin_pow2_codes(packs["lightpe1"], ref["pow2_ties"])
+    if pins["e_max_differ"]:
+        fail(f"gemma: {pins['e_max_differ']} columns' e_max differ from the "
+             f"reference's at an absmax log2 tie")
+    print(f"gemma: the reference's LightPE-1 codes at {pins['pinned']} log2 "
+          f"ties pinned, {pins['changed']} of them the card's other code; "
+          f"{pins['e_max_ties']} columns' e_max at a tie, all equal")
+    per_step = {"quant_matmul": GEMMA_PROJECTIONS * cfg.n_layers,
+                "flash_attention": cfg.n_layers}
+    runs = serve_runs(
+        torch, ref,
+        lambda m: ServeEngine(cfg.replace(dtype=m["dtype"]), mod,
+                              packs[m["pe_type"]], ref["batch_slots"],
+                              ref["max_len"]),
+        (quant_matmul, flash_attention),
+        lambda m: {k: v * ref["max_new"] for k, v in per_step.items()},
+        GEMMA_TOL)
+
+    eng = ServeEngine(cfg, mod, packs["lightpe1"], ref["batch_slots"],
+                      ref["max_len"])
+    steps = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def step(p, t, c):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(p, t, c)
+            torch.cuda.synchronize()
+            steps[name].append(time.perf_counter() - t1)
+            return out
+        return step
+
+    eng._prefill = timed("prefill", eng._prefill)
+    eng._decode = timed("decode", eng._decode)
+    gc.collect()
+    base = torch.cuda.memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    reqs = [eng.submit(np.array(p), max_new=ref["max_new"])
+            for p in ref["prompts"]]
+    eng.run()
+    wall = time.perf_counter() - t1
+    tokens = sum(len(r.out) for r in reqs)
+    numbers = dict(prefill_ms=steps["prefill"][0] * 1e3,
+                   decode_ms=float(np.mean(steps["decode"])) * 1e3,
+                   tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+                   peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+                   base_mib=base, runs=runs)
+    numbers["pow2_pins"] = pins
+    print(f"gemma lightpe1 (warm): prefill {numbers['prefill_ms']:.3f} ms "
+          f"(4 x {max(len(p) for p in ref['prompts'])} tokens), decode "
+          f"{numbers['decode_ms']:.3f} ms/step, {tokens} tokens in "
+          f"{wall:.3f} s = {numbers['tokens_per_s']:.1f} tokens/s, peak "
+          f"device memory {numbers['peak_mib']:.1f} MiB ({base:.1f} MiB "
+          f"before the run)")
+    del eng, packs
+    gc.collect()
+    return numbers
+
+
+def check_expert_fake_quant(torch, dev, cfg, mod, params, ref):
+    """Phase 11.3's kernel check: ``fake_quant_experts`` and
+    ``fake_quant_expert_acts`` on the card on what the first MoE layer
+    gives them under each QAT mode of the reference (caught in a prefill
+    of the reference's prompts and one decode step): the expert stacks
+    (64 x (2048, 1408) and 64 x (1408, 2048), float32) and the dispatched
+    buffers (64, C, 2048) and (64, C, 1408) in the compute type.  Each
+    call is one ``fake_quant`` launch and differs in no element from the
+    plain version run expert by expert on the same input; the stack
+    quantized as one tensor (one scale over every expert) must differ
+    from it, so the check tells the two apart."""
+    import numpy as np
+    from repro_torch.kernels.fake_quant import fake_quant, fake_quant_group
+    from repro_torch.kernels.fake_quant.ref import (ref_fake_quant_affine,
+                                                    ref_fake_quant_pow2)
+    from repro_torch.models import moe as MOE
+    from repro_torch.quant.fake_quant import (affine_scale,
+                                              fake_quant_expert_acts,
+                                              fake_quant_experts, pow2_emax)
+
+    def scales_of(x, scheme, bits, per_channel):
+        """Each expert's own scale (e_max for pow2), as the port takes it."""
+        axis = 0 if per_channel else None
+        out = []
+        for xe in x.unbind(0):
+            sc = (affine_scale(xe, bits, axis) if scheme == "affine"
+                  else pow2_emax(xe, axis))
+            out.append(sc[0] if per_channel else sc.reshape(1))
+        return out
+
+    def plain(x, scales, scheme, bits):
+        return torch.stack([
+            ref_fake_quant_affine(xe, sc, bits) if scheme == "affine"
+            else ref_fake_quant_pow2(xe, sc)
+            for xe, sc in zip(x.unbind(0), scales)])
+
+    lens = [len(pr) for pr in ref["prompts"]]
+    toks = np.zeros((len(lens), max(lens)), np.int64)
+    for i, pr in enumerate(ref["prompts"]):
+        toks[i, -len(pr):] = pr
+    toks = torch.as_tensor(toks, device=dev)
+    calls = []
+
+    def catch(fn, kind):
+        def caught(x, qcfg):
+            calls.append((kind, x.detach(), qcfg))
+            return fn(x, qcfg)
+        return caught
+
+    rows = []
+    for key, m in ref["modes"].items():
+        if m["pe_type"] == "fp32":
+            continue
+        run = cfg.replace(pe_type=m["pe_type"], dtype=m["dtype"])
+        cache = mod.init_cache(run, len(lens), ref["max_len"], torch.float32,
+                               device=dev)
+        caught = {}
+        MOE.fake_quant_experts = catch(fake_quant_experts, "weight")
+        MOE.fake_quant_expert_acts = catch(fake_quant_expert_acts, "act")
+        try:
+            for phase in ("prefill", "decode"):
+                calls.clear()
+                if phase == "prefill":
+                    logits, cache = mod.prefill(params, toks, run, cache)
+                else:
+                    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                    logits, cache = mod.decode_step(params, nxt, run, cache)
+                # the first MoE layer's 3 weights and 3 buffers
+                caught[phase] = ([c for c in calls if c[0] == "weight"][:3]
+                                 + [c for c in calls if c[0] == "act"][:3])
+        finally:
+            MOE.fake_quant_experts = fake_quant_experts
+            MOE.fake_quant_expert_acts = fake_quant_expert_acts
+        del cache, logits
+        for phase, held in caught.items():
+            for kind, x, qcfg in held:
+                if kind == "weight" and phase == "decode":
+                    continue              # the prefill's stacks again
+                fn = (fake_quant_experts if kind == "weight"
+                      else fake_quant_expert_acts)
+                scheme, bits, per_channel = (
+                    (qcfg.weight_scheme, qcfg.weight_bits, qcfg.per_channel)
+                    if kind == "weight" else ("affine", qcfg.act_bits, False))
+                before = fake_quant.launches
+                got = fn(x, qcfg)
+                launches = fake_quant.launches - before
+                scales = scales_of(x, scheme, bits, per_channel)
+                want = plain(x, scales, scheme, bits)
+                stack = x.reshape(1, -1, x.shape[-1])
+                one = plain(stack, scales_of(stack, scheme, bits,
+                                             per_channel),
+                            scheme, bits).reshape(x.shape)
+                differing = int((got != want).sum())
+                control = int((one != want).sum())
+                if launches != 1 or differing or not control:
+                    fail(f"fake_quant {key} expert {kind}s at "
+                         f"{tuple(x.shape)} ({phase}): {launches} launches "
+                         f"(1 expected), {differing} elements differ from "
+                         f"plain, the stack as one tensor differs in "
+                         f"{control}")
+                # the launch and its plain version on the same scales
+                parts = list(x.unbind(0))
+                ms = time_ms(torch, lambda: fake_quant_group(
+                    parts, scales, mode=scheme, bits=bits))
+                plain_ms = time_ms(torch, lambda: plain(x, scales, scheme,
+                                                        bits))
+                # x read once, the output written once; a few operations
+                # an element (scale, round, clamp, rescale)
+                bound, by = bound_ms(2 * x.numel() * x.element_size(),
+                                     4 * x.numel())
+                rows.append(dict(mode=key, kind=kind, phase=phase,
+                                 shape=list(x.shape), dtype=str(x.dtype),
+                                 launches=launches, differing=differing,
+                                 elements=x.numel(), as_one_differing=control,
+                                 ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                 bound_by=by))
+                print(f"fake_quant {key} expert {kind}s {tuple(x.shape)} "
+                      f"{str(x.dtype).split('.')[-1]} ({phase}): 1 launch, "
+                      f"0 of {x.numel()} elements differ from plain (the "
+                      f"stack as one tensor: {control}); kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+                del got, want, one
+        del caught
+    return rows
+
+
+def run_moe(torch, dev):
+    """Phase 11.3: DeepSeek-MoE-16B at full width, depth cut to 3 layers
+    (the dense layer and 2 MoE layers), on dense float32 weights, served
+    by ``ServeEngine`` (4 prompts of 8-130 tokens, 12 new tokens) in
+    bfloat16 under the FP32 preset and the QAT numerics of LightPE-1 and
+    INT8, held to ``tests/data/torch_moe_ref.json``, routing included up
+    to router near ties (the reference's experts pinned there); exactly 3
+    ``flash_attention`` launches a step and 56 ``fake_quant`` ones under
+    QAT numerics.  First ``check_expert_fake_quant`` holds the experts'
+    grouped ``fake_quant`` launches to their plain version at these
+    shapes."""
+    from repro_torch import convert
+    from repro_torch.configs import get
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.models import family_module
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve import ServeEngine
+
+    ref = json.loads(MOE_REF.read_text())
+    cfg = get(ref["config"]).replace(n_layers=ref["n_layers"])
+    mod = family_module(cfg)
+    t0 = time.perf_counter()
+    params = convert.params_from_numpy(
+        mod.numpy_params(cfg, ref["param_seed"]), dev)
+    torch.cuda.synchronize()
+    print(f"moe: {cfg.name} at full width ({cfg.n_layers} layers: "
+          f"{cfg.first_dense} dense + {cfg.n_layers - cfg.first_dense} MoE of "
+          f"{cfg.moe_experts} experts, top-{cfg.moe_topk}, {cfg.moe_shared} "
+          f"shared; d_model {cfg.d_model}); dense weights "
+          f"{ref['dense_bytes']} B drawn in {time.perf_counter() - t0:.2f} s")
+    # fake_quant a step: 2 a projection (weight, activation) of the dense
+    # layer (7), of each MoE layer's attention (4), routed experts (3, each
+    # one launch for all 64 experts) and shared experts (3), and the head
+    moe_layers = cfg.n_layers - cfg.first_dense
+    fq = 2 * (7 * cfg.first_dense + 10 * moe_layers + 1)
+
+    def want(m):
+        return {"fake_quant": 0 if m["pe_type"] == "fp32"
+                else fq * ref["max_new"],
+                "flash_attention": cfg.n_layers * ref["max_new"],
+                "quant_matmul": 0}
+
+    experts = check_expert_fake_quant(torch, dev, cfg, mod, params, ref)
+    gc.collect()
+    runs = serve_runs(
+        torch, ref,
+        lambda m: ServeEngine(cfg.replace(pe_type=m["pe_type"],
+                                          dtype=m["dtype"]), mod, params,
+                              ref["batch_slots"], ref["max_len"]),
+        (fake_quant, flash_attention, quant_matmul), want, MOE_TOL,
+        router=lambda tokens: capacity(tokens, cfg),
+        coupled=lambda m: m["pe_type"] != "fp32")
+    del params
+    gc.collect()
+    return dict(runs=runs, expert_fake_quant=experts)
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     import torch
@@ -1698,7 +2239,8 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke needs a CUDA card")
     if not (ROOT / "src" / "repro_torch").is_dir() or not REF.exists() \
             or not SERVE_REF.exists() or not COEX_REF.exists() \
-            or not SCALE_REF.exists() or not TRAIN_REF.exists():
+            or not SCALE_REF.exists() or not TRAIN_REF.exists() \
+            or not GEMMA_REF.exists() or not MOE_REF.exists():
         fail("src/repro_torch or the JAX reference results are missing "
              "beside chip_smoke.py")
     sys.path.insert(0, str(ROOT / "src"))
@@ -1730,6 +2272,11 @@ def main() -> int:
     t10 = time.perf_counter()
     training = run_training(torch, dev)
     print(f"phase 10 (training): {time.perf_counter() - t10:.2f} s")
+    t11 = time.perf_counter()
+    windowed = check_window_kernel(torch, dev)
+    gemma = run_gemma(torch, dev)
+    moe = run_moe(torch, dev)
+    print(f"phase 11 (decoder family): {time.perf_counter() - t11:.2f} s")
 
     # the row's main numbers: one grouped launch over the 15 VGG-16
     # weights, affine-8, float32; the bfloat16 and per-weight times beside
@@ -1750,6 +2297,9 @@ def main() -> int:
         smollm_elements_compared=model_shapes,
         qat_serving_launches={k: r["fake_quant_launches"]
                               for k, r in qat.items() if k != "control"},
+        moe_experts=moe["expert_fake_quant"],
+        moe_serving_launches={k: r["launches"]["fake_quant"]
+                              for k, r in moe["runs"].items()},
         modes=list(modes.values()))]
     # the rows' main numbers are one decode step's (11 of the 12 steps);
     # the prefill step's stand beside them
@@ -1775,7 +2325,9 @@ def main() -> int:
             kernels[-1].update(variant={p: r["variant"] for p, r in
                                         rows.items() if p != "bf16_q"},
                                bound_f32_ms=rows["decode"]["bound_f32_ms"],
-                               bf16_q=rows["bf16_q"])
+                               bf16_q=rows["bf16_q"], windowed=windowed,
+                               gemma_launches=gemma["runs"]["lightpe1"][
+                                   "launches"]["flash_attention"])
         if name == "quant_matmul":
             kernels[-1].update(
                 variant={p: r["variant"] for p, r in rows.items()},
@@ -1803,7 +2355,8 @@ def main() -> int:
              "Pallas kernel has no backward)",
         fwd_bwd_ms=main_bwd["fwd_bwd_ms"], shapes=bwd))
     print(json.dumps({"kernels": kernels, "serving": serving, "qat": qat,
-                      "coexplore": coex, "scale": scale}))
+                      "coexplore": coex, "scale": scale,
+                      "decoder": {"gemma": gemma, "moe": moe}}))
     print(json.dumps({"train": {k: v for k, v in training.items()
                                 if k != "backward"}}))
     print(json.dumps({"ok": True, "device": {

@@ -13,24 +13,30 @@
 // `_attention_dynwin`): K is rounded to q's type before the product (the
 // products are then exact in float32), and with `round_p` the
 // probabilities are rounded to V's type before P V.  Causal: key j is
-// visible to query i when j <= q_start[b] + i, absolute positions from 0
-// on the key axis; hidden keys add exactly 0 (the reference's -1e30
-// logits), so they are skipped.  Keys j >= Skv do not exist.
+// visible to query i when j <= p = q_start[b] + i, absolute positions
+// from 0 on the key axis, and with a sliding window (`window` > 0, the
+// local layers of Gemma 2 and 3) also when j > p - window; hidden keys add
+// exactly 0 (the reference's -1e30 logits), so they are skipped.  Keys j
+// >= Skv do not exist.  With `softcap` > 0 (Gemma 2) the scaled logit s
+// becomes softcap * tanhf(s / softcap) before the mask, as the reference
+// computes it (IEEE division; tanhf within 2 ulp).
 //
 // A block serves rows r = i * G + g (query i, head g of one KV head's
 // group), so every K/V row it reads serves all G query heads at once.
 // Two kernels behind one entry point; the wrapper picks one and its launch
 // plan (repro_torch/kernels/flash_attention/flash_attention.py, `plan`):
 //
-// 1. split (decode: at most 8 rows a KV head): 4 or 8 rows a block on the
-//    CUDA cores.  What bounds a decode step on the card is the cache rows
+// 1. split (decode: at most 8 rows a KV head; every row count at head_dim
+//    256): 4 or 8 rows a block on the CUDA cores.  What bounds a decode step on the card is the cache rows
 //    up to the index (0.84 MB a layer for SmolLM-135M's 4 slots: 0.25 us
 //    at 3.35 TB/s), so a launch is bound by latency: the launch, one
-//    memory round trip, the merge.  The visible keys [0, kv_end) are split
-//    evenly across the blocks of a thread-block cluster (at most 8).  In a
-//    block, D/4 lanes share a key (4 columns each, one 16-byte load of K
-//    and one of V, all of a thread's loads issued at once), so a warp
-//    reads whole rows; each key group keeps its own online softmax (m, l,
+//    memory round trip, the merge.  The visible keys [kv_begin, kv_end)
+//    (kv_begin: the first key the block's first row sees; 0 without a
+//    window) are split evenly across the blocks of a thread-block cluster
+//    (at most 8).  In a block, D/4 lanes share a key (4 columns each, one
+//    16-byte load of K and one of V, all of a thread's loads issued at
+//    once; at head_dim 256, 32 lanes of 8 columns, so that a key stays in
+//    one warp), so a warp reads whole rows; each key group keeps its own online softmax (m, l,
 //    acc) over its keys, with no barrier in the loop.  The groups'
 //    partials meet in shared memory in group order, the blocks' through
 //    distributed shared memory in rank order: two calls give the same bits.
@@ -51,14 +57,16 @@
 //    cluster (while each block has an SM of its own), the ranks meet as in
 //    (1).  What bounds it: the bytes and the float32 P V on the card's
 //    peak rates are ~1 us for SmolLM-135M's prefill; a launch is bound by
-//    its chain of latencies with few warps an SM.
+//    its chain of latencies with few warps an SM.  Up to head_dim 128 (a
+//    64-row block's accumulators at 256 would not fit the registers).
 //
 // Both kernels run one online-softmax pass, except with round_p and a
 // bfloat16 V: the rounding needs the final max M and sum L before any
 // P V, so a first pass computes (M, L) (merged as above) and a second
 // forms p = exp(s - M) / L, rounds it and accumulates P V; the logits of
 // the two passes are the same bits.  Chunks and tiles past the causal
-// limit of a block's last query are never visited.  The inputs are read
+// limit of a block's last query, or below the window of its first, are
+// never visited.  The inputs are read
 // through their strides in the model's (B, S, H, D) layout: no copy.
 // Vector loads of K and V (and the mma kernel's 16-byte cp.async copies)
 // need rows on a 16-byte boundary; the wrapper tests it and passes `vec`
@@ -94,7 +102,8 @@ struct Args {
   const int* q_start;
   int Sq, Skv, Hkv, G;
   Strides qs, ks, vs, os;
-  float scale;
+  float scale, softcap;   // softcap 0: off
+  int window;             // 0: global
   int causal, round_p, two_pass, vec;
   int splits;   // the cluster's blocks along the keys
 };
@@ -150,6 +159,30 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, bool vec,
   }
 }
 
+// C consecutive elements of a row (C a multiple of 4), as floats.
+template <typename T, int C>
+__device__ __forceinline__ void loadc(const T* p, bool vec, float (&o)[C]) {
+#pragma unroll
+  for (int c = 0; c < C; c += 4) {
+    float t[4];
+    load4(p + c, vec, t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[c + e] = t[e];
+  }
+}
+
+// The logit of a dot product: scaled, then soft-capped when softcap > 0,
+// in the reference's order (s = dot * scale; c * tanh(s / c)).
+__device__ __forceinline__ float logit(float dot, const Args& a) {
+  const float s = dot * a.scale;
+  return a.softcap > 0.0f ? a.softcap * tanhf(s / a.softcap) : s;
+}
+
+// The first key the row at position p sees: p - window + 1, or 0.
+__device__ __forceinline__ long long first_key(long long p, const Args& a) {
+  return a.window > 0 ? p - a.window + 1 : 0;
+}
+
 // The factor that carries a partial softmax at max m_old to max m_new
 // (>= m_old); 0 for an empty partial (m_old = -inf, l = 0, acc = 0).
 __device__ __forceinline__ float rescale(float m_old, float m_new) {
@@ -176,14 +209,16 @@ __device__ __forceinline__ void cluster_barrier_relaxed() {
 
 // Block (rank, tile, b * Hkv + hk) of the grid (S, ceil(G * Sq / RB),
 // B * Hkv): rows [tile * RB, +RB) of KV head hk of batch row b, keys
-// [rank * span, (rank + 1) * span) of [0, kv_end), span = ceil(kv_end /
-// S).  Thread t: key group t / (D / 4), columns (t % (D / 4)) * 4 .. +3;
-// chunk c holds keys k0 + c * CH + u * NK + group, u < U.  The wrapper's
-// `block_rows` and `block_keys` use the same formulas.
+// [kv_begin + rank * span, +span) of [kv_begin, kv_end), span =
+// ceil((kv_end - kv_begin) / S).  Thread t: key group t / LPK, columns
+// (t % LPK) * CPL .. +CPL-1; chunk c holds keys k0 + c * CH + u * NK +
+// group, u < U.  The wrapper's `block_rows`, `block_keys` and
+// `lane_columns` use the same formulas.
 template <typename TQ, typename TKV, int D, int RB>
 __global__ void __launch_bounds__(kThreads)
 split_kernel(const Args a) {
-  constexpr int LPK = D / 4;              // lanes of a key
+  constexpr int CPL = D > 128 ? D / 32 : 4;   // columns of a lane
+  constexpr int LPK = D / CPL;            // lanes of a key, one warp at most
   constexpr int NK = kThreads / LPK;      // key groups of a block
   constexpr int U = 16 / RB;              // keys a group holds at once
   constexpr int CH = NK * U;              // keys of a chunk
@@ -205,41 +240,45 @@ split_kernel(const Args a) {
   const int b = blockIdx.z / a.Hkv, hk = blockIdx.z % a.Hkv;
   const long long start = a.causal ? (long long)a.q_start[b] : 0;
 
-  float qv[RB][4];
+  float qv[RB][CPL];
   long long lim[RB];   // the row's last visible key; -1 for no row
+  long long lo[RB];    // the row's first visible key
 #pragma unroll
   for (int rr = 0; rr < RB; ++rr) {
     const int r = r0 + rr;
     const bool valid = r < rows;
     const int i = r / a.G, h = hk * a.G + r % a.G;
     lim[rr] = !valid ? -1 : (a.causal ? start + i : kAll);
+    lo[rr] = valid ? first_key(start + i, a) : 0;
     const TQ* qr = q + b * a.qs.b + (long long)i * a.qs.s
-                   + (long long)h * a.qs.h + li * 4;
+                   + (long long)h * a.qs.h + li * CPL;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) qv[rr][c] = valid ? widen(qr[c]) : 0.0f;
+    for (int c = 0; c < CPL; ++c) qv[rr][c] = valid ? widen(qr[c]) : 0.0f;
   }
   const int last = min(rows, r0 + RB) - 1;
   const long long kv_end =
       a.causal ? min((long long)a.Skv, start + last / a.G + 1)
                : (long long)a.Skv;
-  const long long span = (kv_end + S - 1) / S;
-  const long long k0 = min(kv_end, rank * span);
+  const long long kv_begin =
+      min(kv_end, max(0LL, first_key(start + r0 / a.G, a)));
+  const long long span = (kv_end - kv_begin + S - 1) / S;
+  const long long k0 = min(kv_end, kv_begin + rank * span);
   const long long k1 = min(kv_end, k0 + span);
   const int nchunks = (int)((k1 - k0 + CH - 1) / CH);
-  const TKV* kb = k + b * a.ks.b + (long long)hk * a.ks.h + li * 4;
-  const TKV* vb = v + b * a.vs.b + (long long)hk * a.vs.h + li * 4;
+  const TKV* kb = k + b * a.ks.b + (long long)hk * a.ks.h + li * CPL;
+  const TKV* vb = v + b * a.vs.b + (long long)hk * a.vs.h + li * CPL;
   const bool vec = a.vec;
 
-  float kr[U][4], vr[U][4], s[U][RB];
+  float kr[U][CPL], vr[U][CPL], s[U][RB];
   auto load = [&](int c) {   // all of the chunk's loads issued together
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long long j = k0 + (long long)c * CH + u * NK + kg;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) kr[u][e] = vr[u][e] = 0.0f;
+      for (int e = 0; e < CPL; ++e) kr[u][e] = vr[u][e] = 0.0f;
       if (j < k1) {
-        load4(kb + j * a.ks.s, vec, kr[u]);
-        load4(vb + j * a.vs.s, vec, vr[u]);
+        loadc(kb + j * a.ks.s, vec, kr[u]);
+        loadc(vb + j * a.vs.s, vec, vr[u]);
       }
     }
   };
@@ -247,29 +286,30 @@ split_kernel(const Args a) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long long j = k0 + (long long)c * CH + u * NK + kg;
-      float kq[4];
+      float kq[CPL];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) kq[e] = round_to<TQ>(kr[u][e]);
+      for (int e = 0; e < CPL; ++e) kq[e] = round_to<TQ>(kr[u][e]);
 #pragma unroll
       for (int rr = 0; rr < RB; ++rr) {
         float dot = 0.0f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dot = fmaf(qv[rr][e], kq[e], dot);
+        for (int e = 0; e < CPL; ++e) dot = fmaf(qv[rr][e], kq[e], dot);
 #pragma unroll
         for (int o = 1; o < LPK; o <<= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        s[u][rr] = (j < k1 && j <= lim[rr]) ? dot * a.scale : -INFINITY;
+        s[u][rr] = (j < k1 && j <= lim[rr] && j >= lo[rr]) ? logit(dot, a)
+                                                           : -INFINITY;
       }
     }
   };
 
-  float m[RB], l[RB], acc[RB][4];
+  float m[RB], l[RB], acc[RB][CPL];
 #pragma unroll
   for (int rr = 0; rr < RB; ++rr) {
     m[rr] = -INFINITY;
     l[rr] = 0.0f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[rr][e] = 0.0f;
+    for (int e = 0; e < CPL; ++e) acc[rr][e] = 0.0f;
   }
   // One online-softmax step over the chunk's keys; with `pv` the chunk's
   // p v is added too.
@@ -284,7 +324,7 @@ split_kernel(const Args a) {
       l[rr] *= f;
       if (pv) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[rr][e] *= f;
+        for (int e = 0; e < CPL; ++e) acc[rr][e] *= f;
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -292,7 +332,8 @@ split_kernel(const Args a) {
         l[rr] += p;
         if (pv) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[rr][e] = fmaf(p, vr[u][e], acc[rr][e]);
+          for (int e = 0; e < CPL; ++e)
+            acc[rr][e] = fmaf(p, vr[u][e], acc[rr][e]);
         }
       }
       m[rr] = mn;
@@ -316,8 +357,8 @@ split_kernel(const Args a) {
 #pragma unroll
       for (int rr = 0; rr < RB; ++rr)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          red[(kg * RB + rr) * D + li * 4 + e] = acc[rr][e];
+        for (int e = 0; e < CPL; ++e)
+          red[(kg * RB + rr) * D + li * CPL + e] = acc[rr][e];
     }
     __syncthreads();
     if (tid < RB) {
@@ -404,7 +445,8 @@ split_kernel(const Args a) {
                                           : expf(s[u][rr] - m[rr]) / l[rr];
         if (a.round_p) p = round_to<TKV>(p);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[rr][e] = fmaf(p, vr[u][e], acc[rr][e]);
+        for (int e = 0; e < CPL; ++e)
+          acc[rr][e] = fmaf(p, vr[u][e], acc[rr][e]);
       }
   }
   if (two) {   // acc holds normalized sums: carried with factor 1
@@ -503,8 +545,9 @@ struct MmaSmem {
 
 // Block (tile * S + rank, hk, b) of the grid (ceil(G * Sq / 64) * S, Hkv,
 // B), S = the cluster's blocks: rows [tile * 64, +64) of KV head hk of
-// batch row b; the tile's keys [0, kv_end) in chunks of 64, chunks
-// [rank * span, (rank + 1) * span) of them, span = ceil(chunks / S).  8
+// batch row b; the tile's keys [kv_begin, kv_end) in chunks of 64 (chunk
+// c0 = kv_begin / 64 on), chunks [c0 + rank * span, +span) of them, span
+// = ceil(chunks / S).  8
 // warps: warp w takes rows (w % 4) * 16 .. +15 against keys (w / 4) * 32
 // .. +31 of every chunk (its key half), with its own online softmax; the
 // halves meet in shared memory, the ranks through distributed shared
@@ -550,7 +593,7 @@ mma_kernel(const Args a) {
   const bool vec = a.vec, two = a.two_pass;
 
   // The thread's rows and their q as A fragments (QP bf16 parts).
-  long long lim[2];
+  long long lim[2], lo[2];
   uint32_t qa[QP][D / 16][4];
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
@@ -558,6 +601,7 @@ mma_kernel(const Args a) {
     const bool valid = r < rows;
     const int i = r / a.G, h = hk * a.G + r % a.G;
     lim[h2] = !valid ? -1 : (a.causal ? start + i : kAll);
+    lo[h2] = valid ? first_key(start + i, a) : 0;
     const TQ* qr = q + b * a.qs.b + (long long)i * a.qs.s
                    + (long long)h * a.qs.h;
 #pragma unroll
@@ -579,10 +623,13 @@ mma_kernel(const Args a) {
   const long long kv_end =
       a.causal ? min((long long)a.Skv, start + last / a.G + 1)
                : (long long)a.Skv;
-  const int tile_chunks = (int)((kv_end + kMmaKeys - 1) / kMmaKeys);
-  const int span = (tile_chunks + S - 1) / S;
-  const int c_lo = min(tile_chunks, rank * span);
-  const int c_hi = min(tile_chunks, c_lo + span);
+  const long long kv_begin =
+      min(kv_end, max(0LL, first_key(start + r0 / a.G, a)));
+  const int c_first = (int)(kv_begin / kMmaKeys);
+  const int c_end = (int)((kv_end + kMmaKeys - 1) / kMmaKeys);
+  const int span = (c_end - c_first + S - 1) / S;
+  const int c_lo = min(c_end, c_first + rank * span);
+  const int c_hi = min(c_end, c_lo + span);
   const TKV* kb = k + b * a.ks.b + (long long)hk * a.ks.h;
   const TKV* vb = v + b * a.vs.b + (long long)hk * a.vs.h;
   unsigned char* rk = smem + SM::raw_off;
@@ -724,19 +771,24 @@ mma_kernel(const Args a) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) sacc[nt][r] += t[nt][r];
     }
-    // key x of the half is visible to row h2 when x <= vis[h2] (32-bit)
+    // key x of the half is visible to row h2 when vlo[h2] <= x <= vis[h2]
+    // (32-bit)
     const long long base = (long long)c * kMmaKeys + kh * HK;
-    int vis[2];
+    int vis[2], vlo[2];
 #pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2)
+    for (int h2 = 0; h2 < 2; ++h2) {
       vis[h2] = (int)max(-1LL, min((long long)HK,
                                    min(kv_end - 1, lim[h2]) - base));
+      vlo[h2] = (int)max(0LL, min((long long)HK, lo[h2] - base));
+    }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        sacc[nt][r] = (nt * 8 + 2 * t4 + (r & 1) <= vis[r >> 1])
-                          ? sacc[nt][r] * a.scale : -INFINITY;
+      for (int r = 0; r < 4; ++r) {
+        const int x = nt * 8 + 2 * t4 + (r & 1);
+        sacc[nt][r] = (x <= vis[r >> 1] && x >= vlo[r >> 1])
+                          ? logit(sacc[nt][r], a) : -INFINITY;
+      }
   };
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
@@ -1086,12 +1138,12 @@ int mma(const Args& a, const Launch& c) {
 }
 
 // variant 0: split; 1: mma (a float32 q only up to D = 64: its three
-// parts would not fit the registers at 128).
+// parts would not fit the registers at 128; a bfloat16 q up to 128).
 template <typename TQ, typename TKV, int D>
 int dispatch(const Args& a, const Launch& c, int variant, int rows) {
   constexpr bool QF = std::is_same<TQ, float>::value;
   if (variant == 1) {
-    if constexpr (!QF || D <= 64) return mma<TQ, TKV, D>(a, c);
+    if constexpr (D <= 128 && (!QF || D <= 64)) return mma<TQ, TKV, D>(a, c);
     return (int)cudaErrorInvalidValue;
   }
   return rows == 4 ? split<TQ, TKV, D, 4>(a, c) : split<TQ, TKV, D, 8>(a, c);
@@ -1104,6 +1156,7 @@ int dispatch_d(int D, const Args& a, const Launch& c, int variant, int rows) {
     case 32: return dispatch<TQ, TKV, 32>(a, c, variant, rows);
     case 64: return dispatch<TQ, TKV, 64>(a, c, variant, rows);
     case 128: return dispatch<TQ, TKV, 128>(a, c, variant, rows);
+    case 256: return dispatch<TQ, TKV, 256>(a, c, variant, rows);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1112,26 +1165,32 @@ int dispatch_d(int D, const Args& a, const Launch& c, int variant, int rows) {
 
 // q: (B, Sq, Hq, D), k, v: (B, Skv, Hkv, D), out: (B, Sq, Hq, D) float32,
 // each given by its (batch, sequence, head) element strides with the D axis
-// contiguous (out's rows 8-byte aligned); q_start: (B,) int32 on the card.  q_bf16, kv_bf16: 0 =
-// float32, 1 = bfloat16 (k and v share a type).  D is 16, 32, 64 or 128.
-// round_p: round the probabilities to V's type before P V.  The launch
-// plan (the wrapper's `plan`): variant 0 = split (rows a block: 4 or 8;
-// splits: the cluster's blocks along the keys, 1..8), 1 = mma (rows 64,
-// splits 1..8; a float32 q up to D = 64); vec: K and V rows on a 16-byte
-// boundary.  Returns the launch's CUDA error: 0 when it was accepted.
+// contiguous (out's rows 8-byte aligned); q_start: (B,) int32 on the
+// card.  q_bf16, kv_bf16: 0 = float32, 1 = bfloat16 (k and v share a
+// type).  D is 16, 32, 64, 128 or 256.  round_p: round the probabilities
+// to V's type before P V.  window: 0 (global) or the sliding window's
+// width (causal only); softcap: 0 (off) or the logit soft-cap.  The
+// launch plan (the wrapper's `plan`): variant 0 = split (rows a block: 4
+// or 8; splits: the cluster's blocks along the keys, 1..8), 1 = mma (rows
+// 64, splits 1..8; D up to 128, a float32 q up to 64); vec: K and V rows
+// on a 16-byte boundary.  Returns the launch's CUDA error: 0 when it was
+// accepted.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out,
     const void* q_start, int q_bf16, int kv_bf16, int B, int Sq, int Skv,
     int Hq, int Hkv, int D, const long long* q_strides,
     const long long* k_strides, const long long* v_strides,
     const long long* o_strides, float scale, int causal, int round_p,
-    int variant, int rows, int splits, int vec, void* stream) {
+    int window, float softcap, int variant, int rows, int splits, int vec,
+    void* stream) {
   if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
   if (Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if (window < 0 || !(softcap >= 0.0f) || (window > 0 && !causal))
+    return (int)cudaErrorInvalidValue;
   const bool ok = (variant == 0 && (rows == 4 || rows == 8) && splits >= 1
                    && splits <= kMaxSplits)
                   || (variant == 1 && rows == kMmaRows
-                      && splits >= 1 && splits <= kMaxSplits
+                      && splits >= 1 && splits <= kMaxSplits && D <= 128
                       && (q_bf16 || D <= 64));
   if (!ok) return (int)cudaErrorInvalidValue;
   Args a;
@@ -1143,6 +1202,8 @@ extern "C" int flash_attention_launch(
   a.vs = Strides{v_strides[0], v_strides[1], v_strides[2]};
   a.os = Strides{o_strides[0], o_strides[1], o_strides[2]};
   a.scale = scale;
+  a.softcap = softcap;
+  a.window = window;
   a.causal = causal;
   a.round_p = round_p;
   a.two_pass = round_p && kv_bf16;

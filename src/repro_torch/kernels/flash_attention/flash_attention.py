@@ -10,7 +10,8 @@ Three entry points, one launch a call:
                                   the model's layout (B, S, H, D) with
                                   grouped KV heads, a query start position
                                   per batch row (prompt: 0; decode: the
-                                  cache index) and the model's type rules.
+                                  cache index), the model's type rules and
+                                  its sliding window and logit soft-cap.
 
 A CUDA tensor launches a kernel, or raises: there is no fallback.  A CPU
 tensor takes the plain torch version in ``ref.py``, which the kernels are
@@ -24,8 +25,8 @@ of ``csrc/flash_attention_bwd.cu`` (``attention_backward``; one entry,
 two kernels on the bf16 tensor cores: rows, then keys; counted once a
 backward in ``flash_attention.backward_launches``; ``emulate_attention_bwd``
 in ``ref.py`` writes out their arithmetic and tiles).  It takes q, k,
-v of one type (float32 or bfloat16) and head_dim 64 or 128, and raises
-otherwise.  On CPU tensors autograd runs through the plain version.  A call without
+v of one type (float32 or bfloat16), head_dim 64 or 128, no window and
+no soft-cap, and raises otherwise.  On CPU tensors autograd runs through the plain version.  A call without
 gradients (serving) launches the forward only, as before.
 
 ``plan`` is the launch plan, computed here so that the CPU tests can hold
@@ -38,7 +39,14 @@ Variant "mma" (bf16 tensor cores): more rows (prefill), 64 rows a block,
 keys in chunks of 64, split across a cluster while every block has an SM
 of its own (one fits an SM: ``benchmarks/torch_fa_sweep.py``); float32 q
 and K as three bf16 parts each, so only up to head_dim 64
-(float32 q at 128 takes the split kernel).
+(float32 q at 128 takes the split kernel), and bfloat16 q up to 128
+(head_dim 256 takes the split kernel: a 64-row block's accumulators and
+chunk buffers would not fit registers and shared memory).
+
+With a sliding window a row tile's keys start at the first key its first
+row sees: the cluster divides [kv_begin, kv_end) and never visits a key
+below every row's window; the soft-cap is c * tanhf(s / c) in IEEE
+float32 on the scaled logits.
 """
 
 from __future__ import annotations
@@ -50,11 +58,12 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import (ref_attention_gqa,
+from repro_torch.kernels.flash_attention.ref import (check_mask,
+                                                     ref_attention_gqa,
                                                      ref_attention_gqa_bwd,
                                                      ref_flash_attention)
 
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 BWD_HEAD_DIMS = (64, 128)    # the backward kernel's instances
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"split": 0, "mma": 1}
@@ -65,6 +74,7 @@ SPLIT_MAX_ROWS = 8           # rows a split block holds (buckets 4 and 8)
 MMA_ROWS = 64                # rows of an mma block: 4 warps x 16
 MMA_KEYS = 64                # keys of an mma chunk
 MMA_F32_MAX_D = 64           # float32 q's three bf16 parts fit registers
+MMA_MAX_D = 128              # bfloat16 q: acc and chunks fit the block
 SPLIT_BLOCKS = 264           # split keys until about 2 blocks an SM
 SMS = 132                    # streaming multiprocessors of an H100 SXM
 MAX_SPLITS = 8               # a portable cluster size
@@ -95,27 +105,37 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def lane_columns(d: int) -> int:
+    """Columns a lane of the split kernel holds: 4, or D / 32 past 128,
+    so that a key's lanes stay within one warp."""
+    return 4 if d <= 128 else d // 32
+
+
 @functools.lru_cache(maxsize=4096)
 def plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
-         q_bf16: bool) -> Plan:
+         q_bf16: bool, window: int = 0) -> Plan:
     """The launch plan for q (b, sq, hq, d) against k, v (b, skv, hkv, d).
 
-    The key axis is split by the keys a row tile can see at most (skv);
-    each cluster then divides the keys its rows really see (from q_start,
-    on the card) evenly among its blocks."""
+    The key axis is split by the keys a row tile can see at most (skv,
+    or with a window the window and the tile's queries); each cluster
+    then divides the keys its rows really see (from q_start, on the
+    card) evenly among its blocks."""
     rows = (hq // hkv) * sq
-    if rows > SPLIT_MAX_ROWS and (q_bf16 or d <= MMA_F32_MAX_D):
+    if rows > SPLIT_MAX_ROWS and d <= MMA_MAX_D and (q_bf16
+                                                     or d <= MMA_F32_MAX_D):
         tiles = _ceil(rows, MMA_ROWS)
-        splits = max(1, min(MAX_SPLITS, _ceil(skv, MMA_KEYS),
+        keys = min(skv, window + MMA_ROWS + MMA_KEYS) if window else skv
+        splits = max(1, min(MAX_SPLITS, _ceil(keys, MMA_KEYS),
                             SMS // (tiles * b * hkv)))
         return Plan("mma", MMA_ROWS, splits, MMA_KEYS,
                     (tiles * splits, hkv, b))
     rb = 4 if rows <= 4 else 8
-    lanes = d // 4                       # lanes of a key: 4 columns each
+    lanes = d // lane_columns(d)         # lanes of a key
     chunk = (THREADS // lanes) * (16 // rb)
     tiles = _ceil(rows, rb)
     blocks = tiles * b * hkv
-    splits = max(1, min(MAX_SPLITS, _ceil(skv, chunk),
+    keys = min(skv, window + rb) if window else skv
+    splits = max(1, min(MAX_SPLITS, _ceil(keys, chunk),
                         _ceil(SPLIT_BLOCKS, blocks)))
     return Plan("split", rb, splits, chunk, (splits, tiles, b * hkv))
 
@@ -129,20 +149,26 @@ def block_rows(p: Plan, tile: int, g: int, sq: int):
 
 
 def block_keys(p: Plan, tile: int, rank: int, g: int, sq: int, skv: int,
-               start: int, causal: bool) -> range:
+               start: int, causal: bool, window: int = 0) -> range:
     """The keys that block ``rank`` of row tile ``tile``'s cluster visits:
-    [0, kv_end) cut into ``splits`` equal spans (of whole 64-key chunks
-    for the mma kernel), where kv_end is past the last key the tile's last
-    query can see (the kernels' formulas)."""
+    [kv_begin, kv_end) cut into ``splits`` equal spans (of whole 64-key
+    chunks for the mma kernel), where kv_end is past the last key the
+    tile's last query can see and kv_begin the first key its first query
+    sees (0 without a window) (the kernels' formulas)."""
     last = min(g * sq, (tile + 1) * p.rows) - 1
     kv_end = min(skv, start + last // g + 1) if causal else skv
+    kv_begin = 0
+    if window:
+        first = tile * p.rows // g
+        kv_begin = min(kv_end, max(0, start + first - window + 1))
     if p.variant == "mma":      # whole chunks of 64 keys a block
-        chunks = _ceil(kv_end, p.chunk)
-        span = _ceil(chunks, p.splits)
-        lo = min(chunks, rank * span)
+        c0, c1 = kv_begin // p.chunk, _ceil(kv_end, p.chunk)
+        span = _ceil(c1 - c0, p.splits)
+        lo = min(c1, c0 + rank * span)
         return range(lo * p.chunk, min(kv_end, (lo + span) * p.chunk))
-    span = _ceil(kv_end, p.splits)
-    return range(min(kv_end, rank * span), min(kv_end, (rank + 1) * span))
+    span = _ceil(kv_end - kv_begin, p.splits)
+    lo = min(kv_end, kv_begin + rank * span)
+    return range(lo, min(kv_end, lo + span))
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,7 +177,8 @@ def _entry():
     fn.argtypes = ([ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong)] * 4
-                   + [ctypes.c_float] + [ctypes.c_int] * 6
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -189,8 +216,8 @@ def _vec_ok(t: torch.Tensor) -> bool:
             and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3]))
 
 
-def _launch(q, k, v, q_start, causal: bool, scale: float,
-            round_p: bool) -> torch.Tensor:
+def _launch(q, k, v, q_start, causal: bool, scale: float, round_p: bool,
+            window: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """A kernel on (B, S, H, D) views; returns (B, Sq, Hq, D) float32."""
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on CUDA or CPU tensors, got "
@@ -208,7 +235,8 @@ def _launch(q, k, v, q_start, causal: bool, scale: float,
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash attention takes head_dim in {_HEAD_DIMS}, "
                          f"got {d}")
-    if max(b * hkv, sq * hq, skv) >= 2 ** 31:
+    check_mask(causal, window, softcap)
+    if max(b * hkv, sq * hq, skv, window) >= 2 ** 31:
         raise ValueError("flash attention: a dimension exceeds int32")
     if q_start is None:
         q_start = torch.zeros(b, dtype=torch.int32, device=q.device)
@@ -216,7 +244,7 @@ def _launch(q, k, v, q_start, causal: bool, scale: float,
         raise ValueError(f"flash attention needs a contiguous int32 q_start, "
                          f"got {q_start.dtype}")
     out = torch.empty((b, sq, hq, d), dtype=torch.float32, device=q.device)
-    p = plan(b, sq, skv, hq, hkv, d, q.dtype == torch.bfloat16)
+    p = plan(b, sq, skv, hq, hkv, d, q.dtype == torch.bfloat16, window)
     if max(p.grid[1], p.grid[2]) > 65535:
         raise ValueError(f"flash attention: grid {p.grid} exceeds the "
                          f"card's 65535 blocks in y or z")
@@ -227,8 +255,9 @@ def _launch(q, k, v, q_start, causal: bool, scale: float,
         rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     q_start.data_ptr(), _TYPES[q.dtype], _TYPES[k.dtype],
                     b, sq, skv, hq, hkv, d, *strides, scale or d ** -0.5,
-                    int(causal), int(round_p), _VARIANTS[p.variant], p.rows,
-                    p.splits, int(_vec_ok(k) and _vec_ok(v)), stream)
+                    int(causal), int(round_p), int(window), float(softcap),
+                    _VARIANTS[p.variant], p.rows, p.splits,
+                    int(_vec_ok(k) and _vec_ok(v)), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error "
                            f"{rc}")
@@ -246,9 +275,14 @@ def _bwd_entry():
     return fn
 
 
-def _check_bwd(q, k, v):
+def _check_bwd(q, k, v, window: int = 0, softcap: float = 0.0):
     """What the backward kernel takes: q, k, v of one type, float32 or
-    bfloat16, and head_dim 64 or 128."""
+    bfloat16, head_dim 64 or 128, and neither a window nor a soft-cap
+    (its kernels compute neither)."""
+    if window or softcap:
+        raise NotImplementedError(
+            f"the flash attention backward takes no sliding window or "
+            f"soft-cap, got window={window}, softcap={softcap}")
     if not q.dtype == k.dtype == v.dtype or q.dtype not in _TYPES:
         raise ValueError(f"the flash attention backward takes q, k, v of one "
                          f"type, float32 or bfloat16, got {q.dtype}, "
@@ -300,12 +334,16 @@ def _launch_bwd(q, k, v, q_start, dout, causal: bool, scale: float,
 
 
 def attention_backward(q, k, v, q_start, dout, *, causal: bool = True,
-                       scale: float = 0.0, round_p: bool = False):
+                       scale: float = 0.0, round_p: bool = False,
+                       window: int = 0, softcap: float = 0.0):
     """(dq, dk, dv) of ``flash_attention_gqa(q, k, v, q_start, ...)``
     against the float32 output gradient ``dout``, each in its input's
     type: the backward kernel for CUDA tensors, the plain version's
-    autograd for CPU tensors."""
+    autograd for CPU tensors.  Raises for a window or a soft-cap on
+    either device: the kernel computes neither."""
     _check(q, k, v, q_start)
+    if window or softcap:
+        _check_bwd(q, k, v, window, softcap)
     if q.device.type == "cpu":
         start = (torch.zeros(q.shape[0], dtype=torch.int32)
                  if q_start is None else q_start)
@@ -321,10 +359,11 @@ class _Attention(torch.autograd.Function):
     """The kernel's forward, and the backward kernel for its gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_start, causal, scale, round_p):
-        _check_bwd(q, k, v)
+    def forward(ctx, q, k, v, q_start, causal, scale, round_p, window,
+                softcap):
+        _check_bwd(q, k, v, window, softcap)
         ctx.save_for_backward(q, k, v, q_start)
-        ctx.opts = (causal, scale, round_p)
+        ctx.opts = (causal, scale, round_p)   # no window, no soft-cap
         return _launch(q, k, v, q_start, causal, scale, round_p)
 
     @staticmethod
@@ -333,34 +372,40 @@ class _Attention(torch.autograd.Function):
         causal, scale, round_p = ctx.opts
         dq, dk, dv = _launch_bwd(q, k, v, q_start, dout, causal, scale,
                                  round_p)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_start: torch.Tensor | None = None, *,
                         causal: bool = True, scale: float = 0.0,
-                        round_p: bool = False) -> torch.Tensor:
+                        round_p: bool = False, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D) float32.
 
     Query head h reads KV head h // (Hq / Hkv).  With ``causal``, query i
-    of batch row b sits at position q_start[b] + i (q_start: (B,) int32,
-    non-negative; None = 0) and sees keys 0 .. q_start[b] + i.  ``scale``
-    0 means 1/sqrt(D).  The logits are q . (K rounded to q's type) in
-    float32; ``round_p`` rounds the probabilities to V's type before P V,
-    as the reference model does (a no-op for float32 V).
+    of batch row b sits at position p = q_start[b] + i (q_start: (B,)
+    int32, non-negative; None = 0) and sees keys 0 .. p, or with
+    ``window`` > 0 (causal only) keys p - window + 1 .. p.  ``scale`` 0
+    means 1/sqrt(D).  The logits are q . (K rounded to q's type) in
+    float32, scaled, then with ``softcap`` > 0 soft-capped to c * tanh(s
+    / c); ``round_p`` rounds the probabilities to V's type before P V, as
+    the reference model does (a no-op for float32 V).
 
     Differentiable: on CUDA tensors that need a gradient the backward is
-    the backward kernel (``attention_backward``), on CPU tensors autograd
-    of the plain version.
+    the backward kernel (``attention_backward``; no window or soft-cap),
+    on CPU tensors autograd of the plain version.
     """
     _check(q, k, v, q_start)
     if q.device.type == "cpu":
         start = (torch.zeros(q.shape[0], dtype=torch.int32)
                  if q_start is None else q_start)
-        return ref_attention_gqa(q, k, v, start, causal, scale, round_p)
+        return ref_attention_gqa(q, k, v, start, causal, scale, round_p,
+                                 window, softcap)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _Attention.apply(q, k, v, q_start, causal, scale, round_p)
-    return _launch(q, k, v, q_start, causal, scale, round_p)
+        return _Attention.apply(q, k, v, q_start, causal, scale, round_p,
+                                window, softcap)
+    return _launch(q, k, v, q_start, causal, scale, round_p, window,
+                   softcap)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

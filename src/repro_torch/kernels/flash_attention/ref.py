@@ -5,7 +5,14 @@ position per batch row (the attention of ``repro.models.transformer``);
 its gradient by autograd (``ref_attention_gqa_bwd``, the backward
 kernel's plain version); and the kernels' own arithmetic written out
 (``emulate_attention``, ``emulate_attention_bwd``), so that the CPU can
-test it."""
+test it.
+
+The forward takes the reference model's sliding window and logit
+soft-cap (``src/repro/models/transformer.py``, ``_attention_dynwin``):
+with ``window`` > 0 key j is visible to the query at position p when
+p - window < j <= p (0 = global: j <= p); with ``softcap`` > 0 the
+scaled logits become c * tanh(logits / c) before the mask.  Hidden keys
+take the reference's -1e30 and so add exactly 0."""
 
 from __future__ import annotations
 
@@ -28,47 +35,78 @@ def _scale(d: int, scale: float) -> float:
     return scale or 1.0 / math.sqrt(d)
 
 
-def ref_flash_attention(q, k, v, causal: bool = True,
-                        scale: float = 0.0) -> torch.Tensor:
+def check_mask(causal: bool, window: int, softcap: float):
+    """Raise for a window without the causal mask it narrows, or a
+    negative window or soft-cap."""
+    if window < 0 or softcap < 0.0:
+        raise ValueError(f"flash attention takes window >= 0 and softcap "
+                         f">= 0, got {window}, {softcap}")
+    if window and not causal:
+        raise ValueError("flash attention: a sliding window needs the "
+                         "causal mask")
+
+
+def soft_cap(logits: torch.Tensor, softcap: float) -> torch.Tensor:
+    """c * tanh(logits / c) for c = ``softcap`` > 0 (IEEE division: by a
+    tensor, which CUDA does not turn into a product), else the logits."""
+    if softcap <= 0.0:
+        return logits
+    c = logits.new_tensor(softcap)
+    return c * torch.tanh(logits / c)
+
+
+def ref_flash_attention(q, k, v, causal: bool = True, scale: float = 0.0,
+                        window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
     """q: (Sq, D); k, v: (Skv, D) -> (Sq, D). Masked softmax attention."""
+    check_mask(causal, window, softcap)
     sq, d = q.shape
     skv = k.shape[0]
     logits = (q.to(torch.float32) @ k.to(torch.float32).T) * _scale(d, scale)
+    logits = soft_cap(logits, softcap)
     if causal:
-        qp = torch.arange(sq, device=q.device)[:, None]
-        kp = torch.arange(skv, device=q.device)[None, :]
-        logits = torch.where(kp <= qp, logits, MASKED)
+        start = torch.zeros(1, dtype=torch.int32, device=q.device)
+        ok = _visible(start, sq, skv, q.device, window)[0]
+        logits = torch.where(ok, logits, MASKED)
     p = torch.softmax(logits, dim=-1)
     return p @ v.to(torch.float32)
 
 
-def _visible(q_start, sq: int, skv: int, device) -> torch.Tensor:
-    """(B, Sq, Skv): key j is visible to query i of row b when j <=
-    q_start[b] + i."""
+def _visible(q_start, sq: int, skv: int, device,
+             window: int = 0) -> torch.Tensor:
+    """(B, Sq, Skv): key j is visible to query i of row b when j <= p =
+    q_start[b] + i and, with a window, j > p - window."""
     qpos = (q_start.to(torch.long)[:, None]
             + torch.arange(sq, device=device)[None, :])
-    kpos = torch.arange(skv, device=device)
-    return kpos[None, None, :] <= qpos[:, :, None]
+    kpos = torch.arange(skv, device=device)[None, None, :]
+    ok = kpos <= qpos[:, :, None]
+    if window > 0:
+        ok &= kpos > qpos[:, :, None] - window
+    return ok
 
 
 def ref_attention_gqa(q, k, v, q_start, causal: bool = True,
-                      scale: float = 0.0,
-                      round_p: bool = False) -> torch.Tensor:
+                      scale: float = 0.0, round_p: bool = False,
+                      window: int = 0,
+                      softcap: float = 0.0) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); q_start: (B,) int ->
     (B, Sq, Hq, D) float32.  Query head h reads KV head h // (Hq / Hkv);
     query i of row b sits at position q_start[b] + i, key j at j.
 
     The reference model's type rules (``repro.models.transformer``,
     ``_attention_dynwin``): the logits are q . (K rounded to q's type),
-    summed in float32; with ``round_p`` the probabilities are rounded to
-    V's type before P V (a no-op for float32 V)."""
+    summed in float32, scaled, soft-capped, masked; with ``round_p`` the
+    probabilities are rounded to V's type before P V (a no-op for float32
+    V)."""
+    check_mask(causal, window, softcap)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     qg = q.to(torch.float32).reshape(b, sq, hkv, hq // hkv, d)
     kq = k.to(q.dtype).to(torch.float32)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kq) * _scale(d, scale)
+    logits = soft_cap(logits, softcap)
     if causal:
-        ok = _visible(q_start, sq, skv, q.device)               # (B, Sq, Skv)
+        ok = _visible(q_start, sq, skv, q.device, window)       # (B, Sq, Skv)
         logits = torch.where(ok[:, None, None], logits, MASKED)
     probs = torch.softmax(logits, dim=-1)
     if round_p:
@@ -211,8 +249,9 @@ def _parts(x: torch.Tensor, exact_bf16: bool):
 
 
 def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
-                      scale: float = 0.0,
-                      round_p: bool = False) -> torch.Tensor:
+                      scale: float = 0.0, round_p: bool = False,
+                      window: int = 0,
+                      softcap: float = 0.0) -> torch.Tensor:
     """The kernels' arithmetic under launch plan ``plan`` (``Plan`` of
     ``flash_attention.py``), in float32 torch: every block's rows (query,
     head of the group) against its keys, split across the ranks of its
@@ -223,9 +262,12 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
     rounded to bf16 for a bfloat16 q; a float32 q and K, P and a float32
     V as their three bf16 parts, each product exact.  It follows the
     kernels' split points and merge order, not the order of the sums
-    inside a block."""
+    inside a block.  A window starts each block's keys at the first one
+    its first row sees (``block_keys``), and a soft-cap takes the scaled
+    logits through c * tanh(s / c) before the mask."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         block_rows, block_keys)
+    check_mask(causal, window, softcap)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -245,7 +287,7 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
                 heads = torch.tensor([hk * g + gg for _, gg in rows])
                 qt = q[bi, qi, heads].to(torch.float32)          # (R, D)
                 ranges = [block_keys(plan, tile, rank, g, sq, skv,
-                                     starts[bi], causal)
+                                     starts[bi], causal, window)
                           for rank in range(plan.splits)]
                 kend = max(r.stop for r in ranges)
                 kr = kq[bi, :kend, hk]
@@ -258,9 +300,13 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
                     s = s * sc                                   # (R, kend)
                 else:
                     s = (qt @ kr.T) * sc                         # (R, kend)
+                s = soft_cap(s, softcap)
                 if causal:
                     lim = torch.tensor([starts[bi] + i for i, _ in rows])
-                    vis = torch.arange(kend)[None, :] <= lim[:, None]
+                    kpos = torch.arange(kend)[None, :]
+                    vis = kpos <= lim[:, None]
+                    if window > 0:
+                        vis &= kpos > lim[:, None] - window
                     s = torch.where(vis, s, -torch.inf)
                 parts = []
                 for r in ranges:

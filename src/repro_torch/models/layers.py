@@ -7,8 +7,8 @@ Params are plain nested dicts of tensors, keyed like the reference's
 pytree; init functions draw from a ``torch.Generator``.
 
 Not ported (ROADMAP A): the activation-sharding and ``compute_dtype``
-contexts, M-RoPE, ``layernorm`` and the unified ``attention`` (the
-transformer's own attention is ported).
+contexts, ``layernorm`` and the unified ``attention`` (the transformer's
+own attention is ported).
 """
 
 from __future__ import annotations
@@ -117,6 +117,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (B, S, H, Dh); positions: (B, S) int."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)
     ang = positions[..., None].to(torch.float32) * freqs   # (B, S, Dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections=(16, 24, 24), theta: float = 10000.0) -> torch.Tensor:
+    """Multi-axis RoPE (qwen2-vl): positions (B, S, 3) = (t, h, w) ids.
+
+    The Dh/2 frequency slots are split into ``sections`` groups, each
+    rotated by its own position stream.
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)   # (half,)
+    pos = positions.to(torch.float32)                  # (B, S, 3)
+    parts, off = [], 0
+    for s_idx, width in enumerate(sections):
+        parts.append(pos[..., s_idx:s_idx + 1]
+                     * freqs[off:off + width][None, None, :])
+        off += width
+    ang = torch.cat(parts, dim=-1)                     # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)

@@ -1,0 +1,299 @@
+"""Mixture-of-Experts layer: top-k routing with sort-based dispatch (port
+of ``repro.models.moe``).
+
+As in the reference:
+
+  1. router logits (float32, outside ``qdense``: never fake-quantized)
+     -> softmax -> top-k experts a token (renormalized);
+  2. the (token, slot) assignments stable-sorted by expert id;
+  3. each assignment's position in its expert from the run starts --
+     assignments at or past the capacity C are dropped (the e-th bucket);
+  4. the (E, C, d) buffer, every expert's FFN on its whole buffer, and the
+     gather-combine.
+
+C = max(8, ceil(T * topk * capacity_factor / E)) for T tokens.  DeepSeekMoE's
+always-on shared experts are one MLP of width moe_shared * moe_d_ff, added
+to the routed output.
+
+The reference's numerics, held by ``tests/test_torch_moe.py``:
+  * under a quantizing PE type every expert's weights and activations are
+    fake-quantized on their own, as the reference's vmap over
+    ``_expert_ffn`` does (``quant.fake_quant_experts`` and
+    ``fake_quant_expert_acts``: one ``fake_quant`` launch a projection for
+    up to 64 experts, one for their activations);
+  * the combine adds a token's k contributions, each rounded to x's type,
+    to zeros of x's type in increasing expert id (the order in which XLA's
+    scatter-add meets them in the stable-sorted list), one add at a time:
+    no atomics, so two calls give the same bits;
+  * ``out + shared`` promotes as JAX does (bfloat16 + float32 -> float32).
+
+The reference's ``moe_apply_ep`` (a ``shard_map`` all-to-all) waits for
+the launch layer (ROADMAP A11); ``transformer.check_supported`` refuses
+``moe_ep_shard_map``.  The reference cannot apply a router packed by
+``serve.quantize_params`` (ROADMAP C), and the port raises for one too.
+
+``RouterLog`` records each call's routing (expert ids and the margin of
+the k-th probability over the (k+1)-th) for ``serve.check``, which holds
+the port's routing to the reference's up to near ties; ``RoutePins``
+gives ``moe_apply`` the reference's experts at those near ties, so that
+a run can be held to the reference past them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.quant.fake_quant import (fake_quant_expert_acts,
+                                          fake_quant_experts)
+from repro_torch.quant.qconfig import QuantConfig
+
+Params = Dict[str, Any]
+
+PACKED_ROUTER = (
+    "the MoE router is packed: the reference's moe_apply calls "
+    "p['router'].astype(...) on the packed dict that "
+    "serve.quantize_params makes of it and fails with AttributeError: "
+    "'dict' object has no attribute 'astype' (src/repro/models/moe.py:73; "
+    "ROADMAP C), so the port has no packed MoE path either; serve the "
+    "dense weights or dequantize_params of the packed ones")
+
+
+def moe_init(gen: torch.Generator, cfg, dtype=torch.float32,
+             device=None) -> Params:
+    """The router, E stacked gated expert MLPs and the shared experts, at
+    the reference's scales, drawn from ``gen``."""
+    e, d, f = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
+    router = L.dense_init(gen, d, e, dtype, device)
+    experts = [L.mlp_init(gen, d, f, True, dtype, device) for _ in range(e)]
+    p: Params = {"router": router,
+                 "experts": {k: torch.stack([x[k] for x in experts])
+                             for k in experts[0]}}
+    if cfg.moe_shared:
+        p["shared"] = L.mlp_init(gen, d, cfg.moe_shared * f, True, dtype,
+                                 device)
+    return p
+
+
+def capacity(tokens: int, cfg) -> int:
+    return max(8, int(math.ceil(tokens * cfg.moe_topk * cfg.capacity_factor
+                                / cfg.moe_experts)))
+
+
+def kept(ids, c: int) -> np.ndarray:
+    """(B, S, k) bool: which of one call's assignments (expert ids (B, S,
+    k)) hold one of their expert's first ``c`` places in token order, as
+    ``moe_apply`` places them."""
+    ids = np.asarray(ids)
+    flat = ids.reshape(-1)
+    pos = np.zeros(flat.size, np.int64)
+    for e in np.unique(flat):
+        at = np.flatnonzero(flat == e)
+        pos[at] = np.arange(at.size)
+    return (pos < c).reshape(ids.shape)
+
+
+def dropped(ids, cfg) -> int:
+    """The assignments past capacity among one call's expert ids."""
+    ids = np.asarray(ids)
+    return int((~kept(ids, capacity(ids.shape[0] * ids.shape[1], cfg))).sum())
+
+
+class RouterLog:
+    """Within ``with RouterLog() as log:`` every ``moe_apply`` appends its
+    routing: ids (B, S, k) in increasing expert id and margin (B, S), the
+    k-th largest router probability less the (k+1)-th.  The tensors stay
+    where they were made until ``drain`` takes them to the host."""
+
+    active = None
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self._outer, RouterLog.active = RouterLog.active, self
+        return self
+
+    def __exit__(self, *exc):
+        RouterLog.active = self._outer
+
+    def drain(self) -> list:
+        """The calls since the last drain, as numpy (ids, margin) pairs."""
+        calls, self.calls = self.calls, []
+        return [(ids.cpu().numpy(), margin.cpu().numpy())
+                for ids, margin in calls]
+
+
+class RoutePins:
+    """Within ``with RoutePins(tol) as pins:`` each ``moe_apply`` takes the
+    next of the calls given to ``load``: a reference's routing, expert ids
+    (B, S, k) in increasing id and margins (B, S).  At a token whose own
+    experts differ from the reference's where the reference's margin is
+    below ``tol`` (a router near tie) it takes the reference's experts,
+    weighted by its own probabilities of them, renormalized; elsewhere it
+    keeps its own.  ``pinned`` counts the tokens so taken, ``masks`` holds
+    each call's (B, S) numpy mask of them."""
+
+    active = None
+
+    def __init__(self, tol: float):
+        self.tol = tol
+        self.queue = []
+        self.pinned = 0
+        self.masks = []
+
+    def __enter__(self):
+        self._outer, RoutePins.active = RoutePins.active, self
+        return self
+
+    def __exit__(self, *exc):
+        RoutePins.active = self._outer
+
+    def load(self, calls):
+        """The reference's routing of the next ``moe_apply`` calls, as
+        (ids, margin) pairs of arrays."""
+        self.queue = list(calls)
+
+    def pin(self, vals, ids, top_ids, top_w, shape):
+        """(top_ids, top_w) with the next call's near ties pinned; ``vals``,
+        ``ids``: the router's sorted probabilities and their ids (T, E)."""
+        if not self.queue:
+            raise RuntimeError("RoutePins: an MoE call past the routing "
+                               "loaded for this step")
+        ref_ids, ref_margin = self.queue.pop(0)
+        t, k = top_ids.shape
+        if tuple(np.shape(ref_ids)) != (*shape, k):
+            raise ValueError(f"RoutePins: reference routing of shape "
+                             f"{np.shape(ref_ids)} for a call of "
+                             f"{(*shape, k)}")
+        dev = top_ids.device
+        ref_ids = torch.as_tensor(np.array(ref_ids, np.int64),
+                                  device=dev).reshape(t, k)
+        near = torch.as_tensor(np.asarray(ref_margin) < self.tol,
+                               device=dev).reshape(t)
+        pin = (top_ids != ref_ids).any(-1) & near
+        probs = torch.empty_like(vals).scatter_(-1, ids, vals)
+        w = torch.gather(probs, -1, ref_ids)
+        w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+        mask = pin.cpu().numpy()
+        self.pinned += int(mask.sum())
+        self.masks.append(mask.reshape(shape))
+        return (torch.where(pin[:, None], ref_ids, top_ids),
+                torch.where(pin[:, None], w, top_w))
+
+
+def _route(xf: torch.Tensor, router: torch.Tensor):
+    """The router's probabilities in descending order and their expert
+    ids, both (T, E): lax.top_k's order, the lower id first among equal
+    ones."""
+    logits = xf.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.sort(probs, dim=-1, descending=True, stable=True)
+
+
+def _expert_dense(x: torch.Tensor, w, qcfg: QuantConfig) -> torch.Tensor:
+    """x (E, C, K) @ w (E, K, N) per expert, ``qdense``'s numerics on each
+    expert alone; the product promotes as JAX does."""
+    if isinstance(w, dict):
+        raise NotImplementedError("the port takes dense expert weights: "
+                                  "serve.quantize_params leaves the 4-D "
+                                  "expert stacks dense")
+    if not qcfg.is_identity:
+        w = fake_quant_experts(w, qcfg)
+        x = fake_quant_expert_acts(x, qcfg)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.bmm(x.to(dt), w.to(dt))
+
+
+def _experts_ffn(ps: Params, x: torch.Tensor, qcfg: QuantConfig,
+                 act: str) -> torch.Tensor:
+    """``layers.mlp`` of every expert on its (C, d) buffer: x (E, C, d)."""
+    up = _expert_dense(x, ps["w_up"], qcfg)
+    if "w_gate" in ps:
+        h = L._act(_expert_dense(x, ps["w_gate"], qcfg), act) * up
+    else:
+        h = L._act(up, act)
+    return _expert_dense(h, ps["w_down"], qcfg)
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg,
+              qcfg: QuantConfig) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d) (float32 with shared experts, as the
+    reference promotes ``out + shared``; else x's type)."""
+    if isinstance(p["router"], dict):
+        raise NotImplementedError(PACKED_ROUTER)
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.moe_experts, cfg.moe_topk
+    c = capacity(t, cfg)
+    xf = x.reshape(t, d)
+    dev = x.device
+
+    # --- routing ------------------------------------------------------------
+    vals, ids = _route(xf, p["router"])
+    top_w, top_ids = vals[:, :k], ids[:, :k]
+    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    # each token's slots in increasing expert id: the order in which the
+    # reference's scatter-add meets them; no position in an expert moves
+    # (a token holds an expert once, so the stable sort below orders an
+    # expert's assignments by token alone)
+    top_ids, slot = torch.sort(top_ids, dim=-1)
+    top_w = torch.gather(top_w, -1, slot)
+    if RoutePins.active is not None:
+        top_ids, top_w = RoutePins.active.pin(vals, ids, top_ids, top_w,
+                                              (b, s))
+
+    # --- sort-based dispatch ------------------------------------------------
+    flat_e = top_ids.reshape(-1)                            # (T*k,)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    starts = torch.searchsorted(se, torch.arange(e, device=dev,
+                                                 dtype=se.dtype))
+    pos = torch.empty_like(se)
+    pos[order] = torch.arange(t * k, device=dev) - starts[se]
+    keep = pos < c
+    dest_e = torch.where(keep, flat_e, e)                   # e: drop bucket
+    dest_p = torch.where(keep, pos, 0)
+    log = RouterLog.active
+    if log is not None:
+        margin = (vals[:, k - 1] - vals[:, k] if k < e
+                  else torch.full((t,), torch.inf, device=dev))
+        log.calls.append((top_ids.reshape(b, s, k), margin.reshape(b, s)))
+
+    buf = torch.zeros((e + 1, c, d), dtype=x.dtype, device=dev)
+    buf[dest_e, dest_p] = xf.repeat_interleave(k, dim=0)  # bucket e: unused
+
+    # --- every expert's FFN on its whole buffer ------------------------------
+    ybuf = _experts_ffn(p["experts"], buf[:e], qcfg, cfg.act)  # (E, C, d)
+
+    # --- combine: a token's contributions one at a time, in expert order -----
+    gathered = ybuf[torch.clamp_max(dest_e, e - 1), dest_p]   # (T*k, d)
+    contrib = gathered * (top_w.reshape(-1) * keep.to(top_w.dtype))[:, None]
+    contrib = contrib.to(x.dtype).reshape(t, k, d)
+    out = torch.zeros((t, d), dtype=x.dtype, device=dev)
+    for j in range(k):
+        out = out + contrib[:, j]
+
+    # --- shared experts (DeepSeekMoE) ----------------------------------------
+    if "shared" in p:
+        out = out + L.mlp(p["shared"], xf, qcfg, cfg.act)
+    return out.reshape(b, s, d)
+
+
+def router_aux_loss(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style): E * sum_e f_e * P_e."""
+    if isinstance(p["router"], dict):
+        raise NotImplementedError(PACKED_ROUTER)
+    xf = x.reshape(-1, x.shape[-1])
+    logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top1 = torch.argmax(probs, dim=-1)
+    frac = torch.mean(torch.nn.functional.one_hot(
+        top1, cfg.moe_experts).to(torch.float32), dim=0)
+    prob_mean = torch.mean(probs, dim=0)
+    return cfg.moe_experts * torch.sum(frac * prob_mean)
+

@@ -1,10 +1,14 @@
-"""Decoder-only transformer LM (port of ``repro.models.transformer`` for
-dense, all-global models such as SmolLM-135M).
+"""Decoder-only transformer LM (port of ``repro.models.transformer``): the
+``lm``, ``moe`` and ``vlm`` families (qwen3 / gemma2 / gemma3 / smollm /
+the qwen2-vl backbone / deepseek-moe / phi3.5-moe) on the reference's
+baseline path (``attn_mode="dyn"``).
 
 Params keep the reference's pytree layout: per-layer weights stacked on
-a leading L axis under ``params["layers"]``, packed leaves as
+a leading L axis under ``params["layers"]`` (MoE blocks under
+``"moe"``), leading dense layers (deepseek's ``first_dense``) as an
+unstacked ``params["dense_layers"]`` list, packed leaves as
 ``{"codes__<mode>": ..., "scale": ...}``.  The layers run as a Python
-loop over that axis where JAX scans.  Every projection goes through
+loop where JAX scans.  Every projection goes through
 ``layers.qdense`` (packed weights: the ``quant_matmul`` kernel) and the
 attention through the ``flash_attention`` kernel; the tied output head
 stays a ``torch.matmul`` on the dense float32 embedding, as the
@@ -17,11 +21,17 @@ Entry points, as in the reference:
   prefill(params, tokens, cfg, cache)      -- fill KV caches, last logits
   decode_step(params, token, cfg, cache)   -- one-token serve step
 
+Local layers (gemma2's alternating, gemma3's 5:1 pattern) pass their
+window to the kernel and global ones none; gemma2's attention and final
+soft-caps and its query scale go to the kernel and the head.  M-RoPE
+takes (B, S) positions broadcast to its 3 streams (or (B, S, 3) ones);
+the kernel's query start comes from stream 0.
+
 The KV cache is updated in place (the reference returns a new one; the
 port returns the same, written, object).  Configurations this port does
-not run raise: MoE, leading dense layers, local/global patterns with a
-window, soft-capping, M-RoPE and the perf variants (``kv_replicate_to``,
-``attn_block_local``, ``attn_flash``).
+not run raise: the perf variants (``kv_replicate_to``,
+``attn_block_local``, ``attn_flash``, ``moe_ep_shard_map``) and the
+families other than ``lm`` / ``moe`` / ``vlm``.
 """
 
 from __future__ import annotations
@@ -32,8 +42,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.flash_attention import flash_attention_gqa
+from repro_torch.kernels.flash_attention import flash_attention_gqa, soft_cap
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.quant.qconfig import preset
 
 Params = Dict[str, Any]
@@ -67,16 +78,11 @@ def attn_spec(cfg, is_global: bool = True) -> L.AttnSpec:
 def check_supported(cfg):
     """Raise for a configuration the port's transformer does not run."""
     refused = {
-        "family other than lm": cfg.family != "lm",
-        "MoE layers": cfg.moe_experts > 0,
-        "leading dense layers": cfg.first_dense > 0,
-        "local/global window patterns": not layer_is_global(cfg).all(),
-        "attention soft-capping": cfg.attn_softcap > 0.0,
-        "final soft-capping": cfg.final_softcap > 0.0,
-        "M-RoPE": bool(cfg.mrope_sections),
+        f"the {cfg.family} family": cfg.family not in ("lm", "moe", "vlm"),
         "kv_replicate_to": cfg.kv_replicate_to > 0,
         "attn_block_local": cfg.attn_block_local,
         "attn_flash": cfg.attn_flash,
+        "moe_ep_shard_map": cfg.moe_ep_shard_map,
     }
     bad = [what for what, on in refused.items() if on]
     if bad:
@@ -93,26 +99,47 @@ def _norm_init(cfg, n, device):
     return fill(n, cfg.d_model, dtype=torch.float32, device=device)
 
 
+def _stack(trees):
+    """A list of equal params trees -> one tree stacked on a leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
 def init_params(cfg, gen: torch.Generator, device=None) -> Params:
     """Random params with the reference's shapes and scales (dense
     1/sqrt(d_in), embed 0.02, norms 1), drawn from ``gen``."""
     check_supported(cfg)
     device = resolve_device(device)
     spec = attn_spec(cfg)
+    n_scan = cfg.n_layers - cfg.first_dense
     embed = L.embed_init(gen, cfg.padded_vocab, cfg.d_model, device=device)
-    per_layer = [{"attn": L.attn_init(gen, cfg.d_model, spec, device=device),
-                  "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, True,
-                                    device=device)}
-                 for _ in range(cfg.n_layers)]
-    stack = lambda key: {k: torch.stack([p[key][k] for p in per_layer])  # noqa: E731
-                         for k in per_layer[0][key]}
+
+    def layer():
+        p = {"attn": L.attn_init(gen, cfg.d_model, spec, device=device)}
+        if cfg.moe_experts > 0:
+            p["moe"] = MOE.moe_init(gen, cfg, device=device)
+        else:
+            p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, True,
+                                  device=device)
+        return p
+
+    per_layer = [layer() for _ in range(n_scan)]
     params: Params = {
         "embed": embed,
-        "layers": {"attn": stack("attn"), "mlp": stack("mlp"),
-                   "ln1": _norm_init(cfg, cfg.n_layers, device),
-                   "ln2": _norm_init(cfg, cfg.n_layers, device)},
+        "layers": {**_stack(per_layer),
+                   "ln1": _norm_init(cfg, n_scan, device),
+                   "ln2": _norm_init(cfg, n_scan, device)},
         "final_norm": _norm_init(cfg, 1, device)[0],
     }
+    if cfg.first_dense:   # deepseek: leading dense layer(s), unstacked
+        ones = lambda: torch.ones(cfg.d_model, device=device)  # noqa: E731
+        params["dense_layers"] = [
+            {"attn": L.attn_init(gen, cfg.d_model, spec, device=device),
+             "mlp": L.mlp_init(gen, cfg.d_model, cfg.dense_d_ff or cfg.d_ff,
+                               True, device=device),
+             "ln1": ones(), "ln2": ones()}
+            for _ in range(cfg.first_dense)]
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                          device=device)
@@ -122,11 +149,14 @@ def init_params(cfg, gen: torch.Generator, device=None) -> Params:
 def numpy_params(cfg, seed: int = 0) -> Params:
     """Random params as numpy float32 arrays in the reference's pytree
     layout, at the reference's init scales (dense N(0, 1/d_in), embed
-    N(0, 0.02^2), norms 1), from ``np.random.default_rng(seed)``.  Both
-    packages can load them (``convert.params_from_numpy`` here,
-    ``jnp.asarray`` there), so they serve the very same weights."""
+    N(0, 0.02^2), norms 1, or 0 for a zero-centered norm; the qk-norm
+    scales 1, as the reference's ``attn_init`` sets them), from
+    ``np.random.default_rng(seed)``.  Both packages can load them
+    (``convert.params_from_numpy`` here, ``jnp.asarray`` there), so they
+    serve the very same weights."""
     rng = np.random.default_rng(seed)
-    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    d, f = cfg.d_model, cfg.d_ff
+    n = cfg.n_layers - cfg.first_dense
     hq, hkv = cfg.n_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
 
     def dense(*shape):
@@ -137,21 +167,39 @@ def numpy_params(cfg, seed: int = 0) -> Params:
         return (np.zeros if cfg.zero_centered_norm else np.ones)(
             shape, np.float32)
 
+    def attn(*lead):
+        p = {"wq": dense(*lead, d, hq), "wk": dense(*lead, d, hkv),
+             "wv": dense(*lead, d, hkv), "wo": dense(*lead, hq, d)}
+        if cfg.qk_norm:
+            p["q_norm"] = np.ones((*lead, cfg.head_dim), np.float32)
+            p["k_norm"] = np.ones((*lead, cfg.head_dim), np.float32)
+        return p
+
+    def mlp(*lead, width):
+        return {"w_up": dense(*lead, d, width),
+                "w_down": dense(*lead, width, d),
+                "w_gate": dense(*lead, d, width)}
+
     params = {
         "embed": rng.standard_normal((cfg.padded_vocab, d), dtype=np.float32)
         * np.float32(0.02),
-        "layers": {
-            "attn": {"wq": dense(n, d, hq), "wk": dense(n, d, hkv),
-                     "wv": dense(n, d, hkv), "wo": dense(n, hq, d)},
-            "ln1": norm(n, d), "ln2": norm(n, d),
-            "mlp": {"w_up": dense(n, d, f), "w_down": dense(n, f, d),
-                    "w_gate": dense(n, d, f)},
-        },
+        "layers": {"attn": attn(n), "ln1": norm(n, d), "ln2": norm(n, d)},
         "final_norm": norm(d),
     }
-    if cfg.qk_norm:
-        params["layers"]["attn"]["q_norm"] = norm(n, cfg.head_dim)
-        params["layers"]["attn"]["k_norm"] = norm(n, cfg.head_dim)
+    if cfg.moe_experts > 0:
+        e = cfg.moe_experts
+        moe = {"router": dense(n, d, e),
+               "experts": mlp(n, e, width=cfg.moe_d_ff)}
+        if cfg.moe_shared:
+            moe["shared"] = mlp(n, width=cfg.moe_shared * cfg.moe_d_ff)
+        params["layers"]["moe"] = moe
+    else:
+        params["layers"]["mlp"] = mlp(n, width=f)
+    if cfg.first_dense:
+        params["dense_layers"] = [
+            {"attn": attn(), "mlp": mlp(width=cfg.dense_d_ff or f),
+             "ln1": np.ones(d, np.float32), "ln2": np.ones(d, np.float32)}
+            for _ in range(cfg.first_dense)]
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(d, cfg.padded_vocab)
     return params
@@ -168,28 +216,35 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _block(p: Params, x, cfg, qcfg, positions, q_start, cache=None):
-    """One transformer block (the reference's ``attn_mode="dyn"`` on an
-    all-global model)."""
+def _block(p: Params, x, cfg, qcfg, positions, q_start, is_global: bool,
+           cache=None, moe: bool = False):
+    """One transformer block (the reference's ``attn_mode="dyn"``): a local
+    layer's attention sees its window, a global one's every earlier key."""
+    window = 0 if is_global else max(cfg.window, 1)
     h = L.rmsnorm(x, p["ln1"], zero_centered=cfg.zero_centered_norm)
     attn_out, new_cache = _attention_dynwin(p["attn"], h, attn_spec(cfg),
-                                            qcfg, positions, q_start, cache)
+                                            qcfg, positions, q_start, cache,
+                                            window)
     x = x + attn_out.to(x.dtype)
     h = L.rmsnorm(x, p["ln2"], zero_centered=cfg.zero_centered_norm)
-    ff = L.mlp(p["mlp"], h, qcfg, cfg.act)
+    if moe:
+        ff = MOE.moe_apply(p["moe"], h, cfg, qcfg)
+    else:
+        ff = L.mlp(p["mlp"], h, qcfg, cfg.act)
     return x + ff.to(x.dtype), new_cache
 
 
 def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
-                      cache):
-    """Attention of one global layer, through the flash attention kernel.
+                      cache, window: int = 0):
+    """Attention of one layer, through the flash attention kernel.
 
-    positions: (B, S) absolute token positions (for RoPE).  q_start: (B,)
-    int32, the position of each row's first query on the key axis: the
-    keys are the cache's rows 0..max_len-1 with a cache, else the prompt
-    itself (then 0).  With a cache, this step's k and v are written at
-    the cache index first, the start clamped to [0, max_len - S] as
-    ``dynamic_update_slice`` clamps it.
+    positions: (B, S) absolute token positions (for RoPE), or (B, S, 3)
+    M-RoPE streams.  q_start: (B,) int32, the position of each row's first
+    query on the key axis (stream 0's): the keys are the cache's rows
+    0..max_len-1 with a cache, else the prompt itself (then 0).  With a
+    cache, this step's k and v are written at the cache index first, the
+    start clamped to [0, max_len - S] as ``dynamic_update_slice`` clamps
+    it.  window: 0 (global) or the local layer's width.
     """
     b, s, _ = x.shape
     hq, hkv, dh = spec.n_heads, spec.kv_heads, spec.head_dim
@@ -199,8 +254,16 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
     if spec.qk_norm:
         q = L.rmsnorm(q, p["q_norm"])
         k = L.rmsnorm(k, p["k_norm"])
-    q = L.apply_rope(q, positions, spec.rope_theta)
-    k = L.apply_rope(k, positions, spec.rope_theta)
+    pos2d = positions if positions.ndim == 2 else positions[..., 0]
+    if spec.mrope_sections:
+        # text-only stream: (B, S) positions -> identical t/h/w ids
+        pos3 = positions if positions.ndim == 3 else \
+            positions[..., None].expand(*positions.shape, 3)
+        q = L.apply_mrope(q, pos3, spec.mrope_sections, spec.rope_theta)
+        k = L.apply_mrope(k, pos3, spec.mrope_sections, spec.rope_theta)
+    else:
+        q = L.apply_rope(q, pos2d, spec.rope_theta)
+        k = L.apply_rope(k, pos2d, spec.rope_theta)
 
     new_cache = cache
     if cache is not None:
@@ -219,7 +282,8 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
     # are (a float32 cache is not copied)
     out = flash_attention_gqa(q, k, v, q_start, causal=True,
                               scale=spec.query_scale or 1.0 / float(np.sqrt(dh)),
-                              round_p=True)
+                              round_p=True, window=window,
+                              softcap=spec.softcap)
     out = out.reshape(b, s, hq * dh).to(x.dtype)
     return L.qdense(out, p["wo"], qcfg), new_cache
 
@@ -230,10 +294,18 @@ def _backbone(params, x, cfg, positions, q_start, caches=None):
     caches: None, or ``init_cache``'s tree, written in place.  Returns
     (y, caches)."""
     qcfg = preset(cfg.pe_type)
-    for i in range(cfg.n_layers):
+    for i in range(cfg.first_dense):
+        cache = None if caches is None else caches["dense"][i]
+        x, cache = _block(params["dense_layers"][i], x, cfg, qcfg, positions,
+                          q_start, True, cache)
+        if caches is not None:
+            caches["dense"][i] = cache
+    flags = layer_is_global(cfg)[cfg.first_dense:]
+    for i, is_global in enumerate(flags):
         cache = None if caches is None else _layer(caches["scan"], i)
         x, cache = _block(_layer(params["layers"], i), x, cfg, qcfg,
-                          positions, q_start, cache)
+                          positions, q_start, bool(is_global), cache,
+                          moe=cfg.moe_experts > 0)
         if caches is not None:
             caches["scan"]["index"][i] = cache["index"]
     return x, caches
@@ -243,7 +315,10 @@ def _logits(params, x, cfg):
     qcfg = preset(cfg.pe_type)
     x = L.rmsnorm(x, params["final_norm"], zero_centered=cfg.zero_centered_norm)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return L.qdense(x, w, qcfg)
+    logits = L.qdense(x, w, qcfg)
+    if cfg.final_softcap > 0.0:
+        logits = soft_cap(logits, cfg.final_softcap)
+    return logits
 
 
 def _embed(params, tokens, cfg):
@@ -255,11 +330,12 @@ def _embed(params, tokens, cfg):
 
 
 def _positions(tokens, positions, start: int):
-    """(positions (B, S), q_start (B,) int32 on the tokens' device).
+    """(positions (B, S) or (B, S, 3), q_start (B,) int32 on the tokens'
+    device).
 
     Without ``positions`` row b holds ``start + arange(S)``.  Given
-    positions must have that form per row (the kernel takes one start
-    per row); anything else raises."""
+    positions (M-RoPE: their stream 0) must have that form per row (the
+    kernel takes one start per row); anything else raises."""
     b, s = tokens.shape[:2]
     dev = tokens.device
     ar = torch.arange(s, device=dev)
@@ -267,8 +343,9 @@ def _positions(tokens, positions, start: int):
         q_start = torch.full((b,), start, dtype=torch.int32, device=dev)
         return (start + ar)[None].expand(b, s), q_start
     positions = torch.as_tensor(positions, device=dev)
-    q_start = positions[:, 0].to(torch.int32)
-    if not torch.equal(positions.to(torch.long),
+    pos2d = positions if positions.ndim == 2 else positions[..., 0]
+    q_start = pos2d[:, 0].to(torch.int32)
+    if not torch.equal(pos2d.to(torch.long),
                        q_start.to(torch.long)[:, None] + ar[None]):
         raise ValueError("positions must be start + arange(S) on every row")
     return positions, q_start
@@ -304,15 +381,19 @@ def loss_fn(params, batch, cfg):
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
-    """KV caches of all layers, stacked on a leading L axis; ``index`` is
-    one host int per layer, as the reference keeps one per layer."""
+    """KV caches: the scanned layers' stacked on a leading L axis, the
+    leading dense layers' one a layer under ``"dense"``; ``index`` is one
+    host int per layer, as the reference keeps one per layer."""
     check_supported(cfg)
-    one = L.make_cache(batch, max_len, attn_spec(cfg), dtype, device)
-    n = cfg.n_layers
+    spec = attn_spec(cfg)
+    one = L.make_cache(batch, max_len, spec, dtype, device)
+    n = cfg.n_layers - cfg.first_dense
     scan = {"k": one["k"][None].repeat(n, 1, 1, 1, 1),
             "v": one["v"][None].repeat(n, 1, 1, 1, 1),
             "index": [0] * n}
-    return {"dense": [], "scan": scan}
+    dense = [L.make_cache(batch, max_len, spec, dtype, device)
+             for _ in range(cfg.first_dense)]
+    return {"dense": dense, "scan": scan}
 
 
 def prefill(params, tokens, cfg, cache, positions=None):

@@ -14,7 +14,9 @@ The elementwise quantize-dequantize body runs through the fused
 ``fake_quant`` kernel: on a CUDA tensor it launches the CUDA kernel, on
 a CPU tensor it is the kernel's plain torch version.  A list of tensors
 shares its launches (``fake_quant_weights``: one a group, two for
-pow2x2).  The STE keeps the
+pow2x2), and so does a stack of expert weights or activations, each
+slice with its own scale (``fake_quant_experts``,
+``fake_quant_expert_acts``: the reference vmaps over the experts).  The STE keeps the
 reference's expression ``x + (q - x).detach()``, which is not bitwise
 ``q`` in float32.
 """
@@ -142,11 +144,10 @@ def pow2x2_fake_quant(x: torch.Tensor, axis=None) -> torch.Tensor:
 # Dispatch by QuantConfig
 # ---------------------------------------------------------------------------
 
-def _fake_quant_group(xs, scheme: str, bits: int, axes) -> list:
-    """The STE fake quantization of each x under ``scheme``, x's scale
-    reduced over its own axes; the kernel's passes are shared by the list:
-    one launch, two for pow2x2 (whose second pass needs the residuals)."""
-    ds = [x.detach() for x in xs]
+def _quantize_group(ds, scheme: str, bits: int, axes) -> list:
+    """The quantize-dequantize of each (detached) x under ``scheme``, x's
+    scale reduced over its own axes, in one launch (two for pow2x2, whose
+    second pass needs the residuals)."""
     if scheme == "affine":
         qs = _fused_group(ds, [affine_scale(d, bits, a)
                                for d, a in zip(ds, axes)], "affine", bits)
@@ -158,6 +159,14 @@ def _fake_quant_group(xs, scheme: str, bits: int, axes) -> list:
                                       for d, a in zip(ds, axes)])
     else:
         raise ValueError(f"unknown weight scheme {scheme}")
+    return qs
+
+
+def _fake_quant_group(xs, scheme: str, bits: int, axes) -> list:
+    """The STE fake quantization of each x under ``scheme``, x's scale
+    reduced over its own axes; the kernel's passes are shared by the list:
+    one launch, two for pow2x2 (whose second pass needs the residuals)."""
+    qs = _quantize_group([x.detach() for x in xs], scheme, bits, axes)
     return [_ste(x, q) for x, q in zip(xs, qs)]
 
 
@@ -183,3 +192,33 @@ def fake_quant_act(x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
     if qcfg.act_scheme == "none" or not qcfg.quantize_acts:
         return x
     return affine_fake_quant(x, qcfg.act_bits, axis=None)
+
+
+def _stacked(x: torch.Tensor, scheme: str, bits: int, per_channel: bool):
+    """The STE fake quantization of every x[e] of a stack, each with its
+    own scale (per channel over its own rows, or per tensor), the slices
+    sharing the kernel's launches."""
+    ds = list(x.detach().unbind(0))
+    axes = [tuple(range(d.ndim - 1)) if per_channel else None for d in ds]
+    return _ste(x, torch.stack(_quantize_group(ds, scheme, bits, axes)))
+
+
+def fake_quant_experts(w: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
+    """``fake_quant_weight`` of every expert's weight w[e] of an (E, K, N)
+    stack, its per-channel scale over that expert's K only, as the
+    reference vmaps it over the experts: one launch a group of up to 64
+    experts (two for pow2x2).  Taking the stack as one tensor would reduce
+    over E x K instead."""
+    if qcfg.weight_scheme == "none":
+        return w
+    return _stacked(w, qcfg.weight_scheme, qcfg.weight_bits,
+                    qcfg.per_channel)
+
+
+def fake_quant_expert_acts(x: torch.Tensor, qcfg: QuantConfig):
+    """``fake_quant_act`` of every expert's (C, K) buffer x[e] of an (E, C,
+    K) stack: one scale an expert, over its own buffer (the zero rows of
+    unused capacity counted), as under the reference's vmap."""
+    if qcfg.act_scheme == "none" or not qcfg.quantize_acts:
+        return x
+    return _stacked(x, "affine", qcfg.act_bits, False)

@@ -230,6 +230,29 @@ def test_part_products_of_the_backward_bounds(bf16, issued, want):
     assert smoke.bwd_part_products(bf16, issued) == want
 
 
+@pytest.mark.parametrize("q_bf16, per_pair", [(False, 12), (True, 7)])
+def test_part_products_of_the_forward_bounds(q_bf16, per_pair):
+    """``chip_smoke.py``'s forward attention bound (phases 5 and 11.1):
+    each visible (query head, key) pair's q . k and P V as kept bf16 part
+    products (6 for two float32 operands, 1 for bfloat16 q on K rounded
+    to it); bytes of q, the float32 out and the keys the rows see."""
+    smoke = _load(ROOT / "chip_smoke.py")
+    assert [smoke.kept_part_products(a, b) for a, b in
+            ((3, 3), (3, 1), (1, 3), (1, 1))] == [6, 3, 3, 1]
+    b, hq, hkv, d = 2, 4, 1, 256
+    rows = [(max(0, i - 7), i + 1) for i in range(20)]     # window 8
+    bound, by, nbytes, half = smoke.attention_bound(b, hq, hkv, d, rows,
+                                                    q_bf16, layers=3)
+    visible = sum(hi - lo for lo, hi in rows)
+    assert half == 3 * 2 * b * hq * d * visible
+    assert nbytes == 3 * (b * 20 * hq * d * ((2 if q_bf16 else 4) + 4)
+                          + 2 * 4 * b * 20 * hkv * d)
+    assert bound == pytest.approx(max(
+        nbytes / smoke.H100_BYTES_PER_S,
+        half * per_pair / smoke.H100_BF16_FLOPS) * 1e3)
+    assert by == "bytes"
+
+
 def test_probe_lines_cover_every_phase_of_both_kernels():
     """``benchmarks/torch_fa_bwd.py --probe`` turns the kernel source's
     ``// PROBE`` comment lines into clock reads: 10 phases of the rows

@@ -394,11 +394,13 @@ def test_emulated_arithmetic_in_model_vs_jax(rng, monkeypatch, dtype, s,
     plain version (the plan the card would take for these tensors,
     round_p as the model asks) against the JAX model's: float32 within
     1e-5, bfloat16 within one bf16 ulp of each output."""
-    def emulated(q, k, v, q_start, causal=True, scale=0.0, round_p=False):
+    def emulated(q, k, v, q_start, causal=True, scale=0.0, round_p=False,
+                 window=0, softcap=0.0):
         b, sq, hq, d = q.shape
         p = plan(b, sq, k.shape[1], hq, k.shape[2], d,
-                 q.dtype == torch.bfloat16)
-        return emulate_attention(q, k, v, q_start, p, causal, scale, round_p)
+                 q.dtype == torch.bfloat16, window)
+        return emulate_attention(q, k, v, q_start, p, causal, scale, round_p,
+                                 window, softcap)
 
     monkeypatch.setattr(T, "flash_attention_gqa", emulated)
     cfg, case = _attention_case(rng, dtype, s, index, max_len)

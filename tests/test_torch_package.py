@@ -70,7 +70,8 @@ def test_every_module_imports_without_jax_or_repro():
      ROOT / "benchmarks" / "torch_fa_sweep.py",
      ROOT / "benchmarks" / "torch_fq_sweep.py",
      ROOT / "benchmarks" / "torch_qat_sensitivity.py",
-     ROOT / "benchmarks" / "torch_qmm_sweep.py"]))
+     ROOT / "benchmarks" / "torch_qmm_sweep.py",
+     ROOT / "benchmarks" / "torch_router_noise.py"]))
 def test_no_jax_or_repro_import_in_source(path):
     text = (ROOT / path).read_text()
     assert not re.search(r"^\s*(import jax|from jax)", text, re.M)

@@ -83,13 +83,12 @@ def test_config_is_the_reference_config(size):
     assert ours.padded_vocab == theirs.padded_vocab
     with pytest.raises(ValueError, match="no config"):
         get("no-such-arch")
-    # every config is ported for the workload IR; the model refuses
-    # those it does not run
-    with pytest.raises(NotImplementedError, match="does not run"):
-        T.check_supported(get("gemma3-1b"))
-    for unsupported in (dict(moe_experts=4), dict(window=8,
-                                                  layer_pattern="gemma3"),
-                        dict(attn_softcap=50.0), dict(attn_flash=True)):
+    # every config is ported for the workload IR; the model runs the
+    # lm / moe / vlm families and refuses the perf variants and the rest
+    T.check_supported(get("gemma3-1b"))
+    for unsupported in (dict(family="ssm"), dict(kv_replicate_to=8),
+                        dict(attn_block_local=True), dict(attn_flash=True),
+                        dict(moe_ep_shard_map=True)):
         with pytest.raises(NotImplementedError, match="does not run"):
             T.check_supported(ours.replace(**unsupported))
 
