@@ -130,7 +130,27 @@
    (routing included, up to router near ties, which are counted) with
    exactly 3 ``flash_attention`` and, under QAT numerics, 56
    ``fake_quant`` launches a step;
-12. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
+12. every attention path of the reference on the ported kernels (the
+   perf variants, mixed precision, the encoder-decoder family), held to
+   ``tests/data/torch_variants_ref.json`` (the JAX package's): 12.1
+   Gemma-3-1B under ``attn_block_local`` (``forward`` on 2 x 1024 tokens,
+   LightPE-1 codes, bfloat16) at the reference's cut depth of 8 layers
+   against the JAX forward and at full depth against the port's baseline
+   forward, one ``flash_attention`` and 7 ``quant_matmul`` launches a
+   layer; 12.2 Gemma-3-1B served with ``kv_replicate_to=4`` on phase
+   11.2's requests against ``tests/data/torch_gemma3_ref.json`` and phase
+   11.2's tokens; 12.3 SmolLM-135M under ``attn_flash``, ``forward`` at 4
+   x 2048 in float32 and bfloat16, and 3 AdamW steps at 4 x 128 (FP32,
+   LightPE-1) through the attention backward; 12.4 its 3 LightPE-1 steps
+   under ``compute_dtype(bfloat16)``; 12.5 Whisper-medium's greedy run
+   (4 x 1500 frames, prompts of 8, 12 tokens, a 448-row cache) at the
+   reference's cut depth of 4 + 4 layers on dense, LightPE-1 and INT8
+   weights against the JAX runs, and at full depth (24 + 24) on
+   LightPE-1 codes with 384 / 240 ``quant_matmul`` and 72 / 48
+   ``flash_attention`` launches a prefill / decode step, timed; 12.6 the
+   ``flash_attention`` kernel alone at those paths' shapes against its
+   plain version, timed beside it, SDPA and its bound;
+13. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
    last, the device line.
 
 TF32 is off for matrix products and convolutions (``repro_torch`` sets
@@ -139,8 +159,10 @@ both flags at import): the reference tolerances need IEEE float32.
 Any failed phase exits non-zero before the last line is printed.
 """
 
+import contextlib
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -154,6 +176,7 @@ SCALE_REF = ROOT / "tests" / "data" / "torch_scale_ref.json"
 TRAIN_REF = ROOT / "tests" / "data" / "torch_train_ref.json"
 GEMMA_REF = ROOT / "tests" / "data" / "torch_gemma3_ref.json"
 MOE_REF = ROOT / "tests" / "data" / "torch_moe_ref.json"
+VARIANTS_REF = ROOT / "tests" / "data" / "torch_variants_ref.json"
 SCALE_SHARDS = 4
 SCALE_DEPTH = 2
 KILL_AFTER = 40
@@ -266,6 +289,24 @@ GEMMA_PROJECTIONS = 7           # wq, wk, wv, wo, w_up, w_gate, w_down
 # this limit: with the stacks quantized as one tensor the runs read
 # 0.1058 / 0.1195 (--stack-as-one), inside it.
 MOE_TOL = {"fp32": 0.1, "lightpe1": 0.125, "int8": 0.125}
+# Phase 12: the perf variants and Whisper, held to the JAX package's runs
+# in tests/data/torch_variants_ref.json at the serving runs' tolerances
+# (bfloat16 0.1; float32 2e-3, LightPE-1's, here also for the dense
+# float32 forward of 8,192 positions, whose attention sums run over up to
+# 2,048 keys); training at phase 10's TRAIN_LM_RTOL
+FLASH_TOL = {"float32": 2e-3, "bfloat16": 0.1}
+WHISPER_TOL = {"fp32/dense": 0.1, "lightpe1": 0.1, "int8": 0.1,
+               "lightpe1/float32": 2e-3}
+# Phase 12.2: Gemma-3-1B's one KV head replicated to its 4 query heads
+KV_REPLICATE_TO = 4
+# Phase 12.6: (name, b, sq, skv, hq, hkv, d, causal, window) of the kernel
+# alone at the new paths' shapes, float32 q, K, V, float32 P
+VARIANT_SHAPES = [
+    ("whisper encoder", 4, 1500, 1500, 16, 16, 64, False, 0),
+    ("whisper cross prefill", 4, 8, 1500, 16, 16, 64, False, 0),
+    ("whisper cross decode", 4, 1, 1500, 16, 16, 64, False, 0),
+    ("gemma3-1b block-local", 2, 1024, 1024, 4, 1, 256, True, 512),
+    ("smollm-135m attn_flash", 4, 2048, 2048, 9, 3, 64, True, 0)]
 
 
 def fail(msg: str):
@@ -1840,14 +1881,15 @@ def check_window_kernel(torch, dev):
 
 
 def serve_runs(torch, ref, engine_for, launch_counters, want_counts, tol,
-               router=None, coupled=False):
+               router=None, coupled=False, records=None):
     """Serve the reference's prompts for each of the reference's modes and
     hold each run to its reference record; the launches of each run
     counted from 0 and held to ``want_counts(mode)`` exactly.  ``router``
     (an MoE model's capacity for a token count): the routing is recorded
     and held too (``check.compare``'s ``router_tol``), the reference's
     experts pinned at its router near ties (``RoutePins``).  A run of
-    which no step was compared fails."""
+    which no step was compared fails.  ``records`` (a dict) keeps each
+    mode's record."""
     from contextlib import nullcontext
 
     import numpy as np
@@ -1870,6 +1912,8 @@ def serve_runs(torch, ref, engine_for, launch_counters, want_counts, tol,
                                want=m["run4"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if records is not None:
+            records[key] = rec
         counts = {c.__name__: c.launches for c in launch_counters}
         if counts != want_counts(m):
             fail(f"{ref['config']} {key}: launches {counts}, expected "
@@ -1955,7 +1999,9 @@ def run_gemma(torch, dev):
     64-900 tokens, a 1024-row cache, 12 new tokens) in bfloat16 and
     float32, held to ``tests/data/torch_gemma3_ref.json`` with exactly 182
     ``quant_matmul`` and 26 ``flash_attention`` launches a step; then the
-    LightPE-1 bfloat16 run warm: step latencies, tokens/s, peak memory."""
+    LightPE-1 bfloat16 run warm: step latencies, tokens/s, peak memory.
+    Returns (numbers, the packed params by PE type, codes pinned, and each
+    mode's record), which phase 12 serves again."""
     import numpy as np
     from repro_torch import convert
     from repro_torch.configs import get
@@ -1996,6 +2042,7 @@ def run_gemma(torch, dev):
           f"{pins['e_max_ties']} columns' e_max at a tie, all equal")
     per_step = {"quant_matmul": GEMMA_PROJECTIONS * cfg.n_layers,
                 "flash_attention": cfg.n_layers}
+    records = {}
     runs = serve_runs(
         torch, ref,
         lambda m: ServeEngine(cfg.replace(dtype=m["dtype"]), mod,
@@ -2003,7 +2050,7 @@ def run_gemma(torch, dev):
                               ref["max_len"]),
         (quant_matmul, flash_attention),
         lambda m: {k: v * ref["max_new"] for k, v in per_step.items()},
-        GEMMA_TOL)
+        GEMMA_TOL, records=records)
 
     eng = ServeEngine(cfg, mod, packs["lightpe1"], ref["batch_slots"],
                       ref["max_len"])
@@ -2042,9 +2089,9 @@ def run_gemma(torch, dev):
           f"{wall:.3f} s = {numbers['tokens_per_s']:.1f} tokens/s, peak "
           f"device memory {numbers['peak_mib']:.1f} MiB ({base:.1f} MiB "
           f"before the run)")
-    del eng, packs
+    del eng
     gc.collect()
-    return numbers
+    return numbers, packs, records
 
 
 def check_expert_fake_quant(torch, dev, cfg, mod, params, ref):
@@ -2232,6 +2279,545 @@ def run_moe(torch, dev):
     return dict(runs=runs, expert_fake_quant=experts)
 
 
+def _counts(*counters):
+    return {c.__name__: c.launches for c in counters}
+
+
+def _zero(torch, *counters):
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+
+
+def _held(name, res):
+    if not res["ok"]:
+        fail(f"{name} differs from its reference: {res}")
+    print(f"{name}: matches (max abs err {res['max_abs_err']:.4g}, "
+          f"{res['ties']} of {res['positions']} positions chose another "
+          f"token at a near tie)")
+
+
+@contextlib.contextmanager
+def plain_kernels(torch):
+    """The model modules' kernel calls (``flash_attention_gqa``,
+    ``quant_matmul``, and the block-local layers' one launch) replaced by
+    the kernels' plain versions on the card's tensors: block-local
+    attention by the reference's blocked computation.  The reference of a
+    full-depth run, which the JAX package cannot make (no full-size
+    configuration runs on the CPU that writes the reference files)."""
+    from repro_torch.kernels.flash_attention.ref import ref_attention_gqa
+    from repro_torch.kernels.quant_matmul.ref import ref_quant_matmul
+    from repro_torch.models import block_attn, flash_attn, layers, transformer
+
+    def attention(q, k, v, q_start=None, *, causal=True, scale=0.0,
+                  round_p=False, window=0, softcap=0.0):
+        if q_start is None:
+            q_start = torch.zeros(q.shape[0], dtype=torch.int32,
+                                  device=q.device)
+        return ref_attention_gqa(q, k, v, q_start, causal, scale, round_p,
+                                 window, softcap)
+
+    def qmm(x, w, scale, *, mode="int4"):
+        return ref_quant_matmul(x, w, scale, mode)
+
+    def block_local(q, k, v, positions, window, softcap, query_scale,
+                    checked=False):
+        scale = query_scale or 1.0 / math.sqrt(q.shape[-1])
+        return block_attn._plain(q, k, v, positions, window, softcap, scale)
+
+    swaps = [(layers, "flash_attention_gqa", attention),
+             (layers, "quant_matmul", qmm),
+             (transformer, "flash_attention_gqa", attention),
+             (transformer, "block_local_attention", block_local),
+             (block_attn, "flash_attention_gqa", attention),
+             (flash_attn, "flash_attention_gqa", attention)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def run_block_local(torch, dev, packs, ref):
+    """Phase 12.1: Gemma-3-1B under ``attn_block_local``, ``forward`` on 2
+    x 1024 tokens, LightPE-1 codes, bfloat16: at the reference's cut depth
+    (8 layers) held to the JAX package's block-local forward, and at full
+    width and depth (phase 11.2's packing) held to the same forward on the
+    kernels' plain versions (``plain_kernels``: the local layers through
+    the reference's blocked computation); exactly one ``flash_attention``
+    launch and 7 ``quant_matmul`` ones a layer.  The baseline forward is
+    timed beside it."""
+    from repro_torch import convert, variants_check as vc
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import check, quantize_params
+
+    part = ref["gemma_block_local"]
+    full = get(vc.GEMMA_CONFIG)
+    cut = full.replace(n_layers=part["n_layers"])
+    packed = quantize_params(convert.params_from_numpy(
+        T.numpy_params(cut, vc.PARAM_SEED), dev), "lightpe1",
+        min_size=part["min_size"])
+    pins = check.pin_pow2_codes(packed, part["pow2_ties"])
+    if pins["e_max_differ"]:
+        fail(f"block-local: {pins['e_max_differ']} columns' e_max differ")
+    out = dict(pow2_pins=pins)
+    for name, cfg, params in (("cut", cut, packed),
+                              ("full", full, packs["lightpe1"])):
+        _zero(torch, flash_attention, quant_matmul)
+        t0 = time.perf_counter()
+        got = vc.gemma_forward(cfg, params, part["shape"], dev)
+        wall = time.perf_counter() - t0
+        counts = _counts(flash_attention, quant_matmul)
+        want = {"flash_attention": cfg.n_layers,
+                "quant_matmul": GEMMA_PROJECTIONS * cfg.n_layers}
+        if counts != want:
+            fail(f"block-local gemma ({name}): launches {counts}, expected "
+                 f"{want}")
+        if name == "cut":
+            res = vc.compare_forward(got, part["run"], GEMMA_TOL["lightpe1"])
+            _held(f"gemma3-1b block-local forward ({cfg.n_layers} layers) "
+                  f"/ JAX", res)
+        else:
+            with plain_kernels(torch):
+                plain = vc.gemma_forward(cfg, params, part["shape"], dev)
+            if _counts(flash_attention, quant_matmul) != counts:
+                fail("block-local gemma (full): the plain run launched a "
+                     "kernel")
+            res = vc.compare_forward(got, plain, GEMMA_TOL["lightpe1"])
+            _held(f"gemma3-1b block-local forward ({cfg.n_layers} layers) "
+                  f"/ its plain versions (blocked local layers)", res)
+            toks = torch.as_tensor(vc.tokens(cfg.vocab, part["shape"]),
+                                   device=dev)
+            for mode in (True, False):
+                run = cfg.replace(attn_block_local=mode)
+                with torch.no_grad():
+                    ms = time_ms(torch, lambda: T.forward(params, toks, run),
+                                 reps=3, warmup=1, queued=False)
+                out["forward_ms" if mode else "baseline_forward_ms"] = ms
+        out[name] = dict(launches=counts, wall_s=wall, **res)
+    print(f"gemma3-1b forward 2 x 1024 (26 layers, host-paced): block-local "
+          f"{out['forward_ms']:.3f} ms, baseline {out['baseline_forward_ms']:.3f}"
+          f" ms")
+    del packed
+    gc.collect()
+    return out
+
+
+def run_kv_replicated(torch, dev, packs, gemma_records):
+    """Phase 12.2: Gemma-3-1B served with ``kv_replicate_to=4`` (the
+    cache (4, 1024, 4, 256)) on phase 11.2's requests and packings, held
+    to ``tests/data/torch_gemma3_ref.json`` (replicated heads compute the
+    same function) and to phase 11.2's records (tokens equal up to a near
+    tie, logits within 11.2's tolerances), with 11.2's launch counts."""
+    from repro_torch.serve import check
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.models import family_module
+    from repro_torch.serve import ServeEngine
+
+    ref = json.loads(GEMMA_REF.read_text())
+    cfg = get(ref["config"]).replace(kv_replicate_to=KV_REPLICATE_TO)
+    mod = family_module(cfg)
+    shapes = []
+
+    def engine(m):
+        eng = ServeEngine(cfg.replace(dtype=m["dtype"]), mod,
+                          packs[m["pe_type"]], ref["batch_slots"],
+                          ref["max_len"])
+        shapes.append(tuple(eng.cache["scan"]["k"].shape[1:]))
+        return eng
+
+    per_step = {"quant_matmul": GEMMA_PROJECTIONS * cfg.n_layers,
+                "flash_attention": cfg.n_layers}
+    records = {}
+    runs = serve_runs(torch, ref, engine, (quant_matmul, flash_attention),
+                      lambda m: {k: v * ref["max_new"]
+                                 for k, v in per_step.items()}, GEMMA_TOL,
+                      records=records)
+    want_shape = (ref["batch_slots"], ref["max_len"], KV_REPLICATE_TO,
+                  cfg.head_dim)
+    if any(s != want_shape for s in shapes):
+        fail(f"kv_replicate_to={KV_REPLICATE_TO}: caches {shapes}, expected "
+             f"{want_shape}")
+    for key, rec in records.items():
+        problems, notes = check.compare(rec, gemma_records[key],
+                                        GEMMA_TOL[key])
+        if problems:
+            fail(f"kv_replicate_to={KV_REPLICATE_TO} {key} differs from "
+                 f"phase 11.2's run: " + "; ".join(problems))
+        same = rec["tokens"] == gemma_records[key]["tokens"]
+        runs[key]["vs_phase_11_2"] = dict(
+            tokens_equal=same, notes=len(notes),
+            max_logit_err=check.max_logit_err(rec, gemma_records[key]))
+        print(f"gemma3-1b kv_replicate_to={KV_REPLICATE_TO} {key} / phase "
+              f"11.2: tokens equal {same}, max logit err "
+              f"{runs[key]['vs_phase_11_2']['max_logit_err']:.3g}, "
+              f"{len(notes)} notes")
+    print(f"gemma3-1b kv_replicate_to={KV_REPLICATE_TO}: caches {want_shape}")
+    return dict(runs=runs, cache_shape=list(want_shape))
+
+
+def run_flash_variant(torch, dev, ref):
+    """Phase 12.3 / 12.4: SmolLM-135M under ``attn_flash``, ``forward`` at
+    4 x 2048 in float32 and bfloat16 held to the JAX package's (one
+    ``flash_attention`` launch a layer), and ``train_check``'s AdamW steps
+    at 4 x 128 under ``attn_flash`` (FP32, LightPE-1) and under
+    ``compute_dtype(bfloat16)`` (LightPE-1) held to the JAX package's,
+    with a forward and a backward launch a layer a step and, under
+    LightPE-1, 422 ``fake_quant`` launches a step."""
+    from repro_torch import convert, train_check as tc, variants_check as vc
+    from repro_torch.configs import get
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as T
+
+    part = ref["smollm_flash"]
+    cfg = get(vc.FLASH_CONFIG)
+    params = convert.params_from_numpy(T.numpy_params(cfg, vc.PARAM_SEED),
+                                       dev)
+    out = {"forward": {}, "train": {}}
+    for dtype in vc.FLASH_DTYPES:
+        _zero(torch, flash_attention)
+        got = vc.flash_forward(cfg, params, part["shape"], dtype, dev)
+        if flash_attention.launches != cfg.n_layers:
+            fail(f"attn_flash forward {dtype}: {flash_attention.launches} "
+                 f"flash_attention launches, expected {cfg.n_layers}")
+        res = vc.compare_forward(got, part["runs"][dtype], FLASH_TOL[dtype])
+        _held(f"smollm-135m attn_flash forward 4 x 2048 {dtype} / JAX", res)
+        out["forward"][dtype] = dict(launches=cfg.n_layers, **res)
+    del params
+    gc.collect()
+    runs = [("flash", pe, cfg.replace(attn_flash=True), None)
+            for pe in vc.FLASH_TRAIN_PE_TYPES]
+    runs.append(("mixed", vc.MIXED_PE_TYPE, cfg, torch.bfloat16))
+    for kind, pe, run_cfg, ct in runs:
+        flash_attention.backward_launches = 0
+        _zero(torch, flash_attention, fake_quant)
+        rows = tc.run_lm(run_cfg, pe, dev, compute_dtype=ct)
+        torch.cuda.synchronize()
+        counts = dict(forward=flash_attention.launches,
+                      backward=flash_attention.backward_launches,
+                      fake_quant=fake_quant.launches)
+        want = dict(forward=cfg.n_layers * tc.LM_STEPS,
+                    backward=cfg.n_layers * tc.LM_STEPS,
+                    fake_quant=0 if pe == "fp32"
+                    else TRAIN_FQ_PER_STEP * tc.LM_STEPS)
+        if counts != want:
+            fail(f"{kind} {pe} training: launches {counts}, expected {want}")
+        res = tc.compare(rows, ref["smollm_train"][kind][pe], TRAIN_LM_RTOL)
+        if not res["ok"]:
+            fail(f"{kind} {pe} training differs from the JAX steps: {res}; "
+                 f"{rows} vs {ref['smollm_train'][kind][pe]}")
+        print(f"smollm-135m {kind} {pe} {tc.LM_STEPS} AdamW steps: match "
+              f"(loss rel {res['loss_rel']:.3g}, grad norm rel "
+              f"{res['gnorm_rel']:.3g}); launches {counts}")
+        out["train"][f"{kind}/{pe}"] = dict(launches=counts, rows=rows, **res)
+    out["mixed_control"] = mixed_control(torch, dev, cfg, ref, out["train"])
+    return out
+
+
+def mixed_control(torch, dev, cfg, ref, train):
+    """Phase 12.4's control: the card's steps are bitwise repeatable, so
+    the mixed run made again must give the same rows, and the same steps
+    without ``compute_dtype`` other rows (a port that ignored the context
+    would give the same).  Beside it, the readings that show why loss and
+    gradient norm cannot tell the two apart against the JAX package at
+    this depth: the run without the cast against JAX's mixed rows, and
+    JAX's own mixed rows against its float32 ones."""
+    from repro_torch import train_check as tc, variants_check as vc
+
+    pe = vc.MIXED_PE_TYPE
+    mixed = train[f"mixed/{pe}"]["rows"]
+    again = tc.run_lm(cfg, pe, dev, compute_dtype=torch.bfloat16)
+    plain = tc.run_lm(cfg, pe, dev)
+    if again != mixed:
+        fail(f"mixed {pe} training is not repeatable: {again} vs {mixed}")
+    if plain == mixed:
+        fail(f"{pe} training without compute_dtype gives the mixed run's "
+             f"rows: the cast did not happen")
+    jax_rows = ref["smollm_train"]
+    res = dict(
+        uncast_vs_mixed=tc.compare(plain, mixed, 0.0),
+        uncast_vs_jax_mixed=tc.compare(plain, jax_rows["mixed"][pe],
+                                       TRAIN_LM_RTOL),
+        jax_mixed_vs_jax_float32=tc.compare(jax_rows["mixed"][pe],
+                                            jax_rows["flash"][pe],
+                                            TRAIN_LM_RTOL),
+        uncast_rows=plain)
+    for key in ("uncast_vs_mixed", "uncast_vs_jax_mixed",
+                "jax_mixed_vs_jax_float32"):
+        r = res[key]
+        print(f"mixed-precision control {key}: loss rel {r['loss_rel']:.3g}, "
+              f"grad norm rel {r['gnorm_rel']:.3g}")
+    print("mixed-precision control: the mixed run repeats bitwise and the "
+          "run without the cast differs from it")
+    return res
+
+
+def run_whisper(torch, dev, ref):
+    """Phase 12.5: Whisper-medium on seed-0 weights, the frontend stub's
+    frames (4 x 1500), prompts of 8, 12 greedy tokens, a 448-row cache
+    (``serve.check.record_encdec``): at the reference's cut depth (4 + 4
+    layers), on dense weights (FP32) and on LightPE-1 and INT8 packed
+    codes, held to the JAX package's runs; at full width and depth (24 +
+    24) on LightPE-1 codes, 384 ``quant_matmul`` and 72
+    ``flash_attention`` launches a prefill and 240 and 48 a decode step,
+    timed, and the greedy run held to the same run on the kernels' plain
+    versions (``plain_kernels``)."""
+    import numpy as np
+    from repro_torch import convert, variants_check as vc
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.models import encdec
+    from repro_torch.serve import check, quantize_params
+
+    part = ref["whisper"]
+    full = get(vc.WHISPER_CONFIG)
+    cut = full.replace(enc_layers=part["enc_layers"],
+                       dec_layers=part["dec_layers"])
+    dense = convert.params_from_numpy(encdec.numpy_params(cut, vc.PARAM_SEED),
+                                      dev)
+    packs = {pe: quantize_params(dense, pe, min_size=part["min_size"])
+             for pe in ("lightpe1", "int8")}
+    pins = check.pin_pow2_codes(packs["lightpe1"], part["pow2_ties"])
+    if pins["e_max_differ"]:
+        fail(f"whisper: {pins['e_max_differ']} columns' e_max differ")
+    out = dict(pow2_pins=pins, runs={})
+
+    def per_run(cfg, packed):
+        steps = part["max_new"] - 1
+        qmm = (6 * cfg.enc_layers + 10 * cfg.dec_layers) if packed else 0
+        dec_qmm = 10 * cfg.dec_layers if packed else 0
+        return {"quant_matmul": qmm + steps * dec_qmm,
+                "flash_attention": cfg.enc_layers + 2 * cfg.dec_layers
+                + steps * 2 * cfg.dec_layers}
+
+    for key, mode in part["modes"].items():
+        params = packs[mode["pe_type"]] if mode["packed"] else dense
+        _zero(torch, flash_attention, quant_matmul)
+        t0 = time.perf_counter()
+        got = vc.whisper_run(cut, params, mode, part, dev)
+        wall = time.perf_counter() - t0
+        counts = _counts(flash_attention, quant_matmul)
+        if counts != per_run(cut, mode["packed"]):
+            fail(f"whisper {key}: launches {counts}, expected "
+                 f"{per_run(cut, mode['packed'])}")
+        problems, notes = check.compare(got, mode["run"], WHISPER_TOL[key])
+        for note in notes:
+            print(f"  tolerated (whisper {key}): {note}")
+        if problems:
+            fail(f"whisper {key} differs from the JAX reference: "
+                 + "; ".join(problems))
+        err = check.max_logit_err(got, mode["run"])
+        steps = check.compared_steps(got, mode["run"])
+        out["runs"][key] = dict(launches=counts, wall_s=wall,
+                                max_logit_err=err, steps_compared=steps,
+                                tolerance=WHISPER_TOL[key], notes=len(notes))
+        print(f"whisper ({cut.enc_layers} + {cut.dec_layers} layers) {key}: "
+              f"matches the JAX reference (max logit err {err:.3g}, "
+              f"tolerance {WHISPER_TOL[key]}, steps compared {steps}); "
+              f"launches {counts}; {wall:.3f} s")
+    del dense, packs
+    gc.collect()
+
+    # full width and depth, LightPE-1 codes, bfloat16
+    t0 = time.perf_counter()
+    packed = quantize_params(convert.params_from_numpy(
+        encdec.numpy_params(full, vc.PARAM_SEED), dev), "lightpe1",
+        min_size=part["min_size"])
+    gc.collect()
+    torch.cuda.synchronize()
+    print(f"whisper: {full.name} at full width and depth ({full.enc_layers} "
+          f"+ {full.dec_layers} layers, d_model {full.d_model}, "
+          f"{full.n_heads} heads of {full.head_dim}, vocab {full.vocab}); "
+          f"weights drawn and packed in {time.perf_counter() - t0:.2f} s")
+    inputs = check.whisper_inputs(full.d_model, full.vocab)
+    batch = {"frames": torch.as_tensor(inputs["frames"], device=dev),
+             "tokens": torch.as_tensor(inputs["tokens"], device=dev)}
+    cache = encdec.init_cache(full, check.WHISPER_BATCH,
+                              check.WHISPER_MAX_LEN, torch.float32,
+                              device=dev)
+    _zero(torch, flash_attention, quant_matmul)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache, enc = encdec.prefill(packed, batch, full, cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t1) * 1e3
+        pre = _counts(flash_attention, quant_matmul)
+        decode_ms = []
+        toks = [logits[:, -1].argmax(-1)]
+        for _ in range(vc.WHISPER_MAX_NEW - 1):
+            _zero(torch, flash_attention, quant_matmul)
+            t1 = time.perf_counter()
+            logits, cache = encdec.decode_step(packed, toks[-1][:, None],
+                                               enc, full, cache)
+            toks.append(logits[:, -1].argmax(-1))
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t1) * 1e3)
+            step = _counts(flash_attention, quant_matmul)
+            want = {"flash_attention": 2 * full.dec_layers,
+                    "quant_matmul": 10 * full.dec_layers}
+            if step != want:
+                fail(f"whisper full decode step: launches {step}, expected "
+                     f"{want}")
+    want = {"flash_attention": full.enc_layers + 2 * full.dec_layers,
+            "quant_matmul": 6 * full.enc_layers + 10 * full.dec_layers}
+    if pre != want:
+        fail(f"whisper full prefill: launches {pre}, expected {want}")
+    if not bool(torch.isfinite(logits).all()):
+        fail("whisper full: logits not finite")
+    tokens = torch.stack(toks, 1).cpu().numpy()
+    # the greedy run at full depth held to the same run on the kernels'
+    # plain versions (the JAX package's reference is cut to 4 + 4 layers)
+    mode = part["modes"]["lightpe1"]
+    shape = dict(batch=check.WHISPER_BATCH, frames=check.WHISPER_FRAMES,
+                 prompt=check.WHISPER_PROMPT, max_len=check.WHISPER_MAX_LEN,
+                 max_new=vc.WHISPER_MAX_NEW)
+    _zero(torch, flash_attention, quant_matmul)
+    got = vc.whisper_run(full, packed, mode, shape, dev)
+    counts = _counts(flash_attention, quant_matmul)
+    if counts != per_run(full, True):
+        fail(f"whisper full record: launches {counts}, expected "
+             f"{per_run(full, True)}")
+    with plain_kernels(torch):
+        plain = vc.whisper_run(full, packed, mode, shape, dev)
+    if _counts(flash_attention, quant_matmul) != counts:
+        fail("whisper full: the plain run launched a kernel")
+    problems, notes = check.compare(got, plain, WHISPER_TOL["lightpe1"])
+    for note in notes:
+        print(f"  tolerated (whisper full / plain): {note}")
+    if problems:
+        fail("whisper full differs from its plain versions: "
+             + "; ".join(problems))
+    held = dict(max_logit_err=check.max_logit_err(got, plain),
+                steps_compared=check.compared_steps(got, plain),
+                tolerance=WHISPER_TOL["lightpe1"], notes=len(notes),
+                tokens_equal=got["tokens"] == plain["tokens"])
+    print(f"whisper full ({full.enc_layers} + {full.dec_layers} layers) "
+          f"lightpe1 / its plain versions: matches (max logit err "
+          f"{held['max_logit_err']:.3g}, tolerance {held['tolerance']}, "
+          f"steps compared {held['steps_compared']}, tokens equal "
+          f"{held['tokens_equal']})")
+    out["full"] = dict(prefill_launches=pre, decode_launches=step,
+                       prefill_ms=prefill_ms,
+                       decode_ms=float(np.mean(decode_ms[1:])),
+                       tokens0=tokens[0].tolist(), plain=held)
+    print(f"whisper full (lightpe1, bfloat16, host-paced): prefill "
+          f"{prefill_ms:.3f} ms (encoder 4 x 1500 + decoder 4 x 8; launches "
+          f"{pre}), decode {out['full']['decode_ms']:.3f} ms/step (launches "
+          f"{step}); tokens of row 0: {tokens[0].tolist()}")
+    del packed, cache, enc
+    gc.collect()
+    return out
+
+
+def check_variant_kernels(torch, dev):
+    """Phase 12.6: the ``flash_attention`` kernel alone at phase 12's new
+    shapes (``VARIANT_SHAPES``: Whisper's encoder and cross-attention at
+    prefill and decode, no mask, Skv != Sq; block-local Gemma-3 at 2 x
+    1024 with its window at head_dim 256; SmolLM ``attn_flash`` at 4 x
+    2048), float32 q, K, V and float32 P as those paths give them, held
+    to its plain version within ``FA_TOL``, two calls bitwise equal;
+    timed beside the plain version, SDPA on the same function and its
+    bound."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_gqa)
+    from repro_torch.kernels.flash_attention import plan as fa_plan
+    from repro_torch.kernels.flash_attention.ref import ref_attention_gqa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for name, b, sq, skv, hq, hkv, d, causal, window in VARIANT_SHAPES:
+        q = torch.randn((b, sq, hq, d), generator=gen, device=dev)
+        k = torch.randn((b, skv, hkv, d), generator=gen, device=dev)
+        v = torch.randn((b, skv, hkv, d), generator=gen, device=dev)
+        st = torch.zeros(b, dtype=torch.int32, device=dev)
+
+        def kernel():
+            return flash_attention_gqa(q, k, v, st, causal=causal,
+                                       window=window)
+
+        def plain():
+            return ref_attention_gqa(q, k, v, st, causal, window=window)
+
+        before = flash_attention.launches
+        got, again = kernel(), kernel()
+        launches = flash_attention.launches - before
+        want = plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if launches != 2 or not torch.equal(got, again) \
+                or not bool(torch.isfinite(got).all()) or err > FA_TOL:
+            fail(f"flash_attention {name}: max_abs_err {err} (tolerance "
+                 f"{FA_TOL}), {launches} launches for 2 calls, bitwise "
+                 f"repeat {torch.equal(got, again)}")
+        del got, again, want
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, plain, reps=3, warmup=1)
+        tq, tk, tv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if window:
+            pos = torch.arange(sq, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - window)
+            kw = dict(attn_mask=mask)
+        else:
+            kw = dict(is_causal=causal)
+        library_ms = time_ms(torch, lambda: sdpa(tq, tk, tv, enable_gqa=True,
+                                                 **kw))
+        del tq, tk, tv
+        if causal:
+            vis = [(max(0, i - window + 1) if window else 0, i + 1)
+                   for i in range(sq)]
+        else:
+            vis = [(0, skv)] * sq
+        bound, by, nbytes, _ = attention_bound(b, hq, hkv, d, vis, False)
+        p = fa_plan(b, sq, skv, hq, hkv, d, False, window)
+        rows.append(dict(name=name, b=b, sq=sq, skv=skv, hq=hq, hkv=hkv,
+                         d=d, causal=causal, window=window, max_abs_err=err,
+                         launches=launches, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound, bound_by=by,
+                         bytes=nbytes, variant=p.variant, splits=p.splits))
+        print(f"flash_attention {name} ({p.variant}, {p.splits} splits): "
+              f"max_abs_err={err:.3g}, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by})")
+    return rows
+
+
+def run_variants(torch, dev, gemma_packs, gemma_records):
+    """Phase 12: every attention path of the reference on the ported
+    kernels (12.1-12.6)."""
+    ref = json.loads(VARIANTS_REF.read_text())
+    out = {}
+    t0 = time.perf_counter()
+    out["block_local"] = run_block_local(torch, dev, gemma_packs, ref)
+    out["kv_replicated"] = run_kv_replicated(torch, dev, gemma_packs,
+                                             gemma_records)
+    gemma_packs.clear()
+    gc.collect()
+    print(f"phase 12.1-12.2 (gemma3-1b variants): "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    out["flash"] = run_flash_variant(torch, dev, ref)
+    print(f"phase 12.3-12.4 (smollm-135m attn_flash, mixed precision): "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    out["whisper"] = run_whisper(torch, dev, ref)
+    print(f"phase 12.5 (whisper-medium): {time.perf_counter() - t0:.2f} s")
+    out["kernels"] = check_variant_kernels(torch, dev)
+    return out
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     import torch
@@ -2240,7 +2826,8 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir() or not REF.exists() \
             or not SERVE_REF.exists() or not COEX_REF.exists() \
             or not SCALE_REF.exists() or not TRAIN_REF.exists() \
-            or not GEMMA_REF.exists() or not MOE_REF.exists():
+            or not GEMMA_REF.exists() or not MOE_REF.exists() \
+            or not VARIANTS_REF.exists():
         fail("src/repro_torch or the JAX reference results are missing "
              "beside chip_smoke.py")
     sys.path.insert(0, str(ROOT / "src"))
@@ -2274,9 +2861,13 @@ def main() -> int:
     print(f"phase 10 (training): {time.perf_counter() - t10:.2f} s")
     t11 = time.perf_counter()
     windowed = check_window_kernel(torch, dev)
-    gemma = run_gemma(torch, dev)
+    gemma, gemma_packs, gemma_records = run_gemma(torch, dev)
     moe = run_moe(torch, dev)
     print(f"phase 11 (decoder family): {time.perf_counter() - t11:.2f} s")
+    t12 = time.perf_counter()
+    variants = run_variants(torch, dev, gemma_packs, gemma_records)
+    print(f"phase 12 (attention paths: perf variants, mixed precision, "
+          f"whisper): {time.perf_counter() - t12:.2f} s")
 
     # the row's main numbers: one grouped launch over the 15 VGG-16
     # weights, affine-8, float32; the bfloat16 and per-weight times beside
@@ -2300,6 +2891,9 @@ def main() -> int:
         moe_experts=moe["expert_fake_quant"],
         moe_serving_launches={k: r["launches"]["fake_quant"]
                               for k, r in moe["runs"].items()},
+        variant_training_launches={
+            k: r["launches"]["fake_quant"]
+            for k, r in variants["flash"]["train"].items()},
         modes=list(modes.values()))]
     # the rows' main numbers are one decode step's (11 of the 12 steps);
     # the prefill step's stand beside them
@@ -2327,12 +2921,32 @@ def main() -> int:
                                bound_f32_ms=rows["decode"]["bound_f32_ms"],
                                bf16_q=rows["bf16_q"], windowed=windowed,
                                gemma_launches=gemma["runs"]["lightpe1"][
-                                   "launches"]["flash_attention"])
+                                   "launches"]["flash_attention"],
+                               variants=variants["kernels"],
+                               variant_launches=dict(
+                                   block_local=variants["block_local"][
+                                       "full"]["launches"]["flash_attention"],
+                                   kv_replicated=variants["kv_replicated"][
+                                       "runs"]["lightpe1"]["launches"][
+                                       "flash_attention"],
+                                   flash_forward=variants["flash"]["forward"][
+                                       "float32"]["launches"],
+                                   whisper_prefill=variants["whisper"]["full"][
+                                       "prefill_launches"]["flash_attention"],
+                                   whisper_decode=variants["whisper"]["full"][
+                                       "decode_launches"]["flash_attention"]))
         if name == "quant_matmul":
             kernels[-1].update(
                 variant={p: r["variant"] for p, r in rows.items()},
                 bound_f32_ms=rows["decode"]["bound_f32_ms"],
-                per_projection_ms=rows["decode"]["per_projection_ms"])
+                per_projection_ms=rows["decode"]["per_projection_ms"],
+                variant_launches=dict(
+                    block_local=variants["block_local"]["full"]["launches"][
+                        "quant_matmul"],
+                    whisper_prefill=variants["whisper"]["full"][
+                        "prefill_launches"]["quant_matmul"],
+                    whisper_decode=variants["whisper"]["full"][
+                        "decode_launches"]["quant_matmul"]))
     bwd = training["backward"]
     main_bwd = bwd["train_f32"]
     kernels.append(dict(
@@ -2353,10 +2967,15 @@ def main() -> int:
         unit="one layer of SmolLM-135M training, 16 x 256 tokens, float32 "
              "q, k, v (the gradient of the Pallas kernel's function; the "
              "Pallas kernel has no backward)",
-        fwd_bwd_ms=main_bwd["fwd_bwd_ms"], shapes=bwd))
+        fwd_bwd_ms=main_bwd["fwd_bwd_ms"], shapes=bwd,
+        variant_training_launches={
+            k: r["launches"]["backward"]
+            for k, r in variants["flash"]["train"].items()}))
     print(json.dumps({"kernels": kernels, "serving": serving, "qat": qat,
                       "coexplore": coex, "scale": scale,
-                      "decoder": {"gemma": gemma, "moe": moe}}))
+                      "decoder": {"gemma": gemma, "moe": moe},
+                      "variants": {k: v for k, v in variants.items()
+                                   if k != "kernels"}}))
     print(json.dumps({"train": {k: v for k, v in training.items()
                                 if k != "backward"}}))
     print(json.dumps({"ok": True, "device": {

@@ -77,9 +77,11 @@ def ppa_models_from_numpy(models: dict, device=None) -> PPAModels:
 
 def params_from_numpy(tree, device=None):
     """A model's parameter pytree with numpy leaves (the JAX package's
-    layout, packed ``{"codes__<mode>": ..., "scale": ...}`` leaves
-    included) -> the same nested dicts and lists of tensors, each leaf
-    keeping its dtype (float32 weights, uint8/int8 codes)."""
+    layout of any family: the decoders' stacked ``layers``, Whisper's
+    ``enc_layers`` / ``dec_layers`` and LayerNorm ``{"scale", "bias"}``
+    leaves, packed ``{"codes__<mode>": ..., "scale": ...}`` leaves) ->
+    the same nested dicts and lists of tensors, each leaf keeping its
+    dtype (float32 weights, uint8/int8 codes)."""
     device = resolve_device(device)
 
     def f(x):

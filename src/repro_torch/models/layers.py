@@ -6,26 +6,59 @@ of the paper's PE-type numerics (QuantConfig), or on packed weight codes.
 Params are plain nested dicts of tensors, keyed like the reference's
 pytree; init functions draw from a ``torch.Generator``.
 
-Not ported (ROADMAP A): the activation-sharding and ``compute_dtype``
-contexts, ``layernorm`` and the unified ``attention`` (the transformer's
-own attention is ported).
+The unified ``attention`` (bidirectional, causal with a KV cache, and
+cross attention over encoder states: the encoder-decoder family's) ends
+on the ``flash_attention`` kernel for CUDA tensors.  The mixed-precision
+context ``compute_dtype`` makes ``qdense`` cast both operands after the
+fake quantization.  Not ported (ROADMAP A, the launch layer): the
+activation-sharding context, which only places tensors on a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Dict
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import flash_attention_gqa
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.quant.fake_quant import fake_quant_act, fake_quant_weight
 from repro_torch.quant.pack import DEQUANTIZE
 from repro_torch.quant.qconfig import QuantConfig
 
 Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# mixed-precision context
+# ---------------------------------------------------------------------------
+
+_ctx = threading.local()
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """Mixed-precision context: ``qdense`` casts weights and activations
+    to ``dtype`` after their fake quantization, before the product (the
+    float32 master weights stay with the optimizer).  None = full
+    precision.  The reference's launcher sets it from the config's
+    ``mixed_precision``."""
+    old = getattr(_ctx, "dtype", None)
+    _ctx.dtype = dtype
+    try:
+        yield
+    finally:
+        _ctx.dtype = old
+
+
+def current_compute_dtype():
+    """The innermost ``compute_dtype``'s type, or None."""
+    return getattr(_ctx, "dtype", None)
 
 
 # ---------------------------------------------------------------------------
@@ -59,7 +92,8 @@ def packed_mode(w: dict):
     return None, None
 
 
-def qdense(x: torch.Tensor, w, qcfg: QuantConfig) -> torch.Tensor:
+def qdense(x: torch.Tensor, w, qcfg: QuantConfig,
+           cast=None) -> torch.Tensor:
     """x @ w under the QuantConfig numerics (QAT fake-quant, STE grads).
 
     w may be a packed-code dict {"codes__<mode>": codes, "scale": scale}
@@ -67,11 +101,20 @@ def qdense(x: torch.Tensor, w, qcfg: QuantConfig) -> torch.Tensor:
     kernel reads the codes themselves; otherwise they are dequantized,
     fake-quantized and multiplied, as in the reference.  A dense product
     promotes the two types as JAX does (bf16 x with float32 w is a
-    float32 product).
+    float32 product).  ``cast`` (else the ``compute_dtype`` context's
+    type) casts x and w after the fake quantization, before the product;
+    packed codes under a cast raise: the reference rounds code x scale to
+    the cast type before its product, the kernel scales a float32 sum.
     """
+    ct = cast if cast is not None else current_compute_dtype()
     if isinstance(w, dict):
         mode, key = packed_mode(w)
         codes, scale = w[key], w["scale"]
+        if ct is not None:
+            raise NotImplementedError(
+                "qdense: packed weight codes under a compute-type cast "
+                "(the reference rounds the dequantized weight to the cast "
+                "type; quant_matmul scales its float32 sum; ROADMAP C)")
         if qcfg.is_identity:
             if codes.ndim != 2:
                 raise ValueError(f"qdense takes one layer's codes, got "
@@ -83,7 +126,7 @@ def qdense(x: torch.Tensor, w, qcfg: QuantConfig) -> torch.Tensor:
     if not qcfg.is_identity:
         w = fake_quant_weight(w, qcfg)
         x = fake_quant_act(x, qcfg)
-    dt = torch.promote_types(x.dtype, w.dtype)
+    dt = ct if ct is not None else torch.promote_types(x.dtype, w.dtype)
     return torch.matmul(x.to(dt), w.to(dt))
 
 
@@ -99,6 +142,16 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     x = x * torch.rsqrt(var + eps)
     g = 1.0 + scale if zero_centered else scale  # gemma uses (1 + g)
     return (x * g).to(dt)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 with the biased variance (``jnp.var``)."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    return ((x - mu) * torch.rsqrt(var + eps) * scale + bias).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +204,7 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# attention parameters and cache
+# unified attention, its parameters and cache
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -186,6 +239,92 @@ def attn_init(gen, d_model: int, spec: AttnSpec, dtype=torch.float32,
         p["k_norm"] = torch.ones(spec.head_dim, dtype=dtype,
                                  device=resolve_device(device))
     return p
+
+
+def _attend(q, k, v, spec: AttnSpec, q_start, mask_mode: str):
+    """Core attention, all of it in float32 with float32 P (the
+    reference's ``_attend``).  q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv,
+    Dh).  mask_mode "causal": query i of row b sits at q_start[b] + i and
+    sees keys 0 .. that position (and its window); "full": every key
+    (bidirectional / cross).  One ``flash_attention`` launch on the card."""
+    f32 = torch.float32
+    out = flash_attention_gqa(
+        q.to(f32), k.to(f32), v.to(f32), q_start,
+        causal=mask_mode == "causal",
+        scale=spec.query_scale or 1.0 / math.sqrt(q.shape[-1]),
+        round_p=False, window=spec.window, softcap=spec.softcap)
+    return out.to(q.dtype)
+
+
+def query_start(positions: torch.Tensor) -> torch.Tensor:
+    """(B,) int32 position of each row's first query, from (B, S)
+    positions (M-RoPE: stream 0) that must be start + arange(S) per row:
+    the kernel masks by index from one start a row."""
+    pos2d = positions if positions.ndim == 2 else positions[..., 0]
+    q_start = pos2d[:, 0].to(torch.int32)
+    ar = torch.arange(pos2d.shape[1], device=pos2d.device)
+    if not torch.equal(pos2d.to(torch.long),
+                       q_start.to(torch.long)[:, None] + ar[None]):
+        raise ValueError("positions must be start + arange(S) on every row")
+    return q_start
+
+
+def attention(params: Params, x: torch.Tensor, spec: AttnSpec,
+              qcfg: QuantConfig, positions: torch.Tensor,
+              cache: Params | None = None,
+              cross_kv: torch.Tensor | None = None,
+              mask_mode: str = "causal", q_start=None):
+    """Unified attention layer (the reference's ``layers.attention``).
+
+    x: (B, S, D). positions: (B, S) (or (B, S, 3) for M-RoPE), of the
+    form start + arange(S) a row; ``q_start`` ((B,) int32, their first
+    column) may be passed to skip that check.  cache: None, or
+    ``make_cache``'s dict, written in place at its index (clamped as
+    ``dynamic_update_slice`` clamps it) and attended over all its rows
+    under the causal mask.  cross_kv: (B, Senc, D) encoder states: K and V
+    come from them, no RoPE, every key visible.  Returns (out, cache)."""
+    b, s, _ = x.shape
+    hq, hkv, dh = spec.n_heads, spec.kv_heads, spec.head_dim
+    q = qdense(x, params["wq"], qcfg).reshape(b, s, hq, dh)
+    kv_src = cross_kv if cross_kv is not None else x
+    k = qdense(kv_src, params["wk"], qcfg).reshape(b, kv_src.shape[1], hkv,
+                                                   dh)
+    v = qdense(kv_src, params["wv"], qcfg).reshape(b, kv_src.shape[1], hkv,
+                                                   dh)
+    if spec.qk_norm:
+        q = rmsnorm(q, params["q_norm"])
+        k = rmsnorm(k, params["k_norm"])
+    pos2d = positions if positions.ndim == 2 else positions[..., 0]
+    if cross_kv is None:
+        if spec.mrope_sections:
+            q = apply_mrope(q, positions, spec.mrope_sections,
+                            spec.rope_theta)
+            k = apply_mrope(k, positions, spec.mrope_sections,
+                            spec.rope_theta)
+        else:
+            q = apply_rope(q, pos2d, spec.rope_theta)
+            k = apply_rope(k, pos2d, spec.rope_theta)
+
+    new_cache = cache
+    if cache is not None and cross_kv is None:
+        ck, cv, idx = cache["k"], cache["v"], cache["index"]
+        max_len = ck.shape[1]
+        if s > max_len:
+            raise ValueError(f"{s} tokens do not fit a cache of {max_len}")
+        at = min(max(idx, 0), max_len - s)
+        ck[:, at:at + s] = k.to(ck.dtype)
+        cv[:, at:at + s] = v.to(cv.dtype)
+        new_cache = {"k": ck, "v": cv, "index": idx + s}
+        k, v = ck, cv
+    mode = "full" if cross_kv is not None else mask_mode
+    if mode == "causal" and q_start is None:
+        q_start = query_start(pos2d)
+    if mode == "causal" and cache is None:
+        # the keys are the queries themselves: only their offsets matter
+        q_start = torch.zeros_like(q_start)
+    out = _attend(q, k, v, spec, q_start if mode == "causal" else None, mode)
+    out = qdense(out.reshape(b, s, hq * dh), params["wo"], qcfg)
+    return out, new_cache
 
 
 def make_cache(batch: int, max_len: int, spec: AttnSpec,

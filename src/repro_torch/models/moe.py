@@ -27,9 +27,10 @@ The reference's numerics, held by ``tests/test_torch_moe.py``:
     no atomics, so two calls give the same bits;
   * ``out + shared`` promotes as JAX does (bfloat16 + float32 -> float32).
 
-The reference's ``moe_apply_ep`` (a ``shard_map`` all-to-all) waits for
-the launch layer (ROADMAP A11); ``transformer.check_supported`` refuses
-``moe_ep_shard_map``.  The reference cannot apply a router packed by
+The reference's ``moe_apply_ep`` (perf variant ``moe_ep_shard_map``)
+falls back to ``moe_apply`` when no launcher mesh is active; the port
+has no mesh yet (the launch layer, ROADMAP A), so its transformer calls
+``moe_apply`` under that variant.  The reference cannot apply a router packed by
 ``serve.quantize_params`` (ROADMAP C), and the port raises for one too.
 
 ``RouterLog`` records each call's routing (expert ids and the margin of
@@ -197,7 +198,8 @@ def _route(xf: torch.Tensor, router: torch.Tensor):
 
 def _expert_dense(x: torch.Tensor, w, qcfg: QuantConfig) -> torch.Tensor:
     """x (E, C, K) @ w (E, K, N) per expert, ``qdense``'s numerics on each
-    expert alone; the product promotes as JAX does."""
+    expert alone; the product promotes as JAX does, or takes the
+    ``compute_dtype`` context's type."""
     if isinstance(w, dict):
         raise NotImplementedError("the port takes dense expert weights: "
                                   "serve.quantize_params leaves the 4-D "
@@ -205,7 +207,7 @@ def _expert_dense(x: torch.Tensor, w, qcfg: QuantConfig) -> torch.Tensor:
     if not qcfg.is_identity:
         w = fake_quant_experts(w, qcfg)
         x = fake_quant_expert_acts(x, qcfg)
-    dt = torch.promote_types(x.dtype, w.dtype)
+    dt = L.current_compute_dtype() or torch.promote_types(x.dtype, w.dtype)
     return torch.bmm(x.to(dt), w.to(dt))
 
 

@@ -1,7 +1,7 @@
 """Decoder-only transformer LM (port of ``repro.models.transformer``): the
 ``lm``, ``moe`` and ``vlm`` families (qwen3 / gemma2 / gemma3 / smollm /
-the qwen2-vl backbone / deepseek-moe / phi3.5-moe) on the reference's
-baseline path (``attn_mode="dyn"``).
+the qwen2-vl backbone / deepseek-moe / phi3.5-moe), on the reference's
+baseline path (``attn_mode="dyn"``) and its perf variants.
 
 Params keep the reference's pytree layout: per-layer weights stacked on
 a leading L axis under ``params["layers"]`` (MoE blocks under
@@ -27,15 +27,27 @@ soft-caps and its query scale go to the kernel and the head.  M-RoPE
 takes (B, S) positions broadcast to its 3 streams (or (B, S, 3) ones);
 the kernel's query start comes from stream 0.
 
+The perf variants, as the reference takes them:
+  * ``kv_replicate_to``: K/V heads repeated up to that count in the
+    attention and in ``init_cache`` (the kernel then sees Hq / count
+    query heads a KV head);
+  * ``attn_block_local`` (no cache, a window, the gemma3 or alternating
+    pattern): local layers through ``block_attn.block_local_attention``
+    (float32 with float32 P), global ones on the baseline path;
+  * ``attn_flash`` (no cache, an all-global pattern): every layer through
+    ``flash_attn.flash_attention``, float32 with float32 P;
+  * ``moe_ep_shard_map``: with no mesh (the port has no launch layer
+    yet) ``moe.moe_apply``, as the reference's ``moe_apply_ep`` falls
+    back.
+
 The KV cache is updated in place (the reference returns a new one; the
-port returns the same, written, object).  Configurations this port does
-not run raise: the perf variants (``kv_replicate_to``,
-``attn_block_local``, ``attn_flash``, ``moe_ep_shard_map``) and the
-families other than ``lm`` / ``moe`` / ``vlm``.
+port returns the same, written, object).  The families other than
+``lm`` / ``moe`` / ``vlm`` raise here (``encdec`` has its own module).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
@@ -45,6 +57,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention_gqa, soft_cap
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models.block_attn import block_local_attention
+from repro_torch.models.flash_attn import flash_attention as chunked_attention
 from repro_torch.quant.qconfig import preset
 
 Params = Dict[str, Any]
@@ -76,18 +90,18 @@ def attn_spec(cfg, is_global: bool = True) -> L.AttnSpec:
 
 
 def check_supported(cfg):
-    """Raise for a configuration the port's transformer does not run."""
-    refused = {
-        f"the {cfg.family} family": cfg.family not in ("lm", "moe", "vlm"),
-        "kv_replicate_to": cfg.kv_replicate_to > 0,
-        "attn_block_local": cfg.attn_block_local,
-        "attn_flash": cfg.attn_flash,
-        "moe_ep_shard_map": cfg.moe_ep_shard_map,
-    }
-    bad = [what for what, on in refused.items() if on]
-    if bad:
-        raise NotImplementedError(f"{cfg.name}: the port does not run "
-                                  f"{', '.join(bad)} yet (ROADMAP A)")
+    """Raise for a configuration the port's transformer does not run: a
+    family other than ``lm`` / ``moe`` / ``vlm``."""
+    if cfg.family not in ("lm", "moe", "vlm"):
+        raise NotImplementedError(f"{cfg.name}: the port's transformer does "
+                                  f"not run the {cfg.family} family")
+
+
+def replicated_kv(cfg) -> int:
+    """KV heads of the attention and the cache: ``kv_replicate_to`` when
+    it exceeds the config's (the perf variant), else the config's."""
+    rep = cfg.kv_replicate_to
+    return rep if rep and rep > cfg.kv_heads else cfg.kv_heads
 
 
 # ---------------------------------------------------------------------------
@@ -217,17 +231,21 @@ def _layer(tree, i: int):
 
 
 def _block(p: Params, x, cfg, qcfg, positions, q_start, is_global: bool,
-           cache=None, moe: bool = False):
-    """One transformer block (the reference's ``attn_mode="dyn"``): a local
-    layer's attention sees its window, a global one's every earlier key."""
-    window = 0 if is_global else max(cfg.window, 1)
+           cache=None, moe: bool = False, attn_mode: str = "dyn"):
+    """One transformer block.  attn_mode "dyn" (the baseline: a local
+    layer's attention sees its window, a global one's every earlier key)
+    or "local" (the grouped backbone's local layers: the block-local
+    window, float32); the grouped backbone's global layers are "dyn"
+    ones, as the reference's static "global" mode computes the same."""
     h = L.rmsnorm(x, p["ln1"], zero_centered=cfg.zero_centered_norm)
-    attn_out, new_cache = _attention_dynwin(p["attn"], h, attn_spec(cfg),
-                                            qcfg, positions, q_start, cache,
-                                            window)
+    attn_out, new_cache = _attention_dynwin(
+        p["attn"], h, attn_spec(cfg), qcfg, positions, q_start, cache,
+        0 if is_global else max(cfg.window, 1), cfg=cfg, attn_mode=attn_mode)
     x = x + attn_out.to(x.dtype)
     h = L.rmsnorm(x, p["ln2"], zero_centered=cfg.zero_centered_norm)
     if moe:
+        # moe_ep_shard_map with no launcher mesh is moe_apply, as the
+        # reference falls back (the port has no mesh yet)
         ff = MOE.moe_apply(p["moe"], h, cfg, qcfg)
     else:
         ff = L.mlp(p["mlp"], h, qcfg, cfg.act)
@@ -235,7 +253,8 @@ def _block(p: Params, x, cfg, qcfg, positions, q_start, is_global: bool,
 
 
 def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
-                      cache, window: int = 0):
+                      cache, window: int = 0, cfg=None,
+                      attn_mode: str = "dyn"):
     """Attention of one layer, through the flash attention kernel.
 
     positions: (B, S) absolute token positions (for RoPE), or (B, S, 3)
@@ -244,7 +263,9 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
     0..max_len-1 with a cache, else the prompt itself (then 0).  With a
     cache, this step's k and v are written at the cache index first, the
     start clamped to [0, max_len - S] as ``dynamic_update_slice`` clamps
-    it.  window: 0 (global) or the local layer's width.
+    it.  window: 0 (global) or the local layer's width.  ``cfg`` carries
+    the perf variants (``kv_replicate_to``, ``attn_flash``), ``attn_mode``
+    "local" the grouped backbone's local layers.
     """
     b, s, _ = x.shape
     hq, hkv, dh = spec.n_heads, spec.kv_heads, spec.head_dim
@@ -265,6 +286,33 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
         q = L.apply_rope(q, pos2d, spec.rope_theta)
         k = L.apply_rope(k, pos2d, spec.rope_theta)
 
+    # perf variant: K/V heads padded up to the TP degree (replicated GQA
+    # groups), so that decode caches shard on heads
+    kv = replicated_kv(cfg) if cfg is not None else hkv
+    if kv > hkv:
+        k = torch.repeat_interleave(k, kv // hkv, dim=2)
+        v = torch.repeat_interleave(v, kv // hkv, dim=2)
+        hkv = kv
+    scale = spec.query_scale or 1.0 / float(np.sqrt(dh))
+
+    if attn_mode == "local" and cache is None:
+        # perf variant: static block-banded window, float32 throughout
+        out = block_local_attention(q.reshape(b, s, hkv, hq // hkv, dh), k,
+                                    v, pos2d, cfg.window, spec.softcap,
+                                    spec.query_scale, checked=True)
+        out = out.reshape(b, s, hq * dh).to(x.dtype)
+        return L.qdense(out, p["wo"], qcfg), cache
+    if (cfg is not None and cfg.attn_flash and cache is None
+            and (cfg.layer_pattern == "all_global" or cfg.window <= 0)):
+        # perf variant: chunked online-softmax prefill (all-global
+        # patterns only; the traced window of the scan is 2^30)
+        out = chunked_attention(q.reshape(b, s, hkv, hq // hkv, dh), k, v,
+                                pos2d, pos2d, 1 << 30, spec.softcap,
+                                spec.query_scale,
+                                q_start=torch.zeros_like(q_start))
+        out = out.reshape(b, s, hq * dh).to(x.dtype)
+        return L.qdense(out, p["wo"], qcfg), cache
+
     new_cache = cache
     if cache is not None:
         ck, cv, idx = cache["k"], cache["v"], cache["index"]
@@ -280,8 +328,7 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
     # the reference's type rules: K is rounded to q's type inside the
     # product, P to V's type before P V; the kernel takes K and V as they
     # are (a float32 cache is not copied)
-    out = flash_attention_gqa(q, k, v, q_start, causal=True,
-                              scale=spec.query_scale or 1.0 / float(np.sqrt(dh)),
+    out = flash_attention_gqa(q, k, v, q_start, causal=True, scale=scale,
                               round_p=True, window=window,
                               softcap=spec.softcap)
     out = out.reshape(b, s, hq * dh).to(x.dtype)
@@ -301,14 +348,34 @@ def _backbone(params, x, cfg, positions, q_start, caches=None):
         if caches is not None:
             caches["dense"][i] = cache
     flags = layer_is_global(cfg)[cfg.first_dense:]
+    grouped = _grouped_flags(cfg) if caches is None else None
     for i, is_global in enumerate(flags):
         cache = None if caches is None else _layer(caches["scan"], i)
+        mode = "dyn"
+        if grouped is not None:
+            is_global = grouped[i]
+            mode = "dyn" if is_global else "local"
         x, cache = _block(_layer(params["layers"], i), x, cfg, qcfg,
                           positions, q_start, bool(is_global), cache,
-                          moe=cfg.moe_experts > 0)
+                          moe=cfg.moe_experts > 0, attn_mode=mode)
         if caches is not None:
             caches["scan"]["index"][i] = cache["index"]
     return x, caches
+
+
+def _grouped_flags(cfg):
+    """The reference's pattern-grouped backbone (perf variant
+    ``attn_block_local``, with no cache, a window and the gemma3 or
+    alternating pattern): the stacked layers in periods of (period - 1)
+    block-local layers and one global, the leftover layers local.  Returns
+    each stacked layer's is_global, or None off that path."""
+    if not (cfg.attn_block_local and cfg.window > 0
+            and cfg.layer_pattern in ("gemma3", "alt_local_global")):
+        return None
+    period = {"gemma3": 6, "alt_local_global": 2}[cfg.layer_pattern]
+    n_groups = cfg.n_layers // period
+    idx = np.arange(cfg.n_layers - cfg.first_dense)
+    return (idx < n_groups * period) & (idx % period == period - 1)
 
 
 def _logits(params, x, cfg):
@@ -338,17 +405,12 @@ def _positions(tokens, positions, start: int):
     kernel takes one start per row); anything else raises."""
     b, s = tokens.shape[:2]
     dev = tokens.device
-    ar = torch.arange(s, device=dev)
     if positions is None:
         q_start = torch.full((b,), start, dtype=torch.int32, device=dev)
-        return (start + ar)[None].expand(b, s), q_start
+        return (start + torch.arange(s, device=dev))[None].expand(b, s), \
+            q_start
     positions = torch.as_tensor(positions, device=dev)
-    pos2d = positions if positions.ndim == 2 else positions[..., 0]
-    q_start = pos2d[:, 0].to(torch.int32)
-    if not torch.equal(pos2d.to(torch.long),
-                       q_start.to(torch.long)[:, None] + ar[None]):
-        raise ValueError("positions must be start + arange(S) on every row")
-    return positions, q_start
+    return positions, L.query_start(positions)
 
 
 def forward(params, tokens, cfg, positions=None):
@@ -383,9 +445,10 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
     """KV caches: the scanned layers' stacked on a leading L axis, the
     leading dense layers' one a layer under ``"dense"``; ``index`` is one
-    host int per layer, as the reference keeps one per layer."""
+    host int per layer, as the reference keeps one per layer.  With
+    ``kv_replicate_to`` the caches hold that many KV heads."""
     check_supported(cfg)
-    spec = attn_spec(cfg)
+    spec = dataclasses.replace(attn_spec(cfg), kv_heads=replicated_kv(cfg))
     one = L.make_cache(batch, max_len, spec, dtype, device)
     n = cfg.n_layers - cfg.first_dense
     scan = {"k": one["k"][None].repeat(n, 1, 1, 1, 1),

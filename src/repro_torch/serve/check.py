@@ -1,5 +1,8 @@
 """Record what a serving run generates, and hold it to a reference run.
 
+(``record_encdec`` records an encoder-decoder model's greedy run the
+same way, through its ``prefill`` / ``decode_step``.)
+
 The serving smoke of the port (``chip_smoke.py``) and the script that
 writes its reference from the JAX package (``tests/_torch_serve_ref.py``)
 drive their engines through the same ``record``: both engines call
@@ -47,6 +50,18 @@ MIN_SIZE = 1 << 10     # examples/serve_quantized.py's quantize_params floor
 # wave (the unreset cache index would clamp there, ROADMAP C)
 GEMMA_PROMPT_LENS = (64, 300, 700, 900)
 GEMMA_MAX_LEN = 1024
+
+
+# Whisper-medium's run (an encoder-decoder model: the engine serves none,
+# so the reference's entry points are driven directly): 4 rows of 1500
+# frames (its 30 s window after the conv stem, drawn N(0, 1)), a prompt
+# of 8 tokens a row, 12 greedy tokens, a cache of 448 rows (the model's
+# max_target_positions)
+WHISPER_BATCH = 4
+WHISPER_FRAMES = 1500
+WHISPER_PROMPT = 8
+WHISPER_MAX_LEN = 448
+FRAME_SEED = 2
 
 
 def pin_pow2_codes(packed, ties: dict) -> dict:
@@ -152,10 +167,20 @@ def record(engine, prompt_list, max_new: int, to_numpy,
         engine.run()
     finally:   # the wrappers hold the engine: no cycle keeps its cache
         engine._prefill, engine._decode = prefill, decode
-    out = {"tokens": [], "margins": [], "top_logits": [], "logits": []}
-    for r in reqs:
-        steps = rows[id(r)]
-        out["tokens"].append([int(t) for t in r.out])
+    out = _summary([[int(t) for t in r.out] for r in reqs],
+                   [rows[id(r)] for r in reqs])
+    if router is not None:
+        out["routes"] = [routes[id(r)] for r in reqs]
+        out["route_margins"] = [route_margins[id(r)] for r in reqs]
+    return out
+
+
+def _summary(tokens, rows) -> dict:
+    """The record of requests' ``tokens`` and the float32 logit ``rows``
+    of their steps: per request and step the top-2 margin, the top logit
+    and the first SLICE logits."""
+    out = {"tokens": tokens, "margins": [], "top_logits": [], "logits": []}
+    for steps in rows:
         margins, tops, heads = [], [], []
         for row in steps:
             top = int(np.argmax(row))
@@ -166,10 +191,42 @@ def record(engine, prompt_list, max_new: int, to_numpy,
         out["margins"].append(margins)
         out["top_logits"].append(tops)
         out["logits"].append(heads)
-    if router is not None:
-        out["routes"] = [routes[id(r)] for r in reqs]
-        out["route_margins"] = [route_margins[id(r)] for r in reqs]
     return out
+
+
+def whisper_inputs(d_model: int, vocab: int, batch: int = WHISPER_BATCH,
+                   frames: int = WHISPER_FRAMES, prompt: int = WHISPER_PROMPT,
+                   seed: int = FRAME_SEED) -> dict:
+    """Whisper's run inputs from ``default_rng(seed)``: frames (batch,
+    frames, d_model) N(0, 1) float32 (the frontend stub's embeddings)
+    and prompt tokens (batch, prompt)."""
+    rng = np.random.default_rng(seed)
+    return {"frames": rng.standard_normal((batch, frames, d_model),
+                                          dtype=np.float32),
+            "tokens": rng.integers(0, vocab, size=(batch, prompt))}
+
+
+def record_encdec(mod, params, cfg, batch, cache, max_new: int, to_numpy,
+                  to_tokens) -> dict:
+    """Greedy generation of an encoder-decoder model through its entry
+    points (either package's): ``prefill`` (the encoder and the prompt),
+    then ``decode_step`` on each chosen token (argmax of the float32
+    logits over the padded vocabulary, as the serving engines choose)
+    until ``max_new`` tokens a row; returns ``record``'s format, a
+    request a batch row.  ``to_numpy`` turns logits into numpy,
+    ``to_tokens`` a (B, 1) numpy array into the package's tokens."""
+    logits, cache, enc = mod.prefill(params, batch, cfg, cache)
+    rows, tokens = [], []
+    for step in range(max_new):
+        last = np.asarray(to_numpy(logits), np.float32)[:, -1]
+        nxt = np.argmax(last, axis=-1)
+        rows.append(last)
+        tokens.append(nxt)
+        if step + 1 < max_new:
+            logits, cache = mod.decode_step(params, to_tokens(nxt[:, None]),
+                                            enc, cfg, cache)
+    return _summary([[int(t[i]) for t in tokens] for i in range(len(nxt))],
+                    [[r[i] for r in rows] for i in range(len(nxt))])
 
 
 def _step_routing(want: dict, at) -> list:

@@ -86,11 +86,14 @@ def detached_attention():
         transformer.flash_attention_gqa = real
 
 
-def run_lm(cfg, pe_type: str, device) -> list:
+def run_lm(cfg, pe_type: str, device, compute_dtype=None) -> list:
     """[[loss, grad_norm], ...] of ``LM_STEPS`` port train steps
-    (``make_train_step``) of ``cfg`` under ``pe_type``."""
+    (``make_train_step``) of ``cfg`` under ``pe_type``; with
+    ``compute_dtype`` (a torch type) inside ``layers.compute_dtype`` (the
+    reference's ``mixed_precision`` variant)."""
     from repro_torch import convert
     from repro_torch.models import family_module
+    from repro_torch.models.layers import compute_dtype as cast_to
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.train import TrainState, make_train_step
 
@@ -105,7 +108,8 @@ def run_lm(cfg, pe_type: str, device) -> list:
     rows = []
     for i in range(LM_STEPS):
         batch_i = convert.params_from_numpy(lm_batch(cfg.vocab, i), device)
-        state, m = step(state, batch_i)
+        with cast_to(compute_dtype):
+            state, m = step(state, batch_i)
         rows.append([m["loss"].item(), m["grad_norm"].item()])
     return rows
 

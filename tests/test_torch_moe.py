@@ -10,7 +10,9 @@ comparison of it; and the DeepSeek serving reference's format.
 Tolerance: 1e-4 in float32 (the order of float32 sums, as the model
 tests); the routing may differ only at a router near tie (a probability
 margin below ``ROUTER_TOL``), and then the tokens from the first such
-difference on are not compared (they are counted).
+difference on are not compared (they are counted).  Under LightPE-1 and
+INT8 an activation code at a round(x / s) tie takes the JAX code
+(``_torch_act_pins.ActPins``, the pins counted), as in the model tests.
 """
 
 import json
@@ -36,6 +38,8 @@ from repro_torch.quant import fake_quant as tfq, preset
 from repro_torch.serve import (ServeEngine, check, dequantize_params,
                                quantize_params)
 
+from _torch_act_pins import (ActPins, jax_act_log,  # noqa: F401
+                             one_torch_thread)
 from _torch_moe_ref import (REF_PATH, ROUTER_TOL, build_reference,
                             jax_router_log, reference_config)
 
@@ -57,18 +61,22 @@ def _layer(name, seed=0):
     return cfg, p, x
 
 
-def _both(name, pe, p, x):
-    """(port output, JAX output, port routing, JAX routing)."""
+def _both(name, pe, p, x, pins=None):
+    """(port output, JAX output, port routing, JAX routing); ``pins`` (an
+    ``ActPins``) takes the JAX activation codes at rounding ties."""
     cfg = reduced(name)
-    with jax_router_log() as jlog:
+    with jax_router_log() as jlog, jax_act_log() as jacts:
         want = np.asarray(JM.moe_apply(jax.tree.map(jnp.asarray, p),
                                        jnp.asarray(x), jax_reduced(name),
                                        jax_preset(pe)))
         jroutes = jlog.drain()
+        if pins:
+            pins.load(jacts.drain())
     with MOE.RouterLog() as log:
         got = MOE.moe_apply(convert.params_from_numpy(p, "cpu"),
                             torch.as_tensor(x), cfg, preset(pe)).numpy()
         routes = log.drain()
+    assert pins is None or pins.done()
     return got, want, routes, jroutes
 
 
@@ -83,9 +91,11 @@ def _compared_tokens(routes, jroutes):
 
 @pytest.mark.parametrize("pe", ["fp32", "lightpe1", "int8"])
 @pytest.mark.parametrize("name", CONFIGS)
-def test_moe_apply_matches_jax(name, pe):
+def test_moe_apply_matches_jax(name, pe, monkeypatch, record_property):
     cfg, p, x = _layer(name)
-    got, want, routes, jroutes = _both(name, pe, p, x)
+    pins = ActPins(monkeypatch, strict=False)
+    got, want, routes, jroutes = _both(name, pe, p, x, pins)
+    record_property("activation_codes_pinned", pins.pinned)
     assert got.shape == want.shape == x.shape and got.dtype == want.dtype
     n = _compared_tokens(routes, jroutes)
     assert n > x.shape[0] * x.shape[1] // 2
@@ -216,18 +226,27 @@ def test_route_cut_holds_the_routing():
 
 @pytest.mark.parametrize("pe", ["fp32", "lightpe1", "int8"])
 @pytest.mark.parametrize("name", CONFIGS)
-def test_moe_pinned_to_jax_routing_matches_every_token(name, pe):
+def test_moe_pinned_to_jax_routing_matches_every_token(name, pe,
+                                                       monkeypatch,
+                                                       record_property):
     """``RoutePins`` with JAX's routing: the port takes JAX's experts
-    where its own differ at a JAX router near tie, and nowhere else; then
-    every token, drops included, agrees with JAX within ``TOL``."""
+    where its own differ at a JAX router near tie, and nowhere else; then,
+    the activation codes at rounding ties pinned too, every token, drops
+    included, agrees with JAX within ``TOL``."""
     cfg, p, x = _layer(name)
-    _, want, routes, jroutes = _both(name, pe, p, x)
+    with jax_act_log() as jacts:
+        _, want, routes, jroutes = _both(name, pe, p, x)
+        calls = jacts.drain()
     (ids, _), (jids, _) = routes[0], jroutes[0]
     _compared_tokens(routes, jroutes)        # every flip at a near tie
+    acts = ActPins(monkeypatch)
+    acts.load(calls)
     with MOE.RoutePins(ROUTER_TOL) as pins, MOE.RouterLog() as log:
         pins.load(jroutes)
         got = MOE.moe_apply(convert.params_from_numpy(p, "cpu"),
                             torch.as_tensor(x), cfg, preset(pe)).numpy()
+    assert acts.done()
+    record_property("activation_codes_pinned", acts.pinned)
     assert pins.pinned == int(np.any(ids != jids, axis=-1).sum())
     np.testing.assert_array_equal(log.drain()[0][0], jids)
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)

@@ -28,6 +28,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import (ServeEngine, check, dequantize_params,
                                is_packed, packed_bytes, quantize_params)
 
+from _torch_act_pins import ActPins, jax_act_log
 from _torch_helpers import log2_ties
 from _torch_serve_ref import QAT_MODES, REF_PATH, build_reference
 
@@ -83,12 +84,14 @@ def test_config_is_the_reference_config(size):
     assert ours.padded_vocab == theirs.padded_vocab
     with pytest.raises(ValueError, match="no config"):
         get("no-such-arch")
-    # every config is ported for the workload IR; the model runs the
-    # lm / moe / vlm families and refuses the perf variants and the rest
+    # every config is ported for the workload IR; the transformer runs the
+    # lm / moe / vlm families with any perf variant, and refuses the
+    # other families
     T.check_supported(get("gemma3-1b"))
-    for unsupported in (dict(family="ssm"), dict(kv_replicate_to=8),
-                        dict(attn_block_local=True), dict(attn_flash=True),
-                        dict(moe_ep_shard_map=True)):
+    for supported in (dict(kv_replicate_to=8), dict(attn_block_local=True),
+                      dict(attn_flash=True), dict(moe_ep_shard_map=True)):
+        T.check_supported(ours.replace(**supported))
+    for unsupported in (dict(family="ssm"), dict(family="encdec")):
         with pytest.raises(NotImplementedError, match="does not run"):
             T.check_supported(ours.replace(**unsupported))
 
@@ -221,16 +224,20 @@ def test_record_leaves_the_engine_to_reference_counting(weights):
         gc.enable()
 
 
-def test_reference_format_is_stable():
+def test_reference_format_is_stable(monkeypatch, record_property):
     """The reference builder at the reduced size (one PE type and type,
     to stay quick) gives the committed file's layout, and the port's
-    record of the same run agrees with it."""
+    record of the same run agrees with it; in the QAT run the port takes
+    the JAX activation codes at rounding ties (``ActPins``, counted)."""
     ref = json.loads(REF_PATH.read_text())
     assert ref["size"] == "full" and ref["config"] == "smollm-135m"
     assert "--xla_allow_excess_precision=false" in ref["xla_flags"]
-    small = build_reference("reduced", pe_types=("int8",),
-                            dtypes=("float32",),
-                            qat_modes=(("lightpe1", "float32"),))
+    with jax_act_log() as jacts:
+        small = build_reference("reduced", pe_types=("int8",),
+                                dtypes=("float32",),
+                                qat_modes=(("lightpe1", "float32"),))
+        calls = jacts.drain()
+    assert calls       # the QAT run's activations
     assert small.keys() == ref.keys()
     key = check.mode_key("int8", "float32")
     qat = check.mode_key("lightpe1", "float32")
@@ -264,10 +271,14 @@ def test_reference_format_is_stable():
     # the QAT run on the dense weights, compared as the smoke compares it
     dense = convert.params_from_numpy(T.numpy_params(cfg, check.PARAM_SEED),
                                       "cpu")
+    pins = ActPins(monkeypatch)
+    pins.load(calls)
     got = check.record(ServeEngine(cfg.replace(pe_type="lightpe1"), T, dense,
                                    check.BATCH_SLOTS, check.MAX_LEN),
                        [np.array(p) for p in small["prompts"]],
                        check.MAX_NEW, lambda t: t.numpy())
+    assert pins.done()
+    record_property("activation_codes_pinned", pins.pinned)
     problems, _ = check.compare(got, small["qat_modes"][qat]["run4"], 1e-4,
                                 coupled=True)
     assert not problems, problems
