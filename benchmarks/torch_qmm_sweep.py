@@ -58,7 +58,7 @@ def main():
         rc = entry(x.data_ptr(), int(x.dtype == torch.bfloat16),
                    codes.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k,
                    n, 1, {"gemv": 0, "mma": 1}[p.variant], p.vec, p.tile,
-                   p.splits, p.span, stream)
+                   p.splits, p.span, 0, stream)
         if rc:
             raise RuntimeError(f"launch failed ({rc}) for {p}")
         return out

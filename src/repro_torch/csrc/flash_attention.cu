@@ -36,7 +36,9 @@
 //    (at most 8).  In a block, D/4 lanes share a key (4 columns each, one
 //    16-byte load of K and one of V, all of a thread's loads issued at
 //    once; at head_dim 256, 32 lanes of 8 columns, so that a key stays in
-//    one warp), so a warp reads whole rows; each key group keeps its own online softmax (m, l,
+//    one warp; at head_dim 112, 32 lanes of which 28 hold 4 columns and 4
+//    stay idle, so that a key's lanes are a power of two), so a warp
+//    reads whole rows; each key group keeps its own online softmax (m, l,
 //    acc) over its keys, with no barrier in the loop.  The groups'
 //    partials meet in shared memory in group order, the blocks' through
 //    distributed shared memory in rank order: two calls give the same bits.
@@ -207,18 +209,27 @@ __device__ __forceinline__ void cluster_barrier_relaxed() {
 // 1. split: CUDA cores, split-KV across a cluster
 // ---------------------------------------------------------------------------
 
+// The least power of two >= x.
+__host__ __device__ constexpr int pow2_ceil(int x) {
+  return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2);
+}
+
 // Block (rank, tile, b * Hkv + hk) of the grid (S, ceil(G * Sq / RB),
 // B * Hkv): rows [tile * RB, +RB) of KV head hk of batch row b, keys
 // [kv_begin + rank * span, +span) of [kv_begin, kv_end), span =
 // ceil((kv_end - kv_begin) / S).  Thread t: key group t / LPK, columns
 // (t % LPK) * CPL .. +CPL-1; chunk c holds keys k0 + c * CH + u * NK +
-// group, u < U.  The wrapper's `block_rows`, `block_keys` and
-// `lane_columns` use the same formulas.
+// group, u < U.  Where D / CPL is not a power of two (head_dim 112: 28
+// lanes of 4 columns), a key takes the next power of two of lanes (32)
+// and the lanes past D hold zeros and load nothing, so that a key's
+// lanes still fill one warp's shuffles.  The wrapper's `block_rows`,
+// `block_keys`, `lane_columns` and `key_lanes` use the same formulas.
 template <typename TQ, typename TKV, int D, int RB>
 __global__ void __launch_bounds__(kThreads)
 split_kernel(const Args a) {
   constexpr int CPL = D > 128 ? D / 32 : 4;   // columns of a lane
-  constexpr int LPK = D / CPL;            // lanes of a key, one warp at most
+  constexpr int LPK = pow2_ceil(D / CPL);   // lanes of a key, one warp at most
+  constexpr bool kIdle = LPK * CPL != D;    // lanes past D (head_dim 112)
   constexpr int NK = kThreads / LPK;      // key groups of a block
   constexpr int U = 16 / RB;              // keys a group holds at once
   constexpr int CH = NK * U;              // keys of a chunk
@@ -232,6 +243,7 @@ split_kernel(const Args a) {
   const TKV* __restrict__ k = static_cast<const TKV*>(a.k);
   const TKV* __restrict__ v = static_cast<const TKV*>(a.v);
   const int tid = threadIdx.x, kg = tid / LPK, li = tid % LPK;
+  const bool cols = !kIdle || li * CPL < D;   // the lane holds columns
   const int S = gridDim.x;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (S > 1) ? (int)cluster.block_rank() : 0;
@@ -253,7 +265,8 @@ split_kernel(const Args a) {
     const TQ* qr = q + b * a.qs.b + (long long)i * a.qs.s
                    + (long long)h * a.qs.h + li * CPL;
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) qv[rr][c] = valid ? widen(qr[c]) : 0.0f;
+    for (int c = 0; c < CPL; ++c)
+      qv[rr][c] = (valid && cols) ? widen(qr[c]) : 0.0f;
   }
   const int last = min(rows, r0 + RB) - 1;
   const long long kv_end =
@@ -276,7 +289,7 @@ split_kernel(const Args a) {
       const long long j = k0 + (long long)c * CH + u * NK + kg;
 #pragma unroll
       for (int e = 0; e < CPL; ++e) kr[u][e] = vr[u][e] = 0.0f;
-      if (j < k1) {
+      if (j < k1 && cols) {
         loadc(kb + j * a.ks.s, vec, kr[u]);
         loadc(vb + j * a.vs.s, vec, vr[u]);
       }
@@ -353,7 +366,7 @@ split_kernel(const Args a) {
         red_l[kg * RB + rr] = l[rr];
       }
     }
-    if (with_acc) {
+    if (with_acc && cols) {
 #pragma unroll
       for (int rr = 0; rr < RB; ++rr)
 #pragma unroll
@@ -1155,6 +1168,7 @@ int dispatch_d(int D, const Args& a, const Launch& c, int variant, int rows) {
     case 16: return dispatch<TQ, TKV, 16>(a, c, variant, rows);
     case 32: return dispatch<TQ, TKV, 32>(a, c, variant, rows);
     case 64: return dispatch<TQ, TKV, 64>(a, c, variant, rows);
+    case 112: return dispatch<TQ, TKV, 112>(a, c, variant, rows);
     case 128: return dispatch<TQ, TKV, 128>(a, c, variant, rows);
     case 256: return dispatch<TQ, TKV, 256>(a, c, variant, rows);
     default: return (int)cudaErrorInvalidValue;
@@ -1167,7 +1181,7 @@ int dispatch_d(int D, const Args& a, const Launch& c, int variant, int rows) {
 // each given by its (batch, sequence, head) element strides with the D axis
 // contiguous (out's rows 8-byte aligned); q_start: (B,) int32 on the
 // card.  q_bf16, kv_bf16: 0 = float32, 1 = bfloat16 (k and v share a
-// type).  D is 16, 32, 64, 128 or 256.  round_p: round the probabilities
+// type).  D is 16, 32, 64, 112, 128 or 256.  round_p: round the probabilities
 // to V's type before P V.  window: 0 (global) or the sliding window's
 // width (causal only); softcap: 0 (off) or the logit soft-cap.  The
 // launch plan (the wrapper's `plan`): variant 0 = split (rows a block: 4

@@ -16,6 +16,13 @@
 // The per-column factor is applied once, to the fully reduced float32 sum
 // of x * (code value), as the TPU kernel does; never to a partial sum.
 //
+// `cast` (a bfloat16 x only): the product of the reference's qdense under
+// a bfloat16 compute type, x.astype(bf16) @ dequant(W).astype(bf16): each
+// weight is dequantized (code value x the column's factor, one float32
+// product) and rounded to bf16 before it meets x, the sums stay float32,
+// and no factor is applied to the sum (the wrapper rounds the result to
+// bf16).
+//
 // Two kernels behind one entry point; the wrapper picks one and its launch
 // plan (repro_torch/kernels/quant_matmul/quant_matmul.py, `plan`):
 //
@@ -118,6 +125,11 @@ __device__ __forceinline__ float column_factor(const float* __restrict__ scale,
                                  : ldexpf(1.0f, e);
 }
 
+// x rounded to bf16, as a float.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Every thread of the cluster arrives and waits; the shared-memory writes
 // before it are seen by every block after it (release / acquire at cluster
 // scope, no fence of the whole device).
@@ -181,8 +193,9 @@ __device__ __forceinline__ void words(uint8_t v, uint32_t (&o)[1]) {
 // [bx * tn * COLS, +tn * COLS) and byte rows [s * span, (s + 1) * span) of
 // the R = K / KPB byte rows.  Thread t: column group t % tn (COLS columns),
 // byte rows r0 + t / tn + j * (128 / tn).  The plan in the wrapper uses the
-// same formulas.
-template <typename XT, int MODE, int MB, int COLS>
+// same formulas.  CAST: each code's value times its column's factor,
+// rounded to bf16, meets x; the sum is stored unscaled.
+template <typename XT, int MODE, int MB, int COLS, bool CAST>
 __global__ void __launch_bounds__(kGemvThreads)
 gemv_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
             const float* __restrict__ scale, float* __restrict__ out,
@@ -211,6 +224,10 @@ gemv_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
   for (int m = 0; m < MB; ++m)
 #pragma unroll
     for (int c = 0; c < COLS; ++c) acc[m][c] = 0.0f;
+  float fcol[COLS];   // CAST: the columns' factors
+#pragma unroll
+  for (int c = 0; c < COLS; ++c)
+    fcol[c] = (CAST && live) ? column_factor<MODE>(scale, n0 + c) : 1.0f;
 
   uint32_t code[kGemvUnroll][NW];
   auto load = [&](int g, int c1) {
@@ -268,9 +285,10 @@ gemv_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
           for (int c = 0; c < COLS; ++c) {
             const uint32_t byte = (code[j][c / 4] >> (8 * (c % 4))) & 0xFFu;
-            const float v = (MODE == kInt8)
-                                ? (float)(int8_t)byte
-                                : nibble_value<MODE>(h ? (byte >> 4) : (byte & 0xFu));
+            float v = (MODE == kInt8)
+                          ? (float)(int8_t)byte
+                          : nibble_value<MODE>(h ? (byte >> 4) : (byte & 0xFu));
+            if (CAST) v = round_bf16(v * fcol[c]);
 #pragma unroll
             for (int m = 0; m < MB; ++m) acc[m][c] = fmaf(xv[m], v, acc[m][c]);
           }
@@ -312,7 +330,8 @@ gemv_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
        e += S * kGemvThreads) {
     const int m = e / bn, n = nb0 + e % bn;
     const float s = (S > 1) ? cluster_sum(cluster, &part[0], e, S) : part[e];
-    if (m < M && n < N) out[(size_t)m * N + n] = s * column_factor<MODE>(scale, n);
+    if (m < M && n < N)
+      out[(size_t)m * N + n] = CAST ? s : s * column_factor<MODE>(scale, n);
   }
   if (S > 1) cluster_barrier_relaxed();   // no block leaves while read
 }
@@ -389,8 +408,10 @@ constexpr int mma_smem_bytes() {
 // stages are filled element by element.  Once a stage has landed, the
 // block decodes its codes through a 256-entry table into 32-bit words
 // that each hold the bf16 pair (row 2q, row 2q + 1) of one column: a B
-// fragment register is then one shared-memory load.
-template <typename XT, int MODE, bool ASYNC>
+// fragment register is then one shared-memory load.  CAST (a bfloat16 x):
+// each word holds bf16(code value x the column's factor) instead, and the
+// sum is stored unscaled.
+template <typename XT, int MODE, bool ASYNC, bool CAST>
 __global__ void __launch_bounds__(2 * kBN)
 mma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
            const float* __restrict__ scale, float* __restrict__ out,
@@ -409,6 +430,7 @@ mma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
   constexpr int WBLD = kBN + 8;            // pitch of the decoded words
   extern __shared__ __align__(16) unsigned char sm[];
   __shared__ uint32_t lut[256];
+  __shared__ float fcol[CAST ? kBN : 1];   // CAST: the columns' factors
   __shared__ __align__(16) uint32_t wb[kBK / 2][WBLD];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -423,6 +445,14 @@ mma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
     lut[i] = (MODE == kInt8) ? int8_bf16((uint8_t)i)
                              : nibble_bf16<MODE>(i & 0xF)
                                    | (nibble_bf16<MODE>(i >> 4) << 16);
+  if constexpr (CAST) {
+    for (int i = tid; i < kBN; i += THREADS)
+      fcol[i] = (n0 + i < N) ? column_factor<MODE>(scale, n0 + i) : 0.0f;
+  }
+  // CAST: the bf16 bits of a code value (a float) times a factor
+  auto scaled = [&](float v, float f) -> uint32_t {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v * f));
+  };
 
   auto load_stage = [&](int st, int kt) {
     XT* xs = reinterpret_cast<XT*>(sm + st * STAGE);
@@ -502,7 +532,29 @@ mma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
       const int e = tid + i * THREADS;
       const int q = e / (kBN / 4), n4 = (e % (kBN / 4)) * 4;
       uint32_t o[4];
-      if constexpr (MODE == kInt8) {
+      if constexpr (CAST && MODE == kInt8) {
+        const uint32_t lo = *reinterpret_cast<const uint32_t*>(
+            ws + (2 * q) * WLD + n4);
+        const uint32_t hi = *reinterpret_cast<const uint32_t*>(
+            ws + (2 * q + 1) * WLD + n4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float f = fcol[n4 + j];
+          o[j] = scaled((float)(int8_t)((lo >> (8 * j)) & 0xFFu), f)
+                 | (scaled((float)(int8_t)((hi >> (8 * j)) & 0xFFu), f)
+                    << 16);
+        }
+      } else if constexpr (CAST) {
+        const uint32_t b = *reinterpret_cast<const uint32_t*>(
+            ws + q * WLD + n4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t byte = (b >> (8 * j)) & 0xFFu;
+          const float f = fcol[n4 + j];
+          o[j] = scaled(nibble_value<MODE>(byte & 0xFu), f)
+                 | (scaled(nibble_value<MODE>(byte >> 4), f) << 16);
+        }
+      } else if constexpr (MODE == kInt8) {
         const uint32_t lo = *reinterpret_cast<const uint32_t*>(
             ws + (2 * q) * WLD + n4);
         const uint32_t hi = *reinterpret_cast<const uint32_t*>(
@@ -567,7 +619,9 @@ mma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
       float f[2];
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        f[j] = (col + j < N) ? column_factor<MODE>(scale, col + j) : 0.0f;
+        f[j] = CAST ? 1.0f
+                    : (col + j < N) ? column_factor<MODE>(scale, col + j)
+                                    : 0.0f;
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int m = m0 + warp * 16 + g + 8 * (r >> 1);
@@ -595,7 +649,8 @@ mma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
     const int row = e / kBN, c = e % kBN;
     const int m = m0 + row, n = n0 + c;
     const float s = cluster_sum(cluster, red, row * RLD + c, S);
-    if (m < M && n < N) out[(size_t)m * N + n] = s * column_factor<MODE>(scale, n);
+    if (m < M && n < N)
+      out[(size_t)m * N + n] = CAST ? s : s * column_factor<MODE>(scale, n);
   }
   cluster_barrier_relaxed();
 }
@@ -629,62 +684,64 @@ struct Call {
   cudaStream_t stream;
 };
 
-template <typename XT, int MODE, int MB, int COLS>
+template <typename XT, int MODE, int MB, int COLS, bool CAST>
 int gemv(const Call& c) {
   const int bn = c.tile * COLS;
   const dim3 grid((unsigned)((c.N + bn - 1) / bn), (unsigned)c.splits);
   return launch_cluster(
-      gemv_kernel<XT, MODE, MB, COLS>, grid, dim3(kGemvThreads),
+      gemv_kernel<XT, MODE, MB, COLS, CAST>, grid, dim3(kGemvThreads),
       dim3(1, (unsigned)c.splits, 1), 0, c.stream, static_cast<const XT*>(c.x),
       static_cast<const uint8_t*>(c.w), static_cast<const float*>(c.scale),
       static_cast<float*>(c.out), c.M, c.K, c.N, c.tile, c.span);
 }
 
 // COLS: the bytes of a code load, at most 64 / MB (the accumulators).
-template <typename XT, int MODE, int MB>
+template <typename XT, int MODE, int MB, bool CAST>
 int gemv_cols(const Call& c, int vec) {
-  if constexpr (MB * 16 <= 64) if (vec == 16) return gemv<XT, MODE, MB, 16>(c);
-  if constexpr (MB * 8 <= 64) if (vec == 8) return gemv<XT, MODE, MB, 8>(c);
-  if (vec == 4) return gemv<XT, MODE, MB, 4>(c);
-  if (vec == 1) return gemv<XT, MODE, MB, 1>(c);
+  if constexpr (MB * 16 <= 64)
+    if (vec == 16) return gemv<XT, MODE, MB, 16, CAST>(c);
+  if constexpr (MB * 8 <= 64)
+    if (vec == 8) return gemv<XT, MODE, MB, 8, CAST>(c);
+  if (vec == 4) return gemv<XT, MODE, MB, 4, CAST>(c);
+  if (vec == 1) return gemv<XT, MODE, MB, 1, CAST>(c);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename XT, int MODE>
+template <typename XT, int MODE, bool CAST>
 int gemv_m(const Call& c, int vec) {
-  if (c.M <= 4) return gemv_cols<XT, MODE, 4>(c, vec);
-  if (c.M <= 8) return gemv_cols<XT, MODE, 8>(c, vec);
-  return gemv_cols<XT, MODE, 16>(c, vec);
+  if (c.M <= 4) return gemv_cols<XT, MODE, 4, CAST>(c, vec);
+  if (c.M <= 8) return gemv_cols<XT, MODE, 8, CAST>(c, vec);
+  return gemv_cols<XT, MODE, 16, CAST>(c, vec);
 }
 
-template <typename XT, int MODE, bool ASYNC>
+template <typename XT, int MODE, bool ASYNC, bool CAST>
 int mma(const Call& c) {
   constexpr int smem = mma_smem_bytes<XT, MODE>();
   static const int attr = (int)cudaFuncSetAttribute(
-      mma_kernel<XT, MODE, ASYNC>,
+      mma_kernel<XT, MODE, ASYNC, CAST>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);   // once
   if (attr) return attr;
   const dim3 grid((unsigned)((c.N + kBN - 1) / kBN),
                   (unsigned)((c.M + kBM - 1) / kBM), (unsigned)c.splits);
   return launch_cluster(
-      mma_kernel<XT, MODE, ASYNC>, grid, dim3(2 * kBN),
+      mma_kernel<XT, MODE, ASYNC, CAST>, grid, dim3(2 * kBN),
       dim3(1, 1, (unsigned)c.splits), smem, c.stream,
       static_cast<const XT*>(c.x), static_cast<const uint8_t*>(c.w),
       static_cast<const float*>(c.scale), static_cast<float*>(c.out), c.M,
       c.K, c.N, c.span);
 }
 
-template <typename XT, int MODE>
+template <typename XT, int MODE, bool CAST>
 int dispatch(const Call& c, int variant, int vec) {
-  if (variant == 0) return gemv_m<XT, MODE>(c, vec);
-  return vec ? mma<XT, MODE, true>(c) : mma<XT, MODE, false>(c);
+  if (variant == 0) return gemv_m<XT, MODE, CAST>(c, vec);
+  return vec ? mma<XT, MODE, true, CAST>(c) : mma<XT, MODE, false, CAST>(c);
 }
 
-template <typename XT>
+template <typename XT, bool CAST>
 int dispatch_mode(const Call& c, int variant, int vec) {
-  if (c.mode == kInt4) return dispatch<XT, kInt4>(c, variant, vec);
-  if (c.mode == kPow2) return dispatch<XT, kPow2>(c, variant, vec);
-  return dispatch<XT, kInt8>(c, variant, vec);
+  if (c.mode == kInt4) return dispatch<XT, kInt4, CAST>(c, variant, vec);
+  if (c.mode == kPow2) return dispatch<XT, kPow2, CAST>(c, variant, vec);
+  return dispatch<XT, kInt8, CAST>(c, variant, vec);
 }
 
 int pow2_in(int v, int lo, int hi) {
@@ -721,20 +778,23 @@ bool plan_ok(int M, int K, int N, int mode, int variant, int vec, int tile,
 // split), 1 = the tensor-core product (vec: 16 for cp.async copies, 0 for
 // element loads; tile: 64, the tile's columns; span: K tiles of 32 of a
 // split);
-// splits: the cluster size along K.  Returns the launch's CUDA error: 0
-// when it was accepted.
+// splits: the cluster size along K.  cast: each dequantized weight rounded
+// to bf16 before the product and the sum stored unscaled (a bfloat16 x
+// only).  Returns the launch's CUDA error: 0 when it was accepted.
 extern "C" int quant_matmul_launch(const void* x, int x_bf16, const void* w,
                                    const void* scale, void* out, int M, int K,
                                    int N, int mode, int variant, int vec,
-                                   int tile, int splits, int span,
+                                   int tile, int splits, int span, int cast,
                                    void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (mode < kInt4 || mode > kInt8 || K <= 0 || (mode != kInt8 && K % 2)
+      || (cast && !x_bf16)
       || !plan_ok(M, K, N, mode, variant, vec, tile, splits, span))
     return (int)cudaErrorInvalidValue;
   const Call c{x, w, scale, out, M, K, N, mode, tile, splits, span,
                static_cast<cudaStream_t>(stream)};
-  const int rc = x_bf16 ? dispatch_mode<__nv_bfloat16>(c, variant, vec)
-                        : dispatch_mode<float>(c, variant, vec);
+  const int rc = cast ? dispatch_mode<__nv_bfloat16, true>(c, variant, vec)
+                 : x_bf16 ? dispatch_mode<__nv_bfloat16, false>(c, variant, vec)
+                          : dispatch_mode<float, false>(c, variant, vec);
   return rc ? rc : (int)cudaGetLastError();
 }

@@ -39,7 +39,8 @@ Variant "mma" (bf16 tensor cores): more rows (prefill), 64 rows a block,
 keys in chunks of 64, split across a cluster while every block has an SM
 of its own (one fits an SM: ``benchmarks/torch_fa_sweep.py``); float32 q
 and K as three bf16 parts each, so only up to head_dim 64
-(float32 q at 128 takes the split kernel), and bfloat16 q up to 128
+(float32 q at 112 and 128 takes the split kernel), and bfloat16 q up to
+128 (112 included: 7 k-steps of 16, 14 column tiles of 8)
 (head_dim 256 takes the split kernel: a 64-row block's accumulators and
 chunk buffers would not fit registers and shared memory).
 
@@ -63,7 +64,7 @@ from repro_torch.kernels.flash_attention.ref import (check_mask,
                                                      ref_attention_gqa_bwd,
                                                      ref_flash_attention)
 
-_HEAD_DIMS = (16, 32, 64, 128, 256)
+_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 BWD_HEAD_DIMS = (64, 128)    # the backward kernel's instances
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"split": 0, "mma": 1}
@@ -111,6 +112,14 @@ def lane_columns(d: int) -> int:
     return 4 if d <= 128 else d // 32
 
 
+def key_lanes(d: int) -> int:
+    """Lanes of the split kernel that share a key: D / ``lane_columns``
+    rounded up to a power of two (at head_dim 112, 32 lanes of which 28
+    hold columns), so that a key's lanes meet in one warp's shuffles."""
+    lanes = d // lane_columns(d)
+    return 1 << (lanes - 1).bit_length()
+
+
 @functools.lru_cache(maxsize=4096)
 def plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
          q_bf16: bool, window: int = 0) -> Plan:
@@ -130,7 +139,7 @@ def plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
         return Plan("mma", MMA_ROWS, splits, MMA_KEYS,
                     (tiles * splits, hkv, b))
     rb = 4 if rows <= 4 else 8
-    lanes = d // lane_columns(d)         # lanes of a key
+    lanes = key_lanes(d)                 # lanes of a key
     chunk = (THREADS // lanes) * (16 // rb)
     tiles = _ceil(rows, rb)
     blocks = tiles * b * hkv

@@ -10,6 +10,13 @@ launches.
 ``plan`` is the launch plan, computed here so that the CPU tests can hold
 it to the shapes: M <= 16 runs the split-K GEMV, M > 16 the bf16
 tensor-core product; each call is one launch either way.
+
+``cast=torch.bfloat16`` computes the reference's ``qdense`` under a
+bfloat16 compute type, ``x.astype(bf16) @ dequant(w).astype(bf16)``: x
+and every dequantized weight (code value x the column's factor) rounded
+to bfloat16, float32 sums, the result rounded to bfloat16 (both kernels
+take it as a launch argument; the prefill product then multiplies one
+bf16 part of x, not three).
 """
 
 from __future__ import annotations
@@ -149,7 +156,7 @@ def _entry():
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -185,19 +192,25 @@ def launch_plan(x: torch.Tensor, w: torch.Tensor, mode: str) -> Plan:
 
 
 def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
-                 mode: str = "int4") -> torch.Tensor:
+                 mode: str = "int4", cast=None) -> torch.Tensor:
     """y = x @ dequant(w), float32.
 
     x: (M, K) float32 or bfloat16.
     w: int4/pow2 -> (K//2, N) uint8 packed codes; int8 -> (K, N) int8.
     scale: (N,) float32 -- the step (int4/int8) or e_max (pow2).
     Any M, K (even for packed codes) and N; the output is a new tensor.
+    cast: None, or torch.bfloat16: x and each dequantized weight rounded
+    to bfloat16 before the product, the (M, N) result bfloat16.
     """
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode}")
+    if cast not in (None, torch.bfloat16):
+        raise ValueError(f"quant_matmul casts to bfloat16 only, got {cast}")
     _check(x, w, scale, mode)
+    if cast is not None:
+        x = x.to(cast)
     if x.device.type == "cpu":
-        return ref_quant_matmul(x, w, scale, mode)
+        return ref_quant_matmul(x, w, scale, mode, cast)
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul runs on CUDA or CPU tensors, got "
                          f"{x.device}")
@@ -215,7 +228,7 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"quant_matmul: shape {(m, k, n)} exceeds int32")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
-        return out
+        return out if cast is None else out.to(cast)
     p = launch_plan(x, w, mode)
     launch = _entry()
     with torch.cuda.device(x.device):
@@ -223,12 +236,12 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
         rc = launch(x.data_ptr(), _X_TYPES[x.dtype], w.data_ptr(),
                     scale.data_ptr(), out.data_ptr(), m, k, n, _MODES[mode],
                     _VARIANTS[p.variant], p.vec, p.tile, p.splits, p.span,
-                    stream)
+                    int(cast is not None), stream)
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{rc}")
     quant_matmul.launches += 1
-    return out
+    return out if cast is None else out.to(cast)
 
 
 quant_matmul.launches = 0

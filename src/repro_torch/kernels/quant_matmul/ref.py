@@ -12,10 +12,17 @@ from repro_torch.quant.pack import DEQUANTIZE, _unpack_k
 
 
 def ref_quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                     mode: str) -> torch.Tensor:
+                     mode: str, cast=None) -> torch.Tensor:
     """x: (M, K) float; w: (K//2, N) uint8 int4/pow2 codes or (K, N) int8;
-    scale: (N,) (e_max for pow2) -> (M, N) float32."""
-    return x.to(torch.float32) @ DEQUANTIZE[mode](w, scale)
+    scale: (N,) (e_max for pow2) -> (M, N) float32.  ``cast``
+    (torch.bfloat16): x and the dequantized weight rounded to it, the
+    float32 product rounded to it, as the reference's ``x.astype(ct) @
+    w.astype(ct)`` computes it."""
+    w = DEQUANTIZE[mode](w, scale)
+    if cast is None:
+        return x.to(torch.float32) @ w
+    f32 = torch.float32
+    return (x.to(cast).to(f32) @ w.to(cast).to(f32)).to(cast)
 
 
 def split_bf16x3(x: torch.Tensor):
@@ -51,10 +58,17 @@ def column_factor(scale: torch.Tensor, mode: str) -> torch.Tensor:
 
 
 def emulate_mma(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                mode: str) -> torch.Tensor:
+                mode: str, cast=None) -> torch.Tensor:
     """The prefill kernel's arithmetic: each bf16 part of x (three for
     float32 x, one for bfloat16) times the bf16 code values with float32
-    sums, the parts' products added, the factor applied last."""
+    sums, the parts' products added, the factor applied last.  ``cast``
+    (torch.bfloat16): x rounded to bf16 (one part) times each code value
+    x its factor rounded to bf16, no factor after the sum, the result
+    rounded to bf16."""
+    if cast is not None:
+        vals = (code_values(w, mode) * column_factor(scale, mode)).to(
+            torch.bfloat16).to(torch.float32)
+        return (x.to(torch.bfloat16).to(torch.float32) @ vals).to(cast)
     vals = code_values(w, mode).to(torch.bfloat16).to(torch.float32)
     parts = split_bf16x3(x) if x.dtype == torch.float32 else (x,)
     y = None

@@ -103,24 +103,25 @@ def qdense(x: torch.Tensor, w, qcfg: QuantConfig,
     promotes the two types as JAX does (bf16 x with float32 w is a
     float32 product).  ``cast`` (else the ``compute_dtype`` context's
     type) casts x and w after the fake quantization, before the product;
-    packed codes under a cast raise: the reference rounds code x scale to
-    the cast type before its product, the kernel scales a float32 sum.
+    on packed codes the kernel takes a bfloat16 cast itself (each
+    dequantized weight rounded to bfloat16, as the reference rounds code
+    x scale), and a float32 one is its float32 product.
     """
     ct = cast if cast is not None else current_compute_dtype()
     if isinstance(w, dict):
         mode, key = packed_mode(w)
         codes, scale = w[key], w["scale"]
-        if ct is not None:
-            raise NotImplementedError(
-                "qdense: packed weight codes under a compute-type cast "
-                "(the reference rounds the dequantized weight to the cast "
-                "type; quant_matmul scales its float32 sum; ROADMAP C)")
         if qcfg.is_identity:
             if codes.ndim != 2:
                 raise ValueError(f"qdense takes one layer's codes, got "
                                  f"{tuple(codes.shape)}: index the layer")
+            if ct not in (None, torch.float32, torch.bfloat16):
+                raise NotImplementedError(
+                    f"qdense: packed weight codes under a {ct} compute "
+                    f"type (the kernel casts to bfloat16 only)")
             y = quant_matmul(x.reshape(-1, x.shape[-1]).contiguous(), codes,
-                             scale, mode=mode)
+                             scale, mode=mode,
+                             cast=ct if ct == torch.bfloat16 else None)
             return y.reshape(*x.shape[:-1], y.shape[-1])
         w = DEQUANTIZE[mode](codes, scale)
     if not qcfg.is_identity:

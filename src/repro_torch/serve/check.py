@@ -106,6 +106,22 @@ def pin_pow2_codes(packed, ties: dict) -> dict:
             "e_max_ties": len(ties["e_max"]), "e_max_differ": e_max_differ}
 
 
+def packed_leaves(tree, path: str = "") -> list:
+    """The "/"-joined paths of a params tree's packed leaves (either
+    package's), sorted."""
+    if isinstance(tree, dict) and any(str(k).startswith("codes__")
+                                      for k in tree):
+        return [path]
+    out = []
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            out += packed_leaves(sub, f"{path}/{key}" if path else str(key))
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            out += packed_leaves(sub, f"{path}/{i}" if path else str(i))
+    return sorted(out)
+
+
 def mode_key(pe_type: str, dtype: str) -> str:
     """The reference's key of a run: "lightpe1", or "lightpe1/float32"
     for a compute type other than the config's bfloat16."""

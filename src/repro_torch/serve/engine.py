@@ -55,6 +55,13 @@ def quantize_params(params, pe_type: str, min_size: int = 1 << 14):
 
     Returns a tree where packed leaves become dicts
     {"codes__<mode>": codes, "scale": scale} and small leaves pass through.
+    The rule is the reference's, by path, rank and size alone, so it also
+    packs leaves that are no projection (RWKV's ``mu``, Zamba2's stacked
+    norms): the models refuse those, as the reference fails on them.  A
+    leaf whose reduction axis is odd cannot be packed two codes a byte
+    (int4 / pow2): the reference's ``pack_nibbles`` raises ``TypeError``
+    there (RWKV6's (5, d) ``mu`` rows; a single row it packs into an
+    empty array), the port ``NotImplementedError``.
     """
     mode = PACK_MODES[pe_type]
     ckey = f"codes__{mode}"
@@ -65,6 +72,12 @@ def quantize_params(params, pe_type: str, min_size: int = 1 << 14):
         if "layers/" in pstr and leaf.ndim == 2:
             return leaf          # stacked (L, d) norm scales, not weights
         if leaf.ndim in (2, 3) and leaf.numel() >= min_size:
+            if mode != "int8" and leaf.shape[-2] % 2:
+                raise NotImplementedError(
+                    f"{pstr} {tuple(leaf.shape)}: {mode} codes pack two a "
+                    f"byte along an odd axis of {leaf.shape[-2]} rows, which "
+                    f"the reference's pack_nibbles cannot pack (TypeError, "
+                    f"or an empty array for one row; ROADMAP C)")
             codes, scale = QUANTIZE[mode](leaf)   # 3-D: each layer its own
             return {ckey: codes, "scale": scale}
         return leaf

@@ -194,7 +194,27 @@ class ActPins:
 ROUND_SITES = (("layers", "rmsnorm", 0), ("transformer", "_attention_dynwin", 1),
                ("layers", "mlp", 1), ("moe", "moe_apply", 1))
 CONTEXT_EINSUM = "bhgqk,bkhd->bqhgd"
-SITE_NAMES = tuple(name for _, name, _ in ROUND_SITES) + ("context",)
+# the SSM and hybrid families' (``rwkv``, ``mamba``, ``hybrid``): the
+# norms, RWKV's time and channel mixes, a Mamba2 block's output and the
+# shared blocks' attention and MLP outputs, each rounded as its block adds
+# it to the residual (the unified attention keeps its context float32);
+# one more site is inside a Mamba2 block: its gated norm (float32, of a
+# float32 input), rounded before the output projection ("mamba_norm")
+SSM_ROUND_SITES = (("layers", "rmsnorm", 0), ("rwkv", "_time_mix", 1),
+                   ("rwkv", "_channel_mix", 1), ("mamba", "mamba_apply", 1),
+                   ("layers", "attention", 1), ("layers", "mlp", 1))
+
+
+def site_names(sites=ROUND_SITES):
+    """The log's keys of ``sites``: each site's function, "context" when
+    the decoder's attention is one of them and "mamba_norm" when a Mamba2
+    block is."""
+    names = tuple(name for _, name, _ in sites)
+    return (names + (("context",) if "_attention_dynwin" in names else ())
+            + (("mamba_norm",) if "mamba_apply" in names else ()))
+
+
+SITE_NAMES = site_names()
 
 
 def _first(out):
@@ -206,25 +226,29 @@ def _with_first(out, first):
 
 
 class _Sites:
-    """Wraps the ``ROUND_SITES`` and the attention context of one package
-    (``repro`` or ``repro_torch``); ``on_round(name, f, res)`` sees each
-    site call whose input x is bfloat16, outside an MoE layer, with ``f``
-    its float32 value before the rounding, and returns the call's
-    result."""
+    """Wraps the rounding ``sites`` (``ROUND_SITES``, with the decoder's
+    attention context) of one package (``repro`` or ``repro_torch``);
+    ``on_round(name, f, res)`` sees each site call whose input x is
+    bfloat16, outside an MoE layer, with ``f`` its float32 value before
+    the rounding, and returns the call's result."""
 
-    def __init__(self, package, bf16, f32, on_round, setattr_=setattr):
+    def __init__(self, package, bf16, f32, on_round, setattr_=setattr,
+                 sites=ROUND_SITES):
         import importlib
         self.depth, self.in_attn, self.saved = 0, False, []
+        self.in_mamba = False
 
         def patch(module, name, wrapper):
             fn = getattr(module, name)
             self.saved.append((module, name, fn))
             setattr_(module, name, wrapper(fn))
 
-        for mod, name, at in ROUND_SITES:
+        for mod, name, at in sites:
             patch(importlib.import_module(f"{package}.models.{mod}"), name,
                   lambda fn, name=name, at=at: self._site(
                       package, name, at, fn, bf16, f32, on_round))
+        if "context" not in site_names(sites):
+            return
         if package == "repro":
             module = importlib.import_module("jax.numpy")
             name, match = "einsum", lambda a: a[:1] == (CONTEXT_EINSUM,)
@@ -247,15 +271,20 @@ class _Sites:
 
     def _site(self, package, name, at, fn, bf16, f32, on_round):
         def site(*args, **kwargs):
-            outer = self.in_attn
+            outer, outer_m = self.in_attn, self.in_mamba
             self.in_attn = (name == "_attention_dynwin" and not self.depth
                             and args[at].dtype == bf16)
+            if name == "mamba_apply":
+                self.in_mamba = args[at].dtype == bf16
             self.depth += name == "moe_apply"
             try:
                 res = fn(*args, **kwargs)
             finally:
                 self.depth -= name == "moe_apply"
-                self.in_attn = outer
+                self.in_attn, self.in_mamba = outer, outer_m
+            if (name == "rmsnorm" and self.in_mamba and not self.depth
+                    and args[at].dtype == f32):
+                return on_round("mamba_norm", res, res)
             if self.depth or args[at].dtype != bf16:
                 return res
             if name == "rmsnorm":
@@ -270,14 +299,14 @@ class _Sites:
 
 
 @contextlib.contextmanager
-def jax_round_log():
-    """While open, the float32 value before each ``ROUND_SITES`` rounding
+def jax_round_log(sites=ROUND_SITES):
+    """While open, the float32 value before each rounding at ``sites``
     of the JAX package reports to the host as a numpy array, in call
     order, one list a site."""
     import jax
     import jax.numpy as jnp
 
-    logs = {name: _Log() for name in SITE_NAMES}
+    logs = {name: _Log() for name in site_names(sites)}
 
     def on_round(name, f, res):
         jax.debug.callback(lambda h: logs[name].calls.append(
@@ -286,11 +315,12 @@ def jax_round_log():
         return res
 
     jax.clear_caches()
-    sites = _Sites("repro", jnp.bfloat16, jnp.float32, on_round)
+    wrapped = _Sites("repro", jnp.bfloat16, jnp.float32, on_round,
+                     sites=sites)
     try:
         yield logs
     finally:
-        sites.restore()
+        wrapped.restore()
         jax.clear_caches()
 
 
@@ -306,13 +336,13 @@ class RoundPins:
     near tie, which the test then handles) it ends the pinning for the
     run instead (``diverged``; ``ended`` counts the runs it ended)."""
 
-    def __init__(self, monkeypatch, strict: bool = True):
+    def __init__(self, monkeypatch, strict: bool = True, sites=ROUND_SITES):
         import torch
         self.calls, self.n = {}, {}
         self.pinned, self.strict, self.diverged = 0, strict, False
         self.ended = 0
         _Sites("repro_torch", torch.bfloat16, torch.float32, self._round,
-               monkeypatch.setattr)
+               monkeypatch.setattr, sites)
 
     def load(self, calls):
         self.calls = {k: list(v.calls if hasattr(v, "calls") else v)

@@ -345,8 +345,8 @@ def test_mrope_positions_of_three_streams():
 @pytest.mark.parametrize("name", list_archs())
 def test_check_supported(name):
     """Every lm / moe / vlm config runs, with any of the four perf
-    variants; encdec is its own module's; only ssm and hybrid are
-    refused."""
+    variants; encdec, ssm and hybrid are their own modules' (``encdec``,
+    ``rwkv``, ``hybrid``), which the transformer refuses."""
     cfg = get(name)
     if cfg.family in ("lm", "moe", "vlm"):
         T.check_supported(cfg)
@@ -360,10 +360,12 @@ def test_check_supported(name):
         with pytest.raises(NotImplementedError, match=cfg.family):
             T.check_supported(cfg)
     else:
+        from repro_torch.models import hybrid, rwkv
+        assert family_module(cfg) is {"ssm": rwkv,
+                                      "hybrid": hybrid}[cfg.family]
+        family_module(cfg).check_supported(cfg)
         with pytest.raises(NotImplementedError, match=cfg.family):
             T.check_supported(cfg)
-        with pytest.raises(ValueError, match=cfg.family):
-            family_module(cfg)
 
 
 @pytest.mark.parametrize("name", ["gemma3-1b", "gemma2-9b", "qwen3-32b",

@@ -204,13 +204,28 @@ class TestMixedPrecision:
 
     def test_packed_codes_under_a_cast_raise(self):
         """The reference rounds the dequantized weight to the cast type
-        before its product; ``quant_matmul`` scales a float32 sum, so the
-        packed path under a cast is refused, not silently different."""
+        before its product, and so does ``quant_matmul`` under a bfloat16
+        cast: the packed path under ``compute_dtype(bfloat16)`` gives the
+        JAX package's bfloat16 product (within one bfloat16 step, 2^-7
+        relative: the float32 sums run in another order); a cast to a
+        type the kernel does not round to (float16) still raises."""
+        from repro.models.layers import qdense as jax_qdense
         from repro_torch.serve import quantize_params
-        w = quantize_params({"w": torch.randn(64, 32)}, "int8", min_size=1)
+        w = torch.randn(64, 32, generator=torch.Generator().manual_seed(0))
+        x = torch.randn(2, 64, generator=torch.Generator().manual_seed(1))
+        packed = quantize_params({"w": w}, "int8", min_size=1)["w"]
         with compute_dtype(torch.bfloat16):
-            with pytest.raises(NotImplementedError, match="cast"):
-                qdense(torch.ones(2, 64), w["w"], preset("fp32"))
+            got = qdense(x, packed, preset("fp32"))
+        assert got.dtype == torch.bfloat16
+        jw = {k: jnp.asarray(v.numpy()) for k, v in packed.items()}
+        with jax_compute_dtype(jnp.bfloat16):
+            want = jax_qdense(jnp.asarray(x.numpy()), jw, jax_preset("fp32"))
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=2.0 ** -7, atol=0)
+        with compute_dtype(torch.float16):
+            with pytest.raises(NotImplementedError, match="float16"):
+                qdense(x, packed, preset("fp32"))
 
     @pytest.mark.parametrize("pe", ["fp32", "lightpe1"])
     def test_loss_finite_and_matches_jax(self, pe):
