@@ -169,7 +169,30 @@
    run timed warm; 13.4 both reduced configs packed as LightPE-1 and
    INT8 codes against the reference's packed runs, with exactly 5 / 2
    ``quant_matmul`` launches a step;
-14. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
+14. the launch layer (``launch/*``, ``optim/grad_compress``, the
+   trainer's mesh functions, the EP MoE layer), on an NCCL process group
+   of world size 1 (a ``FileStore`` in a temporary directory): 14.1
+   ``launch.train.main`` (SmolLM-135M at full width, LightPE-1, 3 AdamW
+   steps at 16 x 256) bitwise equal to the trainer driven directly with
+   the same optimizer, schedule, seed and pipeline, with exactly 422
+   ``fake_quant`` and 30 + 30 ``flash_attention`` launches a step; 14.2
+   the same run on a (1, 1) mesh (``state_shardings_for``, the
+   per-process pipeline, the dp mean an NCCL ``all_reduce``) bitwise
+   equal to 14.1, saved at step 2 and resumed onto a fresh (1, 1) mesh,
+   step 3 bitwise equal; 14.3 ``make_compressed_allreduce`` over NCCL on
+   SmolLM-135M's gradients, every leaf: the codes of round(g32 / scale),
+   |mean - g| <= scale / 2 and new_err == g32 - mean, timed beside the
+   float32 all-reduce; 14.4 the EP MoE layer (``moe_ep_shard_map``) in
+   phase 11.3's DeepSeek-MoE-16B (3 layers, its params and requests,
+   FP32 preset in bfloat16) on the (1, 1) mesh, ``moe_apply``'s experts
+   taken at its router near ties: the float32 payload held to
+   ``moe_apply`` at phase 11.3's tolerance, the int8 payload to the
+   float32 one at ``EP_INT8_TOL``, with a control at 0 that must fail;
+   14.5 ``launch.serve.main`` (Gemma-3-1B at full width and depth,
+   LightPE-1 packed then served dequantized), its tokens equal to a
+   ``ServeEngine`` run on the same dequantized weights, with exactly 26
+   ``flash_attention`` launches a step, tokens/s and peak memory;
+15. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
    last, the device line.
 
 TF32 is off for matrix products and convolutions (``repro_torch`` sets
@@ -2325,7 +2348,9 @@ def run_moe(torch, dev):
     ``flash_attention`` launches a step and 56 ``fake_quant`` ones under
     QAT numerics.  First ``check_expert_fake_quant`` holds the experts'
     grouped ``fake_quant`` launches to their plain version at these
-    shapes."""
+    shapes.  Returns (numbers, the params copied to the host), which
+    phase 14.4 serves again: the card holds none of them through phases
+    12 and 13, whose peaks stay those of the phases alone."""
     from repro_torch import convert
     from repro_torch.configs import get
     from repro_torch.kernels.fake_quant import fake_quant
@@ -2369,9 +2394,11 @@ def run_moe(torch, dev):
         (fake_quant, flash_attention, quant_matmul), want, MOE_TOL,
         router=lambda tokens: capacity(tokens, cfg),
         coupled=lambda m: m["pe_type"] != "fp32")
+    from repro_torch.optim import tree_map
+    host = tree_map(lambda t: t.cpu(), params)
     del params
     gc.collect()
-    return dict(runs=runs, expert_fake_quant=experts)
+    return dict(runs=runs, expert_fake_quant=experts), host
 
 
 def _counts(*counters):
@@ -3348,6 +3375,433 @@ def run_ssm(torch, dev):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 14: the launch layer
+# ---------------------------------------------------------------------------
+
+LAUNCH_ARGV = ["--arch", "smollm-135m", "--pe-type", "lightpe1", "--steps",
+               "3", "--batch", "16", "--seq", "256"]
+LAUNCH_SERVE_ARGV = ["--arch", "gemma3-1b", "--pe-type", "lightpe1",
+                     "--prompts", "4", "--prompt-len", "16", "--max-new", "16",
+                     "--max-len", "128"]
+# 14.4: the int8 payload against the float32 one.  Each exchanged value is
+# rounded to one of 255 levels of its row's absmax (an error up to 1/254
+# of it), the dispatch and the return of both MoE layers: an 8-bit
+# rounding of the MoE layers' activations, as the INT8 QAT numerics
+# round every activation, which phase 11.3 holds at 0.125 in bfloat16
+EP_INT8_TOL = MOE_TOL["int8"]
+# 14.3: |mean - g| <= scale / 2 in exact arithmetic; round(g32 / scale)
+# decides on the float32 quotient (up to 127, within 2^-18 of the exact
+# one) and q * scale is rounded once more, so a value at a half-step may
+# land a few float32 ulps past it (the reference's test allows 1e-6 at
+# unit scale)
+HALF_STEP = 0.5 + 2.0 ** -16
+
+
+def _launch_counters():
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    return fake_quant, flash_attention, quant_matmul
+
+
+def _train_counts(fq, fa):
+    return {"fake_quant": fq.launches, "flash_attention": fa.launches,
+            "flash_attention_backward": fa.backward_launches}
+
+
+def _zero_train(torch, fq, fa):
+    torch.cuda.synchronize()
+    fq.launches = fa.launches = fa.backward_launches = 0
+
+
+def _states_differ(a, b) -> int:
+    from repro_torch.optim import tree_leaves
+    pa = tree_leaves(a.params) + tree_leaves(a.opt_state) + [a.step]
+    pb = tree_leaves(b.params) + tree_leaves(b.opt_state) + [b.step]
+    if len(pa) != len(pb):
+        return -1
+    return sum(int((x != y).sum()) for x, y in zip(pa, pb))
+
+
+def launch_train(torch, dev, tmp):
+    """14.1 and 14.2 (see ``run_launch``).  Returns the numbers, and the
+    mesh step's parts and state for 14.3."""
+    from repro_torch.configs import get
+    from repro_torch.data import lm_pipeline
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as cli
+    from repro_torch.models import family_module
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import (fit, init_state, jit_train_step,
+                                   make_train_step, resume, shard_state,
+                                   state_shardings_for)
+
+    fq, fa, _ = _launch_counters()
+    args = cli.parser().parse_args(LAUNCH_ARGV)
+    steps = args.steps
+    cfg = get(args.arch).replace(pe_type=args.pe_type)
+    mod = family_module(cfg)
+
+    def opt():
+        return adamw(warmup_cosine(args.lr, 20, steps))
+
+    def fresh(o):
+        return init_state(cfg, mod, o, torch.Generator(device=dev)
+                          .manual_seed(args.seed), device=dev)
+
+    out = {}
+    # 14.1: the CLI, one process (the plain trainer), against the trainer
+    # driven directly with the same optimizer, schedule, seed and pipeline
+    quiet = lambda _msg: None  # noqa: E731
+    _zero_train(torch, fq, fa)
+    t0 = time.perf_counter()
+    state_cli = cli.main(LAUNCH_ARGV)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = _train_counts(fq, fa)
+    want = {"fake_quant": steps * TRAIN_FQ_PER_STEP,
+            "flash_attention": steps * cfg.n_layers,
+            "flash_attention_backward": steps * cfg.n_layers}
+    if counts != want:
+        fail(f"launch.train: launches {counts}, want {want}")
+    o = opt()
+    state = fresh(o)
+    step = make_train_step(cfg, mod, o)
+    pipe = lm_pipeline(cfg, args.batch, args.seq, seed=args.seed, device=dev)
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, next(pipe))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    direct = state
+    differing = _states_differ(state_cli, direct)
+    if differing:
+        fail(f"launch.train differs from the trainer driven directly in "
+             f"{differing} elements")
+    out["train_cli"] = dict(argv=LAUNCH_ARGV, seconds=cli_s,
+                            direct_step_ms=[t * 1e3 for t in times],
+                            loss=m["loss"].item(), differing=0,
+                            launches=counts,
+                            per_step={k: v / steps for k, v in counts.items()})
+    print(f"14.1 launch.train {' '.join(LAUNCH_ARGV)}: {cli_s:.2f} s (init "
+          f"included), bitwise equal to the trainer driven directly (steps "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms); launches a "
+          f"step {out['train_cli']['per_step']}")
+    del state_cli, state, step, pipe
+    gc.collect()
+
+    # 14.2: the same run on a (1, 1) mesh: specs from state_shardings_for,
+    # the per-process pipeline, the dp mean an NCCL all_reduce; a
+    # checkpoint at step 2 and resume onto a fresh (1, 1) mesh
+    mesh = M.make_mesh((1, 1), ("data", "model"), dev)
+    o = opt()
+    sh = state_shardings_for(cfg, mod, mesh, o)
+    state = shard_state(fresh(o), sh)
+    step = jit_train_step(make_train_step(cfg, mod, o), sh, mesh)
+    pipe = lm_pipeline(cfg, args.batch, args.seq, seed=args.seed,
+                       device=dev, mesh=mesh)
+    ckpt_dir = str(Path(tmp) / "ckpt")
+    mesh_times = []
+
+    def timed(st, batch):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, mm = step(st, batch)
+        torch.cuda.synchronize()
+        mesh_times.append(time.perf_counter() - t1)
+        return st, mm
+
+    _zero_train(torch, fq, fa)
+    state = fit(state, timed, pipe, steps - 1, ckpt_dir=ckpt_dir,
+                ckpt_every=steps - 1, log_fn=quiet, shardings=sh)
+    state = fit(state, timed, pipe, steps, log_fn=quiet, shardings=sh)
+    counts = _train_counts(fq, fa)
+    if counts != want:
+        fail(f"the (1, 1) mesh step: launches {counts}, want {want}")
+    differing = _states_differ(state, direct)
+    if differing:
+        fail(f"the (1, 1) mesh run differs from 14.1 in {differing} elements")
+    mesh2 = M.make_mesh((1, 1), ("data", "model"), dev)
+    o2 = opt()
+    pipe2 = lm_pipeline(cfg, args.batch, args.seq, seed=args.seed,
+                        device=dev, mesh=mesh2)
+    back = resume(cfg, mod, o2, ckpt_dir, pipe2, device=dev, mesh=mesh2)
+    if int(back.step) != steps - 1 or pipe2.state.step != steps - 1:
+        fail(f"resume onto a fresh (1, 1) mesh restored step "
+             f"{int(back.step)}, pipeline {pipe2.state.step}")
+    sh2 = state_shardings_for(cfg, mod, mesh2, o2)
+    step2 = jit_train_step(make_train_step(cfg, mod, o2), sh2, mesh2)
+    back = fit(back, step2, pipe2, steps, log_fn=quiet, shardings=sh2)
+    differing = _states_differ(back, direct)
+    if differing:
+        fail(f"the resumed step {steps} differs from 14.1 in {differing} "
+             f"elements")
+    out["mesh"] = dict(mesh=[1, 1], step_ms=[t * 1e3 for t in mesh_times],
+                       differing=0, resumed_differing=0, launches=counts,
+                       per_step={k: v / steps for k, v in counts.items()},
+                       direct_step_ms=out["train_cli"]["direct_step_ms"])
+    print(f"14.2 the (1, 1) mesh (NCCL): steps "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in mesh_times)} ms (directly: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), bitwise equal to "
+          f"14.1; saved at step {steps - 1}, resumed onto a fresh (1, 1) "
+          f"mesh: step {steps} bitwise equal")
+    parts = step.parts
+    del back, direct, pipe, pipe2, step2
+    gc.collect()
+    return out, (parts, mesh, sh, state, cfg, args)
+
+
+def launch_grad_compress(torch, dev, parts, mesh, sh, state, cfg, args):
+    """14.3 (see ``run_launch``)."""
+    import torch.distributed as dist
+    from repro_torch.data import lm_pipeline
+    from repro_torch.launch.mesh import all_reduce
+    from repro_torch.models.layers import activation_sharding
+    from repro_torch.optim import tree_leaves, tree_unflatten
+    from repro_torch.optim.grad_compress import (make_compressed_allreduce,
+                                                 quantize, shared_scale)
+    from repro_torch.train.trainer import _grads_and_loss
+
+    full = state.params           # a (1, 1) mesh: every shard is the leaf
+    batch = next(lm_pipeline(cfg, args.batch, args.seq, seed=args.seed,
+                             device=dev, mesh=mesh))
+    with activation_sharding(("data",), 1, mesh=mesh):
+        flat, _ = _grads_and_loss(parts, full, batch)
+    grads = tree_unflatten(full, flat)
+    errs = tree_unflatten(full, [torch.zeros_like(g) for g in flat])
+    f = make_compressed_allreduce(mesh, ("data",))
+    mean, new_err = f(grads, errs)
+    leaves, worst = 0, 0.0
+    for g, mu, e in zip(flat, tree_leaves(mean), tree_leaves(new_err)):
+        g32 = g.to(torch.float32)
+        scale = shared_scale(torch.max(torch.abs(g32)))
+        q = quantize(g32, scale)
+        if not torch.equal(mu, q.to(torch.float32) * torch.div(
+                scale, torch.tensor(1.0, device=dev))):
+            fail("14.3: the mean is not the codes of round(g32 / scale)")
+        worst = max(worst, float((mu - g32).abs().max()) / float(scale))
+        if worst > HALF_STEP:
+            fail(f"14.3: |mean - g| = {worst:.9g} scale > scale / 2 and "
+                 f"the rounding of g32 / scale")
+        if not torch.equal(e, g32 - mu):
+            fail("14.3: new_err != g32 - mean")
+        leaves += 1
+    n = sum(g.numel() for g in flat)
+    ms = time_ms(torch, lambda: f(grads, errs), reps=10, warmup=1,
+                 queued=False)
+
+    bufs = [g.clone() for g in flat]
+
+    def plain():
+        for b in bufs:
+            all_reduce(b, mesh, ("data",), dist.ReduceOp.SUM)
+
+    reduce_ms = time_ms(torch, plain, reps=10, warmup=1, queued=False)
+    out = dict(leaves=leaves, elements=n, compressed_ms=ms, worst=worst,
+               all_reduce_ms=reduce_ms, wire_bytes_int8=n,
+               wire_bytes_float32=4 * n)
+    print(f"14.3 make_compressed_allreduce over NCCL on SmolLM-135M's "
+          f"gradients ({leaves} leaves, {n} elements): codes of round(g32 / "
+          f"scale), |mean - g| <= {worst:.9g} scale and new_err == g32 - "
+          f"mean on every leaf; {ms:.4f} ms against the float32 all_reduce's "
+          f"{reduce_ms:.4f} ms (the world is one card: no wire)")
+    return out
+
+
+def launch_moe_ep(torch, dev, mesh, host_params):
+    """14.4 (see ``run_launch``): phase 11.3's params, from the host."""
+    import numpy as np
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import activation_sharding
+    from repro_torch.models import family_module
+    from repro_torch.models.moe import RoutePins, RouterLog
+    from repro_torch.optim import tree_map
+    from repro_torch.serve import ServeEngine, check
+
+    params = tree_map(lambda t: t.to(dev), host_params)
+
+    ref = json.loads(MOE_REF.read_text())
+    m = ref["modes"]["fp32"]
+    cfg = get(ref["config"]).replace(n_layers=ref["n_layers"],
+                                     pe_type=m["pe_type"], dtype=m["dtype"])
+    mod = family_module(cfg)
+    fq, fa, qmm = _launch_counters()
+    prompts = [np.array(p) for p in ref["prompts"]]
+
+    def serve(c, ctx, log=None, pins=None, want=None):
+        eng = ServeEngine(c, mod, params, ref["batch_slots"], ref["max_len"])
+        _zero(torch, fq, fa, qmm)
+        t0 = time.perf_counter()
+        with ctx, (pins or contextlib.nullcontext()):
+            rec = check.record(eng, prompts, ref["max_new"],
+                               lambda t: t.float().cpu().numpy(),
+                               router=log, pins=pins, want=want)
+        torch.cuda.synchronize()
+        return rec, time.perf_counter() - t0, _counts(fq, fa, qmm)
+
+    # the baseline's routing recorded; the EP runs take its experts at its
+    # router near ties (the random router is flat: the EP layer rounds its
+    # shared experts' output to bfloat16 before the add, as the
+    # reference's EP does, and moe_apply adds it in float32, so a later
+    # layer's near ties may fall the other way)
+    with RouterLog() as log:
+        base, base_s, _ = serve(cfg, contextlib.nullcontext(), log=log)
+    runs = {}
+    for name, int8 in (("float32", False), ("int8", True)):
+        c = cfg.replace(moe_ep_shard_map=True, moe_ep_int8_payload=int8)
+        pins = RoutePins(ref["router_tol"])
+        rec, secs, counts = serve(c, activation_sharding(("data",), 1,
+                                                         mesh=mesh),
+                                  pins=pins, want=base)
+        runs[name] = dict(rec=rec, seconds=secs, launches=counts,
+                          pinned=pins.pinned)
+        want = {"fake_quant": 0, "flash_attention":
+                cfg.n_layers * ref["max_new"], "quant_matmul": 0}
+        if counts != want:
+            fail(f"14.4 EP {name}: launches {counts}, want {want}")
+    problems, _ = check.compare(runs["float32"]["rec"], base, MOE_TOL["fp32"])
+    if problems:
+        fail(f"14.4 EP (float32 payload) against moe_apply: {problems[:3]}")
+    err32 = check.max_logit_err(runs["float32"]["rec"], base)
+    problems, _ = check.compare(runs["int8"]["rec"], runs["float32"]["rec"],
+                                EP_INT8_TOL)
+    if problems:
+        fail(f"14.4 EP int8 payload against the float32 payload: "
+             f"{problems[:3]}")
+    err8 = check.max_logit_err(runs["int8"]["rec"], runs["float32"]["rec"])
+    control, _ = check.compare(runs["int8"]["rec"], runs["float32"]["rec"],
+                               0.0)
+    if not control:
+        fail("14.4 control: the int8 payload run equals the float32 one: "
+             "the payload was not quantized")
+    out = dict(config=ref["config"], n_layers=ref["n_layers"], mesh=[1, 1],
+               moe_apply_s=base_s,
+               float32=dict(max_abs_err=err32, tol=MOE_TOL["fp32"],
+                            seconds=runs["float32"]["seconds"],
+                            router_pins=runs["float32"]["pinned"]),
+               int8=dict(max_abs_err=err8, tol=EP_INT8_TOL,
+                         seconds=runs["int8"]["seconds"],
+                         router_pins=runs["int8"]["pinned"],
+                         control_problems=len(control)),
+               per_step=cfg.n_layers)
+    print(f"14.4 EP MoE, {ref['config']} at full width ({ref['n_layers']} "
+          f"layers), the (1, 1) mesh: float32 payload within {err32:.4g} of "
+          f"moe_apply (tolerance {MOE_TOL['fp32']}), int8 payload within "
+          f"{err8:.4g} of the float32 one (tolerance {EP_INT8_TOL}; the "
+          f"control at 0 fails); the baseline's experts taken at "
+          f"{runs['float32']['pinned']} / {runs['int8']['pinned']} router "
+          f"near ties; runs {base_s:.2f} / "
+          f"{runs['float32']['seconds']:.2f} / {runs['int8']['seconds']:.2f} "
+          f"s (moe_apply / float32 / int8); {cfg.n_layers} flash_attention "
+          f"launches a step")
+    return out
+
+
+def launch_serve(torch, dev):
+    """14.5 (see ``run_launch``)."""
+    import io
+
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.launch import serve as cli
+    from repro_torch.models import family_module
+    from repro_torch.serve import (ServeEngine, dequantize_params,
+                                   quantize_params)
+
+    fq, fa, qmm = _launch_counters()
+    args = cli.parser().parse_args(LAUNCH_SERVE_ARGV)
+    gc.collect()
+    base = torch.cuda.memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    _zero(torch, fq, fa, qmm)
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        reqs = cli.main(LAUNCH_SERVE_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts(fq, fa, qmm)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    lines = text.getvalue().splitlines()
+    for line in lines:
+        print(f"  launch.serve: {line}")
+    served = next(x for x in lines if x.startswith("served"))
+    tok_s = float(served.split("(")[1].split(" tok/s")[0])
+    iters = int(served.split(", ")[-1].split(" engine iters")[0])
+    cfg = get(args.arch)
+    want = {"fake_quant": 0, "flash_attention": cfg.n_layers * iters,
+            "quant_matmul": 0}
+    if counts != want:
+        fail(f"14.5 launch.serve: launches {counts}, want {want}")
+    # the engine on the same dequantized weights
+    mod = family_module(cfg)
+    params = dequantize_params(quantize_params(mod.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev),
+        args.pe_type))
+    eng = ServeEngine(cfg, mod, params, batch_slots=args.slots,
+                      max_len=args.max_len)
+    rng = np.random.default_rng(args.seed)
+    mine = [eng.submit(rng.integers(0, cfg.vocab, size=args.prompt_len),
+                       max_new=args.max_new) for _ in range(args.prompts)]
+    eng.run()
+    if [r.out for r in reqs] != [r.out for r in mine]:
+        fail("14.5 launch.serve's tokens differ from the engine's on the "
+             "same dequantized weights")
+    out = dict(argv=LAUNCH_SERVE_ARGV, tokens_per_s=tok_s, iters=iters,
+               seconds=wall, peak_mib=peak, base_mib=base, launches=counts,
+               per_step=counts["flash_attention"] / iters,
+               tokens=[r.out for r in reqs])
+    print(f"14.5 launch.serve gemma3-1b at full width and depth: {tok_s} "
+          f"tokens/s ({iters} engine steps, {wall:.2f} s with the init and "
+          f"packing), peak device memory {peak:.1f} MiB ({base:.1f} MiB "
+          f"before the run); tokens equal the "
+          f"engine's on the same dequantized weights; "
+          f"{out['per_step']:.0f} flash_attention launches a step")
+    del params, eng
+    gc.collect()
+    return out
+
+
+def run_launch(torch, dev, moe_params):
+    """Phase 14: the launch layer on the card (see the module docstring):
+    the process group is NCCL of world size 1, from a ``FileStore`` in a
+    temporary directory, destroyed at the end of the phase."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        M.init_process_group(dev, 0, 1,
+                             store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                             timeout_s=300)
+        try:
+            t0 = time.perf_counter()
+            numbers, (parts, mesh, sh, state, cfg, args) = launch_train(
+                torch, dev, tmp)
+            out.update(numbers)
+            out["grad_compress"] = launch_grad_compress(
+                torch, dev, parts, mesh, sh, state, cfg, args)
+            del state
+            gc.collect()
+            out["train_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["moe_ep"] = launch_moe_ep(torch, dev, mesh, moe_params)
+            out["moe_ep_s"] = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    out["serve_cli"] = launch_serve(torch, dev)
+    out["serve_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     t_start = time.perf_counter()
@@ -3393,7 +3847,7 @@ def main() -> int:
     t11 = time.perf_counter()
     windowed = check_window_kernel(torch, dev)
     gemma, gemma_packs, gemma_records = run_gemma(torch, dev)
-    moe = run_moe(torch, dev)
+    moe, moe_params = run_moe(torch, dev)
     print(f"phase 11 (decoder family): {time.perf_counter() - t11:.2f} s")
     t12 = time.perf_counter()
     variants = run_variants(torch, dev, gemma_packs, gemma_records)
@@ -3404,6 +3858,11 @@ def main() -> int:
     print(f"phase 13 (SSM and hybrid families): "
           f"{time.perf_counter() - t13:.2f} s")
     ssm_names = ("rwkv6-1.6b", "zamba2-7b")
+    t14 = time.perf_counter()
+    launch = run_launch(torch, dev, moe_params)
+    del moe_params
+    gc.collect()
+    print(f"phase 14 (the launch layer): {time.perf_counter() - t14:.2f} s")
 
     # the row's main numbers: one grouped launch over the 15 VGG-16
     # weights, affine-8, float32; the bfloat16 and per-weight times beside
@@ -3430,6 +3889,7 @@ def main() -> int:
         variant_training_launches={
             k: r["launches"]["fake_quant"]
             for k, r in variants["flash"]["train"].items()},
+        launch_train_per_step=launch["train_cli"]["per_step"]["fake_quant"],
         ssm_launches={name: {
             "cut_per_step": ssm[name]["cut"]["per_step"]["fake_quant"],
             "full_per_step": ssm[name]["full"]["per_step"]["fake_quant"],
@@ -3480,6 +3940,14 @@ def main() -> int:
                                    whisper_decode=variants["whisper"]["full"][
                                        "decode_launches"]["flash_attention"]),
                                head_dim_112=ssm["kernel_112"],
+                               launch_per_step=dict(
+                                   train=launch["train_cli"]["per_step"][
+                                       "flash_attention"],
+                                   mesh_train=launch["mesh"]["per_step"][
+                                       "flash_attention"],
+                                   serve_gemma=launch["serve_cli"][
+                                       "per_step"],
+                                   moe_ep=launch["moe_ep"]["per_step"]),
                                zamba_launches=dict(
                                    cut_per_step=ssm["zamba2-7b"]["cut"][
                                        "per_step"]["flash_attention"],
@@ -3532,7 +4000,9 @@ def main() -> int:
         fwd_bwd_ms=main_bwd["fwd_bwd_ms"], shapes=bwd,
         variant_training_launches={
             k: r["launches"]["backward"]
-            for k, r in variants["flash"]["train"].items()}))
+            for k, r in variants["flash"]["train"].items()},
+        launch_train_per_step=launch["train_cli"]["per_step"][
+            "flash_attention_backward"]))
     print(f"smoke: {time.perf_counter() - t_start:.2f} s, the build "
           f"included")
     print(json.dumps({"kernels": kernels, "serving": serving, "qat": qat,
@@ -3541,7 +4011,8 @@ def main() -> int:
                       "variants": {k: v for k, v in variants.items()
                                    if k != "kernels"},
                       "ssm": {k: v for k, v in ssm.items()
-                              if k != "kernel_112"}}))
+                              if k != "kernel_112"},
+                      "launch": launch}))
     print(json.dumps({"train": {k: v for k, v in training.items()
                                 if k != "backward"}}))
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,12 @@ the other's checkpoints:
     params and optimizer-state trees, named by the leaf's path
     (``layers__attn__wq.npy``, ``mu__blocks__0__c1.npy``, ``step.npy``).
     ``restore`` needs templates of the trees (the trainer holds them):
-    each leaf comes back with its template's dtype, on ``device``.  The
-    reference's ``shardings=`` (elastic restore onto another mesh) waits
-    for the port's launch layer.
+    each leaf comes back with its template's dtype, on ``device``.
+    Under a mesh (``shardings=``, trees of ``launch.sharding.Sharding``)
+    ``save`` gathers each leaf to its global array and rank 0 writes it,
+    in the same format; ``restore(..., shardings=)`` gives each rank its
+    slice of every leaf, whatever the mesh the checkpoint was saved on
+    (the elastic restore: a node lost, or a larger pod).
   * template-free state checkpoints (``save_state`` / ``load_state``) for
     the sweeps: archive fronts, walk cursors, pruner buffers and driver
     state are ragged, dtype-mixed and absent until the walk produces
@@ -128,10 +131,33 @@ def _publish(ckpt_dir: str, step: int, keep: int, telemetry, write) -> str:
     return final
 
 
+def _gathered(tree, shardings):
+    """The global tensors of a tree of local shards (a collective: every
+    rank calls it); the tree itself without shardings."""
+    if shardings is None:
+        return tree
+    from repro_torch.optim.optimizers import tree_map
+    return tree_map(lambda x, sh: x if sh is None else sh.gather(x), tree,
+                    shardings)
+
+
 def save(ckpt_dir: str, step: int, params, opt_state=None,
          extra: Optional[dict] = None, keep: int = 3,
-         telemetry=None) -> str:
-    """Write one training checkpoint atomically; returns the final path."""
+         telemetry=None, shardings=None, opt_shardings=None) -> str:
+    """Write one training checkpoint atomically; returns the final path.
+    With ``shardings`` / ``opt_shardings`` the trees hold this rank's
+    shards: every rank gathers, rank 0 writes, and all wait for it."""
+    if shardings is not None or opt_shardings is not None:
+        import torch.distributed as dist
+        params = _gathered(params, shardings)
+        opt_state = _gathered(opt_state, opt_shardings)
+        final = os.path.join(ckpt_dir, f"step_{step}")
+        if dist.get_rank() == 0:
+            final = save(ckpt_dir, step, params, opt_state, extra, keep,
+                         telemetry)
+        dist.barrier()
+        return final
+
     def write(tmp):
         manifest = {"step": step, "extra": extra or {}, "arrays": {}}
         for group, tree in (("params", params), ("opt", opt_state)):
@@ -155,39 +181,47 @@ def _dtype_of(leaf):
     return torch.from_numpy(np.zeros((), np.asarray(leaf).dtype)).dtype
 
 
-def _restore_tree(path: str, template, device):
-    def load(prefix, leaf):
+def _restore_tree(path: str, template, device, shardings=None):
+    def load(prefix, leaf, sharding):
         key = "/".join(prefix)
-        arr = np.load(os.path.join(path, key.replace("/", "__") + ".npy"))
-        return torch.from_numpy(arr).to(device=device, dtype=_dtype_of(leaf))
+        arr = np.load(os.path.join(path, key.replace("/", "__") + ".npy"),
+                      mmap_mode="r")
+        if sharding is not None:          # elastic: this rank's slice only
+            arr = arr[sharding.local_slices(arr.shape)]
+        return torch.from_numpy(np.array(arr)).to(device=device,
+                                                  dtype=_dtype_of(leaf))
 
-    def build(tree, prefix=()):
+    def build(tree, sh, prefix=()):
         if isinstance(tree, dict):
-            return {k: build(v, prefix + (str(k),)) for k, v in tree.items()}
+            return {k: build(v, None if sh is None else sh[k],
+                             prefix + (str(k),)) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
-            return type(tree)(build(v, prefix + (str(i),))
+            return type(tree)(build(v, None if sh is None else sh[i],
+                                    prefix + (str(i),))
                               for i, v in enumerate(tree))
-        return load(prefix, tree)
+        return load(prefix, tree, sh)
 
-    return build(template)
+    return build(template, shardings)
 
 
 def restore(ckpt_dir: str, step: int, params_template, opt_template=None,
-            device=None):
+            device=None, shardings=None, opt_shardings=None):
     """Load checkpoint ``step`` shaped like the templates (trees whose
     leaves are tensors or numpy arrays: each restored leaf takes its
-    template's dtype), on ``device`` (default: the CUDA card).
+    template's dtype), on ``device`` (default: the CUDA card).  With
+    ``shardings`` / ``opt_shardings`` (trees of ``Sharding`` on any mesh)
+    each leaf is this rank's slice of it.
     Returns (params, opt_state, extra_dict)."""
     device = resolve_device(device)
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     params = _restore_tree(os.path.join(path, "params"), params_template,
-                           device)
+                           device, shardings)
     opt_state = None
     if opt_template is not None and "opt" in manifest["arrays"]:
         opt_state = _restore_tree(os.path.join(path, "opt"), opt_template,
-                                  device)
+                                  device, opt_shardings)
     return params, opt_state, manifest["extra"]
 
 

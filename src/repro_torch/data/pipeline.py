@@ -7,8 +7,11 @@ The state is one step counter, saved and restored by the checkpoint
 manager, so a restart resumes the exact stream.  A small prefetch queue
 makes the next batches while the device runs the step.
 
-One process, index 0 of 1: multi-process runs (each process its slice
-of the global batch) wait for the port's launch layer.
+On a mesh each process makes only its slice of the global batch:
+``global_batch // dp_total`` rows, seeded from its index on the
+data-parallel axes, so the ranks of one ``model`` group draw the same
+slice (the reference seeds with ``jax.process_index()``, one process a
+host of many devices).
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 from typing import Callable, Iterator
+
+import torch
 
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device, stage
@@ -70,18 +75,31 @@ class DataPipeline:
 
 
 def lm_pipeline(cfg, global_batch: int, seq: int, seed: int = 0,
-                device=None) -> DataPipeline:
-    """Token pipeline for a decoder-only LM config (the reference's
-    positions and frames for the VLM and encoder-decoder families wait
-    for those families)."""
-    if cfg.family != "lm":
-        raise NotImplementedError(f"the port's lm_pipeline serves the lm "
-                                  f"family, not {cfg.family!r} (ROADMAP A)")
-    pidx = 0                         # process 0 of 1
+                device=None, mesh=None, frames: bool = False) -> DataPipeline:
+    """Token pipeline for an ArchConfig (adds positions / frames as its
+    family needs).  ``mesh``: this process makes its dp slice of the
+    global batch."""
+    from repro_torch.launch.mesh import dp_index, dp_total
+    n_dp = dp_total(mesh) if mesh is not None else 1
+    if global_batch % n_dp:
+        raise ValueError(f"a global batch of {global_batch} does not split "
+                         f"over {n_dp} data-parallel ranks")
+    local_batch = global_batch // n_dp
+    pidx = dp_index(mesh)
 
     def make(s, step):
-        return synthetic.token_batch(s * 1000003 + pidx, step, global_batch,
-                                     seq, cfg.vocab)
+        b = synthetic.token_batch(s * 1000003 + pidx, step, local_batch, seq,
+                                  cfg.vocab)
+        if cfg.family == "vlm":
+            b["positions"] = torch.arange(seq, dtype=torch.int32)[
+                None, :, None].expand(local_batch, seq, 3).contiguous()
+        if cfg.family == "encdec" or frames:
+            # the reference draws the frames from (seed, step) alone, so
+            # every dp slice holds the same frames
+            g = synthetic._generator(s + 77, step)
+            b["frames"] = torch.randn((local_batch, seq, cfg.d_model),
+                                      generator=g, dtype=torch.float32)
+        return b
 
     return DataPipeline(make, seed, device)
 

@@ -140,8 +140,7 @@ def init_params(cfg, gen: torch.Generator, device=None) -> Params:
             continue
         scale = {"dense": 1.0 / math.sqrt(shape[-2]), "embed": 0.02,
                  "pos": 0.01}[kind]
-        flat[path] = (torch.randn(shape, generator=gen, dtype=torch.float32,
-                                  device=gen.device) * scale).to(device)
+        flat[path] = L.randn(gen, shape, device) * scale
     return _nest(flat)
 
 

@@ -10,8 +10,10 @@ The unified ``attention`` (bidirectional, causal with a KV cache, and
 cross attention over encoder states: the encoder-decoder family's) ends
 on the ``flash_attention`` kernel for CUDA tensors.  The mixed-precision
 context ``compute_dtype`` makes ``qdense`` cast both operands after the
-fake quantization.  Not ported (ROADMAP A, the launch layer): the
-activation-sharding context, which only places tensors on a mesh.
+fake quantization.  The launcher's mesh context
+(``activation_sharding``, kept in ``launch.mesh``) tells the EP MoE
+layer its mesh; each rank already holds its slice of the batch, so
+``shard_batch`` places nothing.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention_gqa
 from repro_torch.kernels.quant_matmul import quant_matmul
+from repro_torch.launch.mesh import (  # noqa: F401  (the reference's names)
+    activation_sharding, current_dp, current_mesh)
 from repro_torch.quant.fake_quant import fake_quant_act, fake_quant_weight
 from repro_torch.quant.pack import DEQUANTIZE
 from repro_torch.quant.qconfig import QuantConfig
@@ -62,22 +66,37 @@ def current_compute_dtype():
 
 
 # ---------------------------------------------------------------------------
+# the launcher's mesh context (kept in ``launch.mesh``)
+# ---------------------------------------------------------------------------
+
+def shard_batch(x: torch.Tensor) -> torch.Tensor:
+    """The reference constrains dim 0 onto the dp axes here; each rank of
+    the port already holds its slice of the batch, so x is returned."""
+    return x
+
+
+# ---------------------------------------------------------------------------
 # initializers
 # ---------------------------------------------------------------------------
 
-def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
-    """N(0, 1) float32 from ``gen`` (drawn on the generator's device)."""
+def randn(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """N(0, 1) float32 from ``gen`` (drawn on the generator's device),
+    on ``device``.  On ``meta`` nothing is drawn: the tensor has a shape
+    and a type only (the templates of a restore, the sharding rules)."""
     device = resolve_device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=gen.device).to(device)
 
 
+
 def dense_init(gen, d_in: int, d_out: int, dtype=torch.float32, device=None):
-    return (_normal(gen, (d_in, d_out), device) / math.sqrt(d_in)).to(dtype)
+    return (randn(gen, (d_in, d_out), device) / math.sqrt(d_in)).to(dtype)
 
 
 def embed_init(gen, vocab: int, d: int, dtype=torch.float32, device=None):
-    return (_normal(gen, (vocab, d), device) * 0.02).to(dtype)
+    return (randn(gen, (vocab, d), device) * 0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

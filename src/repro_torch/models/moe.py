@@ -27,11 +27,15 @@ The reference's numerics, held by ``tests/test_torch_moe.py``:
     no atomics, so two calls give the same bits;
   * ``out + shared`` promotes as JAX does (bfloat16 + float32 -> float32).
 
-The reference's ``moe_apply_ep`` (perf variant ``moe_ep_shard_map``)
-falls back to ``moe_apply`` when no launcher mesh is active; the port
-has no mesh yet (the launch layer, ROADMAP A), so its transformer calls
-``moe_apply`` under that variant.  The reference cannot apply a router packed by
-``serve.quantize_params`` (ROADMAP C), and the port raises for one too.
+``moe_apply_ep`` (perf variant ``moe_ep_shard_map``) is the reference's
+expert parallelism over the launcher's mesh: each rank of a ``model``
+group dispatches its slice of the sequence, holds E / n_tp experts, and
+exchanges token payloads with two ``all_to_all_single`` calls over the
+group (int8 codes and their per-row scales, in the payload's type,
+under ``moe_ep_int8_payload``); with no mesh, or a sequence the group does not
+divide (decode), it is ``moe_apply``, as the reference falls back.  The
+reference cannot apply a router packed by ``serve.quantize_params``
+(ROADMAP C), and the port raises for one too.
 
 ``RouterLog`` records each call's routing (expert ids and the margin of
 the k-th probability over the (k+1)-th) for ``serve.check``, which holds
@@ -47,7 +51,9 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.launch.mesh import axis_sizes, coordinate, current_mesh
 from repro_torch.models import layers as L
 from repro_torch.quant.fake_quant import (fake_quant_expert_acts,
                                           fake_quant_experts)
@@ -159,13 +165,18 @@ class RoutePins:
         (ids, margin) pairs of arrays."""
         self.queue = list(calls)
 
-    def pin(self, vals, ids, top_ids, top_w, shape):
+    def pin(self, vals, ids, top_ids, top_w, shape, cols=None):
         """(top_ids, top_w) with the next call's near ties pinned; ``vals``,
-        ``ids``: the router's sorted probabilities and their ids (T, E)."""
+        ``ids``: the router's sorted probabilities and their ids (T, E).
+        ``cols``: the slice of the reference call's sequence that this
+        call routes (an EP rank's), default all of it."""
         if not self.queue:
             raise RuntimeError("RoutePins: an MoE call past the routing "
                                "loaded for this step")
         ref_ids, ref_margin = self.queue.pop(0)
+        if cols is not None:
+            ref_ids = np.asarray(ref_ids)[:, cols]
+            ref_margin = np.asarray(ref_margin)[:, cols]
         t, k = top_ids.shape
         if tuple(np.shape(ref_ids)) != (*shape, k):
             raise ValueError(f"RoutePins: reference routing of shape "
@@ -222,6 +233,54 @@ def _experts_ffn(ps: Params, x: torch.Tensor, qcfg: QuantConfig,
     return _expert_dense(h, ps["w_down"], qcfg)
 
 
+def _topk(xf: torch.Tensor, router, k: int, shape, cols=None):
+    """Each token's k experts in increasing id and their renormalized
+    weights (T, k), with ``RoutePins``' near ties pinned; also the
+    router's sorted probabilities (T, E)."""
+    vals, ids = _route(xf, router)
+    top_w, top_ids = vals[:, :k], ids[:, :k]
+    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    # each token's slots in increasing expert id: the order in which the
+    # reference's scatter-add meets them; no position in an expert moves
+    # (a token holds an expert once, so the stable sort of the dispatch
+    # orders an expert's assignments by token alone)
+    top_ids, slot = torch.sort(top_ids, dim=-1)
+    top_w = torch.gather(top_w, -1, slot)
+    if RoutePins.active is not None:
+        top_ids, top_w = RoutePins.active.pin(vals, ids, top_ids, top_w,
+                                              shape, cols)
+    return top_ids, top_w, vals
+
+
+def _dispatch(top_ids: torch.Tensor, e: int, c: int):
+    """(dest_e, dest_p, keep) of every (token, slot) assignment in
+    token-major order: its expert (e, the drop bucket, past capacity) and
+    its place there, by the stable sort on expert id."""
+    flat_e = top_ids.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    starts = torch.searchsorted(se, torch.arange(e, device=se.device,
+                                                 dtype=se.dtype))
+    pos = torch.empty_like(se)
+    pos[order] = torch.arange(se.numel(), device=se.device) - starts[se]
+    keep = pos < c
+    return torch.where(keep, flat_e, e), torch.where(keep, pos, 0), keep
+
+
+def _combine(ybuf, dest_e, dest_p, keep, top_w, t, k, dtype):
+    """A token's k contributions, each rounded to ``dtype``, added to
+    zeros of ``dtype`` one at a time in increasing expert id."""
+    e = ybuf.shape[0]
+    gathered = ybuf[torch.clamp_max(dest_e, e - 1), dest_p]   # (T*k, d)
+    contrib = gathered * (top_w.reshape(-1) * keep.to(top_w.dtype))[:, None]
+    contrib = contrib.to(dtype).reshape(t, k, -1)
+    out = torch.zeros((t, contrib.shape[-1]), dtype=dtype,
+                      device=ybuf.device)
+    for j in range(k):
+        out = out + contrib[:, j]
+    return out
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg,
               qcfg: QuantConfig) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d) (float32 with shared experts, as the
@@ -235,31 +294,9 @@ def moe_apply(p: Params, x: torch.Tensor, cfg,
     xf = x.reshape(t, d)
     dev = x.device
 
-    # --- routing ------------------------------------------------------------
-    vals, ids = _route(xf, p["router"])
-    top_w, top_ids = vals[:, :k], ids[:, :k]
-    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
-    # each token's slots in increasing expert id: the order in which the
-    # reference's scatter-add meets them; no position in an expert moves
-    # (a token holds an expert once, so the stable sort below orders an
-    # expert's assignments by token alone)
-    top_ids, slot = torch.sort(top_ids, dim=-1)
-    top_w = torch.gather(top_w, -1, slot)
-    if RoutePins.active is not None:
-        top_ids, top_w = RoutePins.active.pin(vals, ids, top_ids, top_w,
-                                              (b, s))
-
-    # --- sort-based dispatch ------------------------------------------------
-    flat_e = top_ids.reshape(-1)                            # (T*k,)
-    order = torch.argsort(flat_e, stable=True)
-    se = flat_e[order]
-    starts = torch.searchsorted(se, torch.arange(e, device=dev,
-                                                 dtype=se.dtype))
-    pos = torch.empty_like(se)
-    pos[order] = torch.arange(t * k, device=dev) - starts[se]
-    keep = pos < c
-    dest_e = torch.where(keep, flat_e, e)                   # e: drop bucket
-    dest_p = torch.where(keep, pos, 0)
+    # --- routing and sort-based dispatch --------------------------------------
+    top_ids, top_w, vals = _topk(xf, p["router"], k, (b, s))
+    dest_e, dest_p, keep = _dispatch(top_ids, e, c)
     log = RouterLog.active
     if log is not None:
         margin = (vals[:, k - 1] - vals[:, k] if k < e
@@ -273,17 +310,193 @@ def moe_apply(p: Params, x: torch.Tensor, cfg,
     ybuf = _experts_ffn(p["experts"], buf[:e], qcfg, cfg.act)  # (E, C, d)
 
     # --- combine: a token's contributions one at a time, in expert order -----
-    gathered = ybuf[torch.clamp_max(dest_e, e - 1), dest_p]   # (T*k, d)
-    contrib = gathered * (top_w.reshape(-1) * keep.to(top_w.dtype))[:, None]
-    contrib = contrib.to(x.dtype).reshape(t, k, d)
-    out = torch.zeros((t, d), dtype=x.dtype, device=dev)
-    for j in range(k):
-        out = out + contrib[:, j]
+    out = _combine(ybuf, dest_e, dest_p, keep, top_w, t, k, x.dtype)
 
     # --- shared experts (DeepSeekMoE) ----------------------------------------
     if "shared" in p:
         out = out + L.mlp(p["shared"], xf, qcfg, cfg.act)
     return out.reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism over the launcher's mesh (perf variant moe_ep_shard_map)
+# ---------------------------------------------------------------------------
+
+def _int8_payload(x: torch.Tensor):
+    """The reference's int8 wire payload of x (..., d), in x's type:
+    codes clip(round(x / scale), -127, 127) with scale = max(absmax over
+    d, 1e-8) / 127, one scale a row."""
+    absmax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    scale = torch.div(torch.clamp_min(absmax, 1e-8),
+                      torch.tensor(127.0, dtype=x.dtype, device=x.device))
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    if PayloadPins.active is not None:
+        q = PayloadPins.active.pin(x / scale, q)
+    return q, scale
+
+
+class PayloadPins:
+    """Within ``with PayloadPins(codes, tol) as pins:`` each int8 payload
+    that ``moe_apply_ep`` sends (in call order) takes a reference's codes
+    where its own differ by one step at a rounding tie (its x / scale
+    within ``tol`` of a half-integer: the last float bit of x, summed in
+    another order, decides such a code); ``pinned`` counts them, ``away``
+    the codes that differ anywhere else (a fault)."""
+
+    active = None
+
+    def __init__(self, codes, tol: float):
+        self.codes = list(codes)
+        self.tol = tol
+        self.pinned = 0
+        self.away = 0
+
+    def __enter__(self):
+        self._outer, PayloadPins.active = PayloadPins.active, self
+        return self
+
+    def __exit__(self, *exc):
+        PayloadPins.active = self._outer
+
+    def pin(self, ratio: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        if not self.codes:
+            raise RuntimeError("PayloadPins: a payload past those loaded")
+        ref = torch.as_tensor(np.asarray(self.codes.pop(0)),
+                              device=q.device).to(q.dtype)
+        if ref.shape != q.shape:
+            raise ValueError(f"PayloadPins: a reference payload of "
+                             f"{tuple(ref.shape)} for {tuple(q.shape)}")
+        differ = ref != q
+        mag = torch.abs(ratio.to(torch.float64))
+        tie = ((torch.abs(mag - torch.floor(mag) - 0.5) < self.tol)
+               & (torch.abs(ref.to(torch.int32) - q.to(torch.int32)) == 1))
+        self.pinned += int((differ & tie).sum())
+        self.away += int((differ & ~tie).sum())
+        return torch.where(differ & tie, ref, q)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Block i of dim 0 to rank i of ``group``; block j of the result
+    from rank j (``lax.all_to_all(x, axis, 0, 0, tiled=False)``).  Its
+    gradient is the same exchange of the output's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g, group=ctx.group)
+        return out, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Every rank's (B, S / n, d) slice of ``group``, in rank order, as
+    one (B, S, d) tensor on every rank.  What follows it is the same on
+    every rank of the group (one loss), so the gradient of a rank's slice
+    is its own part of the output's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        i = dist.get_group_rank(ctx.group, dist.get_rank())
+        return g.chunk(n, dim=1)[i].contiguous(), None
+
+
+class _Whole(torch.autograd.Function):
+    """The identity on a tensor that every rank of ``group`` holds whole
+    but uses in part (its slice of the tokens, its experts): its gradient
+    is the sum of the ranks' parts, so that every rank holds the whole
+    gradient, as on one device."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _payload_all_to_all(x: torch.Tensor, group, int8: bool) -> torch.Tensor:
+    if not int8:
+        return _AllToAll.apply(x, group)
+    # int8 codes, and their per-row scales in a second exchange of x's type
+    q, scale = _int8_payload(x)
+    q = _AllToAll.apply(q, group)
+    scale = _AllToAll.apply(scale, group)
+    return q.to(x.dtype) * scale
+
+
+def moe_apply_ep(p: Params, x: torch.Tensor, cfg,
+                 qcfg: QuantConfig) -> torch.Tensor:
+    """x: (B, S, d), this rank's batch, the same on every rank of its
+    ``model`` group; returns the same shape, on every rank of the group.
+    ``moe_apply`` with no launcher mesh (``mesh.activation_sharding``)
+    or where the group does not divide S.  Its gradient: a rank's part
+    of the gradient of x, the router, its experts and the shared experts
+    is summed over the group, so every rank holds the whole gradient."""
+    mesh, tp = current_mesh()
+    if mesh is None or x.shape[1] % axis_sizes(mesh)[tp] != 0:
+        return moe_apply(p, x, cfg, qcfg)      # CPU tests / decode: fall back
+    if isinstance(p["router"], dict):
+        raise NotImplementedError(PACKED_ROUTER)
+    group = mesh.get_group(tp)
+    n_tp, i = axis_sizes(mesh)[tp], coordinate(mesh)[tp]
+    e, k = cfg.moe_experts, cfg.moe_topk
+    if e % n_tp:
+        raise ValueError(f"{e} experts do not split over {n_tp} ranks")
+    e_loc = e // n_tp
+    b, s, d = x.shape
+    sl = s // n_tp
+    cols = slice(i * sl, (i + 1) * sl)
+    whole = lambda w: _Whole.apply(w, group)  # noqa: E731
+    xb = whole(x)[:, cols]                 # this rank's slice of the tokens
+    t = b * sl
+    c = capacity(t, cfg)
+    xf = xb.reshape(t, d)
+
+    top_ids, top_w, _ = _topk(xf, whole(p["router"]), k, (b, sl), cols)
+    dest_e, dest_p, keep = _dispatch(top_ids, e, c)
+    send = torch.zeros((e + 1, c, d), dtype=x.dtype, device=x.device)
+    send = send.index_put((dest_e, dest_p), xf.repeat_interleave(k, dim=0))
+    # dispatch: (n_tp, E_loc, C, d) to the peers; dim 0 of what arrives is
+    # the source rank
+    int8 = cfg.moe_ep_int8_payload
+    recv = _payload_all_to_all(send[:e].reshape(n_tp, e_loc, c, d), group,
+                               int8)
+    tokens_in = recv.transpose(0, 1).reshape(e_loc, n_tp * c, d)
+    experts = {name: whole(w)[i * e_loc:(i + 1) * e_loc]
+               for name, w in p["experts"].items()}
+    ybuf = _experts_ffn(experts, tokens_in, qcfg, cfg.act)
+    back = _payload_all_to_all(
+        ybuf.reshape(e_loc, n_tp, c, d).transpose(0, 1), group, int8)
+    out = _combine(back.reshape(e, c, d), dest_e, dest_p, keep, top_w, t, k,
+                   x.dtype)
+    if "shared" in p:
+        shared = {name: whole(w) if torch.is_tensor(w) else w
+                  for name, w in p["shared"].items()}
+        out = out + L.mlp(shared, xf, qcfg, cfg.act).to(x.dtype)
+    out = out.reshape(b, sl, d)
+    # every rank's slice of the sequence back to every rank of the group
+    return _GatherSeq.apply(out, group)
 
 
 def router_aux_loss(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import randn
 
 _SCALES = {"embed": 0.02, "conv": 0.2}
 
@@ -85,9 +86,7 @@ def torch_params(shapes: dict, gen: torch.Generator, device=None):
             flat[path] = (torch.ones if kind == "ones" else torch.zeros)(
                 shape, dtype=torch.float32, device=device)
         else:
-            flat[path] = (torch.randn(shape, generator=gen,
-                                      dtype=torch.float32, device=gen.device)
-                          * _scale(shape, kind)).to(device)
+            flat[path] = randn(gen, shape, device) * _scale(shape, kind)
     return nest(flat)
 
 

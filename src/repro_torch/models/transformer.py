@@ -36,9 +36,9 @@ The perf variants, as the reference takes them:
     (float32 with float32 P), global ones on the baseline path;
   * ``attn_flash`` (no cache, an all-global pattern): every layer through
     ``flash_attn.flash_attention``, float32 with float32 P;
-  * ``moe_ep_shard_map``: with no mesh (the port has no launch layer
-    yet) ``moe.moe_apply``, as the reference's ``moe_apply_ep`` falls
-    back.
+  * ``moe_ep_shard_map``: ``moe.moe_apply_ep`` (expert parallelism over
+    the launcher's mesh; ``moe_apply`` with no mesh, as the reference
+    falls back).
 
 The KV cache is updated in place (the reference returns a new one; the
 port returns the same, written, object).  The families other than
@@ -244,9 +244,8 @@ def _block(p: Params, x, cfg, qcfg, positions, q_start, is_global: bool,
     x = x + attn_out.to(x.dtype)
     h = L.rmsnorm(x, p["ln2"], zero_centered=cfg.zero_centered_norm)
     if moe:
-        # moe_ep_shard_map with no launcher mesh is moe_apply, as the
-        # reference falls back (the port has no mesh yet)
-        ff = MOE.moe_apply(p["moe"], h, cfg, qcfg)
+        moe_fn = MOE.moe_apply_ep if cfg.moe_ep_shard_map else MOE.moe_apply
+        ff = moe_fn(p["moe"], h, cfg, qcfg)
     else:
         ff = L.mlp(p["mlp"], h, qcfg, cfg.act)
     return x + ff.to(x.dtype), new_cache

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels.fake_quant import fake_quant_group
 from repro_torch.kernels.fake_quant.ref import POW2_LEVELS
+from repro_torch.launch.mesh import dp_max
 from repro_torch.quant.qconfig import QuantConfig
 
 
@@ -72,8 +73,12 @@ def _fused_group(xs, scales, mode: str, bits: int = 8) -> list:
 
 def affine_scale(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
     """Symmetric scale so that absmax maps to the max int level."""
+    return _scale_of(_absmax(x, axis), bits)
+
+
+def _scale_of(absmax: torch.Tensor, bits: int) -> torch.Tensor:
     qmax = 2.0 ** (bits - 1) - 1.0
-    absmax = torch.clamp_min(_absmax(x, axis), 1e-8)
+    absmax = torch.clamp_min(absmax, 1e-8)
     # divide by a tensor on x's device: CUDA divides by a Python scalar
     # as a multiply by its reciprocal, an ulp off IEEE division
     return absmax / absmax.new_tensor(qmax)
@@ -188,10 +193,15 @@ def fake_quant_weight(w: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
 
 
 def fake_quant_act(x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
-    """Per-tensor dynamic activation quantization."""
+    """Per-tensor dynamic activation quantization.  Under the launcher's
+    mesh context (``launch.mesh.activation_sharding``) x is this rank's
+    slice of the batch, and its absmax is the max over the dp ranks
+    (``dp_max``): the scale spans the global batch, as on one device."""
     if qcfg.act_scheme == "none" or not qcfg.quantize_acts:
         return x
-    return affine_fake_quant(x, qcfg.act_bits, axis=None)
+    d = x.detach()
+    scale = _scale_of(dp_max(_absmax(d, None)), qcfg.act_bits)
+    return _ste(x, _fused_group([d], [scale], "affine", qcfg.act_bits)[0])
 
 
 def _stacked(x: torch.Tensor, scheme: str, bits: int, per_channel: bool):

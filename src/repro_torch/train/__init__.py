@@ -1,7 +1,11 @@
 """Training (port of ``repro.train``)."""
 
-from repro_torch.train.trainer import (TrainState, Watchdog, fit, init_state,
-                                       make_train_step, resume)
+from repro_torch.train.trainer import (TrainState, Watchdog, fit,
+                                       gather_state, init_state,
+                                       jit_train_step, make_shardings,
+                                       make_train_step, resume, shard_state,
+                                       state_shardings_for)
 
-__all__ = ["TrainState", "Watchdog", "fit", "init_state", "make_train_step",
-           "resume"]
+__all__ = ["TrainState", "Watchdog", "fit", "gather_state", "init_state",
+           "jit_train_step", "make_shardings", "make_train_step", "resume",
+           "shard_state", "state_shardings_for"]

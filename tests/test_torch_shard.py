@@ -416,8 +416,8 @@ def test_wide_space_is_giga_scale():
 
 def test_xla_flags_preserved():
     """The reference's test guards XLA_FLAGS in its launch runners.  The
-    port has no launch layer and sets no flag: importing every module
-    of it leaves the environment exactly as it was."""
+    port's launch layer sets no flag: importing every module of the port
+    leaves the environment exactly as it was."""
     code = (
         "import os, importlib, pathlib\n"
         "os.environ['XLA_FLAGS'] = '--xla_dump_to=/tmp/x'\n"
