@@ -104,9 +104,9 @@
    ``TRAIN_LM_RTOL`` / ``TRAIN_CNN_RTOL``, with two controls that must
    fail (the attention's output detached, the parent's behaviour; the
    LightPE-1 run against the FP32 reference); 20 steps of full-width
-   SmolLM-135M under LightPE-1 at 16 x 256 (AdamW), with exactly 422
-   ``fake_quant``, 30 forward and 30 backward ``flash_attention`` launches
-   a step and a falling loss (step time, tokens/s, peak memory); 10 steps
+   SmolLM-135M under LightPE-1 at 16 x 256 (AdamW), with exactly 842
+   ``fake_quant``, 60 forward and 30 backward ``flash_attention`` launches
+   a step (each layer recomputed in the backward) and a falling loss (step time, tokens/s, peak memory); 10 steps
    straight against 5, a checkpoint, a restore and 5 more, bitwise; and
    the Figs. 5-6 run (``--mode cnn`` at its defaults), its table loaded
    by the port's ``AccuracySurrogate`` and held to the paper's story;
@@ -174,8 +174,9 @@
    of world size 1 (a ``FileStore`` in a temporary directory): 14.1
    ``launch.train.main`` (SmolLM-135M at full width, LightPE-1, 3 AdamW
    steps at 16 x 256) bitwise equal to the trainer driven directly with
-   the same optimizer, schedule, seed and pipeline, with exactly 422
-   ``fake_quant`` and 30 + 30 ``flash_attention`` launches a step; 14.2
+   the same optimizer, schedule, seed and pipeline, with exactly 842
+   ``fake_quant`` and 60 + 30 ``flash_attention`` launches a step (each
+   layer's forward again in its recomputation); 14.2
    the same run on a (1, 1) mesh (``state_shardings_for``, the
    per-process pipeline, the dp mean an NCCL ``all_reduce``) bitwise
    equal to 14.1, saved at step 2 and resumed onto a fresh (1, 1) mesh,
@@ -192,7 +193,29 @@
    LightPE-1 packed then served dequantized), its tokens equal to a
    ``ServeEngine`` run on the same dequantized weights, with exactly 26
    ``flash_attention`` launches a step, tokens/s and peak memory;
-15. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
+15. the dry run (``launch/{op_analysis,dryrun}``): 15.1 the (1, 1) mesh
+   step of SmolLM-135M at full width, LightPE-1, 16 x 256, AdamW, with
+   each layer recomputed, and the same step with ``layers.remat`` the
+   identity, from one seed: 1 + ``DRY_TIMED`` steps of each in turn,
+   every one bitwise equal (loss, gradient norm, state), the first's
+   peaks and the others' host-paced p50 beside each other (the cost of
+   recomputation); then one step counted on the card by ``op_analysis``
+   and the same step on a (1, 1) ``meta`` mesh: FLOPs, bytes, collective
+   bytes by kind and launches a kernel equal, and the analyzer's launches
+   those of the kernels' own counters, set to 0 just before; the step's
+   temporary bytes within ``DRY_MEM_BAND`` of the growth of
+   ``max_memory_allocated``; 15.2 Gemma-3-1B at full size, the
+   ``decode_32k`` step with the batch cut to 8 (a 7.0 GB bfloat16 cache),
+   the same equalities and band, its host-paced p50 and the device's
+   busy time (``torch.profiler``) beside the bytes it reads and writes
+   and its FLOPs at the card's rates; 15.3 every cell of
+   ``launch/shapes.py`` x the ten configs, counted on ``meta`` by worker
+   processes (no card) that start beside the kernels' build and stop
+   from phase 1 to the end of 15.2: on a (1, 1) mesh held to
+   ``tests/data/torch_dryrun_ref.json`` (FLOPs, each side without its
+   matrix-vector part, at rtol 1e-9; argument bytes exact; the kernels'
+   refusals where the reference compiles), and the pod16x16 table;
+16. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
    last, the device line.
 
 TF32 is off for matrix products and convolutions (``repro_torch`` sets
@@ -220,6 +243,7 @@ GEMMA_REF = ROOT / "tests" / "data" / "torch_gemma3_ref.json"
 MOE_REF = ROOT / "tests" / "data" / "torch_moe_ref.json"
 VARIANTS_REF = ROOT / "tests" / "data" / "torch_variants_ref.json"
 SSM_REF = ROOT / "tests" / "data" / "torch_ssm_ref.json"
+DRYRUN_REF = ROOT / "tests" / "data" / "torch_dryrun_ref.json"
 SCALE_SHARDS = 4
 SCALE_DEPTH = 2
 KILL_AFTER = 40
@@ -297,7 +321,10 @@ SMOLLM_WEIGHTS = [(576, 576), (576, 192), (576, 1536), (1536, 576),
 SMOLLM_ACTS = [(4, 576), (4, 1536), (520, 576), (520, 1536)]
 # Phase 10: training at the example's settings (examples/torch_train_qat.py)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 256, 20
-TRAIN_FQ_PER_STEP = (30 * 7 + 1) * 2   # LightPE-1: 211 projections x (w, x)
+# LightPE-1: 211 projections x (w, x), and each layer's 210 again in its
+# recomputation (``layers.remat``)
+TRAIN_FQ_PER_STEP = (30 * 7 * 2 + 1) * 2
+TRAIN_FWD_PER_LAYER = 2                # the forward and its recomputation
 TRAIN_MIN_DROP = 0.5                   # mean of the last 3 losses vs first 3
 RESUME_BATCH = 4
 # The backward kernel's time at phase 10.1's training shapes before its
@@ -1823,7 +1850,8 @@ def run_training(torch, dev):
                   flash_attention_backward=flash_attention.backward_launches)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     want = dict(fake_quant=TRAIN_STEPS * TRAIN_FQ_PER_STEP,
-                flash_attention=TRAIN_STEPS * cfg.n_layers,
+                flash_attention=TRAIN_STEPS * TRAIN_FWD_PER_LAYER
+                * cfg.n_layers,
                 flash_attention_backward=TRAIN_STEPS * cfg.n_layers)
     if counts != want:
         fail(f"training launches {counts}, want {want}")
@@ -2603,8 +2631,9 @@ def run_flash_variant(torch, dev, ref):
     ``flash_attention`` launch a layer), and ``train_check``'s AdamW steps
     at 4 x 128 under ``attn_flash`` (FP32, LightPE-1) and under
     ``compute_dtype(bfloat16)`` (LightPE-1) held to the JAX package's,
-    with a forward and a backward launch a layer a step and, under
-    LightPE-1, 422 ``fake_quant`` launches a step."""
+    with two forward launches a layer a step (the layer's recomputation)
+    and a backward launch and, under LightPE-1, 842 ``fake_quant``
+    launches a step."""
     from repro_torch import convert, train_check as tc, variants_check as vc
     from repro_torch.configs import get
     from repro_torch.kernels.fake_quant import fake_quant
@@ -2638,7 +2667,8 @@ def run_flash_variant(torch, dev, ref):
         counts = dict(forward=flash_attention.launches,
                       backward=flash_attention.backward_launches,
                       fake_quant=fake_quant.launches)
-        want = dict(forward=cfg.n_layers * tc.LM_STEPS,
+        want = dict(forward=TRAIN_FWD_PER_LAYER * cfg.n_layers
+                    * tc.LM_STEPS,
                     backward=cfg.n_layers * tc.LM_STEPS,
                     fake_quant=0 if pe == "fp32"
                     else TRAIN_FQ_PER_STEP * tc.LM_STEPS)
@@ -3462,7 +3492,7 @@ def launch_train(torch, dev, tmp):
     cli_s = time.perf_counter() - t0
     counts = _train_counts(fq, fa)
     want = {"fake_quant": steps * TRAIN_FQ_PER_STEP,
-            "flash_attention": steps * cfg.n_layers,
+            "flash_attention": steps * TRAIN_FWD_PER_LAYER * cfg.n_layers,
             "flash_attention_backward": steps * cfg.n_layers}
     if counts != want:
         fail(f"launch.train: launches {counts}, want {want}")
@@ -3802,6 +3832,487 @@ def run_launch(torch, dev, moe_params):
     return out
 
 
+# Phase 15.  The step's temporary bytes (``op_analysis``: live storages
+# allocated in the step) are held to the growth of max_memory_allocated
+# over the step within this band: the caching allocator rounds each block
+# up to 512 bytes, which the storages' own sizes do not.
+DRY_MEM_BAND = 0.10
+DRY_BATCH, DRY_SEQ = 16, 256            # 15.1: phase 10's training batch
+DRY_TIMED = 5                           # 15.1: timed steps of each variant
+DRY_DECODE_BATCH = 8                    # 15.2: decode_32k's batch cut to 8
+DRY_DECODE_TIMED = 5                    # 15.2: timed steps
+DRY_FLOPS_RTOL = 1e-9                   # 15.3 against the reference file
+DRY_WORKERS = 7                         # 15.3's processes (8 CPU cores)
+# 15.3: seconds a cell took on the card's host at pod16x16 (PR 24's
+# run), so that the workers take the long cells first; other training
+# cells ~20 s, serving cells ~1 s
+DRY_SECONDS = {("zamba2-7b", "prefill_32k"): 169,
+               ("rwkv6-1.6b", "train_4k"): 133,
+               ("qwen2-vl-72b", "train_4k"): 64,
+               ("qwen3-32b", "train_4k"): 57,
+               ("rwkv6-1.6b", "prefill_32k"): 48}
+DRY_REFUSALS = ("the flash attention backward takes head_dim",
+                "the flash attention backward takes no sliding window")
+DRY_KEYS = ("flops", "bytes_out", "collectives", "launches")
+
+
+def start_dryrun(tmp: Path):
+    """15.3's workers, started before the kernels' build at a lower
+    priority: every (arch, shape) cell on a (1, 1) and a pod16x16 ``meta``
+    mesh (no card touched), the longest first; each worker claims the
+    next cell free (an exclusive file a cell).  ``pause_dryrun`` stops
+    them from phase 1 to 15.2, so that no timed phase shares the host's
+    cores with them.  Returns the processes, their result files and the
+    number of cells."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import list_archs
+    from repro_torch.launch.shapes import SHAPES
+
+    def seconds(cell):
+        arch, shape, _ = cell
+        return DRY_SECONDS.get((arch, shape),
+                               20 if SHAPES[shape].kind == "train" else 1)
+
+    cells = sorted(((a, s, m) for m in ("1x1", "pod16x16")
+                    for a in list_archs() for s in SHAPES), key=seconds,
+                   reverse=True)
+    spec, claims = tmp / "cells.json", tmp / "claims"
+    spec.write_text(json.dumps(cells))
+    claims.mkdir()
+    procs, outs = [], []
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    for w in range(DRY_WORKERS):
+        out = tmp / f"dryrun{w}.jsonl"
+        code = ("import json, os, torch\n"
+                "os.nice(10)\n"
+                "torch.set_num_threads(1)\n"
+                "from repro_torch.launch import dryrun\n"
+                f"for i, cell in enumerate(json.load(open({str(spec)!r}))):\n"
+                "    try:\n"
+                f"        os.close(os.open(os.path.join({str(claims)!r}, "
+                "str(i)), os.O_CREAT | os.O_EXCL))\n"
+                "    except FileExistsError:\n"
+                "        continue\n"
+                f"    dryrun.run_cells([cell], {str(out)!r})\n")
+        with open(tmp / f"dryrun{w}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code], env=env,
+                stdout=subprocess.DEVNULL, stderr=log))
+        outs.append(out)
+    return procs, outs, len(cells)
+
+
+def pause_dryrun(workers, go: bool):
+    """Stop (``go`` False) or continue 15.3's workers."""
+    import signal
+    for p in workers[0]:
+        if p.poll() is None:
+            p.send_signal(signal.SIGCONT if go else signal.SIGSTOP)
+
+
+def _meta_mesh():
+    from repro_torch.launch import dryrun as D
+    return D.start_mesh((1, 1), ("data", "model"), 0, "meta")
+
+
+def _nccl_mesh(torch, dev, tmp: Path):
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    M.init_process_group(dev, 0, 1, store=dist.FileStore(
+        str(tmp / f"store{time.monotonic_ns()}"), 1), timeout_s=300)
+    return M.make_mesh((1, 1), ("data", "model"), dev)
+
+
+def _same_counts(name, card, meta, launched):
+    """The card's and the meta run's counts: equal, key for key; the
+    card's launches those that the kernels' own counters saw."""
+    bad = [k for k in DRY_KEYS if card[k] != meta[k]]
+    if bad:
+        fail(f"{name}: the card's counts differ from meta's in {bad}: "
+             f"{ {k: (card[k], meta[k]) for k in bad} }")
+    if card["launches"] != launched:
+        fail(f"{name}: the analyzer counted launches {card['launches']}, "
+             f"the kernels' counters {launched}")
+
+
+def _in_band(name, temp, growth):
+    if not abs(temp - growth) <= DRY_MEM_BAND * growth:
+        fail(f"{name}: temporary bytes {temp} not within {DRY_MEM_BAND} of "
+             f"the growth of max_memory_allocated, {growth}")
+    return (temp - growth) / growth
+
+
+def _launched(torch, fn):
+    """``fn()`` with every kernel's launch counter set to 0 before it;
+    (its result, the counters' launches after it, those not 0)."""
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    torch.cuda.synchronize()
+    fake_quant.launches = quant_matmul.launches = 0
+    flash_attention.launches = flash_attention.backward_launches = 0
+    out = fn()
+    counts = {"fake_quant": fake_quant.launches,
+              "quant_matmul": quant_matmul.launches,
+              "flash_attention": flash_attention.launches,
+              "flash_attention_backward": flash_attention.backward_launches}
+    return out, {k: v for k, v in counts.items() if v}
+
+
+def _measured(torch, step, args):
+    """``op_analysis`` of one ``step(*args)`` on the card, the kernels'
+    own launch counts over it, and the growth of ``max_memory_allocated``
+    over it."""
+    from repro_torch.launch import op_analysis as OA
+    gc.collect()
+    torch.cuda.synchronize()
+    # the earlier phases' cached blocks out of the way: a block taken from
+    # the cache is not split below 1 MiB of slack and counts whole (a
+    # 4 MiB tensor in a 4.9 MiB block read 22% over 15.2's step)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    (out, rep), launched = _launched(torch,
+                                     lambda: OA.analyze(step, *args))
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - before
+    return out, rep, launched, growth
+
+
+def _train_cell(torch, device, mesh):
+    """15.1's step and arguments on ``device``: the (1, 1) mesh step of
+    SmolLM-135M, LightPE-1, AdamW, a 16 x 256 batch."""
+    from repro_torch.configs import get
+    from repro_torch.models import family_module
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import (init_state, jit_train_step,
+                                   make_train_step, shard_state,
+                                   state_shardings_for)
+    cfg = get("smollm-135m").replace(pe_type="lightpe1")
+    mod = family_module(cfg)
+    opt = adamw(warmup_cosine(3e-4, 20, TRAIN_STEPS))
+    sh = state_shardings_for(cfg, mod, mesh, opt)
+    gen = (torch.Generator(device=device) if device.type == "cuda"
+           else torch.Generator()).manual_seed(0)
+    state = shard_state(init_state(cfg, mod, opt, gen, device=device), sh)
+    toks = torch.randint(0, cfg.vocab, (DRY_BATCH, DRY_SEQ + 1),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1].contiguous().to(device),
+             "labels": toks[:, 1:].contiguous().to(device)}
+    step = jit_train_step(make_train_step(cfg, mod, opt), sh, mesh)
+    return cfg, step, state, batch
+
+
+@contextlib.contextmanager
+def _remat(name):
+    """``layers.remat`` as it is ("remat") or the identity ("identity")."""
+    from repro_torch.models import layers as L
+    inner = L.remat
+    if name == "identity":
+        L.remat = lambda fn, *a: fn(*a)
+    try:
+        yield
+    finally:
+        L.remat = inner
+
+
+def dry_train(torch, dev, tmp: Path):
+    """15.1 (see the module docstring)."""
+    from repro_torch.launch import op_analysis as OA
+    from repro_torch.optim import tree_leaves
+
+    mesh = _nccl_mesh(torch, dev, tmp)
+    # one state each with each layer recomputed and with remat the
+    # identity, from the same seed: the first step's peaks, then
+    # DRY_TIMED steps of each, in turn, host-paced; every step of the two
+    # bitwise equal
+    names = ("remat", "identity")
+    cells = {n: _train_cell(torch, dev, mesh)[1:] for n in names}
+    peaks, times, last = {}, {n: [] for n in names}, {}
+    for i in range(1 + DRY_TIMED):
+        for name in names:
+            step, state, batch = cells[name]
+            with _remat(name):
+                gc.collect()
+                torch.cuda.synchronize()
+                if i == 0:
+                    torch.cuda.reset_peak_memory_stats()
+                    before = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                if i == 0:
+                    peaks[name] = torch.cuda.max_memory_allocated() - before
+                else:
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+            cells[name] = (step, state, batch)
+            last[name] = [m["loss"], m["grad_norm"]] + tree_leaves(
+                state.params) + tree_leaves(state.opt_state)
+    differing = sum(int((a != b).sum()) for a, b in zip(last["remat"],
+                                                        last["identity"]))
+    if differing:
+        fail(f"15.1: the steps with each layer recomputed differ from the "
+             f"steps without in {differing} elements")
+    del last, cells["identity"]
+    p50 = {n: sorted(t)[len(t) // 2] for n, t in times.items()}
+    # the counted step on the card, then the same step on a (1, 1) meta mesh
+    step, state, batch = cells.pop("remat")
+    (state, _), card, launched, growth = _measured(torch, step,
+                                                   (state, batch))
+    del state, step, batch
+    gc.collect()
+    _, meta_step, meta_state, meta_batch = _train_cell(
+        torch, torch.device("meta"), _meta_mesh())
+    _, meta = OA.analyze(meta_step, meta_state, meta_batch)
+    _same_counts("15.1", card, meta, launched)
+    temp = card["memory"]["temp_size_in_bytes"]
+    off = _in_band("15.1", temp, growth)
+    out = dict(config="smollm-135m", pe_type="lightpe1", batch=DRY_BATCH,
+               seq=DRY_SEQ, mesh=[1, 1], differing=0,
+               counts={k: card[k] for k in DRY_KEYS}, launched=launched,
+               temp_bytes=temp, meta_temp_bytes=meta["memory"][
+                   "temp_size_in_bytes"], growth_bytes=growth,
+               temp_vs_growth=off, step_ms=times["remat"],
+               identity_step_ms=times["identity"],
+               step_ms_p50=p50["remat"],
+               identity_step_ms_p50=p50["identity"],
+               recompute_cost=p50["remat"] / p50["identity"] - 1,
+               peak_remat_bytes=peaks["remat"],
+               peak_identity_bytes=peaks["identity"],
+               argument_bytes=card["memory"]["argument_size_in_bytes"])
+    print(f"15.1 SmolLM-135M LightPE-1 {DRY_BATCH} x {DRY_SEQ} (1, 1) mesh: "
+          f"card == meta: flops {card['flops']:.6e}, bytes_out "
+          f"{card['bytes_out']:.6e}, collectives {card['collectives']}, "
+          f"launches {card['launches']} (the kernels' counters alike); "
+          f"{1 + DRY_TIMED} steps with each layer recomputed bitwise equal "
+          f"to {1 + DRY_TIMED} without; p50 step {p50['remat']:.1f} ms "
+          f"recomputed against {p50['identity']:.1f} ms without "
+          f"({out['recompute_cost']:+.1%}; in turn, host-paced, "
+          f"{DRY_TIMED} each); temp {temp / 2 ** 20:.1f} MiB (meta "
+          f"{meta['memory']['temp_size_in_bytes'] / 2 ** 20:.1f}) against "
+          f"growth {growth / 2 ** 20:.1f} MiB ({off:+.2%}); peak growth "
+          f"{peaks['remat'] / 2 ** 20:.1f} MiB recomputed against "
+          f"{peaks['identity'] / 2 ** 20:.1f} MiB without")
+    return out
+
+
+def _device_busy_ms(torch, fn) -> float:
+    """The sum of the device's kernel and copy durations over one
+    ``fn()`` (``torch.profiler``), or None where it records none."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 if us else None
+
+
+def dry_decode(torch, dev, tmp: Path):
+    """15.2 (see the module docstring)."""
+    from repro_torch.configs import get
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import op_analysis as OA
+    from repro_torch.launch.shapes import SHAPES, ShapeSpec
+    from repro_torch.models.transformer import layer_is_global
+
+    cfg = get("gemma3-1b")
+    base = SHAPES["decode_32k"]
+    shape = ShapeSpec("decode_32k_b8", base.seq, DRY_DECODE_BATCH, "decode")
+
+    def cell(device, mesh):
+        step, args = D.serve_cell(cfg, shape, mesh, device)
+        cache = args[-1]
+        # the last row: every layer attends its whole window, the global
+        # ones every row of the cache
+        for part in [cache["scan"]] + cache["dense"]:
+            part["index"] = [shape.seq - 1] * len(part["index"]) \
+                if isinstance(part["index"], list) else shape.seq - 1
+        return step, args
+
+    step, args = cell(dev, _nccl_mesh(torch, dev, tmp))
+    k = args[-1]["scan"]["k"]                   # (layers, B, S, Hkv, D)
+    cache_bytes = 2 * k.numel() * k.element_size()
+    # the least bytes the step moves: the weights and the tokens read
+    # once, the K and V rows each layer sees (its window, or every row of
+    # a global layer) read once, and every op's output written once
+    weight_bytes = OA.storage_bytes(args[:-1])
+    rows = [shape.seq if g else min(cfg.window, shape.seq)
+            for g in layer_is_global(cfg)]
+    cache_read = 2 * sum(rows) * k[0, :, 0].numel() * k.element_size()
+    step(*args)                                  # warm
+    _, card, launched, growth = _measured(torch, step, args)
+    # host-paced: each step waits for the one before
+    times = []
+    for _ in range(DRY_DECODE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    wall = sorted(times)[len(times) // 2]
+    busy = _device_busy_ms(torch, lambda: step(*args))
+    del step, args
+    gc.collect()
+    meta_step, meta_args = cell(torch.device("meta"), _meta_mesh())
+    _, meta = OA.analyze(meta_step, *meta_args)
+    _same_counts("15.2", card, meta, launched)
+    temp = card["memory"]["temp_size_in_bytes"]
+    off = _in_band("15.2", temp, growth)
+    moved = weight_bytes + cache_read + card["bytes_out"]
+    by_bytes = moved / H100_BYTES_PER_S * 1e3
+    by_flops = card["flops"] / H100_BF16_FLOPS * 1e3
+    out = dict(config="gemma3-1b", shape="decode_32k", batch=shape.batch,
+               cache_bytes=cache_bytes, counts={k: card[k] for k in DRY_KEYS},
+               launched=launched, temp_bytes=temp,
+               meta_temp_bytes=meta["memory"]["temp_size_in_bytes"],
+               growth_bytes=growth, temp_vs_growth=off,
+               step_ms_host_paced=times, step_ms_host_paced_p50=wall,
+               device_busy_ms=busy, weight_bytes=weight_bytes,
+               cache_read_bytes=cache_read, bytes_moved=moved,
+               bytes_ms=by_bytes,
+               flops_ms=by_flops,
+               argument_bytes=card["memory"]["argument_size_in_bytes"])
+    busy_text = "not measured" if busy is None else f"{busy:.3f} ms"
+    print(f"15.2 Gemma-3-1B decode_32k batch {shape.batch} (cache "
+          f"{cache_bytes / 1e9:.2f} GB): card == meta: flops "
+          f"{card['flops']:.6e}, bytes_out {card['bytes_out']:.6e}, launches "
+          f"{card['launches']} (the kernels' counters alike); p50 step "
+          f"{wall:.3f} ms host-paced ({DRY_DECODE_TIMED} steps), the "
+          f"device busy {busy_text} of one step (profiler); bound: "
+          f"{moved / 1e9:.3f} GB read and written (weights "
+          f"{weight_bytes / 1e9:.3f}, cache rows seen "
+          f"{cache_read / 1e9:.3f}) / 3.35 TB/s "
+          f"{by_bytes:.3f} ms, flops / 989 TFLOP/s {by_flops:.3f} ms; temp "
+          f"{temp / 2 ** 20:.1f} MiB against growth "
+          f"{growth / 2 ** 20:.1f} MiB ({off:+.2%})")
+    return out
+
+
+def _gb(x) -> str:
+    return f"{x / 1e9:.3f}"
+
+
+def dry_cells(procs, outs, n_cells):
+    """15.3 (see the module docstring): wait for the workers, hold the
+    (1, 1) cells to the reference file, print the pod16x16 table."""
+    from repro_torch.configs import get
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.shapes import SHAPES
+
+    t0 = time.perf_counter()
+    for p in procs:
+        try:
+            p.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("15.3: the dry-run workers did not finish within 600 s "
+                 "of phase 15")
+    waited = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        fail(f"15.3: dry-run workers exited {[p.returncode for p in procs]}")
+    res = [json.loads(line) for o in outs if o.exists()
+           for line in o.read_text().splitlines()]
+    if len(res) != n_cells:
+        fail(f"15.3: {len(res)} of {n_cells} cells counted")
+    ref = json.loads(DRYRUN_REF.read_text())["full"]
+    held, refused, skipped, matvec = 0, [], 0, {}
+    for r in res:
+        if r["mesh"] != "1x1":
+            continue
+        want = ref[r["arch"]][r["shape"]]
+        key = f"{r['arch']}/{r['shape']}"
+        if want["status"] == "skipped" or r["status"] == "skipped":
+            if want["status"] != r["status"]:
+                fail(f"15.3 {key}: {r['status']}, the reference "
+                     f"{want['status']}")
+            skipped += 1
+            continue
+        if r["status"] == "error":
+            if not r["error"].split(": ", 1)[-1].startswith(DRY_REFUSALS):
+                fail(f"15.3 {key}: {r['error']}")
+            refused.append(key)
+            continue
+        if r["memory"]["argument_size_in_bytes"] != \
+                want["memory"]["argument_size_in_bytes"]:
+            fail(f"15.3 {key}: argument bytes "
+                 f"{r['memory']['argument_size_in_bytes']}, the reference "
+                 f"{want['memory']['argument_size_in_bytes']}")
+        # both without their matrix-vector part (``dryrun.reference_flops``)
+        flops = D.reference_flops(get(r["arch"]), SHAPES[r["shape"]], r)
+        want_flops = want["flops"] - want["matvec_flops"]
+        if abs(flops - want_flops) > DRY_FLOPS_RTOL * want_flops \
+                or r["matvec_flops"] < want["matvec_flops"]:
+            fail(f"15.3 {key}: flops {flops} (matrix-vector "
+                 f"{r['matvec_flops']}), the reference {want_flops} "
+                 f"(matrix-vector {want['matvec_flops']})")
+        if r["matvec_flops"]:
+            matvec[key] = (r["matvec_flops"], want["matvec_flops"])
+        held += 1
+    print(f"15.3 (1, 1) meta mesh against tests/data/torch_dryrun_ref.json: "
+          f"{held} cells held (FLOPs without the matrix-vector part rtol "
+          f"{DRY_FLOPS_RTOL}, argument bytes exact), {skipped} skipped as "
+          f"the reference, refused by the kernels: {refused}; "
+          f"matrix-vector FLOPs (port, reference): {matvec}; waited "
+          f"{waited:.1f} s for the workers")
+    table = []
+    print("15.3 pod16x16, a device: arch shape status flops args_GB "
+          "temp_GB all-gather_GB all-reduce_GB all-to-all_GB fits_80GB")
+    for r in sorted((r for r in res if r["mesh"] == "pod16x16"),
+                    key=lambda r: (r["arch"], r["shape"])):
+        row = dict(arch=r["arch"], shape=r["shape"], status=r["status"])
+        if r["status"] == "ok":
+            c, m = r["collectives"], r["memory"]
+            row.update(flops=r["flops"],
+                       args_bytes=m["resident_argument_bytes"],
+                       temp_bytes=m["temp_size_in_bytes"],
+                       collectives={k: v for k, v in c.items()
+                                    if not k.endswith("_count")},
+                       fits_80gb=r["fits_80gb"], seconds=r["seconds"])
+            print(f"  {r['arch']} {r['shape']} ok {r['flops']:.4e} "
+                  f"{_gb(m['resident_argument_bytes'])} "
+                  f"{_gb(m['temp_size_in_bytes'])} "
+                  f"{_gb(c.get('all-gather', 0))} "
+                  f"{_gb(c.get('all-reduce', 0))} "
+                  f"{_gb(c.get('all-to-all', 0))} {r['fits_80gb']}")
+        else:
+            row["reason"] = r.get("error") or r.get("reason")
+            print(f"  {r['arch']} {r['shape']} {r['status']}: "
+                  f"{row['reason'][:100]}")
+        table.append(row)
+    return dict(held=held, skipped=skipped, refused=refused, matvec=matvec,
+                waited_s=waited, cells=n_cells, pod16x16=table)
+
+
+def run_dryrun(torch, dev, workers):
+    """Phase 15 (see the module docstring): 15.1 and 15.2 with the
+    workers stopped, then 15.3 with them running."""
+    import tempfile
+
+    import torch.distributed as dist
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            t0 = time.perf_counter()
+            out["train"] = dry_train(torch, dev, Path(tmp))
+            out["train_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["decode"] = dry_decode(torch, dev, Path(tmp))
+            out["decode_s"] = time.perf_counter() - t0
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    pause_dryrun(workers, go=True)
+    out["cells"] = dry_cells(*workers)
+    return out
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     t_start = time.perf_counter()
@@ -3812,23 +4323,40 @@ def main() -> int:
             or not SERVE_REF.exists() or not COEX_REF.exists() \
             or not SCALE_REF.exists() or not TRAIN_REF.exists() \
             or not GEMMA_REF.exists() or not MOE_REF.exists() \
-            or not VARIANTS_REF.exists() or not SSM_REF.exists():
+            or not VARIANTS_REF.exists() or not SSM_REF.exists() \
+            or not DRYRUN_REF.exists():
         fail("src/repro_torch or the JAX reference results are missing "
              "beside chip_smoke.py")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build
 
     print(f"card: {card_line()}")
-    dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
+    import tempfile
+    dry_tmp = tempfile.TemporaryDirectory()
+    workers = start_dryrun(Path(dry_tmp.name))
+    try:
+        return _phases(torch, t_start, workers)
+    finally:
+        for p in workers[0]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        dry_tmp.cleanup()
+
+
+def _phases(torch, t_start, workers) -> int:
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
     built = _build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(built)}")
     for name, (secs, output) in built.items():
         print(f"  {name}: {secs:.2f} s; ptxas: {ptxas_summary(output)}")
 
+    # 15.3's workers ran beside the build; no timed phase shares the host
+    pause_dryrun(workers, go=False)
     modes = check_kernels(torch, dev)
     model_shapes = check_model_shapes(torch, dev)
     launches, surrogate = run_slice(torch, dev)
@@ -3863,6 +4391,10 @@ def main() -> int:
     del moe_params
     gc.collect()
     print(f"phase 14 (the launch layer): {time.perf_counter() - t14:.2f} s")
+    t15 = time.perf_counter()
+    dryrun = run_dryrun(torch, dev, workers)
+    dryrun["seconds"] = time.perf_counter() - t15
+    print(f"phase 15 (the dry run): {dryrun['seconds']:.2f} s")
 
     # the row's main numbers: one grouped launch over the 15 VGG-16
     # weights, affine-8, float32; the bfloat16 and per-weight times beside
@@ -4012,7 +4544,7 @@ def main() -> int:
                                    if k != "kernels"},
                       "ssm": {k: v for k, v in ssm.items()
                               if k != "kernel_112"},
-                      "launch": launch}))
+                      "launch": launch, "dryrun": dryrun}))
     print(json.dumps({"train": {k: v for k, v in training.items()
                                 if k != "backward"}}))
     print(json.dumps({"ok": True, "device": {

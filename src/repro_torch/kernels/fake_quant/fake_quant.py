@@ -4,8 +4,13 @@
 
 A CUDA tensor launches the kernel, or raises: there is no fallback.  A
 CPU tensor takes the plain torch version in ``ref.py``, which the kernel
-is held to on the card.  ``fake_quant.launches`` counts kernel launches
-(of ``fake_quant`` and ``fake_quant_group`` alike).
+is held to on the card.  A ``meta`` tensor (the dry run) takes the CUDA
+branch's checks and allocations and launches nothing.  Under an analyzer
+(``launch.op_analysis``, through ``repro_torch._work``) each launch,
+after it is made, or its ``meta`` stand-in declares its work (no
+products; the bytes it reads and writes).
+``fake_quant.launches`` counts kernel launches (of ``fake_quant`` and
+``fake_quant_group`` alike).
 
 One launch covers a group of up to ``GROUP_MAX`` tensors of one type:
 ``plan`` gives each tensor its first block and block count, computed here
@@ -21,6 +26,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from repro_torch import _work
 from repro_torch.kernels import _build
 from repro_torch.kernels.fake_quant.ref import (ref_fake_quant_affine,
                                                 ref_fake_quant_pow2)
@@ -166,12 +172,13 @@ def fake_quant_group(ws: Sequence[torch.Tensor],
         if not all(w.device.type == "cpu" for w in ws):
             raise ValueError("fake_quant_group takes tensors of one device")
         return [_plain(w, s, mode, bits) for w, s in zip(ws, scales)]
-    if any(w.device.type != "cuda" for w in ws):
+    if any(w.device.type not in ("cuda", "meta") for w in ws):
         raise ValueError(f"fake_quant runs on CUDA or CPU tensors, got "
                          f"{sorted({str(w.device) for w in ws})}")
     _check(ws, scales)
     dtype, elem = ws[0].dtype, ws[0].element_size()
-    heads = [head(w.data_ptr(), elem, w.numel()) for w in ws]
+    meta = ws[0].device.type == "meta"
+    heads = [head(_work.address(w), elem, w.numel()) for w in ws]
     launches = plan([w.numel() for w in ws], heads, elem)
 
     # one buffer; each output at its input's offset modulo 16 bytes
@@ -180,10 +187,15 @@ def fake_quant_group(ws: Sequence[torch.Tensor],
                       device=ws[0].device)
     outs, at = [], 0
     for w in ws:
-        at += (w.data_ptr() - buf.data_ptr() - at * elem) % 16 // elem
+        at += ((_work.address(w) - _work.address(buf) - at * elem) % 16
+               // elem)
         outs.append(buf[at:at + w.numel()].view(w.shape))
         at += w.numel()
 
+    if meta:
+        for parts in launches:
+            _declare(ws, scales, outs, parts)
+        return outs
     launch = _entry()
     qmax = 2.0 ** (bits - 1) - 1.0
     with torch.cuda.device(ws[0].device):
@@ -206,7 +218,19 @@ def fake_quant_group(ws: Sequence[torch.Tensor],
                 raise RuntimeError(f"fake_quant kernel launch failed: CUDA "
                                    f"error {rc}")
             fake_quant.launches += 1
+            _declare(ws, scales, outs, parts)
     return outs
+
+
+def _declare(ws, scales, outs, parts) -> None:
+    """One launch's work: each tensor and its scale read, its output
+    written; no products (nothing without an analyzer)."""
+    if _work.active() is None:
+        return
+    _work.declare(
+        "fake_quant", 0,
+        [t for p in parts for t in (ws[p.tensor], scales[p.tensor])],
+        [outs[p.tensor] for p in parts])
 
 
 def fake_quant(w: torch.Tensor, scale: torch.Tensor, *, mode: str = "affine",

@@ -15,8 +15,15 @@ Three entry points, one launch a call:
 
 A CUDA tensor launches a kernel, or raises: there is no fallback.  A CPU
 tensor takes the plain torch version in ``ref.py``, which the kernels are
-held to on the card.  ``flash_attention.launches`` counts the kernels'
-launches through any of the three.
+held to on the card.  A ``meta`` tensor (the dry run) takes the CUDA
+branch's checks, ``_check_bwd`` included, and its allocations, and
+launches nothing.  Under an analyzer (``launch.op_analysis``, through
+``repro_torch._work``) each launch, after it is made, or its ``meta``
+stand-in declares its work: the plain version's
+products (dense, as the reference's einsums count them: 4*B*Hq*Sq*Skv*D
+forward, 8*B*Hq*Sq*Skv*D backward) and the bytes it reads and writes.
+``flash_attention.launches`` counts the kernels' launches through any of
+the three.
 
 The gradient: on CUDA tensors that need one (autograd on),
 ``flash_attention_gqa`` is a ``torch.autograd.Function`` whose forward is
@@ -58,6 +65,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import _work
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (check_mask,
                                                      ref_attention_gqa,
@@ -218,17 +226,29 @@ def _one_type(q, k, v):
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
 
 
+
+def _declare(kernel: str, products: int, q, k, read, written) -> None:
+    """One launch's work: ``products`` dense (B, Hq, Sq, Skv, D) products
+    of 2 FLOPs an element, the bytes read and written (nothing without
+    an analyzer)."""
+    if _work.active() is None:
+        return
+    b, sq, hq, d = q.shape
+    _work.declare(kernel, 2.0 * products * b * hq * sq * k.shape[1] * d,
+                        read, written)
+
+
 def _vec_ok(t: torch.Tensor) -> bool:
     """Rows can be read with vector loads and 16-byte copies: the base
     and the (batch, sequence, head) strides on a 16-byte boundary."""
-    return (t.data_ptr() % 16 == 0
+    return (_work.address(t) % 16 == 0
             and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3]))
 
 
 def _launch(q, k, v, q_start, causal: bool, scale: float, round_p: bool,
             window: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """A kernel on (B, S, H, D) views; returns (B, Sq, Hq, D) float32."""
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
     if q.dtype not in _TYPES or k.dtype not in _TYPES or v.dtype != k.dtype:
@@ -257,6 +277,9 @@ def _launch(q, k, v, q_start, causal: bool, scale: float, round_p: bool,
     if max(p.grid[1], p.grid[2]) > 65535:
         raise ValueError(f"flash attention: grid {p.grid} exceeds the "
                          f"card's 65535 blocks in y or z")
+    if q.device.type == "meta":
+        _declare("flash_attention", 2, q, k, (q, k, v, q_start), (out,))
+        return out
     strides = [_Strides(*t.stride()[:3]) for t in (q, k, v, out)]
     launch = _entry()
     with torch.cuda.device(q.device):
@@ -271,6 +294,7 @@ def _launch(q, k, v, q_start, causal: bool, scale: float, round_p: bool,
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error "
                            f"{rc}")
     flash_attention.launches += 1
+    _declare("flash_attention", 2, q, k, (q, k, v, q_start), (out,))
     return out
 
 
@@ -323,10 +347,15 @@ def _launch_bwd(q, k, v, q_start, dout, causal: bool, scale: float,
     dout = dout.to(torch.float32).contiguous()
     # the kernels copy rows 16 bytes at a time: a view off that boundary
     # is copied
-    q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+    q, k, v, dout = (t if _work.address(t) % 16 == 0 else t.clone()
                      for t in (q, k, v, dout))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     stats = torch.empty(3 * b * sq * hq, dtype=torch.float32, device=q.device)
+    work = ("flash_attention_backward", 4, q, k, (q, k, v, dout, q_start),
+            (dq, dk, dv, stats))
+    if q.device.type == "meta":
+        _declare(*work)
+        return dq, dk, dv
     launch = _bwd_entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -339,6 +368,7 @@ def _launch_bwd(q, k, v, q_start, dout, causal: bool, scale: float,
         raise RuntimeError(f"flash attention backward launch failed: CUDA "
                            f"error {rc}")
     flash_attention.backward_launches += 1
+    _declare(*work)
     return dq, dk, dv
 
 
@@ -358,7 +388,7 @@ def attention_backward(q, k, v, q_start, dout, *, causal: bool = True,
                  if q_start is None else q_start)
         return ref_attention_gqa_bwd(q, k, v, start, dout, causal, scale,
                                      round_p)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
     return _launch_bwd(q, k, v, q_start, dout, causal, scale, round_p)

@@ -4,8 +4,12 @@ kernel ``repro.kernels.quant_matmul.quant_matmul``).
 
 A CUDA tensor launches the kernel, or raises: there is no fallback.  A
 CPU tensor takes the plain torch version in ``ref.py``, which the kernel
-is held to on the card.  ``quant_matmul.launches`` counts kernel
-launches.
+is held to on the card.  A ``meta`` tensor (the dry run) takes the CUDA
+branch's checks and allocations and launches nothing.  Under an analyzer
+(``launch.op_analysis``, through ``repro_torch._work``) each launch,
+after it is made, or its ``meta`` stand-in declares its work: the plain
+version's product, 2*M*N*K, and the bytes it reads and writes.
+``quant_matmul.launches`` counts kernel launches.
 
 ``plan`` is the launch plan, computed here so that the CPU tests can hold
 it to the shapes: M <= 16 runs the split-K GEMV, M > 16 the bf16
@@ -27,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import _work
 from repro_torch.kernels import _build
 from repro_torch.kernels.quant_matmul.ref import ref_quant_matmul
 
@@ -187,8 +192,9 @@ def launch_plan(x: torch.Tensor, w: torch.Tensor, mode: str) -> Plan:
     16-byte boundary)."""
     m, k = x.shape
     n = w.shape[1]
-    return plan(m, k, n, mode, code_align=alignment(w.data_ptr(), n),
-                x_align=alignment(x.data_ptr(), k * x.element_size()) == 16)
+    return plan(m, k, n, mode, code_align=alignment(_work.address(w), n),
+                x_align=alignment(_work.address(x),
+                                  k * x.element_size()) == 16)
 
 
 def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
@@ -211,7 +217,7 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
         x = x.to(cast)
     if x.device.type == "cpu":
         return ref_quant_matmul(x, w, scale, mode, cast)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"quant_matmul runs on CUDA or CPU tensors, got "
                          f"{x.device}")
     if x.dtype not in _X_TYPES:
@@ -230,6 +236,9 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
     if out.numel() == 0:
         return out if cast is None else out.to(cast)
     p = launch_plan(x, w, mode)
+    if x.device.type == "meta":
+        _declare(x, w, scale, out)
+        return out if cast is None else out.to(cast)
     launch = _entry()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -241,7 +250,17 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{rc}")
     quant_matmul.launches += 1
+    _declare(x, w, scale, out)
     return out if cast is None else out.to(cast)
+
+
+def _declare(x, w, scale, out) -> None:
+    """One launch's work (nothing without an analyzer)."""
+    if _work.active() is None:
+        return
+    m, k = x.shape
+    _work.declare("quant_matmul", 2.0 * m * k * out.shape[1],
+                        (x, w, scale), (out,))
 
 
 quant_matmul.launches = 0

@@ -11,9 +11,12 @@ sharding rules, which take either a ``MeshShape`` or a ``DeviceMesh``
 through ``axis_sizes``.
 
 The process group's backend follows the device: NCCL for CUDA tensors,
-gloo for CPU tensors (``init_process_group``).  A CUDA mesh over a gloo
-group, or a CPU mesh over an NCCL one, raises: a collective never falls
-back from one to the other.  Every group gets a timeout, so a rank that
+gloo for CPU tensors, and for ``meta`` tensors (the dry run) PyTorch's
+fake backend (``torch.testing._internal.distributed.fake_pg``), over
+which one process stands for a rank of a mesh of any size: collectives
+complete and move nothing (``init_process_group``).  A CUDA mesh over a
+gloo group, or a CPU mesh over an NCCL one, raises: a collective never
+falls back from one to the other.  Every group gets a timeout, so a rank that
 never reaches a collective fails the others instead of hanging them.
 
 The launcher's mesh context (``activation_sharding``, as the
@@ -61,15 +64,16 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape(("data", "model"), (16, 16))
 
 
+BACKENDS = {"cuda": "nccl", "cpu": "gloo", "meta": "fake"}
+
+
 def backend_for(device) -> str:
     """The process group backend of a device type: NCCL for CUDA, gloo
-    for the CPU."""
+    for the CPU, the fake backend for ``meta``."""
     kind = torch.device(device).type
-    if kind == "cuda":
-        return "nccl"
-    if kind == "cpu":
-        return "gloo"
-    raise ValueError(f"no collective backend for device type {kind!r}")
+    if kind not in BACKENDS:
+        raise ValueError(f"no collective backend for device type {kind!r}")
+    return BACKENDS[kind]
 
 
 def init_process_group(device, rank: int, world_size: int, *, store=None,
@@ -78,7 +82,14 @@ def init_process_group(device, rank: int, world_size: int, *, store=None,
     """The default process group for a mesh of ``device``'s type: NCCL
     for a card, gloo for the CPU, with a timeout.  ``store`` (e.g. a
     ``FileStore``) or ``init_method`` (``env://`` under ``torchrun``,
-    ``tcp://localhost:<port>``) says how the ranks meet."""
+    ``tcp://localhost:<port>``) says how the ranks meet.  ``meta``: the
+    fake backend, this process alone standing for ``rank`` of
+    ``world_size`` (its store a ``FakeStore`` unless ``store`` is
+    given)."""
+    if torch.device(device).type == "meta":
+        # importing the module registers the "fake" backend
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        store = store if store is not None else FakeStore()
     kwargs = dict(backend=backend_for(device), rank=rank,
                   world_size=world_size,
                   timeout=datetime.timedelta(seconds=timeout_s))
@@ -189,15 +200,27 @@ def all_reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM):
 _ctx = threading.local()
 
 
-@contextlib.contextmanager
 def activation_sharding(dp_axes, dp_total: int, mesh=None,
                         tp_axis: str = TP_AXIS):
     """The launcher's mesh context: ``dp_axes`` carry the batch (each
     rank holds its slice), ``dp_total`` their product; ``mesh`` and
     ``tp_axis`` are what the EP MoE layer (``moe.moe_apply_ep``) reads."""
-    old = getattr(_ctx, "dp", None), getattr(_ctx, "mesh", None)
-    _ctx.dp = (tuple(dp_axes), int(dp_total)) if dp_axes else None
-    _ctx.mesh = (mesh, tp_axis)
+    return in_context(((tuple(dp_axes), int(dp_total)) if dp_axes else None,
+                       (mesh, tp_axis)))
+
+
+def saved_context():
+    """This thread's mesh context, as ``in_context`` takes it."""
+    return getattr(_ctx, "dp", None), getattr(_ctx, "mesh", None)
+
+
+@contextlib.contextmanager
+def in_context(saved):
+    """The mesh context ``saved`` (from ``saved_context``) on this thread,
+    the thread's own restored after (a layer recomputed on autograd's
+    thread runs in its forward's context)."""
+    old = saved_context()
+    _ctx.dp, _ctx.mesh = saved
     try:
         yield
     finally:

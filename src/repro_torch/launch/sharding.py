@@ -298,29 +298,33 @@ class Sharding:
         return self.slices(shape, coordinate(self.mesh))
 
     def shard(self, full: torch.Tensor) -> torch.Tensor:
-        """This process's shard of a global tensor (its own storage)."""
+        """This process's shard of a global tensor: a copy in storage of
+        its own (a view would keep the whole leaf alive), or ``full``
+        itself where the shard is the whole leaf."""
         if self.replicated:
             return full
-        return full[self.local_slices(full.shape)].contiguous()
+        part = full[self.local_slices(full.shape)]
+        if part.shape == full.shape:
+            return full
+        return part.clone(memory_format=torch.contiguous_format)
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
-        """The global tensor from every rank's shard (an all-gather over
-        the mesh's ranks; a collective: every rank calls it).  Its shape
-        is the local one times the parts of each dimension."""
+        """The global tensor from the shards of the ranks that share this
+        rank's replica: for each dimension, an all-gather over the group
+        of each mesh axis its spec names (the minor axis first), the
+        parts joined along the dimension (a collective: every rank
+        calls it).  Axes of size 1 move nothing; a replicated leaf is
+        returned as it is."""
         if self.replicated:
             return local
         sizes = axis_sizes(self.mesh)
-        shape = tuple(
-            n * math.prod(sizes[a] for a in _entry_axes(e))
-            for n, e in zip(local.shape, self.spec + (None,) * (
-                local.ndim - len(self.spec))))
-        world = dist.get_world_size()
-        if self.mesh.mesh.numel() != world:
-            raise ValueError("gather needs a mesh of every rank of the "
-                             "default process group")
-        parts = [torch.empty_like(local) for _ in range(world)]
-        dist.all_gather(parts, local.contiguous())
-        full = torch.empty(shape, dtype=local.dtype, device=local.device)
-        for r, part in enumerate(parts):
-            full[self.slices(shape, coordinate(self.mesh, r))] = part
+        full = local
+        for dim, entry in enumerate(self.spec):
+            for a in reversed(_entry_axes(entry)):
+                if sizes[a] == 1:
+                    continue
+                part = full.contiguous()
+                parts = [torch.empty_like(part) for _ in range(sizes[a])]
+                dist.all_gather(parts, part, group=self.mesh.get_group(a))
+                full = torch.cat(parts, dim=dim)
         return full

@@ -186,12 +186,17 @@ def encode(params, frames, cfg):
     x = frames.to(dt) + _sinusoid(s, d, dt, frames.device)
     positions, _ = _arange_positions(b, s, 0, frames.device)
     spec = _spec(cfg)
-    for i in range(cfg.enc_layers):
-        p = _layer(params["enc_layers"], i)
+
+    def layer(p, x):
         a, _ = L.attention(p["attn"], _ln(x, p["ln1"]), spec, qcfg,
                            positions, mask_mode="full")
         x = x + a.to(x.dtype)
-        x = x + L.mlp(p["mlp"], _ln(x, p["ln2"]), qcfg, "gelu").to(x.dtype)
+        return x + L.mlp(p["mlp"], _ln(x, p["ln2"]), qcfg,
+                         "gelu").to(x.dtype)
+
+    # each layer rematerialized, as the reference's scan checkpoints it
+    for i in range(cfg.enc_layers):
+        x = L.remat(layer, _layer(params["enc_layers"], i), x)
     return _ln(x, params["enc_ln"])
 
 
@@ -202,21 +207,27 @@ def _decoder(params, tokens, enc_out, cfg, positions, q_start, caches=None):
     dt = getattr(torch, cfg.dtype)
     x = params["tok_embed"][tokens].to(dt)
     x = x + params["pos_embed"][positions].to(x.dtype)
-    for i in range(cfg.dec_layers):
-        p = _layer(params["dec_layers"], i)
-        cache = None
-        if caches is not None:
-            cache = {"k": caches["k"][i], "v": caches["v"][i],
-                     "index": caches["index"][i]}
+
+    def layer(p, x, enc_out, cache=None):
         a, cache = L.attention(p["self_attn"], _ln(x, p["ln1"]), spec, qcfg,
                                positions, cache, q_start=q_start)
-        if caches is not None:
-            caches["index"][i] = cache["index"]
         x = x + a.to(x.dtype)
         c, _ = L.attention(p["cross_attn"], _ln(x, p["ln2"]), spec, qcfg,
                            positions, cross_kv=enc_out)
         x = x + c.to(x.dtype)
         x = x + L.mlp(p["mlp"], _ln(x, p["ln3"]), qcfg, "gelu").to(x.dtype)
+        return x, cache
+
+    for i in range(cfg.dec_layers):
+        p = _layer(params["dec_layers"], i)
+        if caches is None:
+            # rematerialized without a cache, as the reference's scan
+            x = L.remat(lambda p, x, e: layer(p, x, e)[0], p, x, enc_out)
+            continue
+        cache = {"k": caches["k"][i], "v": caches["v"][i],
+                 "index": caches["index"][i]}
+        x, cache = layer(p, x, enc_out, cache)
+        caches["index"][i] = cache["index"]
     x = _ln(x, params["dec_ln"])
     logits = L.qdense(x, params["tok_embed"].T, qcfg)   # tied embeddings
     return logits, caches

@@ -150,22 +150,29 @@ def _backbone(params, x, cfg, positions, q_start, caches=None, chunk=16):
     qcfg = preset(cfg.pe_type)
     period, n_groups, tail = _group_shape(cfg)
     new_m, new_t = [], []
+
+    def group(x, gp, shared):
+        """A group without a cache: its Mamba layers and the shared
+        block."""
+        for j in range(period):
+            x, _ = _mamba_layer(P.layer(gp, j), x, cfg, qcfg, None, chunk)
+        return _shared_layer(shared, x, cfg, qcfg, positions, q_start)[0]
+
     for g in range(n_groups):
         gp = P.layer(params["groups"], g)
+        shared = params["shared"][g % cfg.n_shared_blocks]
+        if caches is None:
+            # rematerialized without a cache, as the reference's group scan
+            x = L.remat(group, x, gp, shared)
+            continue
         for j in range(period):
-            st = None if caches is None else \
-                P.layer(P.layer(caches["groups"]["mamba"], g), j)
+            st = P.layer(P.layer(caches["groups"]["mamba"], g), j)
             x, st = _mamba_layer(P.layer(gp, j), x, cfg, qcfg, st, chunk)
             new_m.append(st)
-        shared = params["shared"][g % cfg.n_shared_blocks]
-        kv = None
-        if caches is not None:
-            ckv = caches["groups"]["kv"]
-            kv = {"k": ckv["k"][g], "v": ckv["v"][g],
-                  "index": ckv["index"][g]}
+        ckv = caches["groups"]["kv"]
+        kv = {"k": ckv["k"][g], "v": ckv["v"][g], "index": ckv["index"][g]}
         x, kv = _shared_layer(shared, x, cfg, qcfg, positions, q_start, kv)
-        if caches is not None:
-            caches["groups"]["kv"]["index"][g] = kv["index"]
+        caches["groups"]["kv"]["index"][g] = kv["index"]
     for j in range(tail):
         st = None if caches is None else P.layer(caches["tail"], j)
         x, st = _mamba_layer(P.layer(params["tail"], j), x, cfg, qcfg, st,

@@ -14,6 +14,10 @@ fake quantization.  The launcher's mesh context
 (``activation_sharding``, kept in ``launch.mesh``) tells the EP MoE
 layer its mesh; each rank already holds its slice of the batch, so
 ``shard_batch`` places nothing.
+
+``remat`` is the reference's ``jax.checkpoint`` of a layer: while a
+gradient is being taken the layer keeps only its inputs, and its
+backward runs the layer's forward again.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention_gqa
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.launch.mesh import (  # noqa: F401  (the reference's names)
-    activation_sharding, current_dp, current_mesh)
+    activation_sharding, current_dp, current_mesh, in_context,
+    saved_context)
 from repro_torch.quant.fake_quant import fake_quant_act, fake_quant_weight
 from repro_torch.quant.pack import DEQUANTIZE
 from repro_torch.quant.qconfig import QuantConfig
@@ -73,6 +78,41 @@ def shard_batch(x: torch.Tensor) -> torch.Tensor:
     """The reference constrains dim 0 onto the dp axes here; each rank of
     the port already holds its slice of the batch, so x is returned."""
     return x
+
+
+def remat(fn, *args):
+    """``fn(*args)``; while a gradient is being taken (grad mode on and an
+    input or a captured param that needs one), through
+    ``torch.utils.checkpoint`` (non-reentrant): the activations inside
+    ``fn`` are not kept but computed again in the backward, as the
+    reference's ``jax.checkpoint`` rematerializes a layer.  Every kernel
+    is deterministic and the layers draw no random numbers, so the values
+    and gradients are those of ``fn(*args)``.  The recomputation runs
+    under the forward's mixed-precision and mesh contexts (autograd may
+    run it on a thread of its own, where the thread-local contexts are
+    unset)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in torch.utils._pytree.tree_flatten(args)[0]):
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=_recompute_contexts)
+    return fn(*args)
+
+
+def _recompute_contexts():
+    """(the forward's context, the recomputation's): the latter sets the
+    forward's compute type and mesh context again, and restores the
+    thread's own after."""
+    dtype, mesh = current_compute_dtype(), saved_context()
+
+    @contextlib.contextmanager
+    def again():
+        with compute_dtype(dtype), in_context(mesh):
+            yield
+
+    return contextlib.nullcontext(), again()
 
 
 # ---------------------------------------------------------------------------
@@ -279,12 +319,13 @@ def _attend(q, k, v, spec: AttnSpec, q_start, mask_mode: str):
 def query_start(positions: torch.Tensor) -> torch.Tensor:
     """(B,) int32 position of each row's first query, from (B, S)
     positions (M-RoPE: stream 0) that must be start + arange(S) per row:
-    the kernel masks by index from one start a row."""
+    the kernel masks by index from one start a row.  ``meta`` positions
+    hold no values to check."""
     pos2d = positions if positions.ndim == 2 else positions[..., 0]
-    q_start = pos2d[:, 0].to(torch.int32)
+    q_start = pos2d[:, 0].to(torch.int32).contiguous()
     ar = torch.arange(pos2d.shape[1], device=pos2d.device)
-    if not torch.equal(pos2d.to(torch.long),
-                       q_start.to(torch.long)[:, None] + ar[None]):
+    if pos2d.device.type != "meta" and not torch.equal(
+            pos2d.to(torch.long), q_start.to(torch.long)[:, None] + ar[None]):
         raise ValueError("positions must be start + arange(S) on every row")
     return q_start
 

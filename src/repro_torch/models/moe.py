@@ -11,7 +11,13 @@ As in the reference:
   4. the (E, C, d) buffer, every expert's FFN on its whole buffer, and the
      gather-combine.
 
-C = max(8, ceil(T * topk * capacity_factor / E)) for T tokens.  DeepSeekMoE's
+C = max(8, ceil(T * topk * capacity_factor / E)) for T tokens.  Under the
+launcher's mesh context with more than one dp rank, T is the global
+batch's tokens and an assignment's place in its expert is its place in
+the global batch, token-major, as the reference's pjit step computes it
+on the whole batch: the ranks all-gather their per-expert counts over the
+dp group, and a rank's assignments start after those of the ranks before
+it (``_earlier_counts``).  DeepSeekMoE's
 always-on shared experts are one MLP of width moe_shared * moe_d_ff, added
 to the routed output.
 
@@ -53,7 +59,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import axis_sizes, coordinate, current_mesh
+from repro_torch.launch.mesh import (axis_sizes, coordinate, current_dp,
+                                     current_mesh, dp_index)
 from repro_torch.models import layers as L
 from repro_torch.quant.fake_quant import (fake_quant_expert_acts,
                                           fake_quant_experts)
@@ -252,19 +259,38 @@ def _topk(xf: torch.Tensor, router, k: int, shape, cols=None):
     return top_ids, top_w, vals
 
 
-def _dispatch(top_ids: torch.Tensor, e: int, c: int):
+def _dispatch(top_ids: torch.Tensor, e: int, c: int, dp=None):
     """(dest_e, dest_p, keep) of every (token, slot) assignment in
     token-major order: its expert (e, the drop bucket, past capacity) and
-    its place there, by the stable sort on expert id."""
+    its place there, by the stable sort on expert id.  ``dp`` ((mesh,
+    axes) of more than one dp rank): an assignment is kept when its
+    place in the global batch, after the earlier ranks' assignments to
+    its expert, is below ``c``; its place in this rank's buffer is its
+    place among the rank's own."""
     flat_e = top_ids.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
-    starts = torch.searchsorted(se, torch.arange(e, device=se.device,
-                                                 dtype=se.dtype))
+    ids = torch.arange(e, device=se.device, dtype=se.dtype)
+    starts = torch.searchsorted(se, ids)
     pos = torch.empty_like(se)
     pos[order] = torch.arange(se.numel(), device=se.device) - starts[se]
     keep = pos < c
+    if dp is not None:
+        counts = torch.searchsorted(se, ids, right=True) - starts
+        keep = pos + _earlier_counts(counts, *dp)[flat_e] < c
     return torch.where(keep, flat_e, e), torch.where(keep, pos, 0), keep
+
+
+def _earlier_counts(counts: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """(E,) the assignments to each expert on the dp ranks before this
+    one (row-major over ``axes``, the pod axis major): ``counts`` gathered
+    over each axis's group, the minor axis first."""
+    rows = counts[None]
+    for a in reversed(axes):
+        parts = [torch.empty_like(rows) for _ in range(axis_sizes(mesh)[a])]
+        dist.all_gather(parts, rows.contiguous(), group=mesh.get_group(a))
+        rows = torch.cat(parts)                  # (ranks so far, E)
+    return rows[:dp_index(mesh)].sum(0)
 
 
 def _combine(ybuf, dest_e, dest_p, keep, top_w, t, k, dtype):
@@ -290,13 +316,17 @@ def moe_apply(p: Params, x: torch.Tensor, cfg,
     b, s, d = x.shape
     t = b * s
     e, k = cfg.moe_experts, cfg.moe_topk
-    c = capacity(t, cfg)
+    mesh, _ = current_mesh()
+    axes = current_dp()
+    n_dp = math.prod(axis_sizes(mesh)[a] for a in axes) if mesh else 1
+    dp = (mesh, axes) if n_dp > 1 else None
+    c = capacity(t * (n_dp if dp else 1), cfg)
     xf = x.reshape(t, d)
     dev = x.device
 
     # --- routing and sort-based dispatch --------------------------------------
     top_ids, top_w, vals = _topk(xf, p["router"], k, (b, s))
-    dest_e, dest_p, keep = _dispatch(top_ids, e, c)
+    dest_e, dest_p, keep = _dispatch(top_ids, e, c, dp)
     log = RouterLog.active
     if log is not None:
         margin = (vals[:, k - 1] - vals[:, k] if k < e

@@ -116,6 +116,13 @@ def _shift(x, last=None):
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with the operands promoted as ``jnp.matmul`` promotes
+    them (a float32 state's shift against bfloat16 weights: float32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
+
+
 def _time_mix(p, x, cfg, qcfg, state=None, last=None, chunk=16):
     """x: (B, S, D). state: (B, H, dh, dh) or None.  Returns (out,
     state')."""
@@ -137,8 +144,8 @@ def _time_mix(p, x, cfg, qcfg, state=None, last=None, chunk=16):
     g = torch.nn.functional.silu(L.qdense(mg, p["wg"], qcfg))
     # data-dependent decay (Finch): log w = -exp(w0 + tanh(x a) b) <= 0,
     # two plain products, as the reference writes them
-    lw = -torch.exp(p["w0"] + torch.matmul(torch.tanh(torch.matmul(
-        mw, p["wa"])), p["wb"]))
+    lw = -torch.exp(p["w0"] + _matmul(torch.tanh(_matmul(mw, p["wa"])),
+                                      p["wb"]))
     lw = lw.reshape(b, s, h, dh)
 
     if s == 1 and state is not None:
@@ -193,16 +200,18 @@ def forward(params, tokens, cfg, positions=None):
     check_supported(cfg)
     qcfg = preset(cfg.pe_type)
     x = _embed(params, tokens, cfg)
+    # each layer rematerialized, as the reference's scan checkpoints it
     for i in range(cfg.n_layers):
-        x, _ = _block(P.layer(params["layers"], i), x, cfg, qcfg)
+        x = L.remat(lambda p, x: _block(p, x, cfg, qcfg)[0],
+                    P.layer(params["layers"], i), x)
     x = L.rmsnorm(x, params["final_norm"])
     return L.qdense(x, params["lm_head"], qcfg)
 
 
 def loss_fn(params, batch, cfg):
-    """batch: {'tokens': (B, S), 'labels': (B, S)} -> scalar CE loss.  The
-    reference rematerializes each layer (``jax.checkpoint``), which
-    changes no value."""
+    """batch: {'tokens': (B, S), 'labels': (B, S)} -> scalar CE loss.  Each
+    layer is rematerialized (``layers.remat``), as the reference's
+    ``jax.checkpoint``, which changes no value."""
     logits = forward(params, batch["tokens"], cfg)
     return L.softmax_xent(logits, batch["labels"])
 

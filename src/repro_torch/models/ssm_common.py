@@ -29,10 +29,26 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import _work
+
 # Per-step log-decay clamp: with chunk C = 16 the worst-case in-chunk
 # factor is exp(16 * 3.75) = e^60, representable in float32.
 LOG_DECAY_MIN = -3.75
 DEFAULT_CHUNK = 16
+
+
+def _row_dot_products(x: torch.Tensor, bonus=None) -> None:
+    """Declare the FLOPs of a row dot product written as a multiply and a
+    sum over x's last axis (the reference's einsum, a dot its count
+    takes): 2 an element of x; with a ``bonus`` that needs a gradient,
+    the contraction of its gradient over the rows, as many again, in the
+    backward.  Nothing without an active analyzer."""
+    if _work.active() is None:
+        return
+    flops = 2.0 * x.numel()
+    _work.products(flops)
+    if bonus is not None and bonus.requires_grad:
+        bonus.register_hook(lambda _g: _work.products(flops))
 
 
 def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -76,8 +92,11 @@ def chunked_linear_attention(r, k, v, log_w, u=None, chunk=DEFAULT_CHUNK,
     a_intra = torch.matmul(r_t, k_t.transpose(-1, -2)) * mask
     if u is None:
         diag = torch.sum(r_ * k_, dim=-1)
+        _row_dot_products(r_)
     else:
-        diag = torch.sum(r_ * u.to(f32)[:, None, :] * k_, dim=-1)
+        ub = u.to(f32)[:, None, :]
+        diag = torch.sum(r_ * ub * k_, dim=-1)
+        _row_dot_products(r_, ub)
     a = a_intra + torch.eye(chunk, dtype=f32, device=r.device) \
         * diag[..., None]
 
@@ -109,5 +128,6 @@ def single_step(r, k, v, log_w, u=None, state=None):
     uk = k_ if u is None else k_ * u.to(f32)[None]
     o = torch.matmul(r_[..., None, :], state)[..., 0, :] \
         + torch.sum(r_ * uk, dim=-1)[..., None] * v_
+    _row_dot_products(r_)
     new_state = w[..., None] * state + k_[..., :, None] * v_[..., None, :]
     return o.to(v.dtype), new_state

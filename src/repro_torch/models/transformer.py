@@ -347,19 +347,52 @@ def _backbone(params, x, cfg, positions, q_start, caches=None):
         if caches is not None:
             caches["dense"][i] = cache
     flags = layer_is_global(cfg)[cfg.first_dense:]
-    grouped = _grouped_flags(cfg) if caches is None else None
-    for i, is_global in enumerate(flags):
-        cache = None if caches is None else _layer(caches["scan"], i)
-        mode = "dyn"
-        if grouped is not None:
-            is_global = grouped[i]
-            mode = "dyn" if is_global else "local"
-        x, cache = _block(_layer(params["layers"], i), x, cfg, qcfg,
-                          positions, q_start, bool(is_global), cache,
-                          moe=cfg.moe_experts > 0, attn_mode=mode)
-        if caches is not None:
+    moe = cfg.moe_experts > 0
+    if caches is not None:
+        for i, is_global in enumerate(flags):
+            x, cache = _block(_layer(params["layers"], i), x, cfg, qcfg,
+                              positions, q_start, bool(is_global),
+                              _layer(caches["scan"], i), moe=moe)
             caches["scan"]["index"][i] = cache["index"]
-    return x, caches
+        return x, caches
+
+    def layer(i: int, h, is_global: bool, mode: str = "dyn",
+              remat: bool = True):
+        """Stacked layer i on h, rematerialized unless ``remat`` is
+        False."""
+        def run(p, h):
+            return _block(p, h, cfg, qcfg, positions, q_start, is_global,
+                          moe=moe, attn_mode=mode)[0]
+        p = _layer(params["layers"], i)
+        return L.remat(run, p, h) if remat else run(p, h)
+
+    grouped = _grouped_flags(cfg)
+    if grouped is None:
+        # the reference's scan of rematerialized layers
+        for i, is_global in enumerate(flags):
+            x = layer(i, x, bool(is_global))
+        return x, None
+    # the grouped backbone: each period a rematerialized group of
+    # (period - 1) rematerialized local layers and the global one; the
+    # leftover local layers rematerialized one by one
+    period = _PERIOD[cfg.layer_pattern]
+    n_groups = cfg.n_layers // period
+
+    def group(h, first: int, *_group_params):
+        for i in range(first, first + period - 1):
+            h = layer(i, h, False, "local")
+        return layer(first + period - 1, h, True, remat=False)
+
+    for g in range(n_groups):
+        x = L.remat(group, x, g * period,
+                    *(_layer(params["layers"], i)
+                      for i in range(g * period, (g + 1) * period)))
+    for i in range(n_groups * period, len(flags)):
+        x = layer(i, x, False, "local")
+    return x, None
+
+
+_PERIOD = {"gemma3": 6, "alt_local_global": 2}
 
 
 def _grouped_flags(cfg):
@@ -371,7 +404,7 @@ def _grouped_flags(cfg):
     if not (cfg.attn_block_local and cfg.window > 0
             and cfg.layer_pattern in ("gemma3", "alt_local_global")):
         return None
-    period = {"gemma3": 6, "alt_local_global": 2}[cfg.layer_pattern]
+    period = _PERIOD[cfg.layer_pattern]
     n_groups = cfg.n_layers // period
     idx = np.arange(cfg.n_layers - cfg.first_dense)
     return (idx < n_groups * period) & (idx % period == period - 1)
@@ -428,10 +461,10 @@ def loss_fn(params, batch, cfg):
     """batch: {'tokens': (B, S), 'labels': (B, S)} -> scalar CE loss.
 
     Differentiable on the card: the attention's backward is the
-    ``flash_attention`` backward kernel.  The reference rematerializes
-    each layer in its scan (``jax.checkpoint``), which changes no value;
-    the port keeps the activations (SmolLM-135M at batch 16 x 256 fits
-    the card many times over)."""
+    ``flash_attention`` backward kernel.  Each stacked layer is
+    rematerialized (``layers.remat``), as the reference's scan
+    checkpoints it: the backward keeps a layer's inputs and runs its
+    forward again, which changes no value."""
     logits = forward(params, batch["tokens"], cfg, batch.get("positions"))
     return L.softmax_xent(logits, batch["labels"])
 

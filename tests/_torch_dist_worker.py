@@ -190,6 +190,94 @@ def task_ep_train(rank, task):
     return {"metrics": metrics}, _full_params(state, sh)
 
 
+def task_moe_capacity(rank, task):
+    """``_torch_launch_ref.run_moe_capacity``'s run on the task's (n, 1)
+    mesh: the same numpy params and global batch, this rank's dp slice,
+    the baseline MoE layer with drops past capacity.  Each step's
+    metrics, the drops of this rank's assignments in the first step's
+    forward, and the params after, gathered."""
+    from _torch_launch_ref import CAP_LR, CAP_STEPS, capacity_inputs
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw, constant
+    from repro_torch.train import (TrainState, jit_train_step,
+                                   make_train_step, shard_state,
+                                   state_shardings_for)
+    cfg, params, tokens, labels = capacity_inputs()
+    mod = family_module(cfg)
+    mesh = M.make_mesh(task["mesh"], ("data", "model"), "cpu")
+    opt = adamw(constant(CAP_LR))
+    p = convert.params_from_numpy(params, device="cpu")
+    state = TrainState(params=p, opt_state=opt.init(p),
+                       step=torch.zeros((), dtype=torch.int32))
+    sh = state_shardings_for(cfg, mod, mesh, opt)
+    state = shard_state(state, sh)
+    rows = tokens.shape[0] // task["mesh"][0]
+    at = M.dp_index(mesh) * rows
+    batch = {"tokens": torch.from_numpy(tokens[at:at + rows]),
+             "labels": torch.from_numpy(labels[at:at + rows])}
+    step = jit_train_step(make_train_step(cfg, mod, opt), sh, mesh)
+    drops, inner = [], moe._dispatch
+
+    def counted(*a, **k):
+        out = inner(*a, **k)
+        drops.append(int((~out[2]).sum()))
+        return out
+
+    metrics = []
+    moe._dispatch = counted
+    try:
+        for i in range(CAP_STEPS):
+            state, m = step(state, batch)
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+            if i == 0:
+                first = list(drops)
+    finally:
+        moe._dispatch = inner
+    n_moe = cfg.n_layers - cfg.first_dense
+    meta = {"metrics": metrics, "drops": first[:n_moe]}
+    full = _full_params(state, sh)
+    if task.get("plain"):
+        # the trainer without a mesh on the same batch: one dp rank is
+        # the same function, bit for bit
+        from repro_torch.train import make_train_step as plain_step
+        p = convert.params_from_numpy(params, device="cpu")
+        st = TrainState(params=p, opt_state=opt.init(p),
+                        step=torch.zeros((), dtype=torch.int32))
+        plain = plain_step(cfg, mod, opt)
+        rows = []
+        for _ in range(CAP_STEPS):
+            st, m = plain(st, batch)
+            rows.append([float(m["loss"]), float(m["grad_norm"])])
+        meta["plain_metrics"] = rows
+        meta["plain_differing"] = sum(
+            int((v.detach().numpy() != full["/".join(map(str, k))]).sum())
+            for k, v in _flat(st.params))
+    return meta, full
+
+
+def task_all_reduce(rank, task):
+    """``op_analysis`` of one ``all_reduce`` of ``n`` float32 values."""
+    from repro_torch.launch import op_analysis
+    x = torch.ones(task["n"], dtype=torch.float32)
+    _, rep = op_analysis.analyze(dist.all_reduce, x)
+    return {"collectives": rep["collectives"], "sum": float(x[0])}, {}
+
+
+def task_dryrun_cell(rank, task):
+    """The dry run's step of ``_torch_dryrun_ref.MESH_CELLS``' first cell
+    on this gloo group (CPU tensors: the kernels' plain versions), counted
+    by ``op_analysis``."""
+    from _torch_dryrun_ref import MESH_CELLS, mesh_config
+    from repro_torch.launch import dryrun
+    arch, (name, seq, batch, kind) = MESH_CELLS[task["cell"]]
+    mesh = M.make_mesh(task["mesh"], ("data", "model"), "cpu")
+    step, args, _ = dryrun.build_cell(
+        arch, name, mesh, cfg=mesh_config(arch, reduced),
+        shape=ShapeSpec(name, seq, batch, kind), device="cpu")
+    counts = dryrun.analyze_cell(step, args)
+    return {k: counts[k] for k in ("flops", "collectives", "memory")}, {}
+
+
 def ep_train_config():
     """Reduced DeepSeek-MoE-16B in float32 under ``moe_ep_shard_map``,
     its capacity factor E / k (capacity = the tokens: no drops)."""
@@ -303,7 +391,8 @@ def task_restore(rank, task):
 TASKS = {"sharding": task_sharding, "grad_compress": task_grad_compress,
          "moe_ep": task_moe_ep, "train_cli": task_train_cli,
          "train_mesh": task_train_mesh, "restore": task_restore,
-         "ep_train": task_ep_train}
+         "ep_train": task_ep_train, "moe_capacity": task_moe_capacity,
+         "all_reduce": task_all_reduce, "dryrun_cell": task_dryrun_cell}
 
 
 def main():

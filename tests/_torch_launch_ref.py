@@ -23,13 +23,25 @@ axes and runs under ``jax.set_mesh``, the reference's
     the port pins router near ties to it) and, for int8, each shard's
     payload codes in call order (the port pins codes at a rounding tie).
 
-The JAX package is not edited: ``moe_apply_ep`` and ``jax.lax.all_to_all``
-are wrapped at run time to log, and put back.
+  * ``moe_capacity``: reduced DeepSeek-MoE-16B (float32, the baseline
+    ``moe_apply``, capacity factor ``CAP_FACTOR``: assignments past
+    capacity are dropped) trained ``CAP_STEPS`` AdamW steps on a (4, 1)
+    ("data", "model") mesh, the batch over the 4 dp devices: each step's
+    loss and gradient norm, the final routers, and the drops of each MoE
+    layer in a forward of the global batch (capacity over the global
+    tokens, places token-major over the batch).
+
+``PYTHONPATH=src:tests python tests/_torch_launch_ref.py --only
+moe_capacity`` rewrites that part alone.
+
+The JAX package is not edited: ``moe_apply``, ``moe_apply_ep`` and
+``jax.lax.all_to_all`` are wrapped at run time to log, and put back.
 """
 
 import base64
 import json
 import os
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +54,9 @@ MOE_CONFIG = "deepseek-moe-16b"
 MOE_PARAM_SEED = 0
 MOE_TOKEN_SEED = 1
 MOE_BATCH, MOE_SEQ = 2, 16
+CAP_FACTOR = 1.0
+CAP_BATCH, CAP_SEQ, CAP_STEPS, CAP_LR = 8, 16, 3, 1e-3
+CAP_TOKEN_SEED = 2
 
 
 def gc_inputs():
@@ -64,6 +79,90 @@ def moe_inputs():
     tokens = np.random.default_rng(MOE_TOKEN_SEED).integers(
         0, cfg.vocab, (MOE_BATCH, MOE_SEQ)).astype(np.int32)
     return cfg, params, tokens
+
+
+def capacity_inputs():
+    """(port config, numpy params, tokens, labels) of the capacity run."""
+    from repro_torch.configs import reduced
+    from repro_torch.models import transformer as T
+    cfg = reduced(MOE_CONFIG).replace(dtype="float32",
+                                      capacity_factor=CAP_FACTOR)
+    params = T.numpy_params(cfg, MOE_PARAM_SEED)
+    rng = np.random.default_rng(CAP_TOKEN_SEED)
+    tokens = rng.integers(0, cfg.vocab, (CAP_BATCH, CAP_SEQ)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, (CAP_BATCH, CAP_SEQ)).astype(np.int32)
+    return cfg, params, tokens, labels
+
+
+def run_moe_capacity():
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+    from repro.configs import reduced
+    from repro.models import moe as JM
+    from repro.models import transformer as JT
+    from repro.models.layers import activation_sharding
+    from repro.optim import adamw, constant
+    from repro.train.trainer import (TrainState, make_train_step,
+                                     state_shardings_for)
+    from repro_torch.models.moe import capacity, kept
+
+    cfg, params, tokens, labels = capacity_inputs()
+    jcfg = reduced(MOE_CONFIG).replace(dtype="float32",
+                                       capacity_factor=CAP_FACTOR)
+    mesh = jax.make_mesh((N_DEV, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    opt = adamw(constant(CAP_LR))
+    jp = jax.tree.map(jnp.asarray, params)
+    state = TrainState(params=jp, opt_state=opt.init(jp),
+                       step=jnp.zeros((), jnp.int32))
+    batch_sh = NamedSharding(mesh, P("data", None))
+    batch = {"tokens": jax.device_put(jnp.asarray(tokens), batch_sh),
+             "labels": jax.device_put(jnp.asarray(labels), batch_sh)}
+    routes, inner = [], JM.moe_apply
+
+    def logged(p, x, cfg_, qcfg):
+        b, s, d = x.shape
+        k = cfg_.moe_topk
+        logits = (x.reshape(b * s, d).astype(jnp.float32)
+                  @ p["router"].astype(jnp.float32))
+        vals, ids = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), k + 1)
+        margin = vals[:, k - 1] - vals[:, k]
+        jax.debug.callback(lambda i, m: routes.append(
+            (np.asarray(i).reshape(b, s, k), np.asarray(m))), ids[:, :k],
+            margin)
+        return inner(p, x, cfg_, qcfg)
+
+    with jax.set_mesh(mesh), activation_sharding(("data",), N_DEV,
+                                                 mesh=mesh):
+        state = jax.device_put(state, state_shardings_for(jcfg, JT, mesh,
+                                                          opt))
+        step = jax.jit(make_train_step(jcfg, JT, opt, dp=("data",)))
+        losses, gnorms = [], []
+        for _ in range(CAP_STEPS):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        routers = np.asarray(state.params["layers"]["moe"]["router"],
+                             np.float32)
+        JM.moe_apply = logged
+        jax.clear_caches()
+        try:
+            jax.block_until_ready(jax.jit(
+                lambda p, t: JT.forward(p, t, jcfg))(jp, batch["tokens"]))
+            jax.effects_barrier()
+        finally:
+            JM.moe_apply = inner
+            jax.clear_caches()
+    c = capacity(CAP_BATCH * CAP_SEQ, cfg)
+    drops = [int((~kept(np.sort(ids, -1), c)).sum()) for ids, _ in routes]
+    return {"config": MOE_CONFIG, "param_seed": MOE_PARAM_SEED,
+            "capacity_factor": CAP_FACTOR, "mesh": [N_DEV, 1],
+            "tokens": tokens.tolist(), "labels": labels.tolist(),
+            "lr": CAP_LR, "steps": CAP_STEPS, "losses": losses,
+            "grad_norms": gnorms, "capacity": c, "drops": drops,
+            "min_router_margin": float(min(m.min() for _, m in routes)),
+            "routers": _b64(routers), "routers_shape": list(routers.shape)}
 
 
 def _b64(a) -> str:
@@ -244,6 +343,7 @@ def build_reference() -> dict:
     assert jax.device_count() == N_DEV, jax.device_count()
     cfg, params, tokens = moe_inputs()
     return {
+        "moe_capacity": run_moe_capacity(),
         "jax_version": jax.__version__, "n_devices": N_DEV,
         "sharding": dict(mesh=list(SHARD_MESH), batch=SHARD_BATCH,
                          seq=SHARD_SEQ, configs=run_sharding()),
@@ -263,8 +363,15 @@ if __name__ == "__main__":
                                + f" --xla_force_host_platform_device_count"
                                  f"={N_DEV}")
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    ref = build_reference()
+    if sys.argv[1:] == ["--only", "moe_capacity"]:
+        ref = json.loads(REF_PATH.read_text())
+        ref["moe_capacity"] = run_moe_capacity()
+    else:
+        ref = build_reference()
     REF_PATH.write_text(json.dumps(ref))
+    print("moe_capacity drops", ref["moe_capacity"]["drops"], "losses",
+          ref["moe_capacity"]["losses"], "min router margin",
+          ref["moe_capacity"]["min_router_margin"])
     for name, run in ref["moe_ep"]["runs"].items():
         print(name, "routes", len(run["routes"]), "payload calls",
               [len(p) for p in run.get("payloads", [])],

@@ -186,6 +186,10 @@ def test_model_matches_jax(jax_runs, pe, dtype, monkeypatch,
     np.testing.assert_allclose(enc.float().numpy(), want["encode"], rtol=0,
                                atol=tol)
 
+    # the pins are taken in the forward's call order; each layer's
+    # recomputation in the backward would call the activations' quantizer
+    # again, and it changes no value (tests/test_torch_remat.py)
+    monkeypatch.setattr(L, "remat", lambda fn, *args: fn(*args))
     pins.load(want["loss_acts"])
     ps = jax.tree.map(lambda t: t.clone().requires_grad_(), params)
     loss = E.loss_fn(ps, b, cfg)

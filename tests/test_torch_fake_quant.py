@@ -133,8 +133,12 @@ def test_wrapper_contract():
     assert fake_quant.launches == before  # the CPU takes the plain version
     with pytest.raises(ValueError, match="unknown mode"):
         fake_quant(w, s, mode="pow3")
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        fake_quant(w.to("meta"), s.to("meta"))
+    # meta (the dry run): the card's checks and allocations, no launch
+    out = fake_quant(w.to("meta"), s.to("meta"))
+    assert out.device.type == "meta" and out.shape == w.shape
+    assert fake_quant.launches == before
+    with pytest.raises(ValueError, match="one device"):
+        fake_quant_group([w, w.to("meta")], [s, s.to("meta")])
     with pytest.raises(ValueError, match="neither"):
         tfq.pow2_round(w, torch.zeros(2))
 

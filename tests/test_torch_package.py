@@ -52,7 +52,9 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.optim", "repro_torch.optim.optimizers",
               "repro_torch.optim.schedule", "repro_torch.models.cnn",
               "repro_torch.train", "repro_torch.train.trainer",
-              "repro_torch.train.qat", "repro_torch.train_check"):
+              "repro_torch.train.qat", "repro_torch.train_check",
+              "repro_torch.launch.op_analysis", "repro_torch.launch.dryrun",
+              "repro_torch.launch.perf", "repro_torch._work"):
         assert m in MODULES, m
 
 
