@@ -3,6 +3,7 @@ on the card: times, a phase breakdown, and the tensor-core property its
 design rests on.
 
   python3 benchmarks/torch_fa_bwd.py [--probe] [--symmetry]
+                                     [--src OTHER/src]
                                      [--out results/torch/fa_bwd.json]
 
 At SmolLM-135M's training shape (16 x 256, GQA 9/3, head_dim 64) in
@@ -17,6 +18,10 @@ float32 (the training path's type) and bfloat16, with ``round_p``:
   each phase's share of a block's cycles and its cycles per chunk of keys
   (rows kernel) or tile of rows (keys kernel).  The probes sit on the
   source's ``// PROBE`` comment lines, which the kernel's build ignores;
+- ``--src``: the package (and the kernel source the probes read) from
+  another checkout's ``src``, its kernels built under that checkout's
+  ``build/``: run parent, change, change, parent in one call to compare
+  two trees on one card;
 - ``--symmetry``: whether ``mma.sync.m16n8k16`` (bf16 in, float32
   accumulators) gives (A B)[i][j] and (B^T A^T)[j][i] with the same bits
   over a chain of bf16 part products, with and without an accumulator,
@@ -158,13 +163,14 @@ def times(torch):
     return rows
 
 
-def probe(torch):
-    src = (ROOT / "src" / "repro_torch" / "csrc"
+def probe(torch, src_dir: Path):
+    src = (src_dir / "repro_torch" / "csrc"
            / "flash_attention_bwd.cu").read_text()
     lib = nvcc(probed_source(src), "fa_bwd_probe")
     fn = lib.flash_attention_bwd_launch
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_float]
+                   + [ctypes.c_void_p])
     lib.set_dbg.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -180,7 +186,7 @@ def probe(torch):
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     st.data_ptr(), *(x.data_ptr() for x in grads),
                     stats.data_ptr(), int(dtype == torch.bfloat16), B, S, S,
-                    HQ, HKV, D, D ** -0.5, 1, 1, stream)
+                    HQ, HKV, D, D ** -0.5, 1, 1, 0, 0.0, stream)
             if rc:
                 raise SystemExit(f"probe launch failed: CUDA error {rc}")
         torch.cuda.synchronize()
@@ -312,19 +318,22 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--probe", action="store_true")
     ap.add_argument("--symmetry", action="store_true")
+    ap.add_argument("--src", type=Path, default=ROOT / "src")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "results" / "torch" / "fa_bwd.json")
     args = ap.parse_args()
+    sys.path.insert(0, str(args.src.resolve()))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_fa_bwd.py needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}")
-    res = dict(card=card, shape=[B, S, HQ, HKV, D], times=times(torch))
+    print(f"card: {card}; src {args.src}")
+    res = dict(card=card, src=str(args.src), shape=[B, S, HQ, HKV, D],
+               times=times(torch))
     if args.probe:
-        res["probe"] = probe(torch)
+        res["probe"] = probe(torch, args.src)
     if args.symmetry:
         res["symmetry"] = symmetry(torch)
     args.out.parent.mkdir(parents=True, exist_ok=True)

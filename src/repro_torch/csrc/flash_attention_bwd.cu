@@ -25,7 +25,14 @@
 //
 // (D is rowsum(dout * out) only when P is not rounded).  Each gradient is
 // written in its input's type.  Causal: key j is visible to query i of
-// batch row b when j <= q_start[b] + i, as in the forward.
+// batch row b at position p = q_start[b] + i when j <= p and, with a
+// sliding window (`window` > 0, causal only), j > p - window, as in the
+// forward.  With a logit soft-cap c (`softcap` > 0) the logit is
+// c * t, t = tanhf(scale * q.k / c) in IEEE float32 (the forward's), and
+// dS takes the plain version's autograd in its order: P (dP - D), times
+// c, times (1 - t * t) (tanh's backward), divided by c, times scale.
+// A row that sees no key (a query past the keys by more than the
+// window, which no model forms) gets zero gradients.
 //
 // What bounds it on the card.  At SmolLM-135M's training shape (B 16,
 // S 256, 9/3 heads, head_dim 64; float32 q, k, v, as the QAT model gives
@@ -55,9 +62,12 @@
 // - Products.  Two kernels behind one entry point, 9 products a backward
 //   (the version before this ran 10 on the CUDA cores), 8 warps a block:
 //   1. rows (dq and the row statistics): a block serves 64 rows r = i * G
-//      + g (query i, head g of one KV head's group); warp w takes 16 rows
-//      (w % 4) against one half (w / 4) of every chunk of 64 keys (32 at
-//      head_dim 128).  It walks the visible keys twice.  Pass 1 forms
+//      + g (query i, head g of one KV head's group; 32 at head_dim 256);
+//      warp w takes 16 rows (w % 4) against one half (w / 4) of every
+//      chunk of 64 keys (32 at head_dim 112 and 128; at 256 a chunk of 16
+//      keys is one part, and the 4 warps of a row group split dq's
+//      columns, each forming the same S and dP).  It walks the keys of
+//      its rows' windows twice.  Pass 1 forms
 //      S = q.k and dP = dout.v and keeps, beside the online max m and sum
 //      l of exp(s - m), the online d = sum exp(s - m) dP, rescaled with l
 //      whenever m grows; the halves merge, half 0 first, and D = d / L.
@@ -66,15 +76,17 @@
 //      meet in shared memory (2 q.k + 2 dout.v + dq).  At head_dim 64
 //      q's and dout's fragments stay in registers.  It writes dq and
 //      (M, L, D) for (2).
-//   2. keys (dk, dv): a block holds 64 keys of one KV head and walks the
-//      rows that can see them in tiles of 64 (32 at 128).  Warp w forms
-//      S^T = K q^T and dP^T = V dout^T for its 16 keys (w % 4), then P^T
-//      and dS^T from (M, L, D) in its accumulators, which are the A
-//      operands of dv += P^T dout and dk += dS^T q: P and dS never touch
-//      shared memory (q.k + dout.v + dk + dv).  At head_dim 64 the two
-//      warps of a key group split the tile's rows and meet at the end,
-//      half 0 first, and K's fragments stay in registers; at 128 they
-//      split the columns of dk and dv.
+//   2. keys (dk, dv): a block holds 64 keys of one KV head (32 at 256)
+//      and walks the rows that can see them (their positions in [j, j +
+//      window - 1] with a window) in tiles of 64 (32 at 112 and 128, 16
+//      at 256).  Warp w forms S^T = K q^T and dP^T = V dout^T for its 16
+//      keys, then P^T and dS^T from (M, L, D) in its accumulators, which
+//      are the A operands of dv += P^T dout and dk += dS^T q: P and dS
+//      never touch shared memory (q.k + dout.v + dk + dv).  Up to head_dim
+//      64 the two warps of a key group split the tile's rows and meet at
+//      the end, half 0 first, and K's fragments stay in registers; at 112
+//      and 128 they split the columns of dk and dv, at 256 the 4 warps of
+//      a key group do (each forming the same S^T and dP^T).
 // - One logit in every pass.  Both kernels issue, for every element of S
 //   (or S^T), the same part products in the same order on the same
 //   16-deep steps (`mma_parts`, `mma_parts_swapped`: mma.sync gives the
@@ -88,11 +100,18 @@
 // - Memory.  K and V chunks (rows kernel) and q, dout tiles with their
 //   statistics (keys kernel) are copied with 16-byte cp.async into a raw
 //   buffer while the current chunk is multiplied, then split into parts in
-//   shared memory (row pitch D + 8 bf16: ldmatrix reads without bank
-//   conflicts); each block's first copy is in flight while its fixed
-//   operands are loaded and split.  At head_dim 64 in float32 the rows
-//   kernel takes 140 KB of shared memory and the keys kernel 140 KB, and
-//   both take about 255 registers a thread: one block of 8 warps an SM.
+//   shared memory (row pitch D + 8 bf16: the 8 rows an ldmatrix reads
+//   start at 8 distinct 16-byte offsets modulo 128 bytes for every head
+//   dim taken, 16 to 256, so it reads without bank conflicts); each
+//   block's first copy is in flight while its fixed operands are loaded
+//   and split.  At head_dim 64 in float32 the rows kernel takes 140 KB of
+//   shared memory and the keys kernel 140 KB, and both take about 255
+//   registers a thread: one block of 8 warps an SM.  At 256 the tiles
+//   shrink to fit 226 KB (rows 32 x chunks of 16 keys, 185 KB; keys 32 x
+//   row tiles of 16, 185 KB), and the warps a tile leaves idle split the
+//   gradient's columns instead, forming S and dP again (4 times each).
+//   Up to 64 the fragments of q and dout (rows) and K (keys) stay in
+//   registers.
 // - Occupancy at the training shape.  The rows kernel has 48 (b, hk) x 12
 //   row tiles, the keys kernel 48 x 4 key tiles of 64 (1.5 waves on 132
 //   SMs, causally unbalanced: key tile 0 is seen by all 12 row tiles, tile
@@ -101,7 +120,10 @@
 //   long blocks and the short ones fill in behind them; the busiest SM
 //   then holds 12 tiles against a mean of 10.9.  Smaller key tiles would
 //   balance better but copy and split every q and dout tile twice as
-//   often.
+//   often.  A window caps each row's keys at `window`: a row tile's work
+//   grows with its position up to the window and is flat past it, and a
+//   key tile's is flat up to the last window before the end and falls
+//   after it, so the same order still starts with the heaviest tiles.
 //
 // Nothing is allocated; the wrapper passes the statistics' scratch.  The
 // launches run on the caller's stream.  IEEE float32, expf and division;
@@ -124,38 +146,50 @@ struct Args {
   void* dq; void* dk; void* dv;
   float* stat_m; float* stat_l; float* stat_d;   // (B, Sq, Hq) each
   int Sq, Skv, Hq, Hkv, G;
-  float scale;
+  float scale, softcap;    // softcap 0: off
   int causal, round_dp;
+  int window;              // 0: global
 };
 
 // Tiles and shared memory of the two kernels for q, k, v of type T.  KC,
-// RK and SPLIT stand in ref.py as BWD_CHUNK, BWD_ROW_TILE and
-// BWD_ROW_SPLIT, for emulate_attention_bwd.
+// KP, RK and SPLIT stand in ref.py as BWD_CHUNK, BWD_KEY_PARTS,
+// BWD_ROW_TILE and BWD_ROW_SPLIT, for emulate_attention_bwd.
 template <typename T, int D>
 struct Cfg {
   static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr bool BIG = D > 128;         // 256: smaller tiles
   static constexpr int XP = F32 ? 3 : 1;       // parts of q, k, v
   static constexpr int OP = 3;                 // parts of dout, P, dS
   static constexpr int LD = D + 8;             // bf16 pitch of a D row
   static constexpr int TS = (int)sizeof(T);
-  // 1. rows: RT rows a block, keys in chunks of KC
-  static constexpr int RT = 64;
-  static constexpr int KC = D == 64 ? 64 : 32;
+  // 1. rows: RT rows a block in RG groups of 16, keys in chunks of KC,
+  // each in KP parts with their own statistics; CP warps of a (row group,
+  // key part) split dq's columns
+  static constexpr int RT = BIG ? 32 : 64;
+  static constexpr int KC = D <= 64 ? 64 : BIG ? 16 : 32;
+  static constexpr int KP = BIG ? 1 : 2;
+  static constexpr int RG = RT / 16;
+  static constexpr int CP = 8 / (RG * KP);
   static constexpr int rows_smem =
       (XP + OP) * RT * LD * 2 + 2 * XP * KC * LD * 2 + 2 * KC * D * TS;
-  // 2. keys: KB keys a block, rows in tiles of RK, split in SPLIT parts
-  // among the warps of a key group
-  static constexpr int KB = 64;
-  static constexpr int RK = D == 64 ? 64 : 32;
-  static constexpr int SPLIT = D == 64 ? 2 : 1;
+  // 2. keys: KB keys a block in KG groups of 16, rows in tiles of RK,
+  // split in SPLIT parts among the warps of a key group, or the columns
+  // of dk and dv in CS parts
+  static constexpr int KB = BIG ? 32 : 64;
+  static constexpr int RK = D <= 64 ? 64 : BIG ? 16 : 32;
+  static constexpr int SPLIT = D <= 64 ? 2 : 1;
+  static constexpr int KG = KB / 16;
+  static constexpr int CS = 8 / (KG * SPLIT);
   static constexpr int raw_keys = RK * D * (TS + 4) + 3 * RK * 4;
   static constexpr int keys_smem = 2 * XP * KB * LD * 2
       + (XP + OP) * RK * LD * 2 + raw_keys;
+  static_assert(RG * KP * CP == 8 && KG * SPLIT * CS == 8, "8 warps");
+  static_assert(D % (8 * CP) == 0 && D % (8 * CS) == 0, "column parts");
   static_assert(rows_smem <= 226 * 1024 && keys_smem <= 226 * 1024,
                 "shared memory");
-  static_assert((XP + OP) * RT * LD * 2 >= RT / 2 * (D + 8) * 4,
+  static_assert((XP + OP) * RT * LD * 2 >= RT * (D + 8) * 4,
                 "the rows kernel's dq halves fit over q and dout");
-  static_assert(keys_smem >= 2 * KB * (D + 8) * 4,
+  static_assert(SPLIT == 1 || keys_smem >= 2 * KB * (D + 8) * 4,
                 "the keys kernel's dk, dv halves fit over the parts");
 };
 
@@ -218,12 +252,16 @@ __device__ __forceinline__ void load4(const bf16* p, float (&o)[4]) {
 // (load_rows; src(rl) is row rl's first element, or null for a row of
 // zeros), all its loads in flight before the first is used, then stored
 // as P bf16 parts (store_parts: part p of row rl at dst + (p * R + rl) *
-// LD); to_parts does both.
+// LD); to_parts does both.  The last round may leave threads idle (R x
+// D / 4 need not be a multiple of the block, as at head_dim 112).
 template <int R, int D>
 struct Rows4 {
-  static constexpr int V4 = D / 4, IT = R * V4 / kThreads;
-  static_assert(R * V4 % kThreads == 0, "whole rounds of the block");
+  static constexpr int V4 = D / 4, N = R * V4;
+  static constexpr int IT = (N + kThreads - 1) / kThreads;
   float f[IT][4];
+  __device__ __forceinline__ static bool has(int e) {
+    return N % kThreads == 0 || e < N;
+  }
 };
 
 template <int R, int D, typename T, typename Src>
@@ -232,7 +270,7 @@ __device__ __forceinline__ void load_rows(Rows4<R, D>& x, Src src) {
 #pragma unroll
   for (int it = 0; it < Rows4<R, D>::IT; ++it) {
     const int e = threadIdx.x + it * kThreads;
-    const T* row = src(e / V4);
+    const T* row = Rows4<R, D>::has(e) ? src(e / V4) : nullptr;
     load4(row ? row + (e % V4) * 4 : static_cast<const T*>(nullptr), x.f[it]);
   }
 }
@@ -243,6 +281,7 @@ __device__ __forceinline__ void store_parts(bf16* dst, const Rows4<R, D>& x) {
 #pragma unroll
   for (int it = 0; it < Rows4<R, D>::IT; ++it) {
     const int e = threadIdx.x + it * kThreads;
+    if (!Rows4<R, D>::has(e)) continue;
     const int rl = e / V4, c = (e % V4) * 4;
     uint32_t w0[3], w1[3];
     to_words<P>(make_float2(x.f[it][0], x.f[it][1]), w0);
@@ -295,6 +334,18 @@ __device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
       : "r"(smem_addr(p)) : "memory");
 }
 
+// Two 8 x 8 bf16 matrices: lanes 0 .. 15 give the addresses.
+__device__ __forceinline__ void ldsm2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)) : "memory");
+}
+__device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)) : "memory");
+}
+
 // The A fragment (16 x 16) at rows m0, columns k0 of X stored row-major
 // [m][k] with pitch ld.
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* x,
@@ -317,16 +368,28 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* y,
   }
 }
 
+// The B fragment of the one n-tile n0 (load_b's b[0..1]).
+template <bool TRANS>
+__device__ __forceinline__ void load_b1(uint32_t (&b)[2], const bf16* y,
+                                        int ld, int n0, int k0, int lane) {
+  const int l = lane & 15;
+  if constexpr (!TRANS) {
+    ldsm2(b, y + (n0 + (l & 7)) * ld + k0 + ((l >> 3) << 3));
+  } else {
+    ldsm2t(b, y + (k0 + (l & 7) + ((l >> 3) << 3)) * ld + n0);
+  }
+}
+
 // t[nt] += sum of the kept part products A_pa B_pb of one 16-deep step:
 // A's PA parts as fragments af, B's PB parts in shared memory (part pb at
-// b + pb * b_part), n-tiles n0 + 8 nt.  Kept: pa + pb <= 2, issued in the
-// order (0,2) (1,1) (0,1) (2,0) (1,0) (0,0) (ref.py's `PAIRS`).
+// b + pb * b_part), n-tiles n0 + 8 nt (in pairs, an odd last one alone).
+// Kept: pa + pb <= 2, issued in the order (0,2) (1,1) (0,1) (2,0) (1,0)
+// (0,0) (ref.py's `PAIRS`).
 template <int PA, int PB, int NT, bool BT>
 __device__ __forceinline__ void mma_parts(float (&t)[NT][4],
                                           const uint32_t (&af)[PA][4],
                                           const bf16* b, int b_ld, int b_part,
                                           int n0, int k0, int lane) {
-  static_assert(NT % 2 == 0, "n-tiles in pairs");
 #pragma unroll
   for (int pb = PB - 1; pb >= 0; --pb) {
     uint32_t bf[NT][2];
@@ -339,6 +402,9 @@ __device__ __forceinline__ void mma_parts(float (&t)[NT][4],
       bf[2 * np + 1][0] = r[2];
       bf[2 * np + 1][1] = r[3];
     }
+    if constexpr (NT % 2 == 1)
+      load_b1<BT>(bf[NT - 1], b + pb * b_part, b_ld, n0 + 8 * (NT - 1), k0,
+                  lane);
 #pragma unroll
     for (int pa = PA - 1; pa >= 0; --pa) {
       if (pa + pb > 2) continue;
@@ -444,24 +510,41 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// N rows of D elements of T into dst (contiguous), 16 bytes a copy: thread
-// t copies row t / TPR (TPR = threads a row), whose first element is `row`
-// (the same for every copy of the thread), or zeros for a null row (read
-// from nowhere: `base` stands in).
-template <int N, int D, typename T>
-__device__ __forceinline__ void copy_row(unsigned char* dst, const T* base,
-                                         const T* row) {
+// N rows of D elements of T into dst (contiguous), 16 bytes a copy: src(rl)
+// is row rl's first element, or null for a row of zeros (read from
+// nowhere: `base` stands in).  Where a row's copies split evenly among the
+// block's threads, thread t copies row t / TPR (TPR = threads a row) and
+// asks src once; otherwise (head_dim 112, or 16 in bfloat16) the threads
+// take the copies in turn.
+template <int N, int D, typename T, typename Src>
+__device__ __forceinline__ void copy_rows(unsigned char* dst, const T* base,
+                                          Src src) {
   constexpr int CPR = D * (int)sizeof(T) / 16;   // copies a row
-  constexpr int TPR = kThreads / N;
-  static_assert(kThreads % N == 0 && CPR % TPR == 0, "copies a thread");
-  const int rl = threadIdx.x / TPR;
+  constexpr int TOTAL = N * CPR;
+  static_assert(D * (int)sizeof(T) % 16 == 0, "whole copies a row");
+  if constexpr (kThreads % N == 0 && CPR % (kThreads / N) == 0) {
+    constexpr int TPR = kThreads / N;
+    const int rl = threadIdx.x / TPR;
+    const T* row = src(rl);
 #pragma unroll
-  for (int it = 0; it < CPR / TPR; ++it) {
-    const int c = threadIdx.x % TPR + TPR * it;
-    cp_async16(dst + (rl * CPR + c) * 16,
-               reinterpret_cast<const char*>(row ? row : base)
-                   + (row ? c * 16 : 0),
-               row ? 16 : 0);
+    for (int it = 0; it < CPR / TPR; ++it) {
+      const int c = threadIdx.x % TPR + TPR * it;
+      cp_async16(dst + (rl * CPR + c) * 16,
+                 reinterpret_cast<const char*>(row ? row : base)
+                     + (row ? c * 16 : 0),
+                 row ? 16 : 0);
+    }
+  } else {
+#pragma unroll
+    for (int it = 0; it < (TOTAL + kThreads - 1) / kThreads; ++it) {
+      const int e = threadIdx.x + it * kThreads;
+      if (TOTAL % kThreads != 0 && e >= TOTAL) break;
+      const T* row = src(e / CPR);
+      cp_async16(dst + e * 16,
+                 reinterpret_cast<const char*>(row ? row : base)
+                     + (row ? (e % CPR) * 16 : 0),
+                 row ? 16 : 0);
+    }
   }
 }
 
@@ -469,27 +552,71 @@ __device__ __forceinline__ void copy_row(unsigned char* dst, const T* base,
 // 1. rows: the row statistics, D and dq
 // ---------------------------------------------------------------------------
 
+// MASK (a template parameter of both kernels) is true when the launch
+// has a window or a soft-cap: without either the kernels compile without
+// their branches, as they did before they took them.
+
+// The first key visible to the row at position p: p - window + 1, or 0.
+template <bool MASK>
+__device__ __forceinline__ long long first_key(long long p, const Args& a) {
+  if constexpr (!MASK) return 0LL;
+  return a.window > 0 ? max(0LL, p - a.window + 1) : 0LL;
+}
+
+// The logit of a scaled dot product x: c * t, t = tanhf(x / c), with a
+// soft-cap c (t written to `t`), else x.
+template <bool MASK>
+__device__ __forceinline__ float capped(float x, const Args& a, float& t) {
+  if (MASK && a.softcap > 0.0f) {
+    t = tanhf(__fdiv_rn(x, a.softcap));
+    return __fmul_rn(a.softcap, t);
+  }
+  t = 0.0f;
+  return x;
+}
+
+// dS of one element from its P, dP, the row's D and the capped logit's t,
+// in the plain version's autograd order: P (dP - D), then through the
+// soft-cap (x c, x (1 - t t), / c), then x scale.
+template <bool MASK>
+__device__ __forceinline__ float dlogit(float p, float dp, float dr, float t,
+                                        const Args& a) {
+  float g = __fmul_rn(p, __fsub_rn(dp, dr));
+  if (MASK && a.softcap > 0.0f) {
+    g = __fmul_rn(g, a.softcap);
+    g = __fmul_rn(g, __fsub_rn(1.0f, __fmul_rn(t, t)));
+    g = __fdiv_rn(g, a.softcap);
+  }
+  return __fmul_rn(g, a.scale);
+}
+
 // Block (hk, b, z) of the grid (Hkv, B, ceil(G * Sq / RT)): rows [tile *
 // RT, +RT) of KV head hk of batch row b, tile = tiles - 1 - z (the rows
-// with the most keys first).  Warp w takes rows (w % 4) * 16 .. + 15
-// against key half w / 4 of every chunk (KC / 2 keys), with its own
-// online statistics and dq; the halves meet in shared memory, half 0
-// first, after each pass.
-template <typename T, int D>
+// with the most keys first).  Warp w takes rows (w % RG) * 16 .. + 15
+// against key part (w / RG) % KP of every chunk (KC / KP keys) and dq's
+// columns part w / (RG KP), with its own online statistics and dq; the
+// key parts meet in shared memory, part 0 first, after each pass.  The
+// chunks start at the one holding the first key the tile's first row
+// sees (0 without a window).
+template <typename T, int D, bool MASK>
 __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
   using C = Cfg<T, D>;
   constexpr int RT = C::RT, KC = C::KC, LD = C::LD, XP = C::XP;
-  constexpr int KH = KC / 2;          // keys of a warp's half chunk
+  constexpr int KP = C::KP, RG = C::RG;
+  constexpr int KH = KC / KP;         // keys of a warp's part of a chunk
   constexpr int NT = KH / 8;          // key tiles of a warp's S
-  constexpr int DT = D / 8;           // column tiles of dq
-  constexpr int NG = DT < 8 ? DT : 8; // column tiles a group of the dq sums
+  constexpr int QW = D / C::CP;       // columns of a warp's dq
+  constexpr int DT = QW / 8;          // column tiles of a warp's dq
+  constexpr int NG = DT % 8 == 0 ? 8 : DT;   // tiles a group of the dq sums
   constexpr int RP = D + 8;           // float pitch of a dq half's row
-  // q's and dout's fragments stay in registers at head_dim 64 (96 of them
-  // in float32); at 128 they are read from shared memory at every step
-  constexpr bool AREG = D == 64;
+  static_assert(NT % 2 == 0 && DT % NG == 0, "tiles");
+  // q's and dout's fragments stay in registers up to head_dim 64 (96 of
+  // them in float32 at 64); past it they are read from shared memory at
+  // every step
+  constexpr bool AREG = D <= 64;
   constexpr int FK = AREG ? D : 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float half_m[2][RT], half_l[2][RT], half_d[2][RT];
+  __shared__ float part_m[KP][RT], part_l[KP][RT], part_d[KP][RT];
   bf16* qs = reinterpret_cast<bf16*>(smem);   // XP x RT x LD
   bf16* os = qs + XP * RT * LD;               // 3 x RT x LD
   bf16* ks = os + C::OP * RT * LD;            // XP x KC x LD
@@ -502,7 +629,9 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
   const T* __restrict__ v = static_cast<const T*>(a.v);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int row0 = (warp & 3) * 16, kh = warp >> 2;   // rows, key half
+  const int row0 = (warp % RG) * 16;          // the warp's rows
+  const int kh = (warp / RG) % KP;            // its key part
+  const int dc0 = (warp / (RG * KP)) * QW;    // its first dq column
   // PROBE start
   const int hk = blockIdx.x, b = blockIdx.y;
   const int G = a.G, total = G * a.Sq;
@@ -511,15 +640,27 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
   const int last = min(total, r0 + RT) - 1;
   const int kv_end = a.causal
       ? (int)min((long long)a.Skv, start + last / G + 1) : a.Skv;
+  const int kv_begin = MASK && a.causal
+      ? (int)min((long long)kv_end - 1, first_key<MASK>(start + r0 / G, a))
+      : 0;
+  const int c0 = kv_begin / KC;               // the first chunk walked
 
   auto copy_chunk = [&](int c) {
-    const int j = c * KC + tid / (kThreads / KC);   // the thread's key
-    const long long o = j < kv_end ? at(b, j, hk, a.Skv, a.Hkv, D) : -1;
-    copy_row<KC, D, T>(rawk, k, o < 0 ? nullptr : k + o);
-    copy_row<KC, D, T>(rawv, v, o < 0 ? nullptr : v + o);
+    auto off = [&](int jl) -> long long {
+      const int j = c * KC + jl;
+      return j < kv_end ? at(b, j, hk, a.Skv, a.Hkv, D) : -1;
+    };
+    copy_rows<KC, D, T>(rawk, k, [&](int jl) -> const T* {
+      const long long o = off(jl);
+      return o < 0 ? nullptr : k + o;
+    });
+    copy_rows<KC, D, T>(rawv, v, [&](int jl) -> const T* {
+      const long long o = off(jl);
+      return o < 0 ? nullptr : v + o;
+    });
     cp_async_commit();
   };
-  copy_chunk(0);              // in flight while q and dout are split
+  copy_chunk(c0);             // in flight while q and dout are split
 
   // q and dout of the tile's rows, as parts
   auto row_off = [&](int rl) -> long long {
@@ -547,14 +688,18 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
   }
   // PROBE 0
 
-  // the thread's rows (+0, +8 of the warp's 16): last visible key, or -1
-  int lim[2];
+  // the thread's rows (+0, +8 of the warp's 16): first and last visible
+  // key, or lim -1 for a row that sees none
+  int lo[2], lim[2];
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
     const int r = r0 + row0 + g + 8 * h2;
+    const long long p = start + r / G;
+    lo[h2] = MASK && a.causal
+        ? (int)min((long long)a.Skv, first_key<MASK>(p, a)) : 0;
     lim[h2] = r >= total ? -1
-              : a.causal ? (int)min((long long)a.Skv - 1, start + r / G)
-                         : a.Skv - 1;
+              : a.causal ? (int)min((long long)a.Skv - 1, p) : a.Skv - 1;
+    if (MASK && lo[h2] > lim[h2]) lim[h2] = -1;
   }
 
   auto convert_chunk = [&]() {
@@ -563,9 +708,10 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
     to_parts<XP, KC, D, LD, T>(ks, [&](int jl) { return tk + jl * D; });
     to_parts<XP, KC, D, LD, T>(vs, [&](int jl) { return tv + jl * D; });
   };
-  // S (logits, -inf where hidden) and dP (rounded under round_dp) of the
-  // warp's rows against its half of chunk c
-  float s[NT][4], dp[NT][4];
+  // S (logits, soft-capped, -inf where hidden; tc: each one's t) and dP
+  // (rounded under round_dp) of the warp's rows against its part of
+  // chunk c
+  float s[NT][4], dp[NT][4], tc[NT][4];
   auto scores = [&](int c) {
     zero(s);
     zero(dp);
@@ -585,8 +731,10 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int j = c * KC + kh * KH + nt * 8 + 2 * t4 + (r & 1);
-        s[nt][r] = j <= lim[r >> 1] ? __fmul_rn(s[nt][r], a.scale)
-                                    : -INFINITY;
+        const float x =
+            capped<MASK>(__fmul_rn(s[nt][r], a.scale), a, tc[nt][r]);
+        s[nt][r] = j <= lim[r >> 1] && (!MASK || j >= lo[r >> 1])
+            ? x : -INFINITY;
         if (a.round_dp) dp[nt][r] = round_bf16(dp[nt][r]);
       }
   };
@@ -596,14 +744,14 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
   // dP, a lane's columns each (the row's max is shared by its 4 lanes).
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f},
         d[2] = {0.0f, 0.0f};
-  for (int c = 0; c < chunks; ++c) {
+  for (int c = c0; c < chunks; ++c) {
     cp_async_wait_all();
     __syncthreads();          // chunk c landed; the last parts are read
     // PROBE 1
     convert_chunk();
     __syncthreads();          // parts ready; the raw buffer is free
     // PROBE 2
-    copy_chunk(c + 1 < chunks ? c + 1 : 0);   // pass 2 starts at chunk 0
+    copy_chunk(c + 1 < chunks ? c + 1 : c0);   // pass 2 starts at chunk c0
     scores(c);
     // PROBE 3
 #pragma unroll
@@ -633,7 +781,8 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
     }
     // PROBE 4
   }
-  // The halves' (m, l, d) of each row, half 0 first: M, L and D = d / L.
+  // The key parts' (m, l, d) of each row, part 0 first: M, L and D = d /
+  // L (the warps of a row group's other dq columns hold the same values)
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
     float ls = l[h2], ds = d[h2];
@@ -641,11 +790,11 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
     ls += __shfl_xor_sync(0xffffffffu, ls, 2);
     ds += __shfl_xor_sync(0xffffffffu, ds, 1);
     ds += __shfl_xor_sync(0xffffffffu, ds, 2);
-    if (t4 == 0) {
+    if (t4 == 0 && dc0 == 0) {
       const int row = row0 + g + 8 * h2;
-      half_m[kh][row] = m[h2];
-      half_l[kh][row] = ls;
-      half_d[kh][row] = ds;
+      part_m[kh][row] = m[h2];
+      part_l[kh][row] = ls;
+      part_d[kh][row] = ds;
     }
   }
   __syncthreads();
@@ -653,12 +802,22 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
     const int row = row0 + g + 8 * h2;
-    const float m0 = half_m[0][row], m1 = half_m[1][row];
-    const float mx = fmaxf(m0, m1);
-    const float f0 = m0 == -INFINITY ? 0.0f : expf(m0 - mx);
-    const float f1 = m1 == -INFINITY ? 0.0f : expf(m1 - mx);
-    const float ls = half_l[0][row] * f0 + half_l[1][row] * f1;
-    const float ds = half_d[0][row] * f0 + half_d[1][row] * f1;
+    float mx = part_m[0][row];
+#pragma unroll
+    for (int kp = 1; kp < KP; ++kp) mx = fmaxf(mx, part_m[kp][row]);
+    float f[KP];
+#pragma unroll
+    for (int kp = 0; kp < KP; ++kp)
+      f[kp] = part_m[kp][row] == -INFINITY ? 0.0f
+                                           : expf(part_m[kp][row] - mx);
+    float ls, ds;
+    if constexpr (KP == 2) {
+      ls = part_l[0][row] * f[0] + part_l[1][row] * f[1];
+      ds = part_d[0][row] * f[0] + part_d[1][row] * f[1];
+    } else {
+      ls = part_l[0][row] * f[0];
+      ds = part_d[0][row] * f[0];
+    }
     const bool valid = lim[h2] >= 0;
     M[h2] = valid ? mx : 0.0f;
     L[h2] = valid ? ls : 1.0f;
@@ -666,11 +825,11 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
   }
   // PROBE 5
 
-  // Pass 2: dS = P (dP - D) scale, P = exp(s - M) / L; dq += dS K with dS
-  // as the A operand straight from the accumulators (three parts).
+  // Pass 2: dS (dlogit) from P = exp(s - M) / L; dq += dS K with dS as
+  // the A operand straight from the accumulators (three parts).
   float dq[DT][4];
   zero(dq);
-  for (int c = 0; c < chunks; ++c) {
+  for (int c = c0; c < chunks; ++c) {
     cp_async_wait_all();
     __syncthreads();
     convert_chunk();
@@ -687,8 +846,7 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
         const int h2 = r >> 1;
         // every element computed, the hidden ones then dropped: no branch
         const float p = __fdiv_rn(expf(x - M[h2]), L[h2]);
-        const float ds =
-            __fmul_rn(__fmul_rn(p, __fsub_rn(dp[nt][r], Dr[h2])), a.scale);
+        const float ds = dlogit<MASK>(p, dp[nt][r], Dr[h2], tc[nt][r], a);
         s[nt][r] = x != -INFINITY ? ds : 0.0f;
       }
 #pragma unroll
@@ -706,7 +864,7 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
       for (int dg = 0; dg < DT; dg += NG) {
         float t[NG][4];
         zero(t);
-        mma_parts<3, XP, NG, true>(t, af, ks, LD, KC * LD, dg * 8,
+        mma_parts<3, XP, NG, true>(t, af, ks, LD, KC * LD, dc0 + dg * 8,
                                    kh * KH + kq * 16, lane);
 #pragma unroll
         for (int nt = 0; nt < NG; ++nt)
@@ -717,16 +875,16 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
     // PROBE 8
   }
 
-  // dq = half 0's + half 1's, through shared memory over q and dout
+  // dq = part 0's + part 1's, through shared memory over q and dout
   float* red = reinterpret_cast<float*>(smem);
   __syncthreads();            // every warp is done with the parts
-  if (kh == 1) {
+  if (KP == 2 && kh == 1) {
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2)
 #pragma unroll
       for (int dn = 0; dn < DT; ++dn)
         *reinterpret_cast<float2*>(
-            red + (row0 + g + 8 * h2) * RP + dn * 8 + 2 * t4) =
+            red + (row0 + g + 8 * h2) * RP + dc0 + dn * 8 + 2 * t4) =
             make_float2(dq[dn][2 * h2], dq[dn][2 * h2 + 1]);
   }
   __syncthreads();
@@ -742,10 +900,14 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
     const long long off = at(b, i, h, a.Sq, a.Hq, D);
 #pragma unroll
     for (int dn = 0; dn < DT; ++dn) {
-      const int col = dn * 8 + 2 * t4;
-      const float2 o = *reinterpret_cast<const float2*>(
-          red + (row0 + g + 8 * h2) * RP + col);
-      const float x0 = dq[dn][2 * h2] + o.x, x1 = dq[dn][2 * h2 + 1] + o.y;
+      const int col = dc0 + dn * 8 + 2 * t4;
+      float x0 = dq[dn][2 * h2], x1 = dq[dn][2 * h2 + 1];
+      if constexpr (KP == 2) {
+        const float2 o = *reinterpret_cast<const float2*>(
+            red + (row0 + g + 8 * h2) * RP + col);
+        x0 += o.x;
+        x1 += o.y;
+      }
       if constexpr (C::F32) {
         *reinterpret_cast<float2*>(dqp + off + col) = make_float2(x0, x1);
       } else {
@@ -753,7 +915,7 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
             __float22bfloat162_rn(make_float2(x0, x1));
       }
     }
-    if (t4 == 0) {
+    if (t4 == 0 && dc0 == 0) {
       const long long si = ((long long)b * a.Sq + i) * a.Hq + h;
       a.stat_m[si] = M[h2];
       a.stat_l[si] = L[h2];
@@ -799,16 +961,18 @@ __device__ __forceinline__ void mma_parts_swapped(
 
 // Block (hk, b, z) of the grid (Hkv, B, ceil(Skv / KB)): keys [z * KB,
 // +KB) of KV head hk of batch row b (the keys most rows see first).  The
-// rows r = i * G + g that can see the block's first key come in tiles of
-// RK, from a multiple of RK (r from (j0 - q_start) * G when causal).
-// Warp w takes keys (w % 4) * 16 .. + 15 and forms S^T = K q^T and
-// dP^T = V dout^T for them against RS rows of each tile, then P^T and dS^T
-// in its accumulators, which are the A operands of dv += P^T dout and
-// dk += dS^T q.  At head_dim 64 the two warps of a key group take the two
-// halves of the tile's rows (RS = RK / 2) and meet at the end, half 0
-// first, and K's fragments stay in registers; at 128 they take all the
-// rows and one half of the columns of dk and dv each.
-template <typename T, int D>
+// rows r = i * G + g that can see the block's keys come in tiles of RK,
+// from a multiple of RK (r from (j0 - q_start) * G when causal) to the
+// last row whose window reaches its last key (the last row without a
+// window).  Warp w takes keys (w % KG) * 16 .. + 15 and forms S^T = K q^T
+// and dP^T = V dout^T for them against RS rows of each tile, then P^T and
+// dS^T in its accumulators, which are the A operands of dv += P^T dout
+// and dk += dS^T q.  Up to head_dim 64 the two warps of a key group take
+// the two halves of the tile's rows (RS = RK / 2) and meet at the end,
+// half 0 first, and K's fragments stay in registers; past it the CS warps
+// of a key group take all the rows and one part of the columns of dk and
+// dv each.
+template <typename T, int D, bool MASK>
 __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
   using C = Cfg<T, D>;
   constexpr int KB = C::KB, RK = C::RK, LD = C::LD;
@@ -816,15 +980,15 @@ __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
   constexpr int SPLIT = C::SPLIT;     // row parts of a tile
   constexpr int RS = RK / SPLIT;      // rows of a warp's S^T
   constexpr int NT = RS / 8;
-  constexpr int DW = D * SPLIT / 2;   // columns of a warp's dk and dv
+  constexpr int DW = D / C::CS;       // columns of a warp's dk and dv
   constexpr int DT = DW / 8;
-  constexpr bool KREG = D == 64;      // K's fragments in registers
+  constexpr bool KREG = D <= 64;      // K's fragments in registers
   constexpr int FK = KREG ? D : 16;
   constexpr int RP = D + 8;           // float pitch of a merged row
-  static_assert(KB == 64 && NT % 2 == 0, "4 key groups of 16");
+  static_assert(KB % 16 == 0 && NT % 2 == 0, "key groups of 16");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float sm[RK], sl[RK], sd[RK];
-  __shared__ int slim[RK];
+  __shared__ int slo[RK], slim[RK];
   bf16* ks = reinterpret_cast<bf16*>(smem);   // XP x KB x LD
   bf16* vs = ks + XP * KB * LD;               // XP x KB x LD
   bf16* qs = vs + XP * KB * LD;               // XP x RK x LD
@@ -838,7 +1002,7 @@ __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
   const T* __restrict__ v = static_cast<const T*>(a.v);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int key0 = (warp & 3) * 16, sp = warp >> 2;
+  const int key0 = (warp % C::KG) * 16, sp = warp / C::KG;
   const int rs0 = SPLIT == 2 ? sp * RS : 0, dc0 = SPLIT == 2 ? 0 : sp * DW;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int G = a.G, total = G * a.Sq;
@@ -849,17 +1013,30 @@ __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
   const long long seen =
       a.causal ? max(0LL, (long long)j0 - start) * G : 0LL;
   const int first = (int)min((long long)total, seen / RK * RK);
-  const int tiles = (total - first + RK - 1) / RK;
+  // past the last row that can see the block's last key
+  const long long j_last = min(j0 + KB, a.Skv) - 1;
+  const int end = MASK && a.causal && a.window > 0
+      ? (int)min((long long)total,
+                 max(0LL, j_last + a.window - start) * G)
+      : total;
+  const int tiles = end > first ? (end - first + RK - 1) / RK : 0;
 
   auto copy_tile = [&](int r0) {
-    constexpr int TPR = kThreads / RK;
-    const int rl = tid / TPR, r = r0 + rl;   // the thread's row
-    const long long si =                      // its statistics' index
-        r < total ? ((long long)b * a.Sq + r / G) * a.Hq + hk * G + r % G
-                  : -1;
-    copy_row<RK, D, T>(rawq, q, si < 0 ? nullptr : q + si * D);
-    copy_row<RK, D, float>(rawo, a.dout, si < 0 ? nullptr : a.dout + si * D);
-    if (tid % TPR == 0) {
+    auto stat = [&](int rl) -> long long {   // row rl's statistics' index
+      const int r = r0 + rl;
+      return r < total ? ((long long)b * a.Sq + r / G) * a.Hq + hk * G + r % G
+                       : -1;
+    };
+    copy_rows<RK, D, T>(rawq, q, [&](int rl) -> const T* {
+      const long long si = stat(rl);
+      return si < 0 ? nullptr : q + si * D;
+    });
+    copy_rows<RK, D, float>(rawo, a.dout, [&](int rl) -> const float* {
+      const long long si = stat(rl);
+      return si < 0 ? nullptr : a.dout + si * D;
+    });
+    for (int rl = tid; rl < RK; rl += kThreads) {
+      const long long si = stat(rl);
       cp_async4(rawst + rl, a.stat_m + max(si, 0LL), si < 0 ? 0 : 4);
       cp_async4(rawst + RK + rl, a.stat_l + max(si, 0LL), si < 0 ? 0 : 4);
       cp_async4(rawst + 2 * RK + rl, a.stat_d + max(si, 0LL), si < 0 ? 0 : 4);
@@ -912,12 +1089,15 @@ __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
     for (int rl = tid; rl < RK; rl += kThreads) {
       const int r = r0 + rl;
       const bool valid = r < total;
+      const long long p = start + r / G;
       sm[rl] = valid ? rawst[rl] : 0.0f;
       sl[rl] = valid ? rawst[RK + rl] : 1.0f;
       sd[rl] = valid ? rawst[2 * RK + rl] : 0.0f;
+      if constexpr (MASK)
+        slo[rl] = a.causal
+            ? (int)min((long long)a.Skv, first_key<MASK>(p, a)) : 0;
       slim[rl] = !valid ? -1
-                 : a.causal ? (int)min((long long)a.Skv - 1, start + r / G)
-                            : a.Skv - 1;
+                 : a.causal ? (int)min((long long)a.Skv - 1, p) : a.Skv - 1;
     }
     __syncthreads();          // parts ready; the raw buffer is free
     if (t + 1 < tiles) copy_tile(r0 + RK);
@@ -968,12 +1148,12 @@ __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
         const int j = j0 + key0 + g + 8 * (r >> 1);
         const int rl = rs0 + nt * 8 + 2 * t4 + (r & 1);
         // every element computed, the hidden ones then dropped: no branch
-        const float x = __fmul_rn(s[nt][r], a.scale);
+        float tt;
+        const float x = capped<MASK>(__fmul_rn(s[nt][r], a.scale), a, tt);
         const float dpe = a.round_dp ? round_bf16(dp[nt][r]) : dp[nt][r];
         const float pe = __fdiv_rn(expf(x - sm[rl]), sl[rl]);
-        const float de =
-            __fmul_rn(__fmul_rn(pe, __fsub_rn(dpe, sd[rl])), a.scale);
-        const bool vis = j <= slim[rl];
+        const float de = dlogit<MASK>(pe, dpe, sd[rl], tt, a);
+        const bool vis = j <= slim[rl] && (!MASK || j >= slo[rl]);
         s[nt][r] = vis ? (a.round_dp ? round_bf16(pe) : pe) : 0.0f;
         dp[nt][r] = vis ? de : 0.0f;   // (round_dp: the P that P V used)
       }
@@ -1074,34 +1254,38 @@ __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASK>
 int launch(const Args& a, int B, cudaStream_t stream) {
   using C = Cfg<T, D>;
   const long long rtiles = ((long long)a.G * a.Sq + C::RT - 1) / C::RT;
   const long long ktiles = ((long long)a.Skv + C::KB - 1) / C::KB;
   if (rtiles > 65535 || ktiles > 65535) return (int)cudaErrorInvalidValue;
   static const int attr_rows = (int)cudaFuncSetAttribute(
-      rows_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rows_kernel<T, D, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::rows_smem);   // once
   static const int attr_keys = (int)cudaFuncSetAttribute(
-      keys_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      keys_kernel<T, D, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::keys_smem);
   if (attr_rows) return attr_rows;
   if (attr_keys) return attr_keys;
-  rows_kernel<T, D><<<dim3(a.Hkv, B, (unsigned)rtiles), kThreads,
+  rows_kernel<T, D, MASK><<<dim3(a.Hkv, B, (unsigned)rtiles), kThreads,
                       C::rows_smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  keys_kernel<T, D><<<dim3(a.Hkv, B, (unsigned)ktiles), kThreads,
+  keys_kernel<T, D, MASK><<<dim3(a.Hkv, B, (unsigned)ktiles), kThreads,
                       C::keys_smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool MASK>
 int dispatch_d(int D, const Args& a, int B, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<T, 64>(a, B, stream);
-    case 128: return launch<T, 128>(a, B, stream);
+    case 16: return launch<T, 16, MASK>(a, B, stream);
+    case 32: return launch<T, 32, MASK>(a, B, stream);
+    case 64: return launch<T, 64, MASK>(a, B, stream);
+    case 112: return launch<T, 112, MASK>(a, B, stream);
+    case 128: return launch<T, 128, MASK>(a, B, stream);
+    case 256: return launch<T, 256, MASK>(a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1109,16 +1293,20 @@ int dispatch_d(int D, const Args& a, int B, cudaStream_t stream) {
 }  // namespace
 
 // q, k, v: contiguous (B, Sq, Hq, D), (B, Skv, Hkv, D) of one type
-// (bf16 = 1: bfloat16, else float32), on a 16-byte boundary; dout:
-// contiguous float32 like q; dq, dk, dv: like q, k, v; stats: 3 * B * Sq *
-// Hq floats of scratch.  Returns 0 or the CUDA error of a refused launch.
+// (bf16 = 1: bfloat16, else float32), on a 16-byte boundary, D in 16, 32,
+// 64, 112, 128, 256; dout: contiguous float32 like q; dq, dk, dv: like q,
+// k, v; stats: 3 * B * Sq * Hq floats of scratch.  window: 0 (global) or
+// the sliding window's width (causal only); softcap: 0 (off) or the
+// logit soft-cap.  Returns 0 or the CUDA error of a refused launch.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* q_start, void* dq, void* dk, void* dv, void* stats,
     int bf16, int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-    int causal, int round_p, void* stream) {
+    int causal, int round_p, int window, float softcap, void* stream) {
   if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
   if (Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (window < 0 || !(softcap >= 0.0f) || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.dout = static_cast<const float*>(dout);
@@ -1130,9 +1318,15 @@ extern "C" int flash_attention_bwd_launch(
   a.stat_d = a.stat_l + n;
   a.Sq = Sq; a.Skv = Skv; a.Hq = Hq; a.Hkv = Hkv; a.G = Hq / Hkv;
   a.scale = scale;
+  a.softcap = softcap;
+  a.window = window;
   a.causal = causal;
   a.round_dp = round_p && bf16;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_d<__nv_bfloat16>(D, a, B, s)
-              : dispatch_d<float>(D, a, B, s);
+  const bool mask = window > 0 || softcap > 0.0f;
+  if (bf16)
+    return mask ? dispatch_d<__nv_bfloat16, true>(D, a, B, s)
+                : dispatch_d<__nv_bfloat16, false>(D, a, B, s);
+  return mask ? dispatch_d<float, true>(D, a, B, s)
+              : dispatch_d<float, false>(D, a, B, s);
 }

@@ -32,8 +32,9 @@ of ``csrc/flash_attention_bwd.cu`` (``attention_backward``; one entry,
 two kernels on the bf16 tensor cores: rows, then keys; counted once a
 backward in ``flash_attention.backward_launches``; ``emulate_attention_bwd``
 in ``ref.py`` writes out their arithmetic and tiles).  It takes q, k,
-v of one type (float32 or bfloat16), head_dim 64 or 128, no window and
-no soft-cap, and raises otherwise.  On CPU tensors autograd runs through the plain version.  A call without
+v of one type (float32 or bfloat16), every head_dim the forward takes,
+the sliding window and the logit soft-cap, and raises otherwise.  On CPU
+tensors autograd runs through the plain version.  A call without
 gradients (serving) launches the forward only, as before.
 
 ``plan`` is the launch plan, computed here so that the CPU tests can hold
@@ -73,7 +74,7 @@ from repro_torch.kernels.flash_attention.ref import (check_mask,
                                                      ref_flash_attention)
 
 _HEAD_DIMS = (16, 32, 64, 112, 128, 256)
-BWD_HEAD_DIMS = (64, 128)    # the backward kernel's instances
+BWD_HEAD_DIMS = _HEAD_DIMS   # the backward kernel's instances
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"split": 0, "mma": 1}
 _Strides = ctypes.c_longlong * 3
@@ -302,20 +303,18 @@ def _launch(q, k, v, q_start, causal: bool, scale: float, round_p: bool,
 def _bwd_entry():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_bwd(q, k, v, window: int = 0, softcap: float = 0.0):
+def _check_bwd(q, k, v, causal: bool = True, window: int = 0,
+               softcap: float = 0.0):
     """What the backward kernel takes: q, k, v of one type, float32 or
-    bfloat16, head_dim 64 or 128, and neither a window nor a soft-cap
-    (its kernels compute neither)."""
-    if window or softcap:
-        raise NotImplementedError(
-            f"the flash attention backward takes no sliding window or "
-            f"soft-cap, got window={window}, softcap={softcap}")
+    bfloat16, a head_dim of ``BWD_HEAD_DIMS``, and the forward's mask (a
+    window only with the causal mask)."""
+    check_mask(causal, window, softcap)
     if not q.dtype == k.dtype == v.dtype or q.dtype not in _TYPES:
         raise ValueError(f"the flash attention backward takes q, k, v of one "
                          f"type, float32 or bfloat16, got {q.dtype}, "
@@ -326,13 +325,14 @@ def _check_bwd(q, k, v, window: int = 0, softcap: float = 0.0):
 
 
 def _launch_bwd(q, k, v, q_start, dout, causal: bool, scale: float,
-                round_p: bool):
+                round_p: bool, window: int = 0, softcap: float = 0.0):
     """The backward kernels on contiguous copies; returns (dq, dk, dv) in
     the inputs' type."""
-    _check_bwd(q, k, v)
+    _check_bwd(q, k, v, causal, window, softcap)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if b > 65535 or max(b * sq * hq * d, b * skv * hkv * d) >= 2 ** 31:
+    if b > 65535 or max(b * sq * hq * d, b * skv * hkv * d,
+                        window) >= 2 ** 31:
         raise ValueError("flash attention backward: a dimension exceeds the "
                          "kernel's grid or int32 indices")
     if dout.shape != q.shape or dout.device != q.device:
@@ -363,7 +363,8 @@ def _launch_bwd(q, k, v, q_start, dout, causal: bool, scale: float,
                     q_start.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), stats.data_ptr(),
                     int(q.dtype == torch.bfloat16), b, sq, skv, hq, hkv, d,
-                    scale or d ** -0.5, int(causal), int(round_p), stream)
+                    scale or d ** -0.5, int(causal), int(round_p),
+                    int(window), float(softcap), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention backward launch failed: CUDA "
                            f"error {rc}")
@@ -378,20 +379,18 @@ def attention_backward(q, k, v, q_start, dout, *, causal: bool = True,
     """(dq, dk, dv) of ``flash_attention_gqa(q, k, v, q_start, ...)``
     against the float32 output gradient ``dout``, each in its input's
     type: the backward kernel for CUDA tensors, the plain version's
-    autograd for CPU tensors.  Raises for a window or a soft-cap on
-    either device: the kernel computes neither."""
+    autograd for CPU tensors."""
     _check(q, k, v, q_start)
-    if window or softcap:
-        _check_bwd(q, k, v, window, softcap)
     if q.device.type == "cpu":
         start = (torch.zeros(q.shape[0], dtype=torch.int32)
                  if q_start is None else q_start)
         return ref_attention_gqa_bwd(q, k, v, start, dout, causal, scale,
-                                     round_p)
+                                     round_p, window, softcap)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
-    return _launch_bwd(q, k, v, q_start, dout, causal, scale, round_p)
+    return _launch_bwd(q, k, v, q_start, dout, causal, scale, round_p,
+                       window, softcap)
 
 
 class _Attention(torch.autograd.Function):
@@ -400,17 +399,16 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_start, causal, scale, round_p, window,
                 softcap):
-        _check_bwd(q, k, v, window, softcap)
+        _check_bwd(q, k, v, causal, window, softcap)
         ctx.save_for_backward(q, k, v, q_start)
-        ctx.opts = (causal, scale, round_p)   # no window, no soft-cap
-        return _launch(q, k, v, q_start, causal, scale, round_p)
+        ctx.opts = (causal, scale, round_p, window, softcap)
+        return _launch(q, k, v, q_start, causal, scale, round_p, window,
+                       softcap)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, q_start = ctx.saved_tensors
-        causal, scale, round_p = ctx.opts
-        dq, dk, dv = _launch_bwd(q, k, v, q_start, dout, causal, scale,
-                                 round_p)
+        dq, dk, dv = _launch_bwd(q, k, v, q_start, dout, *ctx.opts)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -431,8 +429,8 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the reference model does (a no-op for float32 V).
 
     Differentiable: on CUDA tensors that need a gradient the backward is
-    the backward kernel (``attention_backward``; no window or soft-cap),
-    on CPU tensors autograd of the plain version.
+    the backward kernel (``attention_backward``), on CPU tensors autograd
+    of the plain version.
     """
     _check(q, k, v, q_start)
     if q.device.type == "cpu":

@@ -26,9 +26,14 @@ MASKED = -1e30
 # the backward kernel's tiles by head_dim (``Cfg`` in
 # ``csrc/flash_attention_bwd.cu``; the card test of the kernel against
 # ``emulate_attention_bwd`` holds the two to each other)
-BWD_CHUNK = {64: 64, 128: 32}   # keys a chunk of its rows kernel
-BWD_ROW_TILE = {64: 64, 128: 32}  # rows a tile of its keys kernel,
-BWD_ROW_SPLIT = {64: 2, 128: 1}   # summed in this many parts
+BWD_CHUNK = {16: 64, 32: 64, 64: 64, 112: 32, 128: 32, 256: 16}
+                                  # keys a chunk of its rows kernel, in
+BWD_KEY_PARTS = {16: 2, 32: 2, 64: 2, 112: 2, 128: 2, 256: 1}
+                                  # this many parts with their own statistics
+BWD_ROW_TILE = {16: 64, 32: 64, 64: 64, 112: 32, 128: 32, 256: 16}
+                                  # rows a tile of its keys kernel,
+BWD_ROW_SPLIT = {16: 2, 32: 2, 64: 2, 112: 1, 128: 1, 256: 1}
+                                  # summed in this many parts
 
 
 def _scale(d: int, scale: float) -> float:
@@ -117,14 +122,16 @@ def ref_attention_gqa(q, k, v, q_start, causal: bool = True,
 
 
 def ref_attention_gqa_bwd(q, k, v, q_start, dout, causal: bool = True,
-                          scale: float = 0.0, round_p: bool = False):
+                          scale: float = 0.0, round_p: bool = False,
+                          window: int = 0, softcap: float = 0.0):
     """(dq, dk, dv) of ``ref_attention_gqa`` against the float32 output
     gradient ``dout``, by autograd: the plain version of the backward
     kernel (``csrc/flash_attention_bwd.cu``).  Each gradient comes back in
     its input's type."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = ref_attention_gqa(*ins, q_start, causal, scale, round_p)
+        out = ref_attention_gqa(*ins, q_start, causal, scale, round_p,
+                                window, softcap)
         return torch.autograd.grad(out, ins, dout)
 
 
@@ -155,23 +162,30 @@ def _mma(a_parts, b_parts):
 
 
 def emulate_attention_bwd(q, k, v, q_start, dout, causal: bool = True,
-                          scale: float = 0.0, round_p: bool = False):
+                          scale: float = 0.0, round_p: bool = False,
+                          window: int = 0, softcap: float = 0.0):
     """The backward kernel's arithmetic (``csrc/flash_attention_bwd.cu``),
     in float32 torch.  Every product runs on bf16 parts (``_mma``): a
     bfloat16 q, k, v as itself, a float32 one, dout, P and dS as three
     parts, P rounded to bfloat16 (``round_p`` with a bfloat16 V) as
     itself, with the kernel's kept part products, 16 deep at a time.  The
     rows r = i * G + g of a KV head walk the keys in the rows kernel's
-    chunks (``BWD_CHUNK``), each half of a chunk with its own online max
-    m, sum l of exp(s - m) and d = sum exp(s - m) dP, rescaled as m
-    grows; the halves merge (half 0 first) into M, L and D = d / L.  Then
-    P = exp(s - M) / L, dP = dout . v (rounded to bfloat16 with ``round_p``
-    and a bfloat16 V), dS = P (dP - D) scale; dq = dS K summed per half
-    and then half 0 + half 1, and dk = dS^T q, dv = P^T dout over the rows
-    in order (every query head of the group), in ``BWD_ROW_SPLIT`` parts
-    of each ``BWD_ROW_TILE`` rows, added part 0 first.  It follows the
-    kernels' parts, products, chunks, halves and order of 16-deep steps,
-    not the order of the sums inside a step or across a chunk's lanes."""
+    chunks (``BWD_CHUNK``), each of the ``BWD_KEY_PARTS`` parts of a chunk
+    with its own online max m, sum l of exp(s - m) and d = sum exp(s - m)
+    dP, rescaled as m grows; the parts merge (part 0 first) into M, L and
+    D = d / L.  Then P = exp(s - M) / L, dP = dout . v (rounded to
+    bfloat16 with ``round_p`` and a bfloat16 V), dS = P (dP - D), taken
+    through the soft-cap's derivative (x c, x (1 - t^2), / c) and scaled;
+    dq = dS K summed per key part and then part 0 + part 1, and dk = dS^T
+    q, dv = P^T dout over the rows in order (every query head of the
+    group), in ``BWD_ROW_SPLIT`` parts of each ``BWD_ROW_TILE`` rows,
+    added part 0 first.  The logits are soft-capped (c tanh(s / c)) and
+    masked (the causal mask and the window) as the forward's.  It follows
+    the kernels' parts, products, chunks, key parts and order of 16-deep
+    steps, not the order of the sums inside a step or across a chunk's
+    lanes.  Chunks or row tiles the kernels skip (outside every row's
+    window) add exact zeros here."""
+    check_mask(causal, window, softcap)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -187,25 +201,29 @@ def emulate_attention_bwd(q, k, v, q_start, dout, causal: bool = True,
     kp = _parts(k.to(torch.float32).permute(0, 2, 1, 3), exact)
     vp = _parts(v.to(torch.float32).permute(0, 2, 1, 3), exact)
     s = _mma(qp, [x.transpose(-1, -2) for x in kp]) * sc    # (B, Hkv, R, Skv)
+    t = None
+    if softcap > 0.0:
+        c = s.new_tensor(softcap)
+        t = torch.tanh(s / c)
+        s = c * t
     dp = _mma(op, [x.transpose(-1, -2) for x in vp])
     if rnd:
         dp = dp.to(torch.bfloat16).to(torch.float32)
     if causal:
-        qpos = (q_start.to(torch.long)[:, None]
-                + torch.arange(sq * g, device=q.device)[None, :] // g)
-        ok = (torch.arange(skv, device=q.device)[None, None, :]
-              <= qpos[:, :, None])[:, None]                 # (B, 1, R, Skv)
+        ok = _visible(q_start, sq, skv, q.device, window)    # (B, Sq, Skv)
+        ok = ok.repeat_interleave(g, dim=1)[:, None]         # (B, 1, R, Skv)
     else:
         ok = torch.ones((1, 1, 1, skv), dtype=torch.bool, device=q.device)
     s = torch.where(ok, s, -torch.inf)
-    half = BWD_CHUNK[d] // 2
-    halves = []                     # each half's (m, l, d) over the chunks
-    for h in (0, 1):
+    parts = BWD_KEY_PARTS[d]
+    width = BWD_CHUNK[d] // parts
+    stats = []                       # each key part's (m, l, d) over chunks
+    for h in range(parts):
         m = torch.full(s.shape[:-1], -torch.inf, device=q.device)
         l = torch.zeros(s.shape[:-1], device=q.device)
         dsum = torch.zeros(s.shape[:-1], device=q.device)
-        for c0 in range(h * half, skv, 2 * half):
-            sc_, dpc = s[..., c0:c0 + half], dp[..., c0:c0 + half]
+        for c0 in range(h * width, skv, parts * width):
+            sc_, dpc = s[..., c0:c0 + width], dp[..., c0:c0 + width]
             mn = torch.maximum(m, sc_.amax(dim=-1))
             f = torch.where(m == -torch.inf, 0.0, torch.exp(m - mn))
             e = torch.where(sc_ == -torch.inf, 0.0,
@@ -213,26 +231,35 @@ def emulate_attention_bwd(q, k, v, q_start, dout, causal: bool = True,
             l = l * f + e.sum(dim=-1)
             dsum = dsum * f + (e * dpc).sum(dim=-1)
             m = mn
-        halves.append((m, l, dsum))
-    m = torch.maximum(halves[0][0], halves[1][0])
+        stats.append((m, l, dsum))
+    m = stats[0][0]
+    for mh, _, _ in stats[1:]:
+        m = torch.maximum(m, mh)
     fs = [torch.where(mh == -torch.inf, 0.0, torch.exp(mh - m))
-          for mh, _, _ in halves]
-    l = halves[0][1] * fs[0] + halves[1][1] * fs[1]
-    big_d = (halves[0][2] * fs[0] + halves[1][2] * fs[1]) / l
+          for mh, _, _ in stats]
+    l = stats[0][1] * fs[0]
+    big_d = stats[0][2] * fs[0]
+    for (_, lh, dh), f in zip(stats[1:], fs[1:]):
+        l = l + lh * f
+        big_d = big_d + dh * f
+    big_d = big_d / l
     p = torch.where(ok, torch.exp(s - m[..., None]) / l[..., None], 0.0)
-    ds = torch.where(ok, (p * (dp - big_d[..., None])) * sc, 0.0)
+    ds = p * (dp - big_d[..., None])
+    if t is not None:
+        ds = ds * c * (1.0 - t * t) / c
+    ds = torch.where(ok, ds * sc, 0.0)
     pv = p.to(torch.bfloat16).to(torch.float32) if rnd else p
-    in_half = (torch.arange(skv, device=q.device) // half) % 2
-    dq = sum(_mma(_parts(torch.where(in_half == h, ds, 0.0), False), kp)
-             for h in (0, 1))                                # (B, Hkv, R, D)
+    in_part = (torch.arange(skv, device=q.device) // width) % parts
+    dq = sum(_mma(_parts(torch.where(in_part == h, ds, 0.0), False), kp)
+             for h in range(parts))                          # (B, Hkv, R, D)
     tile, split = BWD_ROW_TILE[d], BWD_ROW_SPLIT[d]
     part = (torch.arange(sq * g, device=q.device) % tile) // (tile // split)
     dk = dv = 0
     for h in range(split):                                  # (B, Hkv, Skv, D)
-        in_part = (part == h)[:, None]
-        dk = dk + _mma(_parts(torch.where(in_part, ds, 0.0).transpose(-1, -2),
+        in_split = (part == h)[:, None]
+        dk = dk + _mma(_parts(torch.where(in_split, ds, 0.0).transpose(-1, -2),
                               False), qp)
-        dv = dv + _mma(_parts(torch.where(in_part, pv, 0.0).transpose(-1, -2),
+        dv = dv + _mma(_parts(torch.where(in_split, pv, 0.0).transpose(-1, -2),
                               rnd), op)
     dq = dq.reshape(b, hkv, sq, g, d).permute(0, 2, 1, 3, 4).reshape(
         b, sq, hq, d)

@@ -76,7 +76,9 @@ def block_local_attention(q, k, v, positions, window: int, softcap: float,
     causal sliding window of ``window`` (exact when the reference's block
     size is at least the window).  On the card the kernel masks by index,
     so the positions must be start + arange(S) a row; ``checked`` says
-    the caller has checked that (the transformer does, once a forward)."""
+    the caller has checked that (the transformer does, once a forward).
+    Its gradient on the card is the backward kernel's, window and
+    soft-cap included."""
     b, s, hkv, g, dh = q.shape
     scale = query_scale or 1.0 / math.sqrt(dh)
     if q.device.type == "cpu":

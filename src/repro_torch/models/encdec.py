@@ -235,7 +235,9 @@ def _decoder(params, tokens, enc_out, cfg, positions, q_start, caches=None):
 
 def loss_fn(params, batch, cfg):
     """batch: {'frames': (B, S_enc, D), 'tokens': (B, S_dec), 'labels':
-    (B, S_dec)} -> scalar next-token cross entropy."""
+    (B, S_dec)} -> scalar next-token cross entropy.  On the card every
+    attention's gradient (bidirectional, causal, cross; head_dim 64 at
+    full size, 16 reduced) is the backward kernel's."""
     enc_out = encode(params, batch["frames"], cfg)
     b, s = batch["tokens"].shape
     positions, q_start = _arange_positions(b, s, 0, batch["tokens"].device)

@@ -209,8 +209,8 @@ def forward(params, tokens, cfg, positions=None):
 
 def loss_fn(params, batch, cfg):
     """batch: {'tokens': (B, S), 'labels': (B, S)} -> scalar CE loss.  On
-    the card the attention's backward takes head_dim 64 / 128 only, so
-    Zamba2-7B (112) does not train there yet (ROADMAP A)."""
+    the card the shared blocks' attention gradient (head_dim 112 at full
+    size) is the ``flash_attention`` backward kernel."""
     logits = forward(params, batch["tokens"], cfg)
     return L.softmax_xent(logits, batch["labels"])
 

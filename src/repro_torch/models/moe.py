@@ -60,7 +60,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import (axis_sizes, coordinate, current_dp,
-                                     current_mesh, dp_index)
+                                     current_mesh, dp_index, in_context,
+                                     saved_context)
 from repro_torch.models import layers as L
 from repro_torch.quant.fake_quant import (fake_quant_expert_acts,
                                           fake_quant_experts)
@@ -515,7 +516,10 @@ def moe_apply_ep(p: Params, x: torch.Tensor, cfg,
     tokens_in = recv.transpose(0, 1).reshape(e_loc, n_tp * c, d)
     experts = {name: whole(w)[i * e_loc:(i + 1) * e_loc]
                for name, w in p["experts"].items()}
-    ybuf = _experts_ffn(experts, tokens_in, qcfg, cfg.act)
+    # the reference's experts run inside its shard_map: their activation
+    # scales span the rank's own buffers, not the dp ranks
+    with in_context((None, saved_context()[1])):
+        ybuf = _experts_ffn(experts, tokens_in, qcfg, cfg.act)
     back = _payload_all_to_all(
         ybuf.reshape(e_loc, n_tp, c, d).transpose(0, 1), group, int8)
     out = _combine(back.reshape(e, c, d), dest_e, dest_p, keep, top_w, t, k,

@@ -107,12 +107,33 @@ def chunked_linear_attention(r, k, v, log_w, u=None, chunk=DEFAULT_CHUNK,
         state = torch.zeros((b, h, dk, dv), dtype=f32, device=r.device)
     else:
         state = initial_state.to(f32)
+    if r.device.type == "meta" and n > 1:
+        return _meta_scan(o_intra, r_t, kv, p_c, state, v.dtype)
     outs = []
     for c in range(n):
         outs.append(o_intra[c] + torch.matmul(r_t[c], state))
         state = p_c[c][..., 0, :, None] * (state + kv[c])
     o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, s, h, dv)
     return o.to(v.dtype), state
+
+
+def _meta_scan(o_intra, r_t, kv, p_c, state, dtype):
+    """The chunk loop's stand-in on ``meta`` (a dry run), where no value
+    is computed: every chunk's products at once, on states that have the
+    loop's shapes and dependencies but skip its recurrence.  It runs the
+    loop's products (chunk 0's on the initial state, the others' on a
+    state that needs a gradient) with the loop's FLOPs forward and
+    backward, in a few ops instead of a few for each chunk.  Two chunks
+    or more: with one, no chunk's update reaches an output that needs a
+    gradient, and the loop takes none of ``kv``'s."""
+    b, h, dv = state.shape[0], state.shape[1], state.shape[-1]
+    n, chunk = r_t.shape[0], r_t.shape[-2]
+    carried = p_c[..., 0, :, None] * (state + kv)   # each chunk's update
+    first = o_intra[:1] + torch.matmul(r_t[:1], state)
+    rest = o_intra[1:] + torch.matmul(r_t[1:], carried[:-1])
+    o = torch.cat([first, rest]).permute(1, 0, 3, 2, 4) \
+        .reshape(b, n * chunk, h, dv)
+    return o.to(dtype), carried[-1]
 
 
 def single_step(r, k, v, log_w, u=None, state=None):

@@ -461,7 +461,8 @@ def loss_fn(params, batch, cfg):
     """batch: {'tokens': (B, S), 'labels': (B, S)} -> scalar CE loss.
 
     Differentiable on the card: the attention's backward is the
-    ``flash_attention`` backward kernel.  Each stacked layer is
+    ``flash_attention`` backward kernel, Gemma's local layers' sliding
+    window and Gemma-2's soft-cap included.  Each stacked layer is
     rematerialized (``layers.remat``), as the reference's scan
     checkpoints it: the backward keeps a layer's inputs and runs its
     forward again, which changes no value."""

@@ -149,13 +149,18 @@ def pow2x2_fake_quant(x: torch.Tensor, axis=None) -> torch.Tensor:
 # Dispatch by QuantConfig
 # ---------------------------------------------------------------------------
 
-def _quantize_group(ds, scheme: str, bits: int, axes) -> list:
+def _quantize_group(ds, scheme: str, bits: int, axes, reduce=None) -> list:
     """The quantize-dequantize of each (detached) x under ``scheme``, x's
     scale reduced over its own axes, in one launch (two for pow2x2, whose
-    second pass needs the residuals)."""
+    second pass needs the residuals).  ``reduce`` (affine, one absmax a
+    tensor) takes the stacked absmaxes to those the scales come from, as
+    ``dp_max`` takes them over the dp ranks."""
     if scheme == "affine":
-        qs = _fused_group(ds, [affine_scale(d, bits, a)
-                               for d, a in zip(ds, axes)], "affine", bits)
+        absmax = [_absmax(d, a) for d, a in zip(ds, axes)]
+        if reduce is not None:
+            absmax = reduce(torch.stack(absmax)).unbind(0)
+        qs = _fused_group(ds, [_scale_of(m, bits) for m in absmax],
+                          "affine", bits)
     elif scheme == "pow2":
         qs = _fused_group(ds, [pow2_emax(d, a) for d, a in zip(ds, axes)],
                           "pow2")
@@ -167,11 +172,13 @@ def _quantize_group(ds, scheme: str, bits: int, axes) -> list:
     return qs
 
 
-def _fake_quant_group(xs, scheme: str, bits: int, axes) -> list:
+def _fake_quant_group(xs, scheme: str, bits: int, axes, reduce=None) -> list:
     """The STE fake quantization of each x under ``scheme``, x's scale
-    reduced over its own axes; the kernel's passes are shared by the list:
-    one launch, two for pow2x2 (whose second pass needs the residuals)."""
-    qs = _quantize_group([x.detach() for x in xs], scheme, bits, axes)
+    reduced over its own axes (and by ``reduce``, as ``_quantize_group``);
+    the kernel's passes are shared by the list: one launch, two for pow2x2
+    (whose second pass needs the residuals)."""
+    qs = _quantize_group([x.detach() for x in xs], scheme, bits, axes,
+                         reduce)
     return [_ste(x, q) for x, q in zip(xs, qs)]
 
 
@@ -199,18 +206,19 @@ def fake_quant_act(x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
     (``dp_max``): the scale spans the global batch, as on one device."""
     if qcfg.act_scheme == "none" or not qcfg.quantize_acts:
         return x
-    d = x.detach()
-    scale = _scale_of(dp_max(_absmax(d, None)), qcfg.act_bits)
-    return _ste(x, _fused_group([d], [scale], "affine", qcfg.act_bits)[0])
+    return _fake_quant_group([x], "affine", qcfg.act_bits, [None],
+                             dp_max)[0]
 
 
-def _stacked(x: torch.Tensor, scheme: str, bits: int, per_channel: bool):
+def _stacked(x: torch.Tensor, scheme: str, bits: int, per_channel: bool,
+             reduce=None):
     """The STE fake quantization of every x[e] of a stack, each with its
-    own scale (per channel over its own rows, or per tensor), the slices
-    sharing the kernel's launches."""
+    own scale (per channel over its own rows, or per tensor; ``reduce`` as
+    ``_quantize_group``'s), the slices sharing the kernel's launches."""
     ds = list(x.detach().unbind(0))
     axes = [tuple(range(d.ndim - 1)) if per_channel else None for d in ds]
-    return _ste(x, torch.stack(_quantize_group(ds, scheme, bits, axes)))
+    return _ste(x, torch.stack(_quantize_group(ds, scheme, bits, axes,
+                                               reduce)))
 
 
 def fake_quant_experts(w: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
@@ -228,7 +236,10 @@ def fake_quant_experts(w: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
 def fake_quant_expert_acts(x: torch.Tensor, qcfg: QuantConfig):
     """``fake_quant_act`` of every expert's (C, K) buffer x[e] of an (E, C,
     K) stack: one scale an expert, over its own buffer (the zero rows of
-    unused capacity counted), as under the reference's vmap."""
+    unused capacity counted), as under the reference's vmap.  Under the
+    launcher's mesh context each rank's buffer is its slice of the global
+    one, and the (E,) absmax is the max over the dp ranks (``dp_max``), as
+    ``fake_quant_act``'s: no collective over one dp rank."""
     if qcfg.act_scheme == "none" or not qcfg.quantize_acts:
         return x
-    return _stacked(x, "affine", qcfg.act_bits, False)
+    return _stacked(x, "affine", qcfg.act_bits, False, reduce=dp_max)

@@ -86,11 +86,13 @@ def detached_attention():
         transformer.flash_attention_gqa = real
 
 
-def run_lm(cfg, pe_type: str, device, compute_dtype=None) -> list:
+def run_lm(cfg, pe_type: str, device, compute_dtype=None,
+           batch: int = LM_BATCH, seq: int = LM_SEQ) -> list:
     """[[loss, grad_norm], ...] of ``LM_STEPS`` port train steps
-    (``make_train_step``) of ``cfg`` under ``pe_type``; with
-    ``compute_dtype`` (a torch type) inside ``layers.compute_dtype`` (the
-    reference's ``mixed_precision`` variant)."""
+    (``make_train_step``) of ``cfg`` under ``pe_type`` on ``lm_batch``'s
+    batch x seq tokens; with ``compute_dtype`` (a torch type) inside
+    ``layers.compute_dtype`` (the reference's ``mixed_precision``
+    variant)."""
     from repro_torch import convert
     from repro_torch.models import family_module
     from repro_torch.models.layers import compute_dtype as cast_to
@@ -107,7 +109,8 @@ def run_lm(cfg, pe_type: str, device, compute_dtype=None) -> list:
     step = make_train_step(cfg, mod, opt, n_micro=1, clip_norm=LM_CLIP)
     rows = []
     for i in range(LM_STEPS):
-        batch_i = convert.params_from_numpy(lm_batch(cfg.vocab, i), device)
+        batch_i = convert.params_from_numpy(
+            lm_batch(cfg.vocab, i, batch, seq), device)
         with cast_to(compute_dtype):
             state, m = step(state, batch_i)
         rows.append([m["loss"].item(), m["grad_norm"].item()])

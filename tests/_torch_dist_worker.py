@@ -202,7 +202,8 @@ def task_moe_capacity(rank, task):
     from repro_torch.train import (TrainState, jit_train_step,
                                    make_train_step, shard_state,
                                    state_shardings_for)
-    cfg, params, tokens, labels = capacity_inputs()
+    cfg, params, tokens, labels = capacity_inputs(task.get("pe_type",
+                                                           "fp32"))
     mod = family_module(cfg)
     mesh = M.make_mesh(task["mesh"], ("data", "model"), "cpu")
     opt = adamw(constant(CAP_LR))

@@ -29,10 +29,12 @@ axes and runs under ``jax.set_mesh``, the reference's
     ("data", "model") mesh, the batch over the 4 dp devices: each step's
     loss and gradient norm, the final routers, and the drops of each MoE
     layer in a forward of the global batch (capacity over the global
-    tokens, places token-major over the batch).
+    tokens, places token-major over the batch);
+  * ``moe_capacity_qat``: the same run under ``CAP_QAT``'s numerics, whose
+    experts' activation scales span the global batch's buffers.
 
 ``PYTHONPATH=src:tests python tests/_torch_launch_ref.py --only
-moe_capacity`` rewrites that part alone.
+moe_capacity`` rewrites those two parts alone.
 
 The JAX package is not edited: ``moe_apply``, ``moe_apply_ep`` and
 ``jax.lax.all_to_all`` are wrapped at run time to log, and put back.
@@ -57,6 +59,7 @@ MOE_BATCH, MOE_SEQ = 2, 16
 CAP_FACTOR = 1.0
 CAP_BATCH, CAP_SEQ, CAP_STEPS, CAP_LR = 8, 16, 3, 1e-3
 CAP_TOKEN_SEED = 2
+CAP_QAT = "int8"      # the quantizing run: 8-bit activations a scale an expert
 
 
 def gc_inputs():
@@ -81,12 +84,14 @@ def moe_inputs():
     return cfg, params, tokens
 
 
-def capacity_inputs():
-    """(port config, numpy params, tokens, labels) of the capacity run."""
+def capacity_inputs(pe_type: str = "fp32"):
+    """(port config, numpy params, tokens, labels) of the capacity run
+    under ``pe_type``'s numerics."""
     from repro_torch.configs import reduced
     from repro_torch.models import transformer as T
     cfg = reduced(MOE_CONFIG).replace(dtype="float32",
-                                      capacity_factor=CAP_FACTOR)
+                                      capacity_factor=CAP_FACTOR,
+                                      pe_type=pe_type)
     params = T.numpy_params(cfg, MOE_PARAM_SEED)
     rng = np.random.default_rng(CAP_TOKEN_SEED)
     tokens = rng.integers(0, cfg.vocab, (CAP_BATCH, CAP_SEQ)).astype(np.int32)
@@ -94,7 +99,7 @@ def capacity_inputs():
     return cfg, params, tokens, labels
 
 
-def run_moe_capacity():
+def run_moe_capacity(pe_type: str = "fp32", n_dev: int = N_DEV):
     import jax
     import jax.numpy as jnp
     from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
@@ -107,11 +112,13 @@ def run_moe_capacity():
                                      state_shardings_for)
     from repro_torch.models.moe import capacity, kept
 
-    cfg, params, tokens, labels = capacity_inputs()
+    cfg, params, tokens, labels = capacity_inputs(pe_type)
     jcfg = reduced(MOE_CONFIG).replace(dtype="float32",
-                                       capacity_factor=CAP_FACTOR)
-    mesh = jax.make_mesh((N_DEV, 1), ("data", "model"),
-                         axis_types=(AxisType.Auto,) * 2)
+                                       capacity_factor=CAP_FACTOR,
+                                       pe_type=pe_type)
+    mesh = jax.make_mesh((n_dev, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2,
+                         devices=jax.devices()[:n_dev])
     opt = adamw(constant(CAP_LR))
     jp = jax.tree.map(jnp.asarray, params)
     state = TrainState(params=jp, opt_state=opt.init(jp),
@@ -133,7 +140,7 @@ def run_moe_capacity():
             margin)
         return inner(p, x, cfg_, qcfg)
 
-    with jax.set_mesh(mesh), activation_sharding(("data",), N_DEV,
+    with jax.set_mesh(mesh), activation_sharding(("data",), n_dev,
                                                  mesh=mesh):
         state = jax.device_put(state, state_shardings_for(jcfg, JT, mesh,
                                                           opt))
@@ -157,7 +164,8 @@ def run_moe_capacity():
     c = capacity(CAP_BATCH * CAP_SEQ, cfg)
     drops = [int((~kept(np.sort(ids, -1), c)).sum()) for ids, _ in routes]
     return {"config": MOE_CONFIG, "param_seed": MOE_PARAM_SEED,
-            "capacity_factor": CAP_FACTOR, "mesh": [N_DEV, 1],
+            "pe_type": pe_type,
+            "capacity_factor": CAP_FACTOR, "mesh": [n_dev, 1],
             "tokens": tokens.tolist(), "labels": labels.tolist(),
             "lr": CAP_LR, "steps": CAP_STEPS, "losses": losses,
             "grad_norms": gnorms, "capacity": c, "drops": drops,
@@ -344,6 +352,7 @@ def build_reference() -> dict:
     cfg, params, tokens = moe_inputs()
     return {
         "moe_capacity": run_moe_capacity(),
+        "moe_capacity_qat": run_moe_capacity(CAP_QAT),
         "jax_version": jax.__version__, "n_devices": N_DEV,
         "sharding": dict(mesh=list(SHARD_MESH), batch=SHARD_BATCH,
                          seq=SHARD_SEQ, configs=run_sharding()),
@@ -366,12 +375,13 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--only", "moe_capacity"]:
         ref = json.loads(REF_PATH.read_text())
         ref["moe_capacity"] = run_moe_capacity()
+        ref["moe_capacity_qat"] = run_moe_capacity(CAP_QAT)
     else:
         ref = build_reference()
     REF_PATH.write_text(json.dumps(ref))
-    print("moe_capacity drops", ref["moe_capacity"]["drops"], "losses",
-          ref["moe_capacity"]["losses"], "min router margin",
-          ref["moe_capacity"]["min_router_margin"])
+    for key in ("moe_capacity", "moe_capacity_qat"):
+        print(key, "drops", ref[key]["drops"], "losses", ref[key]["losses"],
+              "min router margin", ref[key]["min_router_margin"])
     for name, run in ref["moe_ep"]["runs"].items():
         print(name, "routes", len(run["routes"]), "payload calls",
               [len(p) for p in run.get("payloads", [])],

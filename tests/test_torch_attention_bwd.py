@@ -38,6 +38,7 @@ from repro_torch.kernels.flash_attention.flash_attention import _check_bwd
 from repro_torch.kernels.flash_attention.ref import (emulate_attention_bwd,
                                                      ref_attention_gqa,
                                                      ref_attention_gqa_bwd)
+from repro_torch.train_check import attention_grad_errors
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -65,22 +66,33 @@ def _close(got, want, dtype, tie=0.0):
 
 JAX_CASES = [(dtype, hq, hkv, s) for dtype in ("float32", "bfloat16")
              for hq, hkv, s in ((6, 2, 37), (8, 2, 33))]
+# the backward's new reach: (dtype, hq, hkv, s, head_dim, window, softcap)
+# -- Gemma-3's local layers (window, 256), Gemma-2's (window and soft-cap
+# 50, 256), Zamba2's shared attention (112), Whisper's reduced 16
+JAX_MASK_CASES = [("float32", 4, 1, 37, 256, 8, 0.0),
+                  ("bfloat16", 4, 2, 33, 256, 8, 50.0),
+                  ("float32", 4, 4, 35, 112, 0, 0.0),
+                  ("bfloat16", 4, 4, 29, 16, 0, 5.0)]
 
 
 @pytest.fixture(scope="module")
 def jax_grads(tmp_path_factory):
-    """Each JAX_CASES case's inputs and jax.vjp's results, from one
-    subprocess (XLA's excess precision is turned off when JAX starts)."""
+    """Each JAX_CASES and JAX_MASK_CASES case's inputs and jax.vjp's
+    results, from one subprocess (XLA's excess precision is turned off
+    when JAX starts)."""
     rng = np.random.default_rng(7)
     tmp = tmp_path_factory.mktemp("attn_grad")
     cases, args = {}, []
-    for i, (dtype, hq, hkv, s) in enumerate(JAX_CASES):
-        d = 64
+    every = ([(*c, 64, 0, 0.0) for c in JAX_CASES]
+             + [c for c in JAX_MASK_CASES])
+    for i, (dtype, hq, hkv, s, d, window, softcap) in enumerate(every):
         q, k, v, do = _inputs(rng, 2, s, s, hq, hkv, d)
         src, dst = tmp / f"in{i}.npz", tmp / f"out{i}.npz"
         np.savez(src, q=q, k=k, v=v, dout=do, dtype=dtype, causal=True,
-                 scale=1 / np.sqrt(d))
-        cases[(dtype, hq, hkv, s)] = (q, k, v, do, dst)
+                 scale=1 / np.sqrt(d), window=window, softcap=softcap)
+        key = (dtype, hq, hkv, s) if i < len(JAX_CASES) else \
+            (dtype, hq, hkv, s, d, window, softcap)
+        cases[key] = (q, k, v, do, dst)
         args += [str(src), str(dst)]
     run = subprocess.run(
         [sys.executable, str(ROOT / "tests" / "_torch_attention_grad_ref.py"),
@@ -110,6 +122,29 @@ def test_plain_backward_matches_jax_vjp(jax_grads, case):
     for g, name in zip(grads, ("dq", "dk", "dv")):
         assert g.dtype == t
         # a P at a tie (dv = P^T dout): one ulp of P (<= 2^-8) times dout
+        _close(g, want[name], dtype,
+               2.0 ** -8 * np.abs(do).max() if name == "dv" else 0.0)
+
+
+@pytest.mark.parametrize("case", JAX_MASK_CASES)
+def test_plain_backward_matches_jax_vjp_with_windows_and_caps(jax_grads,
+                                                              case):
+    """The sliding window, the logit soft-cap and head_dims 16 / 112 /
+    256, against jax.vjp of the JAX model's attention with the same mask
+    and cap, at the tolerances above."""
+    dtype, _, _, _, _, window, softcap = case
+    q, k, v, do, want = jax_grads[case]
+    t = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(t) for x in (q, k, v))
+    start = torch.zeros(2, dtype=torch.int32)
+    out = ref_attention_gqa(tq, tk, tv, start, True, 0.0, True, window,
+                            softcap)
+    atol = 1e-6 if dtype == "float32" else 2.0 ** -8 * np.abs(v).max()
+    np.testing.assert_allclose(out.numpy(), want["out"], rtol=0, atol=atol)
+    grads = ref_attention_gqa_bwd(tq, tk, tv, start, torch.from_numpy(do),
+                                  True, 0.0, True, window, softcap)
+    for g, name in zip(grads, ("dq", "dk", "dv")):
+        assert g.dtype == t
         _close(g, want[name], dtype,
                2.0 ** -8 * np.abs(do).max() if name == "dv" else 0.0)
 
@@ -157,6 +192,54 @@ def test_kernel_formulas_match_the_plain_backward(rng, case, dtype, round_p):
             assert (g != w).float().mean() <= 2e-2
 
 
+# (b, sq, skv, hq, hkv, d, q_start, window, softcap): the new instances'
+# tile edges (rows 32 a tile and chunks of 16 keys at head_dim 256, 32 a
+# chunk at 112, key blocks of 32 at 256), windows narrower than a chunk
+# and across several, soft-caps, with and without a window
+MASK_CASES = [
+    (1, 33, 33, 4, 1, 256, (0,), 0, 0.0),
+    (1, 40, 40, 2, 1, 256, (0,), 8, 0.0),
+    (2, 17, 50, 4, 2, 256, (0, 33), 20, 50.0),
+    (1, 65, 65, 4, 4, 112, (0,), 0, 0.0),
+    (1, 70, 90, 2, 1, 112, (20,), 40, 30.0),
+    (2, 65, 65, 2, 1, 16, (0, 0), 16, 0.0),
+    (1, 129, 129, 2, 1, 32, (0,), 0, 5.0),
+    (1, 130, 130, 3, 1, 64, (0,), 33, 50.0),
+    (1, 65, 65, 2, 1, 128, (0,), 40, 50.0),
+]
+
+
+@pytest.mark.parametrize("round_p", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MASK_CASES)
+def test_kernel_formulas_match_the_plain_backward_with_masks(rng, case,
+                                                             dtype, round_p):
+    """``emulate_attention_bwd`` with the window, the soft-cap and the
+    head_dims 16 / 32 / 112 / 256 against the plain backward: float32 at
+    the unmasked cases' 2e-6; bfloat16 at the card's tolerance
+    (``train_check.attention_grad_errors``, phase 10.1's): a dP at a
+    bfloat16 rounding tie, rounded from float32 sums in another order,
+    moves dS by one ulp of dP times P (at head_dim 112, 1.3e-3 of the
+    largest dq)."""
+    b, sq, skv, hq, hkv, d, start, window, softcap = case
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _inputs(rng, b, sq, skv, hq, hkv, d))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    qs = torch.tensor(start, dtype=torch.int32)
+    args = (q, k, v, qs, do, True, 0.0, round_p, window, softcap)
+    want = ref_attention_gqa_bwd(*args)
+    got = emulate_attention_bwd(*args)
+    assert all(g.dtype == w.dtype == dtype for g, w in zip(got, want))
+    if dtype == torch.float32:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=2e-6 * w.abs().max().item())
+    else:
+        err = attention_grad_errors(got, want, do)
+        assert err["ok"], err
+        assert all((g != w).float().mean() <= 2e-2 for g, w in zip(got, want))
+
+
 def test_d_needs_the_rounded_dp(rng):
     """With round_p and a bfloat16 V, D = rowsum(P dP) with dP rounded to
     bfloat16 is what autograd computes; rowsum(dout * out), FA-2's
@@ -199,17 +282,25 @@ def test_cpu_autograd_is_the_plain_version_and_launches_nothing(rng):
 
 
 def test_backward_refuses_what_its_kernel_does_not_take():
+    """Still refused: mixed types, float16, a head_dim the forward does
+    not take, a window without the causal mask.  Taken: every head_dim
+    of the forward, windows and soft-caps."""
     f32 = torch.zeros(1, 4, 3, 64)
     _check_bwd(f32, f32[:, :, :1], f32[:, :, :1])
     with pytest.raises(ValueError, match="one type"):
         _check_bwd(f32, f32[:, :, :1].bfloat16(), f32[:, :, :1].bfloat16())
     with pytest.raises(ValueError, match="head_dim"):
-        small = torch.zeros(1, 4, 3, 32)
-        _check_bwd(small, small, small)
+        odd = torch.zeros(1, 4, 3, 48)
+        _check_bwd(odd, odd, odd)
     with pytest.raises(ValueError, match="one type"):
         h = torch.zeros(1, 4, 3, 64, dtype=torch.float16)
         _check_bwd(h, h, h)
-    assert BWD_HEAD_DIMS == (64, 128)
+    with pytest.raises(ValueError, match="causal"):
+        _check_bwd(f32, f32, f32, causal=False, window=8)
+    for d in (16, 32, 112, 256):
+        x = torch.zeros(1, 4, 2, d)
+        _check_bwd(x, x, x, True, 512, 50.0)
+    assert BWD_HEAD_DIMS == (16, 32, 64, 112, 128, 256)
 
 
 def _load(path):

@@ -293,20 +293,31 @@ def test_window_and_softcap_follow_the_reference_model():
 
 
 def test_backward_raises_with_a_window_or_softcap():
-    """The backward kernels compute neither: ``attention_backward`` raises
-    for them on any device, and head_dim 256 stays outside its
-    instances."""
+    """What the backward still refuses: a window without the causal mask
+    (on any device, as the forward) and a head_dim the forward does not
+    take.  What it now takes: the window and the soft-cap (the CPU's
+    autograd of the plain version; the kernel on the card) and head_dim
+    256."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        _check_bwd
+    from repro_torch.kernels.flash_attention.ref import ref_attention_gqa_bwd
     q, k, v, st = _inputs(1, 8, 8, 2, 1, 64, 0)
+    do = torch.ones_like(q)
     for kw in (dict(window=4), dict(softcap=30.0)):
-        with pytest.raises(NotImplementedError, match="window or soft-cap"):
-            attention_backward(q, k, v, st, torch.ones_like(q), **kw)
+        got = attention_backward(q, k, v, st, do, **kw)
+        want = ref_attention_gqa_bwd(q, k, v, st, do, True, 0.0, False,
+                                     kw.get("window", 0),
+                                     kw.get("softcap", 0.0))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="causal"):
+        attention_backward(q, k, v, st, do, causal=False, window=4)
     q, k, v, st = _inputs(1, 8, 8, 2, 1, 256, 0)
-    with pytest.raises(ValueError, match="head_dim"):
-        from repro_torch.kernels.flash_attention.flash_attention import \
-            _check_bwd
-        _check_bwd(q, k, v)
+    _check_bwd(q, k, v, True, 4, 30.0)
     with pytest.raises(ValueError, match="causal"):
         flash_attention_gqa(q, k, v, st, causal=False, window=4)
+    with pytest.raises(ValueError, match="head_dim"):
+        odd = torch.zeros(1, 8, 2, 48)
+        _check_bwd(odd, odd, odd)
 
 
 def test_apply_mrope_matches_jax():

@@ -101,19 +101,31 @@ def test_head_dim_256_global(card, sq, start, q_type):
 
 @pytest.mark.gpu
 def test_window_and_softcap_refused_by_the_backward(card):
-    """The backward kernels compute neither a window nor a soft-cap: the
-    autograd path and ``attention_backward`` raise for them."""
+    """The backward kernels compute the window and the soft-cap since the
+    backward took them: the autograd path and ``attention_backward``
+    launch the kernel for both and match the plain version; a window
+    without the causal mask is still refused."""
+    from repro_torch import train_check
     from repro_torch.kernels.flash_attention import (attention_backward,
+                                                     flash_attention,
                                                      flash_attention_gqa)
+    from repro_torch.kernels.flash_attention.ref import ref_attention_gqa_bwd
     q, k, v, st = _inputs(card, 1, 8, 8, 2, 1, 64, 0, torch.float32,
                           torch.float32)
-    q.requires_grad_()
+    do = torch.ones_like(q)
     for kw in (dict(window=4), dict(softcap=30.0)):
-        with pytest.raises(NotImplementedError, match="window or soft-cap"):
-            flash_attention_gqa(q, k, v, st, **kw)
-        with pytest.raises(NotImplementedError, match="window or soft-cap"):
-            attention_backward(q.detach(), k, v, st, torch.ones_like(q),
-                               **kw)
+        before = flash_attention.backward_launches
+        leaf = q.detach().requires_grad_()
+        flash_attention_gqa(leaf, k, v, st, **kw).backward(do)
+        got = attention_backward(q, k, v, st, do, **kw)
+        assert flash_attention.backward_launches == before + 2
+        want = ref_attention_gqa_bwd(q, k, v, st, do, True, 0.0, False,
+                                     kw.get("window", 0),
+                                     kw.get("softcap", 0.0))
+        assert train_check.attention_grad_errors(got, want, do)["ok"]
+        assert torch.equal(leaf.grad, got[0])
+    with pytest.raises(ValueError, match="causal"):
+        attention_backward(q, k, v, st, do, causal=False, window=4)
 
 
 def _model_run(cfg, params, tokens, dtype, device):

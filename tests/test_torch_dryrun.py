@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get, list_archs, reduced
+from repro_torch.kernels.flash_attention import flash_attention_gqa
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import op_analysis as OA
 from repro_torch.launch import shapes as SH
@@ -47,9 +48,6 @@ from _torch_dryrun_ref import (MESH_CELLS, MESH_SHAPE, REDUCED_SHAPES,
                                REF_PATH, mesh_config)
 
 ONE = ((1, 1), ("data", "model"))
-# the messages of the card's refusals (``flash_attention._check_bwd``)
-REFUSALS = ("the flash attention backward takes head_dim",
-            "the flash attention backward takes no sliding window")
 
 
 @pytest.fixture(scope="module")
@@ -74,18 +72,15 @@ def _held(cfg, shape, r, want):
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_reduced_cells_count_the_references_flops_and_arguments(arch, ref):
+    """Every reduced cell on ``meta``, the card's kernels' checks
+    included: the training cells of Gemma-2 / Gemma-3 (windows, soft-caps,
+    head_dim 32), Zamba2 and Whisper (head_dim 16) too, since the
+    backward takes them."""
     cfg = reduced(arch)
     for name, seq, batch, kind in REDUCED_SHAPES:
         shape = SH.ShapeSpec(name, seq, batch, kind)
         r = D.run_cell(arch, name, save=False, verbose=False, mesh_shape=ONE,
                        cfg=cfg, shape=shape)
-        if r["status"] != "ok":
-            # the card's kernels refuse it: the plain versions count it
-            assert kind == "train" and r["error"].split(": ", 1)[1] \
-                .startswith(REFUSALS), r["error"]
-            r = D.run_cell(arch, name, save=False, verbose=False,
-                           mesh_shape=ONE, cfg=cfg, shape=shape,
-                           device="cpu")
         assert r["status"] == "ok", r.get("error")
         want = ref["reduced"][arch][name]
         _held(cfg, shape, r, want)
@@ -149,20 +144,24 @@ def test_fake_collectives_are_those_of_four_gloo_ranks(tmp_path):
 
 
 def test_gemma_training_is_refused_with_the_kernels_message():
-    """Gemma trains on no card yet (ROADMAP B 2): the dry run fails with
-    ``_check_bwd``'s message, where a SmolLM cell of the same tree
-    passes."""
+    """Gemma trains on the card since the backward took windows: the dry
+    run counts a windowed training cell on ``meta`` (each layer's forward,
+    its recomputation and its backward, as a SmolLM cell of the same
+    shape); a window without the causal mask is still refused, with the
+    kernels' message."""
     shape = SH.ShapeSpec("train_r", 64, 2, "train")
-    r = D.run_cell("gemma3-1b", "train_r", save=False, verbose=False,
-                   mesh_shape=ONE, cfg=reduced("gemma3-1b").replace(
-                       head_dim=64), shape=shape)
-    assert r["status"] == "error"
-    assert r["error"].startswith("NotImplementedError: the flash attention "
-                                 "backward takes no sliding window")
-    r = D.run_cell("smollm-135m", "train_r", save=False, verbose=False,
-                   mesh_shape=ONE, cfg=reduced("smollm-135m").replace(
-                       head_dim=64), shape=shape)
-    assert r["status"] == "ok" and r["launches"]["flash_attention_backward"]
+    for arch in ("gemma3-1b", "smollm-135m"):
+        cfg = reduced(arch).replace(head_dim=64)
+        r = D.run_cell(arch, "train_r", save=False, verbose=False,
+                       mesh_shape=ONE, cfg=cfg, shape=shape)
+        assert r["status"] == "ok", r.get("error")
+        micro = D.n_micro(cfg, shape, 1)
+        assert r["launches"] == {
+            "flash_attention": 2 * cfg.n_layers * micro,
+            "flash_attention_backward": cfg.n_layers * micro}
+    q = torch.empty(1, 4, 2, 64, device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="sliding window needs the causal"):
+        flash_attention_gqa(q, q, q, causal=False, window=4)
 
 
 def test_a_data_sharded_leaf_gathers_over_data_alone():

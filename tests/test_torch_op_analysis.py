@@ -193,6 +193,42 @@ def test_flash_attention_declares_the_plain_products(b, sq, skv, hq, hkv, d,
         assert [t.shape for t in grads] == [q.shape, k.shape, v.shape]
 
 
+@pytest.mark.parametrize("chunks,bonus", [(1, False), (5, False), (5, True)])
+def test_the_chunk_scan_on_meta_counts_the_loops_products(chunks, bonus):
+    """On ``meta`` the chunk scan of RWKV6 (a bonus) and Mamba2 runs its
+    chunks batched (``ssm_common._meta_scan``): the products that the loop
+    runs chunk by chunk on the CPU, forward and backward, in fewer ops."""
+    from repro_torch.models.ssm_common import chunked_linear_attention
+    b, s, h, dk, dv = 2, 4 * chunks, 3, 8, 4
+    g = torch.Generator().manual_seed(0)
+    ins = [torch.randn(b, s, h, dk, generator=g),
+           torch.randn(b, s, h, dk, generator=g),
+           torch.randn(b, s, h, dv, generator=g),
+           -torch.rand(b, s, h, dk, generator=g),
+           torch.randn(h, dk, generator=g) if bonus else None]
+
+    def step(*xs):
+        xs = [x.requires_grad_() for x in xs if x is not None]
+        o, state = chunked_linear_attention(*xs[:4], xs[4] if bonus else
+                                            None, chunk=4)
+        return (o, state, *torch.autograd.grad(o.sum(), xs))
+
+    reps = {}
+    for device in ("cpu", "meta"):
+        xs = [x.to(device) if x is not None else None for x in ins]
+        outs, reps[device] = OA.analyze(step, *xs)
+        assert [t.shape for t in outs] == \
+            [(b, s, h, dv), (b, h, dk, dv)] + [x.shape for x in ins if
+                                               x is not None]
+    cpu, meta = reps["cpu"], reps["meta"]
+    assert meta["flops"] == cpu["flops"] > 0
+    assert meta["matvec_flops"] == cpu["matvec_flops"] == 0
+    assert meta["memory"]["argument_size_in_bytes"] == \
+        cpu["memory"]["argument_size_in_bytes"]
+    if chunks > 1:
+        assert meta["n_computations"] < cpu["n_computations"]
+
+
 @pytest.mark.parametrize("shapes", [[(4, 3)], [(300, 190), (1, 129), (7, 7)]])
 def test_fake_quant_declares_no_products(shapes):
     ws = [torch.randn(*s) for s in shapes]
@@ -229,13 +265,19 @@ def test_without_an_analyzer_meta_launches_nothing():
 
 
 def test_meta_runs_the_cards_checks():
-    """The meta branch refuses what the card refuses, with its message."""
-    q = torch.empty(1, 4, 2, 32, device="meta", requires_grad=True)
+    """The meta branch refuses what the card refuses, with its message,
+    and takes what the card takes (a window, a soft-cap, head_dim 32)."""
+    q = torch.empty(1, 4, 2, 48, device="meta", requires_grad=True)
     with pytest.raises(ValueError, match="backward takes head_dim"):
         flash_attention_gqa(q, q, q)
     q = torch.empty(1, 4, 2, 64, device="meta", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no sliding window"):
-        flash_attention_gqa(q, q, q, window=2)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention_gqa(q, q, q, causal=False, window=2)
+    for d in (32, 64):
+        q = torch.empty(1, 4, 2, d, device="meta", requires_grad=True)
+        out = flash_attention_gqa(q, q, q, window=2, softcap=30.0)
+        assert out.device.type == "meta"
+        assert torch.autograd.grad(out.sum(), q)[0].shape == q.shape
     k = torch.empty(1, 4, 2, 64, device="meta", dtype=torch.float8_e4m3fn)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention_gqa(q.detach(), k, k)

@@ -134,12 +134,24 @@ def test_reduced_model_on_card_matches_cpu(card, name, pe):
 
 @pytest.mark.gpu
 def test_zamba_trains_only_where_the_backward_runs(card):
-    """The attention's backward kernel takes head_dim 64 / 128: training
-    Zamba2-7B's shared attention (112) on the card raises, naming the
-    head_dim (ROADMAP A item 4)."""
-    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    """The attention's backward kernel takes head_dim 112: Zamba2-7B's
+    shared attention trains on the card through it (one backward launch,
+    the plain version's gradient); a head_dim the forward does not take
+    is still refused."""
+    from repro_torch import train_check
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_gqa)
+    from repro_torch.kernels.flash_attention.ref import ref_attention_gqa_bwd
     q = torch.randn((1, 8, 2, 112), device=card, requires_grad=True)
     k, v = (torch.randn((1, 8, 2, 112), device=card) for _ in range(2))
+    do = torch.randn((1, 8, 2, 112), device=card)
+    before = flash_attention.backward_launches
+    flash_attention_gqa(q, k, v).backward(do)
+    assert flash_attention.backward_launches == before + 1
+    st = torch.zeros(1, dtype=torch.int32, device=card)
+    want = ref_attention_gqa_bwd(q.detach(), k, v, st, do)
+    assert train_check.attention_grad_errors(
+        (q.grad, want[1], want[2]), want, do)["ok"]
+    x = torch.randn((1, 8, 2, 48), device=card, requires_grad=True)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_gqa(q, k, v)
-    assert q.grad is None
+        flash_attention_gqa(x, x, x)

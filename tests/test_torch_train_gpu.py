@@ -133,7 +133,7 @@ def test_autograd_runs_the_kernels(card):
         flash_attention_gqa(*leaves, st, round_p=True)
     assert flash_attention.backward_launches == b0 + 2
     with pytest.raises(ValueError, match="head_dim"):
-        x = torch.zeros(1, 4, 2, 32, device=card, requires_grad=True)
+        x = torch.zeros(1, 4, 2, 48, device=card, requires_grad=True)
         flash_attention_gqa(x, x, x)
 
 
