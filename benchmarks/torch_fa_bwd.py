@@ -1,32 +1,44 @@
-"""The port's attention backward kernel (``csrc/flash_attention_bwd.cu``)
-on the card: times, a phase breakdown, and the tensor-core property its
-design rests on.
+"""The port's attention backward kernels (``csrc/flash_attention_bwd.cu``
+up to head_dim 64, ``csrc/flash_attention_bwd_wgmma.cuh`` at 112, 128 and
+256) on the card: times, a phase breakdown, and the property the designs
+rest on.
 
   python3 benchmarks/torch_fa_bwd.py [--probe] [--symmetry]
-                                     [--src OTHER/src]
+                                     [--only NAME ...] [--src OTHER/src]
                                      [--out results/torch/fa_bwd.json]
 
-At SmolLM-135M's training shape (16 x 256, GQA 9/3, head_dim 64) in
-float32 (the training path's type) and bfloat16, with ``round_p``:
-- the kernel's time (one backward: both kernels), SDPA's backward on the
-  same inputs, and each kernel's device time from ``torch.profiler``;
-  the kernel is held to the plain version first
-  (``train_check.attention_grad_errors``).  A time is the mean over 20
-  calls queued behind a sleep kernel, so the events see the device only;
+At SmolLM-135M's training shape (16 x 256, GQA 9/3, head_dim 64) and the
+family training shapes of ``chip_smoke.py``'s phase 16.1 (Gemma-3-1B's
+local and global layers, 2 x 1024, 4/1 heads of 256; Gemma-2-9B's, 4,608
+tokens, 16/8 heads of 256, window 4,096, soft-cap 50; Zamba2-7B's shared
+attention, 2 x 512, 32/32 heads of 112), in float32 and bfloat16, with
+``round_p``:
+- the kernels' time (one backward: the packing launch where there is one
+  and both kernels) and each kernel's device time from
+  ``torch.profiler``; SDPA's backward on the same inputs where there is no
+  soft-cap (the window as a boolean mask); the kernels are held to the
+  plain version first (``train_check.attention_grad_errors``).  A time
+  is the mean over 10 calls queued behind a sleep kernel, so the events
+  see the device only;
 - ``--probe``: a copy of the source with ``clock64`` probes between the
-  kernels' phases (thread 0 of every block), built beside the real one:
-  each phase's share of a block's cycles and its cycles per chunk of keys
-  (rows kernel) or tile of rows (keys kernel).  The probes sit on the
-  source's ``// PROBE`` comment lines, which the kernel's build ignores;
-- ``--src``: the package (and the kernel source the probes read) from
+  kernels' phases (thread 0 of every block: the first consumer warpgroup
+  of the wgmma kernels), built beside the real one: each phase's share of
+  a block's cycles and its cycles per chunk of keys (rows kernel) or tile
+  of rows (keys kernel), at SmolLM-135M's shape, Gemma-3-1B's global
+  layer and Zamba2-7B's.  The probes sit on the source's ``// PROBE``
+  comment lines, which the kernels' build ignores;
+- ``--src``: the package (and the kernel sources the probes read) from
   another checkout's ``src``, its kernels built under that checkout's
   ``build/``: run parent, change, change, parent in one call to compare
   two trees on one card;
 - ``--symmetry``: whether ``mma.sync.m16n8k16`` (bf16 in, float32
   accumulators) gives (A B)[i][j] and (B^T A^T)[j][i] with the same bits
-  over a chain of bf16 part products, with and without an accumulator,
-  and at another place in the fragment: the keys kernel forms S^T where
-  the rows kernel forms S, and needs every logit's bits to agree.
+  over a chain of bf16 part products (the mma.sync kernels form S^T in
+  their keys kernel where their rows kernel forms S); and, for every
+  backward instance of the tree at 112, 128 and 256, the one-logit
+  invariant itself: with a window of 1 every row sees one key, so P = 1
+  and dS = 0 exactly wherever the keys kernel's logit has the rows
+  kernel's bits, and dq and dk must be exactly 0.
 """
 
 import argparse
@@ -40,15 +52,35 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-B, S, HQ, HKV, D = 16, 256, 9, 3, 64
-REPS = 20
+# (name, b, s, hq, hkv, d, window, softcap, config)
+SHAPES = [
+    ("smollm", 16, 256, 9, 3, 64, 0, 0.0, "smollm-135m"),
+    ("gemma3_local", 2, 1024, 4, 1, 256, 512, 0.0, "gemma3-1b"),
+    ("gemma3_global", 2, 1024, 4, 1, 256, 0, 0.0, "gemma3-1b"),
+    ("gemma2_local", 1, 4608, 16, 8, 256, 4096, 50.0, "gemma2-9b"),
+    ("gemma2_global", 1, 4608, 16, 8, 256, 0, 50.0, "gemma2-9b"),
+    ("zamba2_shared", 2, 512, 32, 32, 112, 0, 0.0, "zamba2-7b"),
+]
+PROBED = ("smollm", "gemma3_global", "zamba2_shared")
+REPS = 10
 SLEEP_CYCLES = 100_000_000
+WIDE = (112, 128, 256)
 
-ROWS_PHASES = ["prologue", "pass 1 wait", "pass 1 split", "pass 1 copy + S, dP",
-               "pass 1 online", "merge", "pass 2 wait + split",
-               "pass 2 copy + S, dP", "pass 2 dS + dq", "dq halves"]
-KEYS_PHASES = ["prologue", "wait", "split + copy", "S^T, dP^T", "P^T, dS^T",
-               "dv, dk"]
+# phases by source: flash_attention_bwd.cu (mma.sync), and the wgmma
+# kernels (warpgroup 0's view: its S, the wait for warpgroup 1's dP, ...)
+PHASES = {
+    "flash_attention_bwd": (
+        ["prologue", "pass 1 wait", "pass 1 split", "pass 1 copy + S, dP",
+         "pass 1 online", "merge", "pass 2 wait + split",
+         "pass 2 copy + S, dP", "pass 2 dS + dq", "dq halves"],
+        ["prologue", "wait", "split + copy", "S^T, dP^T", "P^T, dS^T",
+         "dv, dk"]),
+    "flash_attention_bwd_wgmma": (
+        ["prologue", "S (both passes)", "dP hand-over", "online statistics",
+         "dS to shared memory", "dq products", "dq store"],
+        ["prologue", "S", "statistics + dP hand-over",
+         "P, dS to shared memory", "dv products", "dv store"]),
+}
 
 
 def probed_source(src: str) -> str:
@@ -56,7 +88,8 @@ def probed_source(src: str) -> str:
     ``PROBE n`` adds the cycles since the last probe to phase n, ``PROBE
     start`` starts the clock, ``PROBE dump <buffer> <phases> <units>``
     writes thread 0's phases, its total cycles and its count of chunks or
-    tiles to the block's slot of the buffer."""
+    tiles to the block's slot of the buffer.  Each kernel (rows, then
+    keys) must start, cover every phase below its count, and dump."""
     def line(m):
         ind, what = m.group(1), m.group(2).split()
         if what[0] == "start":
@@ -69,11 +102,22 @@ def probed_source(src: str) -> str:
                     f"blockIdx.x); for (int i = 0; i < {n}; ++i) o[i] = "
                     f"acc_[i]; o[10] = clock64() - t0_; o[11] = {units}; }}")
         return f"{ind}PROBE({int(what[0])});"
-    marks = re.findall(r"^\s*// PROBE (\S+)", src, flags=re.M)
-    want = (["start"] + [str(i) for i in range(10)] + ["dump", "start"]
-            + [str(i) for i in range(6)] + ["dump"])
-    if marks != want:
-        raise SystemExit(f"the kernel's PROBE lines are {marks}, not {want}")
+    marks = re.findall(r"^\s*// PROBE (.+?)\s*$", src, flags=re.M)
+    dumps, seen = [], None
+    for mark in marks:
+        what = mark.split()
+        if what[0] == "start":
+            seen = set()
+        elif what[0] == "dump":
+            if seen is None or seen != set(range(int(what[2]))):
+                raise SystemExit(f"the PROBE lines before {mark!r} do not "
+                                 f"cover its phases: {sorted(seen or ())}")
+            dumps.append(what[1])
+            seen = None
+        else:
+            seen.add(int(what[0]))
+    if dumps != ["g_dbg_rows", "g_dbg_keys"]:
+        raise SystemExit(f"the kernel's PROBE dumps are {dumps}")
     s = re.sub(r"^(\s*)// PROBE (.+)$", line, src, flags=re.M)
     return ("__device__ long long* g_dbg_rows;\n"
             "__device__ long long* g_dbg_keys;\n"
@@ -99,16 +143,23 @@ def nvcc(src: str, name: str):
     return ctypes.CDLL(str(lib))
 
 
-def inputs(torch, dtype, seed=0):
+def inputs(torch, shape, dtype, seed=0):
+    _, b, s, hq, hkv, d = shape[:6]
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn((B, S, h, D), generator=g, device="cuda").to(dtype)
-               for h in (HQ, HKV, HKV))
-    do = torch.randn((B, S, HQ, D), generator=g, device="cuda")
-    return q, k, v, do, torch.zeros(B, dtype=torch.int32, device="cuda")
+    q = torch.randn((b, s, hq, d), generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    do = torch.randn((b, s, hq, d), generator=g, device="cuda")
+    return q, k, v, do, torch.zeros(b, dtype=torch.int32, device="cuda")
+
+
+def scale_of(shape):
+    from repro_torch.configs import get
+    return get(shape[8]).query_scale or shape[5] ** -0.5
 
 
 def device_ms(torch, fn):
-    for _ in range(3):
+    for _ in range(2):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -122,94 +173,158 @@ def device_ms(torch, fn):
     return start.elapsed_time(end) / REPS
 
 
-def times(torch):
+def kernel_source(src_dir: Path, source: str) -> str:
+    """``csrc/<source>.cu`` of ``src_dir`` with its own header
+    (``<source>.cuh``, where the wgmma kernels live) written in place of
+    its include, so that the probes reach the kernels."""
+    csrc = src_dir / "repro_torch" / "csrc"
+    text = (csrc / f"{source}.cu").read_text()
+    header = csrc / f"{source}.cuh"
+    if header.exists():
+        text = text.replace(f'#include "{source}.cuh"', header.read_text())
+    return text
+
+
+def source_of(src_dir: Path, d: int) -> str:
+    """The backward source of ``src_dir`` that serves head_dim d."""
+    wide = src_dir / "repro_torch" / "csrc" / "flash_attention_bwd_wgmma.cu"
+    return ("flash_attention_bwd_wgmma" if d in WIDE and wide.exists()
+            else "flash_attention_bwd")
+
+
+def times(torch, src_dir, shapes):
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import attention_backward
     from repro_torch.kernels.flash_attention.ref import ref_attention_gqa_bwd
     from repro_torch.train_check import attention_grad_errors
     rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, do, st = inputs(torch, dtype)
-        err = attention_grad_errors(
-            attention_backward(q, k, v, st, do, round_p=True),
-            ref_attention_gqa_bwd(q, k, v, st, do, True, 0.0, True), do)
-        if not err["ok"]:
-            raise SystemExit(f"backward kernel {dtype}: {err}")
-        tq, tk, tv = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        out = sdpa(tq, tk, tv, is_causal=True, enable_gqa=True)
-        tdo = do.transpose(1, 2).to(out.dtype)
-        kernel = lambda: attention_backward(q, k, v, st, do,  # noqa: E731
-                                            round_p=True)
-        row = dict(kernel_ms=device_ms(torch, kernel),
-                   sdpa_ms=device_ms(torch, lambda: torch.autograd.grad(
-                       out, (tq, tk, tv), tdo, retain_graph=True)),
-                   max_abs_err=err["max_abs_err"])
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
-                kernel()
-            torch.cuda.synchronize()
-        for e in prof.key_averages():
-            for name in ("rows_kernel", "keys_kernel"):
-                if name in e.key:
-                    row[f"{name}_ms"] = e.device_time_total / e.count / 1e3
-        rows[str(dtype).split(".")[1]] = row
-        print(f"{dtype}: backward {row['kernel_ms']:.4f} ms (rows "
-              f"{row.get('rows_kernel_ms', 0):.4f}, keys "
-              f"{row.get('keys_kernel_ms', 0):.4f}), SDPA backward "
-              f"{row['sdpa_ms']:.4f} ms, max |err| vs plain "
-              f"{row['max_abs_err']:.3g}", flush=True)
+    for shape in shapes:
+        name, b, s, hq, hkv, d, window, softcap = shape[:8]
+        sc = scale_of(shape)
+        kw = dict(round_p=True, scale=sc, window=window, softcap=softcap)
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"{name}_{str(dtype).split('.')[1]}"
+            q, k, v, do, st = inputs(torch, shape, dtype)
+            err = attention_grad_errors(
+                attention_backward(q, k, v, st, do, **kw),
+                ref_attention_gqa_bwd(q, k, v, st, do, True, sc, True,
+                                      window, softcap), do)
+            if not err["ok"]:
+                raise SystemExit(f"backward kernel {key}: {err}")
+            kernel = lambda: attention_backward(q, k, v, st, do,  # noqa: E731
+                                                **kw)
+            row = dict(kernel_ms=device_ms(torch, kernel),
+                       max_abs_err=err["max_abs_err"],
+                       source=source_of(src_dir, d))
+            if not softcap:
+                tq, tk, tv = (t.transpose(1, 2).detach().requires_grad_()
+                              for t in (q, k, v))
+                pos = torch.arange(s, device="cuda")
+                mask = pos[None, :] <= pos[:, None]
+                if window:
+                    mask &= pos[None, :] > pos[:, None] - window
+                out = sdpa(tq, tk, tv, attn_mask=mask, scale=sc,
+                           enable_gqa=True)
+                tdo = do.transpose(1, 2).to(out.dtype)
+                row["sdpa_ms"] = device_ms(torch, lambda: torch.autograd.grad(
+                    out, (tq, tk, tv), tdo, retain_graph=True))
+                del tq, tk, tv, out, tdo, mask
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(REPS):
+                    kernel()
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                for kname in ("rows_kernel", "keys_kernel", "pack_kernel"):
+                    if kname in e.key and e.count:
+                        row[f"{kname}_ms"] = (e.device_time_total / e.count
+                                              / 1e3)
+            rows[key] = row
+            print(f"{key}: backward {row['kernel_ms']:.4f} ms (rows "
+                  f"{row.get('rows_kernel_ms', 0):.4f}, keys "
+                  f"{row.get('keys_kernel_ms', 0):.4f}, packing "
+                  f"{row.get('pack_kernel_ms', 0):.4f}), SDPA backward "
+                  f"{row.get('sdpa_ms', float('nan')):.4f} ms, max |err| "
+                  f"vs plain {row['max_abs_err']:.3g} [{row['source']}]",
+                  flush=True)
+            del q, k, v, do
+            torch.cuda.empty_cache()
     return rows
 
 
-def probe(torch, src_dir: Path):
-    src = (src_dir / "repro_torch" / "csrc"
-           / "flash_attention_bwd.cu").read_text()
-    lib = nvcc(probed_source(src), "fa_bwd_probe")
-    fn = lib.flash_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_float]
-                   + [ctypes.c_void_p])
-    lib.set_dbg.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, do, st = inputs(torch, dtype)
-        grads = [torch.empty_like(t) for t in (q, k, v)]
-        stats = torch.empty(3 * B * S * HQ, device="cuda")
-        bufs = {n: torch.zeros(4096, 16, dtype=torch.int64, device="cuda")
-                for n in ("rows", "keys")}
-        if lib.set_dbg(bufs["rows"].data_ptr(), bufs["keys"].data_ptr()):
-            raise SystemExit("probe: cudaMemcpyToSymbol failed")
-        stream = torch.cuda.current_stream().cuda_stream
-        for _ in range(3):
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                    st.data_ptr(), *(x.data_ptr() for x in grads),
-                    stats.data_ptr(), int(dtype == torch.bfloat16), B, S, S,
-                    HQ, HKV, D, D ** -0.5, 1, 1, 0, 0.0, stream)
-            if rc:
-                raise SystemExit(f"probe launch failed: CUDA error {rc}")
-        torch.cuda.synchronize()
-        tag = str(dtype).split(".")[1]
-        for name, names, blocks in (("rows", ROWS_PHASES, HKV * B * 12),
-                                    ("keys", KEYS_PHASES, HKV * B * 4)):
-            x = bufs[name][:blocks].double().cpu()
-            total, units = x[:, 10], x[:, 11]
-            row = dict(blocks=blocks, cycles_mean=total.mean().item(),
-                       cycles_max=total.max().item(),
-                       units_mean=units.mean().item(), phases={})
-            for i, ph in enumerate(names):
-                row["phases"][ph] = dict(
-                    share=(x[:, i].sum() / total.sum()).item(),
-                    cycles_per_unit=(x[:, i].sum() / units.sum()).item())
-            out[f"{tag}/{name}"] = row
-            print(f"{tag} {name} kernel: {blocks} blocks, "
-                  f"{row['cycles_mean']:.0f} cycles a block (max "
-                  f"{row['cycles_max']:.0f}), {row['units_mean']:.2f} "
-                  f"{'chunks' if name == 'rows' else 'tiles'} a block")
-            for ph, r in row["phases"].items():
-                print(f"    {ph:22s} {r['share'] * 100:5.1f}%  "
-                      f"{r['cycles_per_unit']:8.0f} cycles a unit")
+def probe(torch, src_dir: Path, shapes):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    fa_mod = sys.modules[fa.__module__]
+    out, libs = {}, {}
+    for shape in shapes:
+        name, b, s, hq, hkv, d, window, softcap = shape[:8]
+        if name not in PROBED:
+            continue
+        source = source_of(src_dir, d)
+        if source not in libs:
+            lib = nvcc(probed_source(kernel_source(src_dir, source)),
+                       f"{source}_probe")
+            fn = getattr(lib, f"{source}_launch")
+            wide = source.endswith("wgmma")
+            fn.argtypes = ([ctypes.c_void_p] * (10 if wide else 9)
+                           + [ctypes.c_int] * 7 + [ctypes.c_float]
+                           + [ctypes.c_int] * 3 + [ctypes.c_float]
+                           + [ctypes.c_int] * wide + [ctypes.c_void_p])
+            lib.set_dbg.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            libs[source] = (lib, fn, wide)
+        lib, fn, wide = libs[source]
+        rows_names, keys_names = PHASES[source]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, st = inputs(torch, shape, dtype)
+            bf16 = dtype == torch.bfloat16
+            grads = [torch.empty_like(t) for t in (q, k, v)]
+            stats = torch.empty(3 * b * s * hq, device="cuda")
+            extra, splits = [], []
+            if wide:
+                packed = torch.empty(fa_mod.bwd_packed_elems(
+                    b, s, s, hq, hkv, d, bf16), dtype=torch.bfloat16,
+                    device="cuda")
+                extra = [packed.data_ptr()]
+                splits = [fa_mod.bwd_key_splits(b, hkv, s)]
+            bufs = {n: torch.zeros(16384, 16, dtype=torch.int64,
+                                   device="cuda") for n in ("rows", "keys")}
+            if lib.set_dbg(bufs["rows"].data_ptr(), bufs["keys"].data_ptr()):
+                raise SystemExit("probe: cudaMemcpyToSymbol failed")
+            stream = torch.cuda.current_stream().cuda_stream
+            for _ in range(3):
+                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        do.data_ptr(), st.data_ptr(),
+                        *(x.data_ptr() for x in grads), stats.data_ptr(),
+                        *extra, int(bf16), b, s, s, hq, hkv, d,
+                        scale_of(shape), 1, 1, window, softcap, *splits,
+                        stream)
+                if rc:
+                    raise SystemExit(f"probe launch failed: CUDA error {rc}")
+            torch.cuda.synchronize()
+            tag = f"{name}_{str(dtype).split('.')[1]}"
+            for kname, names in (("rows", rows_names), ("keys", keys_names)):
+                x = bufs[kname].double().cpu()
+                x = x[x[:, 10] > 0]          # the blocks that ran
+                total, units = x[:, 10], x[:, 11]
+                row = dict(blocks=len(x), cycles_mean=total.mean().item(),
+                           cycles_max=total.max().item(),
+                           units_mean=units.mean().item(), phases={},
+                           source=source)
+                for i, ph in enumerate(names):
+                    row["phases"][ph] = dict(
+                        share=(x[:, i].sum() / total.sum()).item(),
+                        cycles_per_unit=(x[:, i].sum()
+                                         / max(1.0, units.sum())).item())
+                out[f"{tag}/{kname}"] = row
+                print(f"{tag} {kname} kernel ({source}): {len(x)} blocks, "
+                      f"{row['cycles_mean']:.0f} cycles a block (max "
+                      f"{row['cycles_max']:.0f}), {row['units_mean']:.2f} "
+                      f"{'chunks' if kname == 'rows' else 'tiles'} a block")
+                for ph, r in row["phases"].items():
+                    print(f"    {ph:28s} {r['share'] * 100:5.1f}%  "
+                          f"{r['cycles_per_unit']:8.0f} cycles a unit")
+            del q, k, v, do, grads
+            torch.cuda.empty_cache()
     return out
 
 
@@ -296,7 +411,8 @@ def symmetry(torch, trials=20000):
             torch.cuda.synchronize()
             # the 8 x 8 elements both products hold
             same = (o1[:, :8, :8] == o2.transpose(1, 2)[:, :8, :8])
-            out[f"{label}, {acc} accumulator"] = same.float().mean().item()
+            out[f"mma.sync, {label}, {acc} accumulator"] = \
+                same.float().mean().item()
         # the same products with q's rows moved by 8 in the fragment
         moved = qp.view(t, 3, 2, 8, 16).flip(2).reshape(t, 3, 16, 16)
         cm = c.view(t, 2, 8, 16).flip(1).reshape(t, 16, 16).contiguous()
@@ -307,10 +423,41 @@ def symmetry(torch, trials=20000):
                 len(pairs), o1.data_ptr(), t)
         torch.cuda.synchronize()
         back = o3.view(t, 2, 8, 16).flip(1).reshape(t, 16, 16)
-        out[f"{label}, rows moved by 8"] = (back == o1).float().mean().item()
+        out[f"mma.sync, {label}, rows moved by 8"] = \
+            (back == o1).float().mean().item()
     for key, frac in out.items():
-        print(f"mma symmetry, {key}: {frac:.6f} of the elements bitwise "
+        print(f"symmetry, {key}: {frac:.6f} of the elements bitwise "
               f"equal ({trials} trials)")
+    return out
+
+
+def one_logit(torch, src_dir: Path):
+    """dq and dk at a window of 1 (each row sees its own key only), for
+    every wide instance of the tree: exactly 0 where every logit of the
+    keys kernel has the rows kernel's bits."""
+    from repro_torch.kernels.flash_attention import attention_backward
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    heads = sys.modules[fa.__module__].BWD_HEAD_DIMS
+    out = {}
+    for d in WIDE:
+        if d not in heads:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            shape = ("one_logit", 2, 300, 4, 2, d, 1, 0.0, "smollm-135m")
+            q, k, v, do, st = inputs(torch, shape, dtype, seed=d)
+            for softcap in (0.0, 30.0):
+                dq, dk, _ = attention_backward(q, k, v, st, do, round_p=True,
+                                               window=1, softcap=softcap)
+                torch.cuda.synchronize()
+                key = (f"d{d}_{str(dtype).split('.')[1]}"
+                       f"{'_softcap' if softcap else ''}")
+                out[key] = dict(dq_nonzero=int((dq != 0).sum()),
+                                dk_nonzero=int((dk != 0).sum()),
+                                source=source_of(src_dir, d))
+                print(f"one logit, {key} [{out[key]['source']}]: dq nonzero "
+                      f"{out[key]['dq_nonzero']}, dk nonzero "
+                      f"{out[key]['dk_nonzero']} (of {dq.numel()}, "
+                      f"{dk.numel()})", flush=True)
     return out
 
 
@@ -318,24 +465,28 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--probe", action="store_true")
     ap.add_argument("--symmetry", action="store_true")
+    ap.add_argument("--only", nargs="*", default=None)
     ap.add_argument("--src", type=Path, default=ROOT / "src")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "results" / "torch" / "fa_bwd.json")
     args = ap.parse_args()
-    sys.path.insert(0, str(args.src.resolve()))
+    src_dir = args.src.resolve()
+    sys.path.insert(0, str(src_dir))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("torch_fa_bwd.py needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}; src {args.src}")
-    res = dict(card=card, src=str(args.src), shape=[B, S, HQ, HKV, D],
-               times=times(torch))
+    print(f"card: {card}; src {src_dir}")
+    shapes = [s for s in SHAPES if not args.only or s[0] in args.only]
+    res = dict(card=card, src=str(src_dir), shapes=shapes,
+               times=times(torch, src_dir, shapes))
     if args.probe:
-        res["probe"] = probe(torch, args.src)
+        res["probe"] = probe(torch, src_dir, shapes)
     if args.symmetry:
         res["symmetry"] = symmetry(torch)
+        res["one_logit"] = one_logit(torch, src_dir)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(res, indent=1))
 

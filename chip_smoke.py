@@ -118,7 +118,10 @@
    4608), float32 and bfloat16 q on a float32 cache, held to its plain
    version within 2e-5, two calls bitwise equal, timed beside the plain
    version, its bound and SDPA with the window as a boolean mask (with
-   the soft-cap, ``flex_attention`` compiled, its score_mod the cap);
+   the soft-cap, ``flex_attention`` compiled, its score_mod the cap),
+   the prefills on the wgmma kernel (``csrc/flash_attention_wgmma.cu``),
+   the times of the split kernel it replaced printed beside as constants
+   (``REPLACED_MS``);
    11.2 Gemma-3-1B at full width and
    depth, packed as LightPE-1 and INT8 and served by ``ServeEngine`` (4
    prompts of 64-900 tokens, a 1024-row cache, 12 new tokens) in
@@ -226,12 +229,17 @@
    bfloat16, against the plain backward at phase 10.1's tolerances, two
    calls bitwise equal, timed beside the plain version and a library
    call's backward (SDPA with the window as a mask; with the soft-cap,
-   ``flex_attention`` compiled), with its bound; 16.2 Gemma-3-1B at full
+   ``flex_attention`` compiled), with its bound, head_dims 112 and 256
+   on the wgmma backward (``csrc/flash_attention_bwd_wgmma.cu``) beside
+   the times of the replaced mma.sync kernel as constants
+   (``REPLACED_MS``); 16.2
+   Gemma-3-1B at full
    size (LightPE-1, and FP32 numerics) and 16.3 Gemma-2-9B (4 layers) and
    Zamba2-7B (13 layers) at full width, and RWKV6-1.6B and Whisper-medium
    at full size, LightPE-1, AdamW (``FAMILY_TRAIN``), their launches
    counted exactly (2 forwards and a
-   backward an attention call a step), held to the same
+   backward an attention call a step; at head_dims 112 and 256 every one
+   on the wgmma kernels), held to the same
    steps on the kernels' plain versions at ``TRAIN_LM_RTOL``, the step
    p50 and the peak memory; 16.4 the reduced configs at the new instances
    held to ``tests/data/torch_train_families_ref.json`` (the JAX
@@ -392,6 +400,20 @@ WHISPER_TOL = {"fp32/dense": 0.1, "lightpe1": 0.1, "int8": 0.1,
                "lightpe1/float32": 2e-3}
 # Phase 12.2: Gemma-3-1B's one KV head replicated to its 4 query heads
 KV_REPLICATE_TO = 4
+# The times of the kernels the wgmma kernels replaced, constants from
+# this script's run of the tree before them on an NVIDIA H100 80GB HBM3
+# at 700.00 W: the forward's split kernel at prefill (phases 11.1 with a
+# float32 q, 12.6 and 13.1) and the mma.sync backward at head_dims 112
+# and 256 (16.1).  Printed beside the new times for a reader; no record
+# of this run holds them
+REPLACED_MS = {
+    "gemma3-1b prefill/float32": 1.3424, "gemma2-9b prefill/float32": 47.3663,
+    "gemma3-1b block-local": 0.8781, "zamba2_prefill/float32": 0.2418,
+    "gemma3_local_f32": 1.8313, "gemma3_global_f32": 2.4989,
+    "gemma2_local_f32": 52.8045, "gemma2_global_f32": 53.2806,
+    "gemma3_local_bf16": 1.1542, "gemma3_global_bf16": 1.5594,
+    "gemma2_local_bf16": 34.6569, "gemma2_global_bf16": 35.0431,
+    "zamba2_shared_f32": 0.6694, "zamba2_shared_bf16": 0.4676}
 # Phase 12.6: (name, b, sq, skv, hq, hkv, d, causal, window) of the kernel
 # alone at the new paths' shapes, float32 q, K, V, float32 P
 VARIANT_SHAPES = [
@@ -440,6 +462,15 @@ SSM_PACKED_TOL = {"lightpe1": 0.1, "int8": 0.1}
 # is rounded), and near zero, where a sum cancels, the float32 kernels'
 # absolute tolerance
 QMM_CAST_RTOL = 2.0 ** -7
+
+
+def _replaced(key: str, ms: float) -> str:
+    """The time of the kernel this one replaced (a constant of
+    ``REPLACED_MS``, not timed in this run) and its ratio to this run's
+    time, for the printed line; or nothing."""
+    t = REPLACED_MS.get(key)
+    return (f" (the replaced kernel, a constant: {t:.4f} ms, "
+            f"{t / ms:.2f} x this)" if t else "")
 
 
 def fail(msg: str):
@@ -2101,9 +2132,10 @@ def check_window_kernel(torch, dev):
             lib = (f"{library} {library_ms:.4f} ms (max |err| {lib_err:.3g} "
                    f"vs plain on float32 q; first call {lib_s:.1f} s)")
             print(f"flash_attention {name} q {q_name} ({p.variant}, "
-                  f"{p.splits} splits): max_abs_err={err:.3g}, kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} "
-                  f"ms ({by}), {lib}")
+                  f"{p.splits} splits): max_abs_err={err:.3g}, two calls "
+                  f"bitwise equal; kernel {ms:.4f} ms"
+                  f"{_replaced(f'{name}/{q_name}', ms)}, plain "
+                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), {lib}")
     return rows
 
 
@@ -3032,9 +3064,9 @@ def check_variant_kernels(torch, dev):
                          library_ms=library_ms, bound_ms=bound, bound_by=by,
                          bytes=nbytes, variant=p.variant, splits=p.splits))
         print(f"flash_attention {name} ({p.variant}, {p.splits} splits): "
-              f"max_abs_err={err:.3g}, kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
-              f"{bound:.4f} ms ({by})")
+              f"max_abs_err={err:.3g}, two calls bitwise equal; kernel "
+              f"{ms:.4f} ms{_replaced(name, ms)}, plain {plain_ms:.4f} ms, "
+              f"SDPA {library_ms:.4f} ms, bound {bound:.4f} ms ({by})")
     return rows
 
 
@@ -3126,7 +3158,8 @@ def check_zamba_kernel(torch, dev):
                              splits=p.splits, rows=p.rows))
             print(f"flash_attention {name} q {q_name} ({p.variant}, "
                   f"{p.rows} rows, {p.splits} splits): max_abs_err={err:.3g}, "
-                  f"two calls bitwise equal; kernel {ms:.4f} ms, plain "
+                  f"two calls bitwise equal; kernel {ms:.4f} ms"
+                  f"{_replaced(f'{name}/{q_name}', ms)}, plain "
                   f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
                   f"{bound:.4f} ms ({by})")
     return rows
@@ -4446,7 +4479,8 @@ def check_family_backward(torch, dev):
     the window as a boolean mask; with the soft-cap ``flex_softcap``'s
     flex_attention), with their bounds."""
     from repro_torch.configs import get
-    from repro_torch.kernels.flash_attention import (attention_backward,
+    from repro_torch.kernels.flash_attention import (WGMMA_DIMS,
+                                                     attention_backward,
                                                      flash_attention)
     from repro_torch.kernels.flash_attention.ref import ref_attention_gqa_bwd
     from repro_torch.train_check import attention_grad_errors
@@ -4535,14 +4569,16 @@ def check_family_backward(torch, dev):
                              library=library, library_max_abs_err=lib_err,
                              library_first_call_s=lib_s,
                              bound_ms=bound, bound_by=by, pairs=pairs,
-                             bound_share=bound / ms)
+                             bound_share=bound / ms,
+                             variant=("wgmma" if d in WGMMA_DIMS
+                                      else "mma.sync"))
             lib = (f"{library} {library_ms:.4f} ms (max |err| {lib_err:.3g} "
                    f"vs plain; first call {lib_s:.1f} s)")
             print(f"16.1 backward {key} {[b, s, hq, hkv, d]} window {window} "
                   f"softcap {softcap}: max |err| {err['max_abs_err']:.3g} vs "
-                  f"plain, two calls bitwise equal; kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, {lib}; bound {bound:.4f} ms "
-                  f"({by}; {bound / ms:.1%} of it)")
+                  f"plain, two calls bitwise equal; kernel {ms:.4f} ms"
+                  f"{_replaced(key, ms)}, plain {plain_ms:.4f} ms, {lib}; "
+                  f"bound {bound:.4f} ms ({by}; {bound / ms:.1%} of it)")
             del q, k, v, do
     gc.collect()
     torch.cuda.empty_cache()
@@ -4589,7 +4625,8 @@ def run_family_training(torch, dev):
     the losses and gradient norms within TRAIN_LM_RTOL."""
     from repro_torch.configs import get
     from repro_torch.kernels.fake_quant import fake_quant
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (WGMMA_DIMS,
+                                                     flash_attention)
     from repro_torch.models.transformer import layer_is_global
     from repro_torch.train_check import compare
 
@@ -4603,16 +4640,28 @@ def run_family_training(torch, dev):
         calls = _family_attention_calls(cfg)
         _zero(torch, flash_attention, fake_quant)
         flash_attention.backward_launches = 0
+        flash_attention.wgmma_launches = 0
+        flash_attention.backward_wgmma_launches = 0
         rows, times, peak = _family_steps(torch, dev, cfg, batch, seq, steps,
                                           False)
         counts = dict(flash_attention=flash_attention.launches,
                       flash_attention_backward=(
                           flash_attention.backward_launches),
-                      fake_quant=fake_quant.launches)
+                      fake_quant=fake_quant.launches,
+                      flash_attention_wgmma=flash_attention.wgmma_launches,
+                      flash_attention_backward_wgmma=(
+                          flash_attention.backward_wgmma_launches))
         want = dict(flash_attention=2 * calls * steps,
                     flash_attention_backward=calls * steps)
         if {k: counts[k] for k in want} != want:
             fail(f"16 {key}: launches {counts}, want {want}")
+        # the wide head_dims' prefill-shaped forwards and backwards run
+        # the wgmma kernels, every one of them
+        if calls and cfg.head_dim in WGMMA_DIMS and (
+                counts["flash_attention_wgmma"] != 2 * calls * steps
+                or counts["flash_attention_backward_wgmma"] != calls * steps):
+            fail(f"16 {key}: the wgmma kernels ran {counts}, want every "
+                 f"launch at head_dim {cfg.head_dim}")
         _zero(torch, flash_attention, fake_quant)
         flash_attention.backward_launches = 0
         plain_rows, plain_times, plain_peak = _family_steps(
@@ -4953,6 +5002,45 @@ def _phases(torch, t_start, workers) -> int:
         family_training_launches={
             arch: r["launches"]["flash_attention_backward"]
             for arch, r in families["train"].items()}))
+    # the wgmma kernels: the forward's prefill at head_dims 112 /
+    # 128 (float32 q) and 256, the backward at 112 / 128 / 256; launches
+    # from 16.2-16.3's training runs (the path that runs both), the main
+    # numbers Gemma-3-1B's (11.1's prefill with a float32 q, 16.1's global
+    # layer in float32: the QAT model's types)
+    fwd_rows = [r for r in windowed + variants["kernels"] + ssm["kernel_112"]
+                if r["variant"] == "wgmma"]
+    main_fwd = next(r for r in windowed if r["name"] == "gemma3-1b prefill"
+                    and r["q_type"] == "float32")
+    wide_bwd = {k: r for k, r in families["backward"].items()
+                if r["variant"] == "wgmma"}
+    main_wbwd = wide_bwd["gemma3_global_f32"]
+    train_runs = families["train"].values()
+    kernels.append(dict(
+        name="flash_attention_wgmma", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_wgmma.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:71",
+        launches=sum(r["launches"]["flash_attention_wgmma"]
+                     for r in train_runs),
+        max_abs_err=max(r["max_abs_err"] for r in fwd_rows),
+        ms=main_fwd["ms"], plain_ms=main_fwd["plain_ms"],
+        bound_ms=main_fwd["bound_ms"], bound_by=main_fwd["bound_by"],
+        library_ms=main_fwd["library_ms"], library=main_fwd["library"],
+        unit="Gemma-3-1B's prefill, 4 x 900 rows, 4/1 heads of 256, "
+             "window 512, float32 q on the float32 cache",
+        shapes=fwd_rows))
+    kernels.append(dict(
+        name="flash_attention_backward_wgmma", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:71",
+        launches=sum(r["launches"]["flash_attention_backward_wgmma"]
+                     for r in train_runs),
+        max_abs_err=max(r["max_abs_err"] for r in wide_bwd.values()),
+        ms=main_wbwd["ms"], plain_ms=main_wbwd["plain_ms"],
+        bound_ms=main_wbwd["bound_ms"], bound_by=main_wbwd["bound_by"],
+        library_ms=main_wbwd["library_ms"], library=main_wbwd["library"],
+        unit="one Gemma-3-1B global layer's gradient, 2 x 1024 tokens, 4/1 "
+             "heads of 256, float32 (the QAT model's types)",
+        shapes=wide_bwd))
     print(f"smoke: {time.perf_counter() - t_start:.2f} s, the build "
           f"included")
     print(json.dumps({"kernels": kernels, "serving": serving, "qat": qat,

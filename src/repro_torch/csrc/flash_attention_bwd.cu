@@ -62,31 +62,26 @@
 // - Products.  Two kernels behind one entry point, 9 products a backward
 //   (the version before this ran 10 on the CUDA cores), 8 warps a block:
 //   1. rows (dq and the row statistics): a block serves 64 rows r = i * G
-//      + g (query i, head g of one KV head's group; 32 at head_dim 256);
-//      warp w takes 16 rows (w % 4) against one half (w / 4) of every
-//      chunk of 64 keys (32 at head_dim 112 and 128; at 256 a chunk of 16
-//      keys is one part, and the 4 warps of a row group split dq's
-//      columns, each forming the same S and dP).  It walks the keys of
-//      its rows' windows twice.  Pass 1 forms
+//      + g (query i, head g of one KV head's group); warp w takes 16 rows
+//      (w % 4) against one half (w / 4) of every chunk of 64 keys.  It
+//      walks the keys of its rows' windows twice.  Pass 1 forms
 //      S = q.k and dP = dout.v and keeps, beside the online max m and sum
 //      l of exp(s - m), the online d = sum exp(s - m) dP, rescaled with l
 //      whenever m grows; the halves merge, half 0 first, and D = d / L.
 //      Pass 2 forms S and dP again, P = exp(s - M) / L and dS, and sums
 //      dq = dS K with dS in registers as the A operand; the halves' dq
-//      meet in shared memory (2 q.k + 2 dout.v + dq).  At head_dim 64
-//      q's and dout's fragments stay in registers.  It writes dq and
-//      (M, L, D) for (2).
-//   2. keys (dk, dv): a block holds 64 keys of one KV head (32 at 256)
-//      and walks the rows that can see them (their positions in [j, j +
-//      window - 1] with a window) in tiles of 64 (32 at 112 and 128, 16
-//      at 256).  Warp w forms S^T = K q^T and dP^T = V dout^T for its 16
-//      keys, then P^T and dS^T from (M, L, D) in its accumulators, which
-//      are the A operands of dv += P^T dout and dk += dS^T q: P and dS
-//      never touch shared memory (q.k + dout.v + dk + dv).  Up to head_dim
-//      64 the two warps of a key group split the tile's rows and meet at
-//      the end, half 0 first, and K's fragments stay in registers; at 112
-//      and 128 they split the columns of dk and dv, at 256 the 4 warps of
-//      a key group do (each forming the same S^T and dP^T).
+//      meet in shared memory (2 q.k + 2 dout.v + dq).  q's and dout's
+//      fragments stay in registers.  It writes dq and (M, L, D) for (2).
+//   2. keys (dk, dv): a block holds 64 keys of one KV head and walks the
+//      rows that can see them (their positions in [j, j + window - 1]
+//      with a window) in tiles of 64.  Warp w forms S^T = K q^T and dP^T
+//      = V dout^T for its 16 keys, then P^T and dS^T from (M, L, D) in its
+//      accumulators, which are the A operands of dv += P^T dout and dk +=
+//      dS^T q: P and dS never touch shared memory (q.k + dout.v + dk +
+//      dv).  The two warps of a key group split the tile's rows and meet
+//      at the end, half 0 first, and K's fragments stay in registers.
+//   This file takes head_dims 16, 32 and 64; 112, 128 and 256 run the
+//   warpgroup design of flash_attention_bwd_wgmma.cu.
 // - One logit in every pass.  Both kernels issue, for every element of S
 //   (or S^T), the same part products in the same order on the same
 //   16-deep steps (`mma_parts`, `mma_parts_swapped`: mma.sync gives the
@@ -102,16 +97,12 @@
 //   buffer while the current chunk is multiplied, then split into parts in
 //   shared memory (row pitch D + 8 bf16: the 8 rows an ldmatrix reads
 //   start at 8 distinct 16-byte offsets modulo 128 bytes for every head
-//   dim taken, 16 to 256, so it reads without bank conflicts); each
+//   dim taken, so it reads without bank conflicts); each
 //   block's first copy is in flight while its fixed operands are loaded
 //   and split.  At head_dim 64 in float32 the rows kernel takes 140 KB of
 //   shared memory and the keys kernel 140 KB, and both take about 255
-//   registers a thread: one block of 8 warps an SM.  At 256 the tiles
-//   shrink to fit 226 KB (rows 32 x chunks of 16 keys, 185 KB; keys 32 x
-//   row tiles of 16, 185 KB), and the warps a tile leaves idle split the
-//   gradient's columns instead, forming S and dP again (4 times each).
-//   Up to 64 the fragments of q and dout (rows) and K (keys) stay in
-//   registers.
+//   registers a thread: one block of 8 warps an SM.  The fragments of q
+//   and dout (rows) and K (keys) stay in registers.
 // - Occupancy at the training shape.  The rows kernel has 48 (b, hk) x 12
 //   row tiles, the keys kernel 48 x 4 key tiles of 64 (1.5 waves on 132
 //   SMs, causally unbalanced: key tile 0 is seen by all 12 row tiles, tile
@@ -156,40 +147,35 @@ struct Args {
 // BWD_ROW_TILE and BWD_ROW_SPLIT, for emulate_attention_bwd.
 template <typename T, int D>
 struct Cfg {
+  static_assert(D <= 64, "head_dims 16, 32, 64 (the wider: the wgmma file)");
   static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr bool BIG = D > 128;         // 256: smaller tiles
   static constexpr int XP = F32 ? 3 : 1;       // parts of q, k, v
   static constexpr int OP = 3;                 // parts of dout, P, dS
   static constexpr int LD = D + 8;             // bf16 pitch of a D row
   static constexpr int TS = (int)sizeof(T);
   // 1. rows: RT rows a block in RG groups of 16, keys in chunks of KC,
-  // each in KP parts with their own statistics; CP warps of a (row group,
-  // key part) split dq's columns
-  static constexpr int RT = BIG ? 32 : 64;
-  static constexpr int KC = D <= 64 ? 64 : BIG ? 16 : 32;
-  static constexpr int KP = BIG ? 1 : 2;
+  // each in KP parts with their own statistics
+  static constexpr int RT = 64;
+  static constexpr int KC = 64;
+  static constexpr int KP = 2;
   static constexpr int RG = RT / 16;
-  static constexpr int CP = 8 / (RG * KP);
   static constexpr int rows_smem =
       (XP + OP) * RT * LD * 2 + 2 * XP * KC * LD * 2 + 2 * KC * D * TS;
   // 2. keys: KB keys a block in KG groups of 16, rows in tiles of RK,
-  // split in SPLIT parts among the warps of a key group, or the columns
-  // of dk and dv in CS parts
-  static constexpr int KB = BIG ? 32 : 64;
-  static constexpr int RK = D <= 64 ? 64 : BIG ? 16 : 32;
-  static constexpr int SPLIT = D <= 64 ? 2 : 1;
+  // split in SPLIT parts among the warps of a key group
+  static constexpr int KB = 64;
+  static constexpr int RK = 64;
+  static constexpr int SPLIT = 2;
   static constexpr int KG = KB / 16;
-  static constexpr int CS = 8 / (KG * SPLIT);
   static constexpr int raw_keys = RK * D * (TS + 4) + 3 * RK * 4;
   static constexpr int keys_smem = 2 * XP * KB * LD * 2
       + (XP + OP) * RK * LD * 2 + raw_keys;
-  static_assert(RG * KP * CP == 8 && KG * SPLIT * CS == 8, "8 warps");
-  static_assert(D % (8 * CP) == 0 && D % (8 * CS) == 0, "column parts");
+  static_assert(RG * KP == 8 && KG * SPLIT == 8, "8 warps");
   static_assert(rows_smem <= 226 * 1024 && keys_smem <= 226 * 1024,
                 "shared memory");
   static_assert((XP + OP) * RT * LD * 2 >= RT * (D + 8) * 4,
                 "the rows kernel's dq halves fit over q and dout");
-  static_assert(SPLIT == 1 || keys_smem >= 2 * KB * (D + 8) * 4,
+  static_assert(keys_smem >= 2 * KB * (D + 8) * 4,
                 "the keys kernel's dk, dv halves fit over the parts");
 };
 
@@ -253,7 +239,7 @@ __device__ __forceinline__ void load4(const bf16* p, float (&o)[4]) {
 // zeros), all its loads in flight before the first is used, then stored
 // as P bf16 parts (store_parts: part p of row rl at dst + (p * R + rl) *
 // LD); to_parts does both.  The last round may leave threads idle (R x
-// D / 4 need not be a multiple of the block, as at head_dim 112).
+// D / 4 need not be a multiple of the block).
 template <int R, int D>
 struct Rows4 {
   static constexpr int V4 = D / 4, N = R * V4;
@@ -334,18 +320,6 @@ __device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
       : "r"(smem_addr(p)) : "memory");
 }
 
-// Two 8 x 8 bf16 matrices: lanes 0 .. 15 give the addresses.
-__device__ __forceinline__ void ldsm2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)) : "memory");
-}
-__device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)) : "memory");
-}
-
 // The A fragment (16 x 16) at rows m0, columns k0 of X stored row-major
 // [m][k] with pitch ld.
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* x,
@@ -368,21 +342,9 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* y,
   }
 }
 
-// The B fragment of the one n-tile n0 (load_b's b[0..1]).
-template <bool TRANS>
-__device__ __forceinline__ void load_b1(uint32_t (&b)[2], const bf16* y,
-                                        int ld, int n0, int k0, int lane) {
-  const int l = lane & 15;
-  if constexpr (!TRANS) {
-    ldsm2(b, y + (n0 + (l & 7)) * ld + k0 + ((l >> 3) << 3));
-  } else {
-    ldsm2t(b, y + (k0 + (l & 7) + ((l >> 3) << 3)) * ld + n0);
-  }
-}
-
 // t[nt] += sum of the kept part products A_pa B_pb of one 16-deep step:
 // A's PA parts as fragments af, B's PB parts in shared memory (part pb at
-// b + pb * b_part), n-tiles n0 + 8 nt (in pairs, an odd last one alone).
+// b + pb * b_part), n-tiles n0 + 8 nt (in pairs).
 // Kept: pa + pb <= 2, issued in the order (0,2) (1,1) (0,1) (2,0) (1,0)
 // (0,0) (ref.py's `PAIRS`).
 template <int PA, int PB, int NT, bool BT>
@@ -402,9 +364,6 @@ __device__ __forceinline__ void mma_parts(float (&t)[NT][4],
       bf[2 * np + 1][0] = r[2];
       bf[2 * np + 1][1] = r[3];
     }
-    if constexpr (NT % 2 == 1)
-      load_b1<BT>(bf[NT - 1], b + pb * b_part, b_ld, n0 + 8 * (NT - 1), k0,
-                  lane);
 #pragma unroll
     for (int pa = PA - 1; pa >= 0; --pa) {
       if (pa + pb > 2) continue;
@@ -431,8 +390,8 @@ __device__ __forceinline__ void add(float (&acc)[NT][4],
     for (int r = 0; r < 4; ++r) acc[nt][r] += t[nt][r];
 }
 
-// One 16-deep step of warp_mma: acc += the step's part products, summed
-// into zeroed fragments first.
+// One 16-deep step of warp_mma_regs: acc += the step's part products,
+// summed into zeroed fragments first.
 template <int PA, int PB, int NT, bool BT>
 __device__ __forceinline__ void mma_step(float (&acc)[NT][4],
                                          const uint32_t (&af)[PA][4],
@@ -442,27 +401,6 @@ __device__ __forceinline__ void mma_step(float (&acc)[NT][4],
   zero(t);
   mma_parts<PA, PB, NT, BT>(t, af, b, b_ld, b_part, n0, k0, lane);
   add(acc, t);
-}
-
-// acc (16 x 8 NT) += A (16 x K) B (K x 8 NT), both in shared memory as
-// parts: A's rows m0 .. m0 + 15 (part pa at a + pa * a_part), B's n-tiles
-// n0 + 8 nt.  Both kernels form S and dP with it (or `warp_mma_regs`, the
-// same steps on A fragments held in registers), so an element's logit has
-// the same bits in both.  The steps are not unrolled: the loop's code
-// stays small.
-template <int PA, int PB, int NT, int K, bool BT>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const bf16* a,
-                                         int a_ld, int a_part, int m0,
-                                         const bf16* b, int b_ld, int b_part,
-                                         int n0, int lane) {
-#pragma unroll 1
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t af[PA][4];
-#pragma unroll
-    for (int pa = 0; pa < PA; ++pa)
-      load_a(af[pa], a + pa * a_part, a_ld, m0, k0, lane);
-    mma_step<PA, PB, NT, BT>(acc, af, b, b_ld, b_part, n0, k0, lane);
-  }
 }
 
 // A's fragments of every 16-deep step (rows m0 .. m0 + 15, K deep) from
@@ -478,7 +416,10 @@ __device__ __forceinline__ void load_frags(uint32_t (&af)[K / 16][PA][4],
       load_a(af[ks][pa], a + pa * a_part, a_ld, m0, 16 * ks, lane);
 }
 
-// warp_mma with A's fragments in registers.
+// acc (16 x 8 NT) += A (16 x K) B (K x 8 NT): A's PA parts as fragments
+// of every 16-deep step in registers, B's PB parts in shared memory (part
+// pb at b + pb * b_part), its n-tiles n0 + 8 nt.  Both kernels form S and
+// dP with it, so an element's logit has the same bits in both.
 template <int PA, int PB, int NT, int K, bool BT>
 __device__ __forceinline__ void warp_mma_regs(
     float (&acc)[NT][4], const uint32_t (&af)[K / 16][PA][4], const bf16* b,
@@ -514,7 +455,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // is row rl's first element, or null for a row of zeros (read from
 // nowhere: `base` stands in).  Where a row's copies split evenly among the
 // block's threads, thread t copies row t / TPR (TPR = threads a row) and
-// asks src once; otherwise (head_dim 112, or 16 in bfloat16) the threads
+// asks src once; otherwise (head_dim 16 in bfloat16) the threads
 // take the copies in turn.
 template <int N, int D, typename T, typename Src>
 __device__ __forceinline__ void copy_rows(unsigned char* dst, const T* base,
@@ -605,16 +546,11 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
   constexpr int KP = C::KP, RG = C::RG;
   constexpr int KH = KC / KP;         // keys of a warp's part of a chunk
   constexpr int NT = KH / 8;          // key tiles of a warp's S
-  constexpr int QW = D / C::CP;       // columns of a warp's dq
-  constexpr int DT = QW / 8;          // column tiles of a warp's dq
-  constexpr int NG = DT % 8 == 0 ? 8 : DT;   // tiles a group of the dq sums
+  constexpr int DT = D / 8;           // column tiles of a warp's dq
   constexpr int RP = D + 8;           // float pitch of a dq half's row
-  static_assert(NT % 2 == 0 && DT % NG == 0, "tiles");
-  // q's and dout's fragments stay in registers up to head_dim 64 (96 of
-  // them in float32 at 64); past it they are read from shared memory at
-  // every step
-  constexpr bool AREG = D <= 64;
-  constexpr int FK = AREG ? D : 16;
+  static_assert(NT % 2 == 0 && DT % 2 == 0, "tiles");
+  // q's and dout's fragments stay in registers (96 of them in float32 at
+  // head_dim 64)
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float part_m[KP][RT], part_l[KP][RT], part_d[KP][RT];
   bf16* qs = reinterpret_cast<bf16*>(smem);   // XP x RT x LD
@@ -631,7 +567,6 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
   const int g = lane >> 2, t4 = lane & 3;
   const int row0 = (warp % RG) * 16;          // the warp's rows
   const int kh = (warp / RG) % KP;            // its key part
-  const int dc0 = (warp / (RG * KP)) * QW;    // its first dq column
   // PROBE start
   const int hk = blockIdx.x, b = blockIdx.y;
   const int G = a.G, total = G * a.Sq;
@@ -680,12 +615,10 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
     store_parts<XP, RT, D, LD>(qs, xq);
     store_parts<C::OP, RT, D, LD>(os, xo);
   }
-  uint32_t qf[FK / 16][XP][4], of[FK / 16][C::OP][4];
-  if constexpr (AREG) {
-    __syncthreads();
-    load_frags<XP, D>(qf, qs, LD, RT * LD, row0, lane);
-    load_frags<C::OP, D>(of, os, LD, RT * LD, row0, lane);
-  }
+  uint32_t qf[D / 16][XP][4], of[D / 16][C::OP][4];
+  __syncthreads();
+  load_frags<XP, D>(qf, qs, LD, RT * LD, row0, lane);
+  load_frags<C::OP, D>(of, os, LD, RT * LD, row0, lane);
   // PROBE 0
 
   // the thread's rows (+0, +8 of the warp's 16): first and last visible
@@ -715,17 +648,10 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
   auto scores = [&](int c) {
     zero(s);
     zero(dp);
-    if constexpr (AREG) {
-      warp_mma_regs<XP, XP, NT, D, false>(s, qf, ks, LD, KC * LD, kh * KH,
-                                          lane);
-      warp_mma_regs<C::OP, XP, NT, D, false>(dp, of, vs, LD, KC * LD,
-                                             kh * KH, lane);
-    } else {
-      warp_mma<XP, XP, NT, D, false>(s, qs, LD, RT * LD, row0, ks, LD,
-                                     KC * LD, kh * KH, lane);
-      warp_mma<C::OP, XP, NT, D, false>(dp, os, LD, RT * LD, row0, vs, LD,
-                                        KC * LD, kh * KH, lane);
-    }
+    warp_mma_regs<XP, XP, NT, D, false>(s, qf, ks, LD, KC * LD, kh * KH,
+                                        lane);
+    warp_mma_regs<C::OP, XP, NT, D, false>(dp, of, vs, LD, KC * LD, kh * KH,
+                                           lane);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -782,7 +708,7 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
     // PROBE 4
   }
   // The key parts' (m, l, d) of each row, part 0 first: M, L and D = d /
-  // L (the warps of a row group's other dq columns hold the same values)
+  // L
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
     float ls = l[h2], ds = d[h2];
@@ -790,7 +716,7 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
     ls += __shfl_xor_sync(0xffffffffu, ls, 2);
     ds += __shfl_xor_sync(0xffffffffu, ds, 1);
     ds += __shfl_xor_sync(0xffffffffu, ds, 2);
-    if (t4 == 0 && dc0 == 0) {
+    if (t4 == 0) {
       const int row = row0 + g + 8 * h2;
       part_m[kh][row] = m[h2];
       part_l[kh][row] = ls;
@@ -810,14 +736,8 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
     for (int kp = 0; kp < KP; ++kp)
       f[kp] = part_m[kp][row] == -INFINITY ? 0.0f
                                            : expf(part_m[kp][row] - mx);
-    float ls, ds;
-    if constexpr (KP == 2) {
-      ls = part_l[0][row] * f[0] + part_l[1][row] * f[1];
-      ds = part_d[0][row] * f[0] + part_d[1][row] * f[1];
-    } else {
-      ls = part_l[0][row] * f[0];
-      ds = part_d[0][row] * f[0];
-    }
+    const float ls = part_l[0][row] * f[0] + part_l[1][row] * f[1];
+    const float ds = part_d[0][row] * f[0] + part_d[1][row] * f[1];
     const bool valid = lim[h2] >= 0;
     M[h2] = valid ? mx : 0.0f;
     L[h2] = valid ? ls : 1.0f;
@@ -860,17 +780,11 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
              af[1][2], af[2][2]);
       split3(make_float2(s[2 * kq + 1][2], s[2 * kq + 1][3]), af[0][3],
              af[1][3], af[2][3]);
-#pragma unroll
-      for (int dg = 0; dg < DT; dg += NG) {
-        float t[NG][4];
-        zero(t);
-        mma_parts<3, XP, NG, true>(t, af, ks, LD, KC * LD, dc0 + dg * 8,
-                                   kh * KH + kq * 16, lane);
-#pragma unroll
-        for (int nt = 0; nt < NG; ++nt)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) dq[dg + nt][r] += t[nt][r];
-      }
+      float t[DT][4];
+      zero(t);
+      mma_parts<3, XP, DT, true>(t, af, ks, LD, KC * LD, 0, kh * KH + kq * 16,
+                                 lane);
+      add(dq, t);
     }
     // PROBE 8
   }
@@ -878,13 +792,13 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
   // dq = part 0's + part 1's, through shared memory over q and dout
   float* red = reinterpret_cast<float*>(smem);
   __syncthreads();            // every warp is done with the parts
-  if (KP == 2 && kh == 1) {
+  if (kh == 1) {
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2)
 #pragma unroll
       for (int dn = 0; dn < DT; ++dn)
         *reinterpret_cast<float2*>(
-            red + (row0 + g + 8 * h2) * RP + dc0 + dn * 8 + 2 * t4) =
+            red + (row0 + g + 8 * h2) * RP + dn * 8 + 2 * t4) =
             make_float2(dq[dn][2 * h2], dq[dn][2 * h2 + 1]);
   }
   __syncthreads();
@@ -900,14 +814,10 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
     const long long off = at(b, i, h, a.Sq, a.Hq, D);
 #pragma unroll
     for (int dn = 0; dn < DT; ++dn) {
-      const int col = dc0 + dn * 8 + 2 * t4;
-      float x0 = dq[dn][2 * h2], x1 = dq[dn][2 * h2 + 1];
-      if constexpr (KP == 2) {
-        const float2 o = *reinterpret_cast<const float2*>(
-            red + (row0 + g + 8 * h2) * RP + col);
-        x0 += o.x;
-        x1 += o.y;
-      }
+      const int col = dn * 8 + 2 * t4;
+      const float2 o = *reinterpret_cast<const float2*>(
+          red + (row0 + g + 8 * h2) * RP + col);
+      const float x0 = dq[dn][2 * h2] + o.x, x1 = dq[dn][2 * h2 + 1] + o.y;
       if constexpr (C::F32) {
         *reinterpret_cast<float2*>(dqp + off + col) = make_float2(x0, x1);
       } else {
@@ -915,7 +825,7 @@ __global__ void __launch_bounds__(kThreads, 1) rows_kernel(const Args a) {
             __float22bfloat162_rn(make_float2(x0, x1));
       }
     }
-    if (t4 == 0 && dc0 == 0) {
+    if (t4 == 0) {
       const long long si = ((long long)b * a.Sq + i) * a.Hq + h;
       a.stat_m[si] = M[h2];
       a.stat_l[si] = L[h2];
@@ -967,11 +877,9 @@ __device__ __forceinline__ void mma_parts_swapped(
 // window).  Warp w takes keys (w % KG) * 16 .. + 15 and forms S^T = K q^T
 // and dP^T = V dout^T for them against RS rows of each tile, then P^T and
 // dS^T in its accumulators, which are the A operands of dv += P^T dout
-// and dk += dS^T q.  Up to head_dim 64 the two warps of a key group take
-// the two halves of the tile's rows (RS = RK / 2) and meet at the end,
-// half 0 first, and K's fragments stay in registers; past it the CS warps
-// of a key group take all the rows and one part of the columns of dk and
-// dv each.
+// and dk += dS^T q.  The two warps of a key group take the two halves of
+// the tile's rows (RS = RK / 2) and meet at the end, half 0 first, and
+// K's fragments stay in registers.
 template <typename T, int D, bool MASK>
 __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
   using C = Cfg<T, D>;
@@ -980,10 +888,7 @@ __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
   constexpr int SPLIT = C::SPLIT;     // row parts of a tile
   constexpr int RS = RK / SPLIT;      // rows of a warp's S^T
   constexpr int NT = RS / 8;
-  constexpr int DW = D / C::CS;       // columns of a warp's dk and dv
-  constexpr int DT = DW / 8;
-  constexpr bool KREG = D <= 64;      // K's fragments in registers
-  constexpr int FK = KREG ? D : 16;
+  constexpr int DT = D / 8;           // column tiles of dk and dv
   constexpr int RP = D + 8;           // float pitch of a merged row
   static_assert(KB % 16 == 0 && NT % 2 == 0, "key groups of 16");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1003,7 +908,7 @@ __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int key0 = (warp % C::KG) * 16, sp = warp / C::KG;
-  const int rs0 = SPLIT == 2 ? sp * RS : 0, dc0 = SPLIT == 2 ? 0 : sp * DW;
+  const int rs0 = sp * RS;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int G = a.G, total = G * a.Sq;
   const int j0 = blockIdx.z * KB;
@@ -1060,11 +965,9 @@ __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
     store_parts<XP, KB, D, LD>(ks, xk);
     store_parts<XP, KB, D, LD>(vs, xv);
   }
-  uint32_t kf[FK / 16][XP][4];
-  if constexpr (KREG) {
-    __syncthreads();
-    load_frags<XP, D>(kf, ks, LD, KB * LD, key0, lane);
-  }
+  uint32_t kf[D / 16][XP][4];      // K's fragments stay in registers
+  __syncthreads();
+  load_frags<XP, D>(kf, ks, LD, KB * LD, key0, lane);
   // PROBE 0
 
   float dk[DT][4], dv[DT][4];
@@ -1113,17 +1016,8 @@ __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
       float t1[NT][4], t2[NT][4];
       zero(t1);
       zero(t2);
-      if constexpr (KREG) {
-        mma_parts_swapped<XP, XP, NT>(t1, kf[kk], qs, LD, RK * LD, rs0,
-                                      16 * kk, lane);
-      } else {
-        uint32_t f[XP][4];
-#pragma unroll
-        for (int p = 0; p < XP; ++p)
-          load_a(f[p], ks + p * KB * LD, LD, key0, 16 * kk, lane);
-        mma_parts_swapped<XP, XP, NT>(t1, f, qs, LD, RK * LD, rs0, 16 * kk,
-                                      lane);
-      }
+      mma_parts_swapped<XP, XP, NT>(t1, kf[kk], qs, LD, RK * LD, rs0,
+                                    16 * kk, lane);
       uint32_t f[XP][4];
 #pragma unroll
       for (int p = 0; p < XP; ++p)
@@ -1177,18 +1071,18 @@ __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
       if (C::F32 || !a.round_dp) {
         float t[DT][4];
         zero(t);
-        mma_parts<3, OP, DT, true>(t, fp, os, LD, RK * LD, dc0, k0, lane);
+        mma_parts<3, OP, DT, true>(t, fp, os, LD, RK * LD, 0, k0, lane);
         add(dv, t);
       } else {
         const uint32_t f1[1][4] = {{fp[0][0], fp[0][1], fp[0][2], fp[0][3]}};
         float t[DT][4];
         zero(t);
-        mma_parts<1, OP, DT, true>(t, f1, os, LD, RK * LD, dc0, k0, lane);
+        mma_parts<1, OP, DT, true>(t, f1, os, LD, RK * LD, 0, k0, lane);
         add(dv, t);
       }
       float t[DT][4];
       zero(t);
-      mma_parts<3, XP, DT, true>(t, fs, qs, LD, RK * LD, dc0, k0, lane);
+      mma_parts<3, XP, DT, true>(t, fs, qs, LD, RK * LD, 0, k0, lane);
       add(dk, t);
     }
     // PROBE 5
@@ -1196,7 +1090,7 @@ __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
 
   // the two row halves of each key group: half 0 + half 1, through shared
   // memory over the parts
-  if constexpr (SPLIT == 2) {
+  {
     float* red = reinterpret_cast<float*>(smem);
     __syncthreads();          // every warp is done with the parts
     if (sp == 1) {
@@ -1238,7 +1132,7 @@ __global__ void __launch_bounds__(kThreads, 1) keys_kernel(const Args a) {
     const long long off = at(b, j, hk, a.Skv, a.Hkv, D);
 #pragma unroll
     for (int dn = 0; dn < DT; ++dn) {
-      const int col = dc0 + dn * 8 + 2 * t4;
+      const int col = dn * 8 + 2 * t4;
       const float2 xk = make_float2(dk[dn][2 * h2], dk[dn][2 * h2 + 1]);
       const float2 xv = make_float2(dv[dn][2 * h2], dv[dn][2 * h2 + 1]);
       if constexpr (C::F32) {
@@ -1283,9 +1177,6 @@ int dispatch_d(int D, const Args& a, int B, cudaStream_t stream) {
     case 16: return launch<T, 16, MASK>(a, B, stream);
     case 32: return launch<T, 32, MASK>(a, B, stream);
     case 64: return launch<T, 64, MASK>(a, B, stream);
-    case 112: return launch<T, 112, MASK>(a, B, stream);
-    case 128: return launch<T, 128, MASK>(a, B, stream);
-    case 256: return launch<T, 256, MASK>(a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1294,7 +1185,7 @@ int dispatch_d(int D, const Args& a, int B, cudaStream_t stream) {
 
 // q, k, v: contiguous (B, Sq, Hq, D), (B, Skv, Hkv, D) of one type
 // (bf16 = 1: bfloat16, else float32), on a 16-byte boundary, D in 16, 32,
-// 64, 112, 128, 256; dout: contiguous float32 like q; dq, dk, dv: like q,
+// 64; dout: contiguous float32 like q; dq, dk, dv: like q,
 // k, v; stats: 3 * B * Sq * Hq floats of scratch.  window: 0 (global) or
 // the sliding window's width (causal only); softcap: 0 (off) or the
 // logit soft-cap.  Returns 0 or the CUDA error of a refused launch.

@@ -22,16 +22,24 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
 # No --use_fast_math: the kernels rely on IEEE division and precise log2.
+# The sources include the shared headers of csrc/ (*.cuh).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC))
 
 SOURCES = ("fake_quant", "quant_matmul", "flash_attention",
-           "flash_attention_bwd")
+           "flash_attention_masked", "flash_attention_bwd",
+           "flash_attention_wgmma", "flash_attention_bwd_wgmma",
+           "flash_attention_bwd_wgmma_masked")
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source and
+    of every shared header it may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _nvcc() -> str:

@@ -1,6 +1,9 @@
 """Flash attention forward: the wrapper of the CUDA kernels in
-``repro_torch/csrc/flash_attention.cu`` (which replace the Pallas kernel
-``repro.kernels.flash_attention.flash_attention``).
+``repro_torch/csrc/flash_attention_fwd.cuh`` (built by
+``csrc/flash_attention.cu`` without a window or a soft-cap and by
+``csrc/flash_attention_masked.cu`` with them) and
+``csrc/flash_attention_wgmma.cu``, which replace the Pallas kernel
+``repro.kernels.flash_attention.flash_attention``.
 
 Three entry points, one launch a call:
 
@@ -23,15 +26,19 @@ stand-in declares its work: the plain version's
 products (dense, as the reference's einsums count them: 4*B*Hq*Sq*Skv*D
 forward, 8*B*Hq*Sq*Skv*D backward) and the bytes it reads and writes.
 ``flash_attention.launches`` counts the kernels' launches through any of
-the three.
+the three (``flash_attention.wgmma_launches`` those of the wgmma variant).
 
 The gradient: on CUDA tensors that need one (autograd on),
 ``flash_attention_gqa`` is a ``torch.autograd.Function`` whose forward is
-the kernel above, unchanged, and whose backward is the CUDA kernel pair
-of ``csrc/flash_attention_bwd.cu`` (``attention_backward``; one entry,
-two kernels on the bf16 tensor cores: rows, then keys; counted once a
-backward in ``flash_attention.backward_launches``; ``emulate_attention_bwd``
-in ``ref.py`` writes out their arithmetic and tiles).  It takes q, k,
+the kernel above, unchanged, and whose backward is a CUDA kernel pair
+(``attention_backward``; one entry, two kernels on the bf16 tensor cores:
+rows, then keys; counted once a backward in
+``flash_attention.backward_launches``; ``emulate_attention_bwd`` in
+``ref.py`` writes out their arithmetic and tiles): up to head_dim 64
+``csrc/flash_attention_bwd.cu`` (mma.sync), at 112, 128 and 256
+``csrc/flash_attention_bwd_wgmma.cuh`` (wgmma, after a packing launch;
+built without and with the window and soft-cap by two sources;
+``bwd_wgmma_plan`` states its tiles and shared memory).  It takes q, k,
 v of one type (float32 or bfloat16), every head_dim the forward takes,
 the sliding window and the logit soft-cap, and raises otherwise.  On CPU
 tensors autograd runs through the plain version.  A call without
@@ -46,11 +53,14 @@ most 8) and merged in rank order -- decode (at most 8 rows a KV head).
 Variant "mma" (bf16 tensor cores): more rows (prefill), 64 rows a block,
 keys in chunks of 64, split across a cluster while every block has an SM
 of its own (one fits an SM: ``benchmarks/torch_fa_sweep.py``); float32 q
-and K as three bf16 parts each, so only up to head_dim 64
-(float32 q at 112 and 128 takes the split kernel), and bfloat16 q up to
-128 (112 included: 7 k-steps of 16, 14 column tiles of 8)
-(head_dim 256 takes the split kernel: a 64-row block's accumulators and
-chunk buffers would not fit registers and shared memory).
+and K as three bf16 parts each, so only up to head_dim 64, and bfloat16 q
+up to 128 (112 included: 7 k-steps of 16, 14 column tiles of 8).
+Variant "wgmma" (``csrc/flash_attention_wgmma.cu``): prefill at head_dim
+256 and at 112 and 128 with a float32 q, where the mma kernel's registers
+fall short: a packing launch lays q, K and V out in bf16 parts, then 64
+rows a block (one warpgroup) against chunks of 64 keys brought in by bulk
+copies, split across a cluster as the mma kernel's (``wgmma_smem`` states
+its shared memory).
 
 With a sliding window a row tile's keys start at the first key its first
 row sees: the cluster divides [kv_begin, kv_end) and never visits a key
@@ -68,15 +78,18 @@ import torch
 
 from repro_torch import _work
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import (check_mask,
+from repro_torch.kernels.flash_attention.ref import (CLUSTER_MAX, SMS,
+                                                     bwd_key_splits,
+                                                     check_mask,
                                                      ref_attention_gqa,
                                                      ref_attention_gqa_bwd,
                                                      ref_flash_attention)
 
 _HEAD_DIMS = (16, 32, 64, 112, 128, 256)
-BWD_HEAD_DIMS = _HEAD_DIMS   # the backward kernel's instances
+BWD_HEAD_DIMS = _HEAD_DIMS   # the backward kernels' instances
+WGMMA_DIMS = (112, 128, 256)  # the wgmma kernels' (forward and backward)
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANTS = {"split": 0, "mma": 1}
+_VARIANTS = {"split": 0, "mma": 1}   # the split / mma entry's variants
 _Strides = ctypes.c_longlong * 3
 
 THREADS = 128                # threads of a block, both variants
@@ -86,18 +99,25 @@ MMA_KEYS = 64                # keys of an mma chunk
 MMA_F32_MAX_D = 64           # float32 q's three bf16 parts fit registers
 MMA_MAX_D = 128              # bfloat16 q: acc and chunks fit the block
 SPLIT_BLOCKS = 264           # split keys until about 2 blocks an SM
-SMS = 132                    # streaming multiprocessors of an H100 SXM
-MAX_SPLITS = 8               # a portable cluster size
+MAX_SPLITS = CLUSTER_MAX     # a portable cluster size
+TILE = 64                    # rows of a packed tile (wgmma kernels)
+SMEM_LIMIT = 232448          # shared memory a block can take (H100)
+# csrc/flash_attention_wgmma.cu: a ring of 3 stages of 24 KB
+WGMMA_STAGES, WGMMA_STAGE_BYTES = 3, 24 * 1024
+# csrc/flash_attention_bwd_wgmma.cuh: two rings (one a warpgroup) of 3
+# stages of 24 KB
+BWD_STAGES, BWD_STAGE_BYTES = 3, 24 * 1024
 
 
 class Plan(NamedTuple):
-    """One launch of ``csrc/flash_attention.cu``.
+    """One launch of the forward's kernels.
 
     variant "split": rows = rows a block (4 or 8), splits = the cluster's
     blocks along the key axis, chunk = keys a block holds in registers at
-    once, grid = (splits, row tiles, B * Hkv).  variant "mma": rows = 64,
-    splits = the cluster's blocks along the key axis (whole chunks each),
-    chunk = 64 keys, grid = (row tiles * splits, Hkv, B)."""
+    once, grid = (splits, row tiles, B * Hkv).  variants "mma" and
+    "wgmma": rows = 64, splits = the cluster's blocks along the key axis
+    (whole chunks each), chunk = 64 keys, grid = (row tiles * splits, Hkv,
+    B)."""
     variant: str
     rows: int
     splits: int
@@ -139,13 +159,14 @@ def plan(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
     then divides the keys its rows really see (from q_start, on the
     card) evenly among its blocks."""
     rows = (hq // hkv) * sq
-    if rows > SPLIT_MAX_ROWS and d <= MMA_MAX_D and (q_bf16
-                                                     or d <= MMA_F32_MAX_D):
+    wide = d == 256 or (d in WGMMA_DIMS and not q_bf16)
+    if rows > SPLIT_MAX_ROWS and (wide or d <= MMA_MAX_D and (
+            q_bf16 or d <= MMA_F32_MAX_D)):
         tiles = _ceil(rows, MMA_ROWS)
         keys = min(skv, window + MMA_ROWS + MMA_KEYS) if window else skv
         splits = max(1, min(MAX_SPLITS, _ceil(keys, MMA_KEYS),
                             SMS // (tiles * b * hkv)))
-        return Plan("mma", MMA_ROWS, splits, MMA_KEYS,
+        return Plan("wgmma" if wide else "mma", MMA_ROWS, splits, MMA_KEYS,
                     (tiles * splits, hkv, b))
     rb = 4 if rows <= 4 else 8
     lanes = key_lanes(d)                 # lanes of a key
@@ -179,7 +200,7 @@ def block_keys(p: Plan, tile: int, rank: int, g: int, sq: int, skv: int,
     if window:
         first = tile * p.rows // g
         kv_begin = min(kv_end, max(0, start + first - window + 1))
-    if p.variant == "mma":      # whole chunks of 64 keys a block
+    if p.variant != "split":    # whole chunks of 64 keys a block
         c0, c1 = kv_begin // p.chunk, _ceil(kv_end, p.chunk)
         span = _ceil(c1 - c0, p.splits)
         lo = min(c1, c0 + rank * span)
@@ -189,15 +210,93 @@ def block_keys(p: Plan, tile: int, rank: int, g: int, sq: int, skv: int,
     return range(lo, min(kv_end, lo + span))
 
 
+def wgmma_smem(d: int) -> int:
+    """Shared memory of a block of the forward's wgmma kernel (``Cfg`` in
+    ``csrc/flash_attention_wgmma.cu``): q's three parts at most, the ring,
+    P's three parts."""
+    return 3 * TILE * d * 2 + WGMMA_STAGES * WGMMA_STAGE_BYTES \
+        + 3 * TILE * TILE * 2
+
+
+class BwdPlan(NamedTuple):
+    """The wgmma backward's tiles (``Cfg`` in
+    ``csrc/flash_attention_bwd_wgmma.cuh``): rows and keys 64 a tile;
+    s_slab, dp_slab = columns of head_dim an S / dP stage holds (a chain of
+    its part pairs over the slab's 16-deep steps); dp_tail = dP's last
+    slabs summed as one chain (in bfloat16 the rows kernel's first
+    warpgroup forms them); dq_split = the rows kernel's first warpgroup's
+    dq columns; the items' bytes (each fits a stage of the rings,
+    ``BWD_STAGES`` of ``BWD_STAGE_BYTES``) and each kernel's shared
+    memory."""
+    s_slab: int
+    dp_slab: int
+    dp_tail: int
+    dq_split: int
+    s_stage_bytes: tuple      # (q, K) and (dout, V) slabs
+    piece_bytes: tuple        # pieces of K or q, and of dout
+    rows_smem: int
+    keys_smem: int
+
+
+def bwd_wgmma_plan(d: int, bf16: bool) -> BwdPlan:
+    xp = 1 if bf16 else 3
+    s_slab, dp_slab = (64 if bf16 else 32), 32
+    ring = 2 * BWD_STAGES * BWD_STAGE_BYTES
+    plane, dp = TILE * TILE * 2, TILE * TILE * 4
+    return BwdPlan(s_slab, dp_slab, (2 if d > 128 else 1) if bf16 else 0,
+                   128 if d > 128 else 64,
+                   (2 * xp * TILE * s_slab * 2,
+                    (3 + xp) * TILE * dp_slab * 2),
+                   (xp * TILE * 64 * 2, 3 * TILE * 64 * 2),
+                   ring + dp + 3 * plane, ring + dp + 6 * plane)
+
+
+def _tiles(n: int) -> int:
+    return _ceil(n, TILE)
+
+
+def fwd_packed_elems(b, sq, skv, hq, hkv, d, q_bf16, kv_bf16) -> int:
+    """bf16 elements of the forward wgmma kernel's packed q, K, V."""
+    qp = 1 if q_bf16 else 3
+    kp = 3 if not q_bf16 and not kv_bf16 else 1
+    vp = 1 if kv_bf16 else 3
+    plane = b * hkv * TILE * d
+    return plane * (_tiles(hq // hkv * sq) * qp + _tiles(skv) * (kp + vp))
+
+
+def bwd_packed_elems(b, sq, skv, hq, hkv, d, bf16) -> int:
+    """bf16 elements of the wgmma backward's packed q, dout, K, V."""
+    xp = 1 if bf16 else 3
+    plane = b * hkv * TILE * d
+    return plane * (_tiles(hq // hkv * sq) * (xp + 3) + 2 * _tiles(skv) * xp)
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = _build.load("flash_attention").flash_attention_launch
+def _entry(masked: bool):
+    """The split / mma kernels' entry: built without the window and the
+    soft-cap (``csrc/flash_attention.cu``) or with them
+    (``csrc/flash_attention_masked.cu``)."""
+    name = "flash_attention_masked" if masked else "flash_attention"
+    fn = getattr(_build.load(name), f"{name}_launch")
     fn.argtypes = ([ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong)] * 4
                    + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_float] + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_entry():
+    fn = _build.load("flash_attention_wgmma").flash_attention_wgmma_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 8
+                   + [ctypes.POINTER(ctypes.c_longlong)] * 4
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
 
@@ -282,19 +381,29 @@ def _launch(q, k, v, q_start, causal: bool, scale: float, round_p: bool,
         _declare("flash_attention", 2, q, k, (q, k, v, q_start), (out,))
         return out
     strides = [_Strides(*t.stride()[:3]) for t in (q, k, v, out)]
-    launch = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    q_start.data_ptr(), _TYPES[q.dtype], _TYPES[k.dtype],
-                    b, sq, skv, hq, hkv, d, *strides, scale or d ** -0.5,
-                    int(causal), int(round_p), int(window), float(softcap),
-                    _VARIANTS[p.variant], p.rows, p.splits,
-                    int(_vec_ok(k) and _vec_ok(v)), stream)
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  q_start.data_ptr(), _TYPES[q.dtype], _TYPES[k.dtype],
+                  b, sq, skv, hq, hkv, d, *strides, scale or d ** -0.5,
+                  int(causal), int(round_p), int(window), float(softcap))
+        if p.variant == "wgmma":
+            packed = torch.empty(fwd_packed_elems(
+                b, sq, skv, hq, hkv, d, q.dtype == torch.bfloat16,
+                k.dtype == torch.bfloat16), dtype=torch.bfloat16,
+                device=q.device)
+            rc = _wgmma_entry()(*common, p.splits, packed.data_ptr(),
+                                stream)
+        else:
+            rc = _entry(bool(window or softcap))(
+                *common, _VARIANTS[p.variant], p.rows, p.splits,
+                int(_vec_ok(k) and _vec_ok(v)), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error "
                            f"{rc}")
     flash_attention.launches += 1
+    if p.variant == "wgmma":
+        flash_attention.wgmma_launches += 1
     _declare("flash_attention", 2, q, k, (q, k, v, q_start), (out,))
     return out
 
@@ -305,6 +414,21 @@ def _bwd_entry():
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                    + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_float] + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_wgmma_entry(masked: bool):
+    """The wgmma backward's entry: built without the window and the
+    soft-cap (``csrc/flash_attention_bwd_wgmma.cu``) or with them
+    (``csrc/flash_attention_bwd_wgmma_masked.cu``)."""
+    name = ("flash_attention_bwd_wgmma_masked" if masked
+            else "flash_attention_bwd_wgmma")
+    fn = getattr(_build.load(name), f"{name}_launch")
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + [ctypes.c_int] + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -356,19 +480,29 @@ def _launch_bwd(q, k, v, q_start, dout, causal: bool, scale: float,
     if q.device.type == "meta":
         _declare(*work)
         return dq, dk, dv
-    launch = _bwd_entry()
+    bf16 = q.dtype == torch.bfloat16
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                    q_start.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                    dv.data_ptr(), stats.data_ptr(),
-                    int(q.dtype == torch.bfloat16), b, sq, skv, hq, hkv, d,
-                    scale or d ** -0.5, int(causal), int(round_p),
-                    int(window), float(softcap), stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                q_start.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), stats.data_ptr())
+        opts = (int(bf16), b, sq, skv, hq, hkv, d, scale or d ** -0.5,
+                int(causal), int(round_p), int(window), float(softcap))
+        if d in WGMMA_DIMS:
+            packed = torch.empty(bwd_packed_elems(b, sq, skv, hq, hkv, d,
+                                                  bf16),
+                                 dtype=torch.bfloat16, device=q.device)
+            rc = _bwd_wgmma_entry(bool(window or softcap))(
+                *ptrs, packed.data_ptr(), *opts, bwd_key_splits(b, hkv, skv),
+                stream)
+        else:
+            rc = _bwd_entry()(*ptrs, *opts, stream)
     if rc != 0:
         raise RuntimeError(f"flash attention backward launch failed: CUDA "
                            f"error {rc}")
     flash_attention.backward_launches += 1
+    if d in WGMMA_DIMS:
+        flash_attention.backward_wgmma_launches += 1
     _declare(*work)
     return dq, dk, dv
 
@@ -463,6 +597,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.backward_launches = 0
+# of those, the launches of the wgmma kernels (a packing launch and the
+# forward's prefill kernel, or the backward's two)
+flash_attention.wgmma_launches = 0
+flash_attention.backward_wgmma_launches = 0
 
 
 def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -23,17 +23,54 @@ import torch
 from repro_torch.kernels.quant_matmul.ref import split_bf16x3
 
 MASKED = -1e30
-# the backward kernel's tiles by head_dim (``Cfg`` in
-# ``csrc/flash_attention_bwd.cu``; the card test of the kernel against
-# ``emulate_attention_bwd`` holds the two to each other)
-BWD_CHUNK = {16: 64, 32: 64, 64: 64, 112: 32, 128: 32, 256: 16}
+# the backward kernels' tiles by head_dim (``Cfg`` in
+# ``csrc/flash_attention_bwd.cu`` up to 64, in
+# ``csrc/flash_attention_bwd_wgmma.cuh`` at 112, 128 and 256; the card
+# tests of the kernels against ``emulate_attention_bwd`` hold the two to
+# each other)
+BWD_CHUNK = {16: 64, 32: 64, 64: 64, 112: 64, 128: 64, 256: 64}
                                   # keys a chunk of its rows kernel, in
-BWD_KEY_PARTS = {16: 2, 32: 2, 64: 2, 112: 2, 128: 2, 256: 1}
+BWD_KEY_PARTS = {16: 2, 32: 2, 64: 2, 112: 1, 128: 1, 256: 1}
                                   # this many parts with their own statistics
-BWD_ROW_TILE = {16: 64, 32: 64, 64: 64, 112: 32, 128: 32, 256: 16}
+BWD_ROW_TILE = {16: 64, 32: 64, 64: 64, 112: 64, 128: 64, 256: 64}
                                   # rows a tile of its keys kernel,
 BWD_ROW_SPLIT = {16: 2, 32: 2, 64: 2, 112: 1, 128: 1, 256: 1}
                                   # summed in this many parts
+# The wgmma instances (head_dims 112, 128, 256) sum their products slab by
+# slab of the depth: S over slabs of the head dimension of this many
+# columns (by q, k, v's type), dP over slabs of 32 (in bfloat16 its last
+# one or two slabs, ``bwd_dp_tail``, one slab), the gradients over tiles
+# of 64 keys or rows, each slab's sum added in float32 (``_chain``); their
+# keys kernel sums dk and dv in the ranks of a cluster
+# (``bwd_key_splits``), rank q over the row tiles q, q + S, ... of its key
+# tile, the ranks in order.
+BWD_WGMMA_SLAB = {torch.float32: 32, torch.bfloat16: 64}
+BWD_WGMMA_DP_SLAB = 32
+BWD_WGMMA_DIMS = (112, 128, 256)
+BWD_WGMMA_TILE = 64          # keys a tile of the keys kernel
+CLUSTER_MAX = 8              # a portable cluster's blocks
+SMS = 132                    # streaming multiprocessors of an H100 SXM
+
+
+def bwd_key_splits(b: int, hkv: int, skv: int) -> int:
+    """The wgmma backward's keys kernel: blocks of a thread-block cluster
+    on each 64-key tile (a power of two, at most 8), while the key tiles
+    alone would leave more than half the SMs idle; the cluster's ranks
+    take its row tiles in turn and sum their dk, dv in rank order."""
+    blocks = b * hkv * -(-skv // BWD_WGMMA_TILE)
+    splits = 1
+    while splits < CLUSTER_MAX and 2 * blocks * splits <= SMS:
+        splits *= 2
+    return splits
+
+
+def bwd_dp_tail(d: int, dtype) -> int:
+    """dP's last slabs that the wgmma backward sums as one chain (``NT``
+    in ``Cfg``): none in float32, 2 at head_dim 256 and 1 below in
+    bfloat16."""
+    if dtype == torch.float32:
+        return 0
+    return 2 if d > 128 else 1
 
 
 def _scale(d: int, scale: float) -> float:
@@ -161,6 +198,31 @@ def _mma(a_parts, b_parts):
     return acc
 
 
+def _chain(a_parts, b_parts, slab: int, tail: int = 0):
+    """sum over k of A[..., m, k] B[..., k, n] as the wgmma kernels chain
+    it: slab by slab of ``slab`` deep (the last ``tail`` slabs as one),
+    each slab's kept part products (``PAIRS``) summed (on the tensor
+    cores, in an order this does not follow) and added to the float32
+    total."""
+    a_parts = [p.to(torch.float32) for p in a_parts]
+    b_parts = [p.to(torch.float32) for p in b_parts]
+    depth = a_parts[0].shape[-1]
+    cut = (-(-depth // slab) - tail) * slab if tail else depth
+    bounds = [(s0, min(s0 + slab, cut)) for s0 in range(0, cut, slab)]
+    if tail:
+        bounds.append((cut, depth))
+    acc = None
+    for s0, s1 in bounds:
+        t = None
+        for pa, pb in PAIRS:
+            if pa >= len(a_parts) or pb >= len(b_parts):
+                continue
+            x = a_parts[pa][..., s0:s1] @ b_parts[pb][..., s0:s1, :]
+            t = x if t is None else t + x
+        acc = t if acc is None else acc + t
+    return acc
+
+
 def emulate_attention_bwd(q, k, v, q_start, dout, causal: bool = True,
                           scale: float = 0.0, round_p: bool = False,
                           window: int = 0, softcap: float = 0.0):
@@ -179,12 +241,15 @@ def emulate_attention_bwd(q, k, v, q_start, dout, causal: bool = True,
     dq = dS K summed per key part and then part 0 + part 1, and dk = dS^T
     q, dv = P^T dout over the rows in order (every query head of the
     group), in ``BWD_ROW_SPLIT`` parts of each ``BWD_ROW_TILE`` rows,
-    added part 0 first.  The logits are soft-capped (c tanh(s / c)) and
-    masked (the causal mask and the window) as the forward's.  It follows
-    the kernels' parts, products, chunks, key parts and order of 16-deep
-    steps, not the order of the sums inside a step or across a chunk's
-    lanes.  Chunks or row tiles the kernels skip (outside every row's
-    window) add exact zeros here."""
+    added part 0 first.  At head_dims 112, 128 and 256 (the wgmma
+    kernels) a chunk and a tile are 64 keys or rows in one part, and each
+    product is chained slab by slab (``_chain``: ``BWD_WGMMA_SLAB``
+    columns for S and dP, 64 keys or rows for the gradients).  The logits
+    are soft-capped (c tanh(s / c)) and masked (the causal mask and the
+    window) as the forward's.  It follows the kernels' parts, products,
+    chunks, key parts and order of 16-deep steps, not the order of the
+    sums inside a step or across a chunk's lanes.  Chunks or row tiles the
+    kernels skip (outside every row's window) add exact zeros here."""
     check_mask(causal, window, softcap)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -197,16 +262,30 @@ def emulate_attention_bwd(q, k, v, q_start, dout, causal: bool = True,
         return (x.to(torch.float32).reshape(b, sq, hkv, g, d)
                 .permute(0, 2, 1, 3, 4).reshape(b, hkv, sq * g, d))
 
+    wide = d in BWD_WGMMA_DIMS
+    if wide:
+        slab = BWD_WGMMA_SLAB[q.dtype]
+
+        def mm_s(a, b_):
+            return _chain(a, b_, slab)
+
+        def mm_dp(a, b_):
+            return _chain(a, b_, BWD_WGMMA_DP_SLAB, bwd_dp_tail(d, q.dtype))
+
+        def mm_g(a, b_):
+            return _chain(a, b_, 64)
+    else:
+        mm_s = mm_dp = mm_g = _mma
     qp, op = _parts(rows(q), exact), _parts(rows(dout), False)
     kp = _parts(k.to(torch.float32).permute(0, 2, 1, 3), exact)
     vp = _parts(v.to(torch.float32).permute(0, 2, 1, 3), exact)
-    s = _mma(qp, [x.transpose(-1, -2) for x in kp]) * sc    # (B, Hkv, R, Skv)
+    s = mm_s(qp, [x.transpose(-1, -2) for x in kp]) * sc    # (B, Hkv, R, Skv)
     t = None
     if softcap > 0.0:
         c = s.new_tensor(softcap)
         t = torch.tanh(s / c)
         s = c * t
-    dp = _mma(op, [x.transpose(-1, -2) for x in vp])
+    dp = mm_dp(op, [x.transpose(-1, -2) for x in vp])
     if rnd:
         dp = dp.to(torch.bfloat16).to(torch.float32)
     if causal:
@@ -250,16 +329,28 @@ def emulate_attention_bwd(q, k, v, q_start, dout, causal: bool = True,
     ds = torch.where(ok, ds * sc, 0.0)
     pv = p.to(torch.bfloat16).to(torch.float32) if rnd else p
     in_part = (torch.arange(skv, device=q.device) // width) % parts
-    dq = sum(_mma(_parts(torch.where(in_part == h, ds, 0.0), False), kp)
+    dq = sum(mm_g(_parts(torch.where(in_part == h, ds, 0.0), False), kp)
              for h in range(parts))                          # (B, Hkv, R, D)
     tile, split = BWD_ROW_TILE[d], BWD_ROW_SPLIT[d]
-    part = (torch.arange(sq * g, device=q.device) % tile) // (tile // split)
+    if wide:    # (B, 1, R, Skv): the cluster rank that sums a (row, key)
+        split = bwd_key_splits(b, hkv, skv)
+        r_tile = torch.arange(sq * g, device=q.device)[:, None] // tile
+        j0 = (torch.arange(skv, device=q.device) // tile * tile)[None, :]
+        starts = (q_start.to(torch.long) if causal else
+                  torch.zeros(b, dtype=torch.long, device=q.device))
+        seen = ((j0[None] - starts[:, None, None]).clamp(min=0) * g
+                if causal else torch.zeros_like(j0)[None].expand(b, 1, skv))
+        first = seen.clamp(max=sq * g) // tile               # (B, 1, Skv)
+        part = ((r_tile[None] - first) % split)[:, None]
+    else:
+        part = ((torch.arange(sq * g, device=q.device) % tile)
+                // (tile // split))[:, None]
     dk = dv = 0
     for h in range(split):                                  # (B, Hkv, Skv, D)
-        in_split = (part == h)[:, None]
-        dk = dk + _mma(_parts(torch.where(in_split, ds, 0.0).transpose(-1, -2),
+        in_split = part == h
+        dk = dk + mm_g(_parts(torch.where(in_split, ds, 0.0).transpose(-1, -2),
                               False), qp)
-        dv = dv + _mma(_parts(torch.where(in_split, pv, 0.0).transpose(-1, -2),
+        dv = dv + mm_g(_parts(torch.where(in_split, pv, 0.0).transpose(-1, -2),
                               rnd), op)
     dq = dq.reshape(b, hkv, sq, g, d).permute(0, 2, 1, 3, 4).reshape(
         b, sq, hq, d)
@@ -285,7 +376,8 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
     cluster by the kernel's own formulas; each rank's partial softmax
     (m, l, acc) merged in rank order, or, with ``round_p`` and bfloat16
     V, two passes (global (M, L) first, then P = exp(s - M) / L rounded
-    to V's type).  The ``mma`` variant multiplies bf16 operands: K
+    to V's type).  The ``mma`` and ``wgmma`` variants multiply bf16
+    operands: K
     rounded to bf16 for a bfloat16 q; a float32 q and K, P and a float32
     V as their three bf16 parts, each product exact.  It follows the
     kernels' split points and merge order, not the order of the sums
@@ -318,7 +410,7 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
                           for rank in range(plan.splits)]
                 kend = max(r.stop for r in ranges)
                 kr = kq[bi, :kend, hk]
-                if plan.variant == "mma":   # bf16 parts, exact products
+                if plan.variant != "split":   # bf16 parts, exact products
                     q_exact = q.dtype == torch.bfloat16
                     s = sum(a.to(torch.float32) @ c.to(torch.float32).T
                             for a in _parts(qt, q_exact)
@@ -359,7 +451,7 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
                         p = torch.where(sr == -torch.inf, 0.0,
                                         torch.exp(sr - m[:, None]))
                     vr = vf[bi, r.start:r.stop, hk]
-                    if plan.variant == "mma":
+                    if plan.variant != "split":
                         term = sum(pp.to(torch.float32) @ vv.to(torch.float32)
                                    for pp in _parts(p, two_pass)
                                    for vv in _parts(vr, v.dtype

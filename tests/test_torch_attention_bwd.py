@@ -20,6 +20,7 @@ bfloat16 in both packages, from float32 sums in another order, so a dP
 at a tie moves dS by one ulp of dP times P; measured up to 3.6e-5) and,
 in dv, by one ulp of that probability times dout."""
 
+import importlib
 import importlib.util
 import os
 import subprocess
@@ -73,18 +74,25 @@ JAX_MASK_CASES = [("float32", 4, 1, 37, 256, 8, 0.0),
                   ("bfloat16", 4, 2, 33, 256, 8, 50.0),
                   ("float32", 4, 4, 35, 112, 0, 0.0),
                   ("bfloat16", 4, 4, 29, 16, 0, 5.0)]
+# the wgmma instances' tiles: 2 heads, a window and a soft-cap, rows and
+# keys past one tile of 64 (held by the emulation's test only)
+WGMMA_JAX_EXTRA = [("float32", 2, 1, 70, 256, 20, 30.0),
+                   ("bfloat16", 2, 2, 40, 112, 9, 50.0),
+                   ("bfloat16", 2, 1, 66, 256, 0, 0.0)]
+WGMMA_JAX_CASES = ([c for c in JAX_MASK_CASES if c[4] in (112, 128, 256)]
+                   + WGMMA_JAX_EXTRA)
 
 
 @pytest.fixture(scope="module")
 def jax_grads(tmp_path_factory):
-    """Each JAX_CASES and JAX_MASK_CASES case's inputs and jax.vjp's
-    results, from one subprocess (XLA's excess precision is turned off
-    when JAX starts)."""
+    """Each JAX_CASES, JAX_MASK_CASES and WGMMA_JAX_EXTRA case's inputs
+    and jax.vjp's results, from one subprocess (XLA's excess precision is
+    turned off when JAX starts)."""
     rng = np.random.default_rng(7)
     tmp = tmp_path_factory.mktemp("attn_grad")
     cases, args = {}, []
     every = ([(*c, 64, 0, 0.0) for c in JAX_CASES]
-             + [c for c in JAX_MASK_CASES])
+             + [c for c in JAX_MASK_CASES] + WGMMA_JAX_EXTRA)
     for i, (dtype, hq, hkv, s, d, window, softcap) in enumerate(every):
         q, k, v, do = _inputs(rng, 2, s, s, hq, hkv, d)
         src, dst = tmp / f"in{i}.npz", tmp / f"out{i}.npz"
@@ -149,6 +157,69 @@ def test_plain_backward_matches_jax_vjp_with_windows_and_caps(jax_grads,
                2.0 ** -8 * np.abs(do).max() if name == "dv" else 0.0)
 
 
+@pytest.mark.parametrize("case", WGMMA_JAX_CASES)
+def test_wgmma_emulation_matches_jax_vjp(jax_grads, case):
+    """The wgmma backward's arithmetic (``emulate_attention_bwd`` at head
+    dims 112 and 256: tiles of 64 rows and keys, products chained slab by
+    slab) against jax.vjp of the JAX model's attention with the same
+    window and soft-cap: float32 within 2e-5 of the largest gradient (the
+    card's phase 10.1 tolerance), bfloat16 at the tolerances above."""
+    dtype, _, _, _, d, window, softcap = case
+    q, k, v, do, want = jax_grads[case]
+    t = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(t) for x in (q, k, v))
+    start = torch.zeros(2, dtype=torch.int32)
+    got = emulate_attention_bwd(tq, tk, tv, start, torch.from_numpy(do), True,
+                                0.0, True, window, softcap)
+    for g, name in zip(got, ("dq", "dk", "dv")):
+        assert g.dtype == t
+        if dtype == "float32":
+            w = want[name]
+            np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                       atol=2e-5 * np.abs(w).max())
+        else:
+            _close(g, want[name], dtype,
+                   2.0 ** -8 * np.abs(do).max() if name == "dv" else 0.0)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d", [112, 128, 256])
+def test_wgmma_backward_plan_fits_the_card(d, bf16):
+    """The wgmma backward's plan (``bwd_wgmma_plan``): each ring stage
+    holds its slabs and pieces, both kernels' shared memory fits a block
+    (232,448 bytes on an H100), the slabs are the emulation's and the
+    tiles are the emulation's 64 rows and keys in one part; the keys
+    kernel's cluster is a power of two up to 8, and splits a key tile only
+    while the tiles leave more than half the SMs idle."""
+    from repro_torch.kernels.flash_attention import (bwd_key_splits,
+                                                     bwd_wgmma_plan)
+    F = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    from repro_torch.kernels.flash_attention.ref import (
+        BWD_CHUNK, BWD_KEY_PARTS, BWD_ROW_SPLIT, BWD_ROW_TILE,
+        BWD_WGMMA_DP_SLAB, BWD_WGMMA_SLAB, bwd_dp_tail)
+    p = bwd_wgmma_plan(d, bf16)
+    ring = 2 * F.BWD_STAGES * F.BWD_STAGE_BYTES
+    assert max(*p.s_stage_bytes, *p.piece_bytes) <= F.BWD_STAGE_BYTES
+    assert max(p.rows_smem, p.keys_smem) <= F.SMEM_LIMIT
+    assert 2 * 64 * d * 4 <= ring     # the key split's partial sums
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    assert (p.s_slab, p.dp_slab, p.dp_tail) == (
+        BWD_WGMMA_SLAB[dtype], BWD_WGMMA_DP_SLAB, bwd_dp_tail(d, dtype))
+    # the rows kernel's warpgroups bring in as many slabs a chunk
+    ns0, ns1 = -(-d // p.s_slab), -(-d // p.dp_slab)
+    assert not bf16 or ns0 + p.dp_tail == ns1 - p.dp_tail
+    assert p.s_slab % 16 == 0 and p.dp_slab % 16 == 0
+    assert d % 16 == 0 and p.dq_split % 64 == 0
+    assert (BWD_CHUNK[d], BWD_KEY_PARTS[d], BWD_ROW_TILE[d],
+            BWD_ROW_SPLIT[d]) == (64, 1, 64, 1)
+    # Gemma-3-1B's 2 x 1024 keys (32 tiles of one KV head): 4 a cluster;
+    # Gemma-2-9B's and Zamba2-7B's tiles fill the card alone
+    assert [bwd_key_splits(*s) for s in ((2, 1, 1024), (1, 8, 4608),
+                                          (2, 32, 512), (1, 1, 64))] == \
+        [4, 1, 1, 8]
+
+
 CASES = [  # (b, sq, skv, hq, hkv, d, q_start, causal)
     (2, 37, 37, 6, 2, 64, (0, 0), True),
     (2, 17, 40, 6, 2, 64, (0, 23), True),
@@ -192,10 +263,10 @@ def test_kernel_formulas_match_the_plain_backward(rng, case, dtype, round_p):
             assert (g != w).float().mean() <= 2e-2
 
 
-# (b, sq, skv, hq, hkv, d, q_start, window, softcap): the new instances'
-# tile edges (rows 32 a tile and chunks of 16 keys at head_dim 256, 32 a
-# chunk at 112, key blocks of 32 at 256), windows narrower than a chunk
-# and across several, soft-caps, with and without a window
+# (b, sq, skv, hq, hkv, d, q_start, window, softcap): the wide instances'
+# tile edges (64 rows and 64 keys a tile at head_dims 112 and 256),
+# windows narrower than a chunk and across several, soft-caps, with and
+# without a window
 MASK_CASES = [
     (1, 33, 33, 4, 1, 256, (0,), 0, 0.0),
     (1, 40, 40, 2, 1, 256, (0,), 8, 0.0),
@@ -342,6 +413,20 @@ def test_part_products_of_the_forward_bounds(q_bf16, per_pair):
         nbytes / smoke.H100_BYTES_PER_S,
         half * per_pair / smoke.H100_BF16_FLOPS) * 1e3)
     assert by == "bytes"
+
+
+def test_probe_lines_cover_every_phase_of_the_wgmma_kernels():
+    """The wgmma backward's ``// PROBE`` lines: 7 phases of its rows
+    kernel and 6 of its keys kernel (the first warpgroup's view), each
+    kernel's start and dump, and a name for every phase."""
+    bench = _load(ROOT / "benchmarks" / "torch_fa_bwd.py")
+    src = bench.kernel_source(ROOT / "src", "flash_attention_bwd_wgmma")
+    probed = bench.probed_source(src)
+    assert "// PROBE" not in probed
+    assert probed.count("PROBE(") == 1 + 7 + 6
+    assert probed.count("clock64() - t0_") == 2
+    assert [len(n) for n in bench.PHASES["flash_attention_bwd_wgmma"]] == \
+        [7, 6]
 
 
 def test_probe_lines_cover_every_phase_of_both_kernels():

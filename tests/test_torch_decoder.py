@@ -215,7 +215,7 @@ def test_emulated_kernel_matches_plain_with_window(b, sq, skv, hq, hkv, d,
     q, k, v, st = _inputs(b, sq, skv, hq, hkv, d, start, q_type)
     p = plan(b, sq, skv, hq, hkv, d, q_type == torch.bfloat16, window)
     if d == 256:
-        assert p.variant == "split"
+        assert p.variant == ("wgmma" if hq // hkv * sq > 8 else "split")
     want = ref_attention_gqa(q, k, v, st, round_p=True, window=window,
                              softcap=softcap)
     got = emulate_attention(q, k, v, st, p, round_p=True, window=window,
@@ -247,17 +247,21 @@ def test_block_keys_cover_every_visible_key_once(b, sq, skv, hq, hkv, d,
             assert len(visited) == len(set(visited))
             assert visited == sorted(visited) and seen <= set(visited)
             lo = min(seen)
-            assert min(visited) > lo - (p.chunk if p.variant == "mma" else 1)
+            assert min(visited) > lo - (p.chunk if p.variant != "split"
+                                        else 1)
 
 
 def test_plan_takes_head_dim_256_on_the_split_kernel():
-    """head_dim 256 runs the split kernel for every row count and type
-    (a 64-row mma block's accumulators would not fit); 128 keeps the mma
-    kernel for bfloat16 q at prefill; a window bounds the keys a cluster
+    """head_dim 256 runs the split kernel at decode for every type and
+    the wgmma kernel at prefill (a 64-row mma block's accumulators would
+    not fit); 128 keeps the mma kernel for bfloat16 q at prefill and takes
+    the wgmma kernel for a float32 q; a window bounds the keys a cluster
     splits."""
-    assert plan(4, 900, 1024, 4, 1, 256, True).variant == "split"
-    assert plan(4, 900, 1024, 4, 1, 256, False).variant == "split"
+    for q_bf16 in (True, False):
+        assert plan(4, 1, 1024, 4, 1, 256, q_bf16).variant == "split"
+        assert plan(4, 900, 1024, 4, 1, 256, q_bf16).variant == "wgmma"
     assert plan(4, 130, 256, 16, 16, 128, True).variant == "mma"
+    assert plan(4, 130, 256, 16, 16, 128, False).variant == "wgmma"
     # 4 key groups of 32 lanes (8 columns each), 4 keys a group at once
     assert plan(4, 1, 1024, 4, 1, 256, False).chunk == 16
     wide = plan(1, 1, 8192, 4, 1, 256, False)

@@ -7,6 +7,7 @@ without a KV cache, in float32 and bfloat16) for grouped KV heads and
 non-zero query offsets.  The launch plan of the CUDA kernels and their
 arithmetic (``ref.emulate_attention``) are held to the same references."""
 
+import importlib
 import os
 import subprocess
 import sys
@@ -281,8 +282,9 @@ def test_launch_plan_covers_each_pair_once(b, sq, skv, hq, hkv, d, q_bf16):
     p = plan(b, sq, skv, hq, hkv, d, q_bf16)
     g = hq // hkv
     assert 1 <= p.splits <= 8
-    assert p.variant == ("mma" if g * sq > 8 and (q_bf16 or d <= 64)
-                         else "split")
+    wide = d == 256 or (d in (112, 128) and not q_bf16)
+    assert p.variant == ("split" if g * sq <= 8 else "wgmma" if wide
+                         else "mma")
     tiles = p.tiles
     assert tiles == -(-g * sq // p.rows)
     assert p.grid[0] == (p.splits if p.variant == "split"
@@ -315,7 +317,7 @@ def test_launch_plan_at_smollm_decode_and_prefill():
     the tensor cores for float32 and bfloat16 q (64 rows a block, 84
     blocks: no key split, which would pass one block an SM); one batch row
     splits its keys across clusters of 4; a float32 q at head_dim 128
-    takes the split kernel."""
+    takes the wgmma kernel."""
     d = plan(4, 1, 256, 9, 3, 64, False)
     assert d == plan(4, 1, 256, 9, 3, 64, True)
     assert (d.variant, d.rows, d.splits, d.chunk, d.grid) == (
@@ -333,8 +335,86 @@ def test_launch_plan_at_smollm_decode_and_prefill():
             for r in range(4)] == [range(0, 64), range(64, 128),
                                    range(128, 130), range(130, 130)]
     f = plan(4, 130, 256, 9, 3, 128, False)
-    assert (f.variant, f.rows, f.splits, f.grid) == ("split", 8, 1,
-                                                     (1, 49, 12))
+    assert (f.variant, f.rows, f.splits, f.grid) == ("wgmma", 64, 1,
+                                                     (7, 3, 4))
+
+
+# (b, sq, skv, hq, hkv, d, window): the wgmma kernel's shapes (head_dims
+# 112, 128, 256; rows past one tile of 64, keys past one chunk of 64, a
+# window narrower than a chunk and one across chunks, keys split across a
+# cluster)
+WGMMA_PLAN_SHAPES = [(2, 40, 90, 2, 1, 256, 0), (1, 70, 70, 4, 2, 112, 9),
+                     (2, 33, 130, 4, 1, 128, 70), (1, 130, 130, 2, 2, 256, 0),
+                     (1, 24, 1024, 4, 1, 256, 512)]
+
+
+@pytest.mark.parametrize("q_bf16", [False, True])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,window", WGMMA_PLAN_SHAPES)
+def test_wgmma_plan_covers_each_pair_once(b, sq, skv, hq, hkv, d, window,
+                                          q_bf16):
+    """At head_dims 112, 128 and 256, with and without a window, in both
+    types: every (batch row, query head, query row, visible key) is
+    visited by exactly one block of the plan (the wgmma kernel's prefill,
+    or at 112 / 128 the mma kernel's for a bfloat16 q), by the kernels'
+    own row and key formulas, and no block starts below its first row's
+    window by a whole chunk."""
+    p = plan(b, sq, skv, hq, hkv, d, q_bf16, window)
+    g = hq // hkv
+    assert p.variant == ("wgmma" if d == 256 or not q_bf16 else "mma")
+    assert 1 <= p.splits <= 8 and p.tiles == -(-g * sq // 64)
+    for start in (0, max(0, skv - sq)):
+        seen = {}
+        for tile in range(p.tiles):
+            rows = block_rows(p, tile, g, sq)
+            for rank in range(p.splits):
+                keys = block_keys(p, tile, rank, g, sq, skv, start, True,
+                                  window)
+                if len(keys):
+                    first = min(start + i for i, _ in rows)
+                    assert keys.start > first - window - 64 if window \
+                        else True
+                for i, gg in rows:
+                    for j in keys:
+                        if j <= start + i and (not window
+                                               or j > start + i - window):
+                            seen[(i, gg, j)] = seen.get((i, gg, j), 0) + 1
+        want = {(i, gg, j) for i in range(sq) for gg in range(g)
+                for j in range(skv) if j <= start + i
+                and (not window or j > start + i - window)}
+        assert set(seen) == want and set(seen.values()) == {1}
+
+
+# (config, q type) -> the forward's variant at decode and at prefill
+MODEL_ROUTES = [("gemma3-1b", "float32", "split", "wgmma"),
+                ("gemma3-1b", "bfloat16", "split", "wgmma"),
+                ("gemma2-9b", "float32", "split", "wgmma"),
+                ("gemma2-9b", "bfloat16", "split", "wgmma"),
+                ("zamba2-7b", "float32", "split", "wgmma"),
+                ("zamba2-7b", "bfloat16", "split", "mma"),
+                ("smollm-135m", "float32", "split", "mma")]
+
+
+@pytest.mark.parametrize("arch,q_type,decode,prefill", MODEL_ROUTES)
+def test_plan_routes_each_model_and_fits_shared_memory(arch, q_type, decode,
+                                                       prefill):
+    """Each model's attention (its heads, head_dim and window) takes the
+    split kernel at decode and the wgmma kernel at prefill where its
+    head_dim or type leaves the mma kernel short; the wgmma kernels'
+    shared memory (forward, and both backward kernels) fits a block."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import (bwd_wgmma_plan,
+                                                     wgmma_smem)
+    F = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    cfg = get(arch)
+    hq, hkv, d, window = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.window
+    bf16 = q_type == "bfloat16"
+    assert plan(4, 1, 1024, hq, hkv, d, bf16, window).variant == decode
+    assert plan(4, 130, 1024, hq, hkv, d, bf16, window).variant == prefill
+    if d in F.WGMMA_DIMS:
+        assert wgmma_smem(d) <= F.SMEM_LIMIT
+        p = bwd_wgmma_plan(d, bf16)
+        assert max(p.rows_smem, p.keys_smem) <= F.SMEM_LIMIT
 
 
 def _pallas_gqa(q, k, v, starts):
@@ -358,7 +438,10 @@ def _pallas_gqa(q, k, v, starts):
 
 EMULATED = [(2, 1, 64, 6, 2, 16, 37, False), (2, 20, 48, 4, 2, 32, 5, False),
             (1, 40, 96, 6, 2, 16, 0, True), (2, 3, 40, 4, 1, 32, 11, True),
-            (2, 9, 30, 4, 2, 128, 4, False)]
+            (2, 9, 30, 4, 2, 128, 4, False),
+            # the wgmma kernel: head_dims 112 and 256, 2 heads
+            (1, 40, 70, 2, 1, 112, 0, False), (2, 36, 80, 2, 1, 256, 9, True),
+            (1, 70, 70, 2, 2, 256, 0, False)]
 
 
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,d,offset,q_bf16", EMULATED)

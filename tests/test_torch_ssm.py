@@ -460,8 +460,9 @@ def test_plain_attention_at_112_matches_reference(causal):
 def test_plan_at_zamba_shapes():
     """Zamba2-7B's shared attention (32 / 32 heads of 112, 4 slots, a
     256-row cache): a key takes 32 lanes of the split kernel (28 hold
-    columns), decode and the float32 prefill (the unified attention's q)
-    take the split kernel, a bfloat16 q's prefill the tensor cores."""
+    columns), decode takes the split kernel, the float32 prefill (the
+    unified attention's q) the wgmma kernel, a bfloat16 q's prefill the
+    mma kernel."""
     from repro_torch.kernels.flash_attention import (key_lanes,
                                                      lane_columns)
     from repro_torch.kernels.flash_attention import plan as fa_plan
@@ -472,7 +473,7 @@ def test_plan_at_zamba_shapes():
     assert (dec.variant, dec.rows, dec.chunk) == ("split", 4, 16)
     pre = fa_plan(4, 130, 256, 32, 32, 112, False)
     assert (pre.variant, pre.rows, pre.splits, pre.grid) == (
-        "split", 8, 1, (1, 17, 128))
+        "wgmma", 64, 1, (3, 32, 4))
     mma = fa_plan(4, 130, 256, 32, 32, 112, True)
     assert (mma.variant, mma.rows, mma.grid) == ("mma", 64, (3, 32, 4))
 
