@@ -108,8 +108,9 @@
    ``fake_quant``, 60 forward and 30 backward ``flash_attention`` launches
    a step (each layer recomputed in the backward) and a falling loss (step time, tokens/s, peak memory); 10 steps
    straight against 5, a checkpoint, a restore and 5 more, bitwise; and
-   the Figs. 5-6 run (``--mode cnn`` at its defaults), its table loaded
-   by the port's ``AccuracySurrogate`` and held to the paper's story;
+   the Figs. 5-6 run (``--mode cnn``, 150 steps, one trial), its table
+   loaded by the port's ``AccuracySurrogate`` and held to the paper's
+   story;
 11. the decoder family (``models/moe``, windows, soft-caps and head_dim
    256 in ``flash_attention``): 11.1 the kernel with a sliding window
    and head_dim 256 at Gemma-3-1B's shapes (4/1 heads, window 512) and
@@ -233,10 +234,10 @@
    on the wgmma backward (``csrc/flash_attention_bwd_wgmma.cu``) beside
    the times of the replaced mma.sync kernel as constants
    (``REPLACED_MS``); 16.2
-   Gemma-3-1B at full
-   size (LightPE-1, and FP32 numerics) and 16.3 Gemma-2-9B (4 layers) and
-   Zamba2-7B (13 layers) at full width, and RWKV6-1.6B and Whisper-medium
-   at full size, LightPE-1, AdamW (``FAMILY_TRAIN``), their launches
+   Gemma-3-1B (8 layers; LightPE-1, and FP32 numerics) and 16.3
+   Gemma-2-9B (4 layers), Zamba2-7B (13 layers), RWKV6-1.6B (6 layers) and
+   Whisper-medium (6 + 6 layers) at full width, LightPE-1, AdamW
+   (``FAMILY_TRAIN``), their launches
    counted exactly (2 forwards and a
    backward an attention call a step; at head_dims 112 and 256 every one
    on the wgmma kernels), held to the same
@@ -245,8 +246,35 @@
    held to ``tests/data/torch_train_families_ref.json`` (the JAX
    package's steps) at ``TRAIN_LM_RTOL``, with a control (Gemma-2 with
    its attention detached) that must fail;
-17. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
+17. serving on an fp8 (float8_e4m3fn) K/V cache: 17.1 every kernel
+   instance on e4m3 K and V (the split kernel at decode, the mma kernel
+   at prefill, both built by ``csrc/flash_attention_fp8.cu``, and the
+   wgmma kernel at 112-256) at Qwen3-32B's decode (130 and 512 keys) and
+   prefill (4 x 130) on a 32,768-row cache, Gemma-3-1B's windowed layer,
+   Zamba2-7B's shared attention and Whisper's decoder self-attention
+   (float32 P), and decode_32k (batch 8, 16 replicated KV heads, 32,768
+   keys) on peaked and on near-uniform logits, float32 and bfloat16 q,
+   against the plain version (within ``FA_TOL`` plus one e4m3 step times
+   |v| for each P at a rounding tie), two calls bitwise equal, the share
+   of nonzero P codes printed (nonzero in every case but the near-uniform
+   control, where both outputs are exactly 0), timed beside the plain
+   version and the bound (decode_32k also beside the same kernel on a
+   bfloat16 cache, its bound, and SDPA on the bfloat16 cache, not the
+   same function); 17.2 Qwen3-32B at full width, 2 layers, on an fp8
+   cache against ``tests/data/torch_fp8_ref.json`` (the JAX package's
+   run on the same hashed weights and greedy tokens; a float32-cache
+   control must miss it), then 4 layers, batch 8, a 32,768-row cache as
+   the perf variants ``v1b_f8_cache_seqshard`` (dense float32 weights)
+   and ``v3_f8_cache`` (int4 codes, 16 replicated KV heads) serve it,
+   launches counted exactly and each run held to the same run on the
+   kernels' plain versions, with step times, decode tokens/s and peak
+   memory;
+18. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
    last, the device line.
+
+Phases 3, 4, 8 and 9.1-9.5 launch ``fake_quant`` or no kernel: they run
+while ``nvcc`` builds the other sources (their host times share the
+cores); each phase's seconds are printed.
 
 TF32 is off for matrix products and convolutions (``repro_torch`` sets
 both flags at import): the reference tolerances need IEEE float32.
@@ -352,6 +380,11 @@ SMOLLM_WEIGHTS = [(576, 576), (576, 192), (576, 1536), (1536, 576),
 SMOLLM_ACTS = [(4, 576), (4, 1536), (520, 576), (520, 1536)]
 # Phase 10: training at the example's settings (examples/torch_train_qat.py)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 256, 20
+# the Figs. 5-6 run, cut from its defaults (300 steps, 2 trials: 67 s of
+# the smoke): ResNet-8 on the CPU reads top-1 1.0 for every PE type after
+# 150 steps of one trial (0.90 / 0.98 / 0.90 / 1.0 after 100), within the
+# paper's story
+FIGS56_STEPS, FIGS56_TRIALS = 150, 1
 # LightPE-1: 211 projections x (w, x), and each layer's 210 again in its
 # recomputation (``layers.remat``)
 TRAIN_FQ_PER_STEP = (30 * 7 * 2 + 1) * 2
@@ -1672,8 +1705,8 @@ def run_scale(torch, dev, fronts):
                         fronts=[len(qs[i].response.archive)
                                 for i in range(len(budgets))])
 
-    # 6. phase 6's LightPE-1 bfloat16 run with telemetry on
-    out["serving_telemetry"] = serve_with_telemetry(torch, dev)
+    # 6. (phase 6's LightPE-1 bfloat16 run with telemetry on: after the
+    # build, ``serve_with_telemetry``)
     return out
 
 
@@ -2011,13 +2044,14 @@ def run_training(torch, dev):
     del straight, resumed, pairs
     gc.collect()
 
-    # 5. the Figs. 5-6 run: examples/torch_train_qat.py --mode cnn at its
-    # defaults, and the port's AccuracySurrogate loads the table
+    # 5. the Figs. 5-6 run: examples/torch_train_qat.py --mode cnn, cut
+    # to FIGS56_STEPS steps and one trial, and the port's AccuracySurrogate
+    # loads the table
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "torch_qat_pareto.json")
-        table = qat.run_cnn(steps=300, depth=8, trials=2, out=path,
-                            device=dev)
+        table = qat.run_cnn(steps=FIGS56_STEPS, depth=8,
+                            trials=FIGS56_TRIALS, out=path, device=dev)
         loaded = AccuracySurrogate().load_qat_results(path=path)
     if loaded != 4:
         fail(f"AccuracySurrogate loaded {loaded} entries of the table")
@@ -2029,7 +2063,8 @@ def run_training(torch, dev):
         fail(f"Figs. 5-6: top-1 {top1} breaks the paper's story (every "
              f"type > 0.5, LightPE-1 within 0.1 of FP32 and INT16)")
     out["figs56"] = dict(table=table, seconds=time.perf_counter() - t0)
-    print(f"Figs. 5-6 (ResNet-8, 300 steps, 2 trials): top-1 {top1}, "
+    print(f"Figs. 5-6 (ResNet-8, {FIGS56_STEPS} steps, {FIGS56_TRIALS} "
+          f"trial): top-1 {top1}, "
           f"{time.perf_counter() - t0:.1f} s")
     return out
 
@@ -4439,21 +4474,26 @@ FAMILY_BWD_SHAPES = [
     ("whisper_reduced", 2, 64, 4, 4, 16, 0, 0.0, "whisper-medium"),
     ("gemma3_reduced", 2, 64, 2, 1, 32, 8, 0.0, "gemma3-1b"),
 ]
-# 16.2-16.3: (config, layers or 0 for all, batch, seq, steps, PE type),
-# AdamW; each held to the same steps on the kernels' plain versions at
-# TRAIN_LM_RTOL.  Gemma-2-9B at 4 of 42 layers (two local, two global;
-# 4,608 tokens pass its 4,096 window); Zamba2-7B at 13 of 81 (two groups
-# of six Mamba2 layers and a shared attention block, one tail layer);
-# RWKV6-1.6B and Whisper-medium (head_dim 64; the encoder's frames are
-# the pipeline's) at full size.  Gemma-3-1B again under FP32 numerics:
-# the kernels' difference from their plain versions without QAT's codes,
-# which a float32 ulp can move by a level
-FAMILY_TRAIN = [("gemma3-1b", 0, 2, 1024, 3, "lightpe1"),
-                ("gemma3-1b", 0, 2, 1024, 3, "fp32"),
-                ("gemma2-9b", 4, 1, 4608, 3, "lightpe1"),
-                ("zamba2-7b", 13, 2, 512, 3, "lightpe1"),
-                ("rwkv6-1.6b", 0, 2, 256, 3, "lightpe1"),
-                ("whisper-medium", 0, 2, 256, 3, "lightpe1")]
+# 16.2-16.3: (config, its depth cut (config overrides), batch, seq,
+# steps, PE type), AdamW; each held to the same steps on the kernels'
+# plain versions at TRAIN_LM_RTOL.  Widths are full; depths are cut to
+# what the kernels' checks need: Gemma-3-1B at 8 of 26 layers (a 5 local
+# + 1 global period and 2 local layers: both windows), Gemma-2-9B at 4 of
+# 42 (two local, two global; 4,608 tokens pass its 4,096 window);
+# Zamba2-7B at 13 of 81 (two groups of six Mamba2 layers and a shared
+# attention block each, both shared blocks, one tail layer); RWKV6-1.6B at
+# 6 of 24 and Whisper-medium (head_dim 64; the encoder's frames are the
+# pipeline's) at 6 + 6 of 24 + 24.  Gemma-3-1B again under FP32
+# numerics: the kernels' difference from their plain versions without
+# QAT's codes, which a float32 ulp can move by a level
+FAMILY_TRAIN = [
+    ("gemma3-1b", {"n_layers": 8}, 2, 1024, 3, "lightpe1"),
+    ("gemma3-1b", {"n_layers": 8}, 2, 1024, 3, "fp32"),
+    ("gemma2-9b", {"n_layers": 4}, 1, 4608, 3, "lightpe1"),
+    ("zamba2-7b", {"n_layers": 13}, 2, 512, 3, "lightpe1"),
+    ("rwkv6-1.6b", {"n_layers": 6}, 2, 256, 3, "lightpe1"),
+    ("whisper-medium", {"enc_layers": 6, "dec_layers": 6}, 2, 256, 3,
+     "lightpe1")]
 FAMILY_REF = ROOT / "tests" / "data" / "torch_train_families_ref.json"
 
 
@@ -4619,8 +4659,8 @@ def _family_steps(torch, dev, cfg, batch, seq, steps, plain: bool):
 
 
 def run_family_training(torch, dev):
-    """Phases 16.2-16.3: each FAMILY_TRAIN model at full width (Gemma-3-1B
-    at full depth too), under its PE type, on the kernels with their launches
+    """Phases 16.2-16.3: each FAMILY_TRAIN model at full width and its cut
+    depth, under its PE type, on the kernels with their launches
     counted exactly, then the same steps on the kernels' plain versions;
     the losses and gradient norms within TRAIN_LM_RTOL."""
     from repro_torch.configs import get
@@ -4634,9 +4674,7 @@ def run_family_training(torch, dev):
     for arch, layers, batch, seq, steps, pe in FAMILY_TRAIN:
         t0 = time.perf_counter()
         key = arch if pe == "lightpe1" else f"{arch}/{pe}"
-        cfg = get(arch).replace(pe_type=pe)
-        if layers:
-            cfg = cfg.replace(n_layers=layers)
+        cfg = get(arch).replace(pe_type=pe, **layers)
         calls = _family_attention_calls(cfg)
         _zero(torch, flash_attention, fake_quant)
         flash_attention.backward_launches = 0
@@ -4677,7 +4715,7 @@ def run_family_training(torch, dev):
         windows = sorted({0 if g else cfg.window
                           for g in layer_is_global(cfg)}) \
             if cfg.family == "lm" else [0] * bool(calls)
-        out[key] = dict(layers=cfg.n_layers, batch=batch, seq=seq, pe=pe,
+        out[key] = dict(layers=layers, batch=batch, seq=seq, pe=pe,
                          steps=steps, rows=rows, plain_rows=plain_rows,
                          held=held, launches=counts, want=want,
                          step_ms=[t * 1e3 for t in times],
@@ -4686,7 +4724,7 @@ def run_family_training(torch, dev):
                          peak_gib=peak, plain_peak_gib=plain_peak,
                          windows=windows,
                          seconds=time.perf_counter() - t0)
-        print(f"16 {arch} ({cfg.n_layers} layers, {batch} x {seq}, "
+        print(f"16 {arch} ({layers}, {batch} x {seq}, "
               f"{pe}, AdamW, windows {windows}): {steps} steps "
               f"{[[round(x, 5) for x in r] for r in rows]}, plain "
               f"{[[round(x, 5) for x in r] for r in plain_rows]}: loss rel "
@@ -4765,6 +4803,445 @@ def run_families(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: serving on an fp8 (float8_e4m3fn) K/V cache
+# ---------------------------------------------------------------------------
+
+FP8_REF = ROOT / "tests" / "data" / "torch_fp8_ref.json"
+# 17.1: (name, b, sq, skv, hq, hkv, d, start, window, round_p, q_scale) of
+# the kernels on e4m3 K and V, each with a float32 and a bfloat16 q:
+# Qwen3-32B's decode (130 and 512 visible keys) and prefill (4 x 130)
+# into a 32,768-row cache, Gemma-3-1B's windowed layer at head_dim 256,
+# Zamba2-7B's shared attention at 112 and Whisper's decoder self-attention
+# at 64 (both float32 P: round_p off), and decode_32k's step (batch 8 of
+# 128, 32,768 keys, 16 replicated KV heads) on peaked logits (q scaled by
+# 4: P keeps nonzero codes) and on near-uniform ones (logits N(0, 0.5^2),
+# as the random seed model's: every P underflows to 0).  q, K, V N(0, 1),
+# q times q_scale.
+FP8_SHAPES = [
+    ("qwen3-32b decode 130", 8, 1, 32768, 64, 8, 128, 129, 0, True, 1.0),
+    ("qwen3-32b decode 512", 8, 1, 32768, 64, 8, 128, 511, 0, True, 1.0),
+    ("qwen3-32b prefill", 4, 130, 32768, 64, 8, 128, 0, 0, True, 1.0),
+    ("gemma3-1b decode", 4, 1, 1024, 4, 1, 256, 905, 512, True, 1.0),
+    ("gemma3-1b prefill", 4, 900, 1024, 4, 1, 256, 0, 512, True, 1.0),
+    ("zamba2-7b prefill", 4, 130, 256, 32, 32, 112, 0, 0, False, 1.0),
+    ("zamba2-7b decode", 4, 1, 256, 32, 32, 112, 130, 0, False, 1.0),
+    ("whisper decoder prefill", 4, 8, 448, 16, 16, 64, 0, 0, False, 1.0),
+    ("whisper decoder decode", 4, 1, 448, 16, 16, 64, 8, 0, False, 1.0),
+    ("whisper decoder 64 rows", 4, 64, 448, 16, 16, 64, 0, 0, False, 1.0),
+    ("decode_32k peaked", 8, 1, 32768, 64, 16, 128, 32767, 0, True, 4.0),
+    ("decode_32k near-uniform", 8, 1, 32768, 64, 16, 128, 32767, 0, True,
+     0.5)]
+FP8_UNDERFLOW = "decode_32k near-uniform"
+# 17.2: the 2-layer run against tests/data/torch_fp8_ref.json.  The port
+# on the CPU reads 0.0202 against it (max over the 9 steps' 64 columns;
+# 0.0106 at the prefill: P codes and cache codes at e4m3 rounding ties
+# flip between the packages' float32 sums, ``tests/_torch_fp8_ref.py
+# --port``) and 26 in the L1 distance of layer 0's code histograms (13 of
+# 655,360 codes one apart); the card read 0.0263 and 32 (this script's
+# first run on an NVIDIA H100 80GB HBM3 at 700 W), so 0.05 and 128 (a
+# cast that truncated would move half the codes).  The control, the same
+# run on a float32 cache, must miss the reference (the card: 0.338).
+FP8_REF_TOL = 0.05
+FP8_CACHE_FLIPS = 128
+# 17.2: Qwen3-32B at full width, FP8_LAYERS of its 64 layers (dense
+# float32 weights drawn on the card), batch 8, a 32,768-row cache: v1b
+# (8 KV heads) and v3 (int4 codes, 16 replicated KV heads), FP8_PROMPT
+# tokens then FP8_STEPS decode steps on numpy tokens, each held to the
+# same run on the kernels' plain versions.  Two correct runs sit apart
+# there: a P at an e4m3 rounding tie takes codes a 1/16 step apart
+# between the kernels' float32 P and the plain one's, and the bfloat16
+# residual stream carries it on (the card read 0.0487 / 0.0841 for v1b /
+# v3, this script's first run on an NVIDIA H100 80GB HBM3 at 700 W), so
+# 0.2; the control, v1b's kernels on a float32 cache, must miss the plain
+# fp8 run by more
+FP8_LAYERS, FP8_BATCH, FP8_CACHE = 4, 8, 32768
+FP8_PROMPT, FP8_STEPS = 130, 4
+FP8_PLAIN_TOL = 0.2
+FP8_VARIANTS = (("v1b_f8_cache_seqshard", {}, None),
+                ("v3_f8_cache", {"kv_replicate_to": 16}, "int4"))
+
+
+def fp8_attention_bound(b, hq, hkv, d, rows, q_bf16: bool, kv_bytes: int,
+                        round_p: bool):
+    """(bound ms, what bounds it, bytes) of the forward attention on a
+    ``kv_bytes``-byte K/V cache: q and the float32 out once, the keys the
+    rows see once (K and V); 2 D-long products a visible (query head, key)
+    pair as kept bf16 part products (e4m3 or bf16 K and V one exact part;
+    q float32 three; P three, or one when ``round_p`` rounds it to V's
+    type)."""
+    sq = len(rows)
+    visible = sum(hi - lo for lo, hi in rows)
+    keys = max(hi for _, hi in rows) - min(lo for lo, _ in rows)
+    nbytes = (b * sq * hq * d * ((2 if q_bf16 else 4) + 4)
+              + 2 * kv_bytes * b * keys * hkv * d)
+    half = 2 * b * hq * d * visible
+    qk = kept_part_products(1 if q_bf16 else 3, 1)
+    pv = kept_part_products(1 if round_p else 3, 1)
+    bound, by = bound_ms(nbytes, half * (qk + pv), H100_BF16_FLOPS)
+    return bound, by, nbytes
+
+
+def check_fp8_kernels(torch, dev):
+    """Phase 17.1: every kernel instance on e4m3 K and V (``FP8_SHAPES``)
+    against its plain version on the card, two calls bitwise equal: within
+    ``FA_TOL``, plus, with ``round_p``, one e4m3 code step of P times |v|
+    for each P the plain version holds within ``fp8_check.P_TIE_REL`` of a
+    rounding midpoint (the kernels' float32 P differs from the plain one
+    in the last bits, and such a P may round either way); the share of
+    nonzero P codes printed with each result (nonzero in every compared
+    case but the near-uniform one, where every P underflows and both
+    outputs are exactly 0).  Timed beside the plain version, SDPA where it
+    computes the same function (float32 P) and the bound; at decode_32k
+    beside the same kernel on the cache in bfloat16, its bound, and SDPA
+    on the bfloat16 cache (not the same function: P not rounded)."""
+    from repro_torch import fp8_check as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_gqa)
+    from repro_torch.kernels.flash_attention import plan as fa_plan
+    from repro_torch.kernels.flash_attention.ref import ref_attention_gqa
+
+    f8 = torch.float8_e4m3fn
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows, extra = [], {}
+    for name, b, sq, skv, hq, hkv, d, start, window, round_p, q_scale \
+            in FP8_SHAPES:
+        k = torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(f8)
+        v = torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(f8)
+        st = torch.full((b,), start, dtype=torch.int32, device=dev)
+        seen = start + sq                     # the keys the rows can see
+        for q_name in ("float32", "bfloat16"):
+            q = (torch.randn((b, sq, hq, d), generator=gen, device=dev)
+                 * q_scale).to(getattr(torch, q_name))
+            kw = dict(round_p=round_p, window=window)
+
+            def kernel():
+                return flash_attention_gqa(q, k, v, st, **kw)
+
+            def plain():
+                return ref_attention_gqa(q, k, v, st, True, 0.0, round_p,
+                                         window)
+
+            before = (flash_attention.launches, flash_attention.fp8_launches,
+                      flash_attention.wgmma_launches)
+            got, again = kernel(), kernel()
+            launches = flash_attention.launches - before[0]
+            fp8_l = flash_attention.fp8_launches - before[1]
+            wgmma_l = flash_attention.wgmma_launches - before[2]
+            want = plain()
+            err = (got - want).abs()
+            if round_p:
+                ties = F.p_ties(q, k[:, :seen], v[:, :seen], st,
+                                window=window)
+                excess = float((err - ties["allowance"]).max())
+                n_ties, share = ties["ties"], ties["nonzero_share"]
+                del ties
+            else:
+                excess, n_ties, share = float(err.max()), 0, None
+            max_err = float(err.max())
+            p = fa_plan(b, sq, skv, hq, hkv, d, q_name == "bfloat16", window)
+            if launches != 2 or fp8_l + wgmma_l != 2 \
+                    or (wgmma_l == 2) != (p.variant == "wgmma") \
+                    or not torch.equal(got, again) \
+                    or not bool(torch.isfinite(got).all()) \
+                    or excess > FA_TOL:
+                fail(f"flash_attention fp8 {name} q {q_name}: max_abs_err "
+                     f"{max_err}, {excess} past the tolerance {FA_TOL} and "
+                     f"{n_ties} P's at ties; {launches} launches ({fp8_l} "
+                     f"fp8, {wgmma_l} wgmma) for 2 calls, bitwise repeat "
+                     f"{torch.equal(got, again)}")
+            if name == FP8_UNDERFLOW:
+                if share != 0.0 or bool(got.any()) or bool(want.any()):
+                    fail(f"{name}: the near-uniform control has nonzero P "
+                         f"codes ({share}) or outputs")
+            elif round_p and not share:
+                fail(f"{name} q {q_name}: no nonzero P code, the check "
+                     f"would compare zeros")
+            del got, again, want, err
+            ms = time_ms(torch, kernel)
+            plain_ms = time_ms(torch, plain, reps=3, warmup=1)
+            library_ms = None
+            if not round_p:   # float32 P: SDPA on the upcast cache
+                tq = q.float().transpose(1, 2).contiguous()
+                tk, tv = (t[:, :seen].float().transpose(1, 2).contiguous()
+                          for t in (k, v))
+                library_ms = time_ms(torch, lambda: sdpa(
+                    tq, tk, tv, is_causal=sq > 1, enable_gqa=True))
+                del tq, tk, tv
+            lo = [max(0, start + i - window + 1) if window else 0
+                  for i in range(sq)]
+            spans = [(lo[i], start + i + 1) for i in range(sq)]
+            bound, by, nbytes = fp8_attention_bound(
+                b, hq, hkv, d, spans, q_name == "bfloat16", 1, round_p)
+            row = dict(name=name, q_type=q_name, b=b, sq=sq, skv=skv, hq=hq,
+                       hkv=hkv, d=d, start=start, window=window,
+                       round_p=round_p, q_scale=q_scale, max_abs_err=max_err,
+                       past_tolerance=excess, p_ties=n_ties,
+                       p_nonzero_share=share, launches=launches,
+                       bitwise_repeat=True, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound, bound_by=by,
+                       bytes=nbytes, variant=p.variant, splits=p.splits,
+                       rows=p.rows)
+            rows.append(row)
+            p_txt = (f"P codes nonzero {share:.4%} of the visible keys, "
+                     f"{n_ties} at e4m3 ties" if round_p else "P float32")
+            lib = f", SDPA {library_ms:.4f} ms" if library_ms else ""
+            print(f"flash_attention fp8 {name} q {q_name} ({p.variant}, "
+                  f"{p.rows} rows, {p.splits} splits): max_abs_err "
+                  f"{max_err:.3g} ({p_txt}), two calls bitwise equal; "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+                  f"{bound:.4f} ms ({by})")
+            if name.startswith("decode_32k peaked") and q_name == "float32":
+                extra = fp8_against_bf16(torch, q, k, v, st, ms, row, sdpa)
+            del q
+        del k, v
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, extra
+
+
+def fp8_against_bf16(torch, q, k, v, st, fp8_ms, row, sdpa):
+    """decode_32k: the kernel on the same cache in bfloat16 (exact: every
+    e4m3 value is a bfloat16), its bound at 2 bytes a K/V element beside
+    the fp8 one's at 1, and SDPA on the bfloat16 cache with a bfloat16 q
+    (not the same function: P not rounded, q rounded)."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    bf16_ms = time_ms(torch, lambda: flash_attention_gqa(
+        q, kb, vb, st, round_p=True))
+    b, sq, hq, d = q.shape
+    spans = [(0, int(st[0]) + 1)]
+    bound16, by16, bytes16 = fp8_attention_bound(b, hq, k.shape[2], d, spans,
+                                                 False, 2, True)
+    tq = q.to(torch.bfloat16).transpose(1, 2).contiguous()
+    tk, tv = (t.transpose(1, 2).contiguous() for t in (kb, vb))
+    sdpa_ms = time_ms(torch, lambda: sdpa(tq, tk, tv, enable_gqa=True))
+    del kb, vb, tq, tk, tv
+    out = dict(fp8_ms=fp8_ms, fp8_bound_ms=row["bound_ms"],
+               fp8_bytes=row["bytes"], bf16_cache_ms=bf16_ms,
+               bf16_cache_bound_ms=bound16, bf16_cache_bound_by=by16,
+               bf16_cache_bytes=bytes16, sdpa_bf16_cache_ms=sdpa_ms,
+               sdpa_note="SDPA on the cache upcast to bfloat16 with a "
+                         "bfloat16 q: not the same function (P not rounded)")
+    print(f"decode_32k (8 x 1 x 64 heads, 16 KV heads of 128, 32,768 keys): "
+          f"fp8 cache {fp8_ms:.4f} ms (bound {row['bound_ms']:.4f} ms, "
+          f"{row['bytes'] / 1e6:.1f} MB), bfloat16 cache {bf16_ms:.4f} ms "
+          f"(bound {bound16:.4f} ms, {bytes16 / 1e6:.1f} MB); SDPA on the "
+          f"bfloat16 cache {sdpa_ms:.4f} ms (not the same function: P not "
+          f"rounded)")
+    return out
+
+
+def _fp8_counters():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    return flash_attention, quant_matmul
+
+
+def _fp8_counts():
+    fa, qmm = _fp8_counters()
+    return {"flash_attention": fa.launches, "fp8": fa.fp8_launches,
+            "wgmma": fa.wgmma_launches, "quant_matmul": qmm.launches}
+
+
+def _fp8_zero(torch):
+    fa, qmm = _fp8_counters()
+    torch.cuda.synchronize()
+    fa.launches = fa.fp8_launches = fa.wgmma_launches = qmm.launches = 0
+
+
+def run_fp8_reference(torch, dev):
+    """Phase 17.2, against the JAX package: Qwen3-32B at full width, 2
+    layers, the reference's weights (``fp8_check.hashed_params``, drawn on
+    the card with the same bits), fed its greedy tokens on an fp8 cache; the launches counted exactly (2 a step: the prefill on the
+    wgmma kernel, each decode step on the fp8 split kernel); the logits at
+    the file's 64 columns within ``FP8_REF_TOL``, the argmax equal where
+    the reference's top-2 margin exceeds twice that, layer 0's code
+    histograms within ``FP8_CACHE_FLIPS``; the same run on a float32
+    cache must miss the reference (the control)."""
+    import numpy as np
+    from repro_torch import fp8_check as F
+    ref = json.loads(FP8_REF.read_text())
+    cfg = F.config("full")
+    t0 = time.perf_counter()
+    params = F.hashed_params(cfg, F.PARAM_SEED, dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    prompt = F.prompt_tokens(cfg)
+    greedy = np.asarray(ref["greedy"])
+    _fp8_zero(torch)
+    steps, cache = F.port_run(params, cfg, prompt, greedy, F.MAX_LEN, dev)
+    launches = _fp8_counts()
+    n = cfg.n_layers
+    want_l = {"flash_attention": n * (1 + F.STEPS), "fp8": n * F.STEPS,
+              "wgmma": n, "quant_matmul": 0}
+    if launches != want_l:
+        fail(f"fp8 reference run: launches {launches}, want {want_l}")
+    got = F.summary(steps, F.columns(cfg), *F.layer0_bits(cache))
+    del cache
+    err = np.abs(np.asarray(got["logits"]) - np.asarray(ref["logits"]))
+    margin = np.asarray(ref["margin"])
+    sure = margin > 2 * FP8_REF_TOL
+    argmax_ok = bool(np.all((np.asarray(got["argmax"])
+                             == np.asarray(ref["argmax"])) | ~sure))
+    hist = sum(int(np.abs(np.asarray(a) - np.asarray(b)).sum())
+               for a, b in zip(got["cache_histogram"],
+                               ref["cache_histogram"]))
+    ctrl_steps, _ = F.port_run(params, cfg, prompt, greedy, F.MAX_LEN, dev,
+                               torch.float32)
+    cols = F.columns(cfg)
+    ctrl_err = float(np.abs(ctrl_steps[..., cols]
+                            - np.asarray(ref["logits"])).max())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(max_abs_err=float(err.max()),
+               per_step=err.max(axis=(1, 2)).tolist(), argmax_ok=argmax_ok,
+               cache_hash_equal=got["cache_sha256"] == ref["cache_sha256"],
+               histogram_l1=hist, control_float32_cache_err=ctrl_err,
+               launches=launches, draw_s=draw_s,
+               p_nonzero_share_reference=ref["p_nonzero_share"])
+    print(f"17.2 qwen3-32b ({n} layers, full width) on an fp8 cache against "
+          f"the JAX package: max logit err {res['max_abs_err']:.4g} "
+          f"(tolerance {FP8_REF_TOL}; the port on the CPU 0.0202), argmax "
+          f"equal where sure {argmax_ok}, layer-0 cache hash equal "
+          f"{res['cache_hash_equal']}, histogram L1 {hist} (within "
+          f"{FP8_CACHE_FLIPS}); launches {launches}; control on a float32 "
+          f"cache {ctrl_err:.4g} (must exceed the tolerance); weights drawn "
+          f"in {draw_s:.1f} s")
+    if res["max_abs_err"] > FP8_REF_TOL or not argmax_ok \
+            or hist > FP8_CACHE_FLIPS:
+        fail(f"fp8 reference run differs: {res}")
+    if ctrl_err <= FP8_REF_TOL:
+        fail(f"fp8 control: the float32-cache run is within the fp8 "
+             f"reference's tolerance ({ctrl_err})")
+    return res
+
+
+def _fp8_serve(torch, dev, params, cfg, toks, plain: bool,
+               cache_dtype=None):
+    """Prefill of FP8_PROMPT tokens into a cache of FP8_CACHE rows (fp8,
+    or ``cache_dtype``) and FP8_STEPS decode steps on the given tokens,
+    on the kernels or their plain versions: (logits (1 + steps, B, V) on
+    the card, step seconds host-paced, launches, peak bytes)."""
+    from repro_torch.models import transformer as T
+    ctx = plain_kernels(torch) if plain else contextlib.nullcontext()
+    with ctx, torch.no_grad():
+        cache = T.init_cache(cfg, FP8_BATCH, FP8_CACHE,
+                             cache_dtype or torch.float8_e4m3fn, device=dev)
+        _fp8_zero(torch)
+        torch.cuda.reset_peak_memory_stats()
+        out, secs = [], []
+        for i in range(1 + FP8_STEPS):
+            t0 = time.perf_counter()
+            if i == 0:
+                logits, cache = T.prefill(params, toks[:, :FP8_PROMPT], cfg,
+                                          cache)
+            else:
+                at = FP8_PROMPT + i - 1
+                logits, cache = T.decode_step(params, toks[:, at:at + 1],
+                                              cfg, cache)
+            out.append(logits[:, -1].float())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = _fp8_counts()
+        peak = torch.cuda.max_memory_allocated()
+        del cache
+    return torch.stack(out), secs, launches, peak
+
+
+def run_qwen3_fp8(torch, dev):
+    """Phase 17.2 at full width: Qwen3-32B, ``FP8_LAYERS`` layers, batch
+    8, a 32,768-row fp8 cache, as the perf variants ``v1b`` (dense float32
+    weights, 8 KV heads) and ``v3`` (int4 codes, 16 replicated KV heads)
+    serve it: the launches counted exactly (a layer's attention a step,
+    the prefill's on the wgmma kernel, each decode step's on the fp8
+    split kernel; v3's 7 projections a layer and the head on
+    ``quant_matmul``), each run held to the same run on the kernels'
+    plain versions, with its step times (host-paced), decode tokens/s and
+    peak memory."""
+    import numpy as np
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import quantize_params
+    base = get("qwen3-32b").replace(n_layers=FP8_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dense = T.init_params(base, gen, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(17).integers(
+        0, base.vocab, size=(FP8_BATCH, FP8_PROMPT + FP8_STEPS)), device=dev)
+    runs = {}
+    for vname, overrides, quant in FP8_VARIANTS:
+        cfg = base.replace(**overrides)
+        params = quantize_params(dense, quant) if quant else dense
+        if quant:
+            del dense
+            gc.collect()
+            torch.cuda.empty_cache()
+        got, secs, launches, peak = _fp8_serve(torch, dev, params, cfg, toks,
+                                               False)
+        want, plain_secs, plain_launches, _ = _fp8_serve(
+            torch, dev, params, cfg, toks, True)
+        control = None
+        if not quant:   # the kernels on a float32 cache
+            ctrl, _, _, _ = _fp8_serve(torch, dev, params, cfg, toks, False,
+                                       torch.float32)
+            control = float((ctrl - want).abs().max())
+            del ctrl
+        n = cfg.n_layers
+        want_l = {"flash_attention": n * (1 + FP8_STEPS),
+                  "fp8": n * FP8_STEPS, "wgmma": n,
+                  "quant_matmul": (7 * n + 1) * (1 + FP8_STEPS) if quant
+                  else 0}
+        zero = dict.fromkeys(want_l, 0)
+        err = float((got - want).abs().max())
+        finite = bool(torch.isfinite(got).all())
+        del got, want
+        decode_s = sum(secs[1:]) / FP8_STEPS
+        res = dict(launches=launches, plain_launches=plain_launches,
+                   max_abs_err=err, tolerance=FP8_PLAIN_TOL,
+                   control_float32_cache_err=control,
+                   prefill_ms=secs[0] * 1e3, decode_ms=decode_s * 1e3,
+                   plain_prefill_ms=plain_secs[0] * 1e3,
+                   plain_decode_ms=sum(plain_secs[1:]) / FP8_STEPS * 1e3,
+                   decode_tokens_per_s=FP8_BATCH / decode_s,
+                   peak_gib=peak / 2 ** 30)
+        runs[vname] = res
+        print(f"17.2 qwen3-32b {vname} ({n} layers, batch {FP8_BATCH}, "
+              f"{FP8_CACHE}-row fp8 cache, {FP8_PROMPT} + {FP8_STEPS} "
+              f"tokens): max logit err vs the plain kernels {err:.4g} "
+              f"(tolerance {FP8_PLAIN_TOL}); launches {launches} (want "
+              f"{want_l}); prefill {res['prefill_ms']:.1f} ms, decode step "
+              f"{res['decode_ms']:.2f} ms host-paced = "
+              f"{res['decode_tokens_per_s']:.1f} tokens/s (plain "
+              f"{res['plain_decode_ms']:.2f} ms); peak "
+              f"{res['peak_gib']:.2f} GiB"
+              + ("" if control is None else f"; control on a float32 "
+                 f"cache {control:.4g} (must exceed the tolerance)"))
+        if launches != want_l or plain_launches != zero or not finite \
+                or err > FP8_PLAIN_TOL \
+                or (control is not None and control <= FP8_PLAIN_TOL):
+            fail(f"fp8 {vname}: {res}, want launches {want_l}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def run_fp8(torch, dev):
+    """Phase 17: the fp8 K/V cache on the card (17.1 the kernels, 17.2
+    Qwen3-32B's serving against the JAX package and the plain kernels)."""
+    t0 = time.perf_counter()
+    kernels, decode_32k = check_fp8_kernels(torch, dev)
+    t1 = time.perf_counter()
+    reference = run_fp8_reference(torch, dev)
+    variants = run_qwen3_fp8(torch, dev)
+    t2 = time.perf_counter()
+    return dict(kernels=kernels, decode_32k=decode_32k, reference=reference,
+                variants=variants, kernels_s=t1 - t0, serve_s=t2 - t1,
+                seconds=t2 - t0)
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     t_start = time.perf_counter()
@@ -4782,7 +5259,8 @@ def main() -> int:
             or not SCALE_REF.exists() or not TRAIN_REF.exists() \
             or not GEMMA_REF.exists() or not MOE_REF.exists() \
             or not VARIANTS_REF.exists() or not SSM_REF.exists() \
-            or not DRYRUN_REF.exists() or not FAMILY_REF.exists():
+            or not DRYRUN_REF.exists() or not FAMILY_REF.exists() \
+            or not FP8_REF.exists():
         fail("src/repro_torch or the JAX reference results are missing "
              "beside chip_smoke.py")
     sys.path.insert(0, str(ROOT / "src"))
@@ -4807,26 +5285,44 @@ def main() -> int:
 def _phases(torch, t_start, workers) -> int:
     from repro_torch.kernels import _build
     dev = torch.device("cuda")
+    # every nvcc starts now, one a source (fake_quant and quant_matmul
+    # first); phases 3, 4, 8 and 9's walks launch fake_quant or no kernel,
+    # so they run while the others build (their host times share the
+    # cores with the compilers and the dry run's niced workers)
     t0 = time.perf_counter()
-    built = _build.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(built)}")
-    for name, (secs, output) in built.items():
-        print(f"  {name}: {secs:.2f} s; ptxas: {ptxas_summary(output)}")
-
-    # 15.3's workers ran beside the build; no timed phase shares the host
-    pause_dryrun(workers, go=False)
+    _build.start()
+    built = _build.wait(("fake_quant",))
+    t3 = time.perf_counter()
     modes = check_kernels(torch, dev)
     model_shapes = check_model_shapes(torch, dev)
     launches, surrogate = run_slice(torch, dev)
+    print(f"phases 3-4 (fake_quant, the quickstart slice; beside the "
+          f"build): {time.perf_counter() - t3:.2f} s")
+    t8 = time.perf_counter()
+    coex, fronts = run_coexplore(torch, dev, surrogate)
+    print(f"phase 8 (co-exploration; beside the build): "
+          f"{time.perf_counter() - t8:.2f} s")
+    t9 = time.perf_counter()
+    scale = run_scale(torch, dev, fronts)
+    walks_s = time.perf_counter() - t9
+    built.update(_build.wait())
+    print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(built)} "
+          f"(phases 3, 4, 8 and 9.1-9.5 beside it)")
+    for name, (secs, output) in built.items():
+        print(f"  {name}: {secs:.2f} s; ptxas: {ptxas_summary(output)}")
+
+    # 15.3's workers ran beside the build; no later timed phase shares the
+    # host
+    pause_dryrun(workers, go=False)
+    t5 = time.perf_counter()
     qmm_err, fa_err, qmm_cast = check_serving_kernels(torch, dev)
     serve_launches, qmm, fa, serving = run_serving(torch, dev)
     qat = run_qat_serving(torch, dev)
-    t8 = time.perf_counter()
-    coex, fronts = run_coexplore(torch, dev, surrogate)
-    print(f"phase 8 (co-exploration): {time.perf_counter() - t8:.2f} s")
+    print(f"phases 5-7 (serving): {time.perf_counter() - t5:.2f} s")
     t9 = time.perf_counter()
-    scale = run_scale(torch, dev, fronts)
-    print(f"phase 9 (DSE at scale): {time.perf_counter() - t9:.2f} s")
+    scale["serving_telemetry"] = serve_with_telemetry(torch, dev)
+    print(f"phase 9 (DSE at scale: 9.1-9.5 {walks_s:.2f} s beside the "
+          f"build, 9.6 {time.perf_counter() - t9:.2f} s)")
     t10 = time.perf_counter()
     training = run_training(torch, dev)
     print(f"phase 10 (training): {time.perf_counter() - t10:.2f} s")
@@ -4858,6 +5354,9 @@ def _phases(torch, t_start, workers) -> int:
           f"{families['backward_s']:.2f} s, 16.2-16.3 "
           f"{families['train_s']:.2f} s, 16.4 "
           f"{families['reference_s']:.2f} s): {families['seconds']:.2f} s")
+    fp8 = run_fp8(torch, dev)
+    print(f"phase 17 (the fp8 K/V cache: 17.1 {fp8['kernels_s']:.2f} s, 17.2 "
+          f"{fp8['serve_s']:.2f} s): {fp8['seconds']:.2f} s")
 
     # the row's main numbers: one grouped launch over the 15 VGG-16
     # weights, affine-8, float32; the bfloat16 and per-weight times beside
@@ -5041,6 +5540,36 @@ def _phases(torch, t_start, workers) -> int:
         unit="one Gemma-3-1B global layer's gradient, 2 x 1024 tokens, 4/1 "
              "heads of 256, float32 (the QAT model's types)",
         shapes=wide_bwd))
+    # the split and mma kernels on e4m3 K and V
+    # (csrc/flash_attention_fp8.cu): launches from 17.2's runs (every
+    # decode step's; the prefills ran the wgmma kernel on the same cache,
+    # counted beside), the main numbers decode_32k's on peaked logits
+    # (17.1), SDPA on the bfloat16 cache beside it (not the same function)
+    main_fp8 = next(r for r in fp8["kernels"] if r["name"]
+                    == "decode_32k peaked" and r["q_type"] == "float32")
+    fp8_runs = [fp8["reference"]["launches"]] + [
+        r["launches"] for r in fp8["variants"].values()]
+    kernels.append(dict(
+        name="flash_attention_fp8", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_fp8.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:71",
+        launches=sum(r["fp8"] for r in fp8_runs),
+        wgmma_launches=sum(r["wgmma"] for r in fp8_runs),
+        max_abs_err=max(r["max_abs_err"] for r in fp8["kernels"]),
+        past_tolerance=max(r["past_tolerance"] for r in fp8["kernels"]),
+        ms=main_fp8["ms"], plain_ms=main_fp8["plain_ms"],
+        bound_ms=main_fp8["bound_ms"], bound_by=main_fp8["bound_by"],
+        library_ms=None,
+        library="none computes it (P rounded to e4m3); "
+                "sdpa_bf16_cache_ms: SDPA on the cache upcast to bfloat16, "
+                "not the same function",
+        sdpa_bf16_cache_ms=fp8["decode_32k"]["sdpa_bf16_cache_ms"],
+        bf16_cache_ms=fp8["decode_32k"]["bf16_cache_ms"],
+        bf16_cache_bound_ms=fp8["decode_32k"]["bf16_cache_bound_ms"],
+        unit="Qwen3-32B decode_32k v3's attention: 8 x 1 x 64 heads, 16 "
+             "replicated KV heads of 128, 32,768 e4m3 keys, float32 q, "
+             "round_p",
+        shapes=fp8["kernels"]))
     print(f"smoke: {time.perf_counter() - t_start:.2f} s, the build "
           f"included")
     print(json.dumps({"kernels": kernels, "serving": serving, "qat": qat,
@@ -5052,7 +5581,9 @@ def _phases(torch, t_start, workers) -> int:
                               if k != "kernel_112"},
                       "launch": launch, "dryrun": dryrun,
                       "families": {k: v for k, v in families.items()
-                                   if k != "backward"}}))
+                                   if k != "backward"},
+                      "fp8": {k: v for k, v in fp8.items()
+                              if k != "kernels"}}))
     print(json.dumps({"train": {k: v for k, v in training.items()
                                 if k != "backward"}}))
     print(json.dumps({"ok": True, "device": {

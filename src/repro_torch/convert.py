@@ -75,13 +75,41 @@ def ppa_models_from_numpy(models: dict, device=None) -> PPAModels:
         for pe, targets in models.items()})
 
 
+# numpy has no float8 dtype: JAX's float8 arrays come back as
+# ml_dtypes' (by name), which torch.from_numpy refuses
+_FLOAT8 = {"float8_e4m3fn": torch.float8_e4m3fn}
+
+
+def tensor_from_numpy(x, device=None) -> torch.Tensor:
+    """A numpy array (``np.asarray`` of a JAX array) as a tensor of its
+    dtype.  A float8_e4m3fn array moves as its uint8 bit patterns, viewed
+    as ``torch.float8_e4m3fn`` on arrival: exact."""
+    device = resolve_device(device)
+    x = np.asarray(x)
+    fp8 = _FLOAT8.get(x.dtype.name)
+    if fp8 is not None:
+        bits = np.ascontiguousarray(x).view(np.uint8)
+        return torch.from_numpy(bits.copy()).view(fp8).to(device)
+    return torch.tensor(np.array(x), device=device)
+
+
+def bits_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; a float8 one as its uint8 bit patterns
+    (view them as ``ml_dtypes.float8_e4m3fn`` on the JAX side)."""
+    t = t.detach().cpu()
+    if t.dtype in _FLOAT8.values():
+        t = t.view(torch.uint8)
+    return t.numpy()
+
+
 def params_from_numpy(tree, device=None):
     """A model's parameter pytree with numpy leaves (the JAX package's
     layout of any family: the decoders' stacked ``layers``, Whisper's
     ``enc_layers`` / ``dec_layers`` and LayerNorm ``{"scale", "bias"}``
     leaves, packed ``{"codes__<mode>": ..., "scale": ...}`` leaves) ->
     the same nested dicts and lists of tensors, each leaf keeping its
-    dtype (float32 weights, uint8/int8 codes)."""
+    dtype (float32 weights, uint8/int8 codes; a float8 cache by its bits,
+    ``tensor_from_numpy``)."""
     device = resolve_device(device)
 
     def f(x):
@@ -89,7 +117,7 @@ def params_from_numpy(tree, device=None):
             return {k: f(v) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return type(x)(f(v) for v in x)
-        return torch.tensor(np.array(x), device=device)
+        return tensor_from_numpy(x, device)
 
     return f(tree)
 

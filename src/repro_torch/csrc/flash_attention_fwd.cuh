@@ -69,11 +69,19 @@
 // The window and the soft-cap are the template parameter MASK of both
 // kernels: a launch without either runs kernels without their branches.
 //
+// K and V may also be float8_e4m3fn (an fp8 K/V cache; q stays float32
+// or bfloat16), built by flash_attention_fp8.cu.  Every e4m3 value (3
+// mantissa bits, exponents 2^-9 .. 448) is exact in bf16 and in float32,
+// so K and V are converted in registers and enter the products as one
+// exact bf16 part (the mma kernel) or as floats (the split kernel): P V
+// is still summed in float32 (no fp8 tensor-core product, whose
+// accumulator keeps fewer bits).
+//
 // Both kernels run one online-softmax pass, except with round_p and a
-// bfloat16 V: the rounding needs the final max M and sum L before any
-// P V, so a first pass computes (M, L) (merged as above) and a second
-// forms p = exp(s - M) / L, rounds it and accumulates P V; the logits of
-// the two passes are the same bits.  Chunks and tiles past the causal
+// bfloat16 or e4m3 V: the rounding needs the final max M and sum L
+// before any P V, so a first pass computes (M, L) (merged as above) and a
+// second forms p = exp(s - M) / L, rounds it to V's type and accumulates
+// P V; the logits of the two passes are the same bits.  Chunks and tiles past the causal
 // limit of a block's last query, or below the window of its first, are
 // never visited.  The inputs are read
 // through their strides in the model's (B, S, H, D) layout: no copy.
@@ -87,6 +95,8 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
@@ -95,6 +105,8 @@
 namespace cg = cooperative_groups;
 
 namespace {
+
+using fp8 = __nv_fp8_e4m3;
 
 constexpr int kThreads = 128;
 constexpr int kMaxSplits = 8;    // a portable cluster size
@@ -119,17 +131,33 @@ struct Args {
   int splits;   // the cluster's blocks along the keys
 };
 
+// An e4m3 code as a float (exact: through the f16 conversion).
+__device__ __forceinline__ float e4m3_float(__nv_fp8_storage_t x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, __NV_E4M3)));
+}
+// Two e4m3 codes (low byte first) as floats.
+__device__ __forceinline__ float2 e4m3x2_float2(uint16_t x) {
+  return __half22float2(
+      __half2(__nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)x, __NV_E4M3)));
+}
+
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float widen(fp8 v) { return e4m3_float(v.__x); }
 
-// x rounded to T, as a float.
+// x rounded to T, as a float (to e4m3: to nearest even; the probabilities
+// it takes lie in [0, 1], far from the saturation at 448).
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return x; }
 template <>
 __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+template <>
+__device__ __forceinline__ float round_to<fp8>(float x) {
+  return e4m3_float(__nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3));
 }
 
 template <typename T>
@@ -137,6 +165,12 @@ __device__ __forceinline__ T zero_of() { return 0.0f; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
   return __float2bfloat16_rn(0.0f);
+}
+template <>
+__device__ __forceinline__ fp8 zero_of<fp8>() {
+  fp8 z;
+  z.__x = 0;
+  return z;
 }
 
 __device__ __forceinline__ uint32_t bits2(__nv_bfloat162 v) {
@@ -167,6 +201,19 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, bool vec,
   } else {
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[c] = __bfloat162float(p[c]);
+  }
+}
+
+__device__ __forceinline__ void load4(const fp8* p, bool vec,
+                                      float (&o)[4]) {
+  if (vec) {
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+    const float2 a = e4m3x2_float2((uint16_t)(u & 0xffffu));
+    const float2 b = e4m3x2_float2((uint16_t)(u >> 16));
+    o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[c] = widen(p[c]);
   }
 }
 
@@ -1016,7 +1063,7 @@ mma_kernel(const Args a) {
               (s == -INFINITY) ? 0.0f : expf(s - m[r >> 1]) / l[r >> 1];
           s = a.round_p ? round_to<TKV>(p) : p;
         }
-      if (a.round_p && sizeof(TKV) == 2)
+      if (a.round_p && sizeof(TKV) <= 2)   // P exact in one bf16 part
         pv(std::integral_constant<int, 1>());
       else
         pv(std::integral_constant<int, 3>());
@@ -1195,12 +1242,16 @@ int dispatch_d(int D, const Args& a, const Launch& c, int variant, int rows) {
   }
 }
 
+// K and V's types (the entries' `kv_type`): float32, bfloat16, e4m3.
+enum KvType { kKvF32 = 0, kKvBf16 = 1, kKvFp8 = 2 };
+
 // The entry points' body for the kernels built with MASK (the window and
-// the soft-cap taken) or without (both refused).
-template <bool MASK>
+// the soft-cap taken) or without (both refused), on float32 / bfloat16 K
+// and V or (FP8) on e4m3 K and V.
+template <bool MASK, bool FP8>
 int launch_impl(
     const void* q, const void* k, const void* v, void* out,
-    const void* q_start, int q_bf16, int kv_bf16, int B, int Sq, int Skv,
+    const void* q_start, int q_bf16, int kv_type, int B, int Sq, int Skv,
     int Hq, int Hkv, int D, const long long* q_strides,
     const long long* k_strides, const long long* v_strides,
     const long long* o_strides, float scale, int causal, int round_p,
@@ -1211,6 +1262,8 @@ int launch_impl(
   if (window < 0 || !(softcap >= 0.0f) || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   if (!MASK && (window > 0 || softcap > 0.0f))
+    return (int)cudaErrorInvalidValue;
+  if (FP8 != (kv_type == kKvFp8) || kv_type < kKvF32 || kv_type > kKvFp8)
     return (int)cudaErrorInvalidValue;
   const bool ok = (variant == 0 && (rows == 4 || rows == 8) && splits >= 1
                    && splits <= kMaxSplits)
@@ -1231,14 +1284,19 @@ int launch_impl(
   a.window = window;
   a.causal = causal;
   a.round_p = round_p;
-  a.two_pass = round_p && kv_bf16;
+  a.two_pass = round_p && kv_type != kKvF32;
   a.vec = vec;
   a.splits = splits;
   const long long total = (long long)a.G * Sq;
   const Launch c{B, (int)((total + rows - 1) / rows), splits,
                  static_cast<cudaStream_t>(stream)};
   int rc;
-  if (q_bf16)
+  const bool kv_bf16 = kv_type == kKvBf16;
+  (void)kv_bf16;
+  if constexpr (FP8)
+    rc = q_bf16 ? dispatch_d<__nv_bfloat16, fp8, MASK>(D, a, c, variant, rows)
+                : dispatch_d<float, fp8, MASK>(D, a, c, variant, rows);
+  else if (q_bf16)
     rc = kv_bf16 ? dispatch_d<__nv_bfloat16, __nv_bfloat16, MASK>(
                        D, a, c, variant, rows)
                  : dispatch_d<__nv_bfloat16, float, MASK>(D, a, c, variant,

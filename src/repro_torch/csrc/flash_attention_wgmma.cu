@@ -34,8 +34,11 @@
 //   reads it as A with V MN-major, a chain a piece of 64 columns added to
 //   O in registers (64 x D float32: 128 registers a thread at head_dim
 //   256).
-// - With round_p and a bfloat16 V a first pass forms the rows' (M, L) and
-//   a second P = exp(s - M) / L rounded to bf16, as the other kernels do.
+// - With round_p and a bfloat16 or e4m3 V a first pass forms the rows'
+//   (M, L) and a second P = exp(s - M) / L rounded to V's type (one exact
+//   bf16 part either way), as the other kernels do.
+// - An fp8 (float8_e4m3fn) K and V are packed as one exact bf16 part each:
+//   the products stay bf16 wgmmas summed in float32.
 // - Where the plan splits a row tile's chunks across a thread-block
 //   cluster, the ranks' partial (m, l, O) meet through distributed shared
 //   memory in rank order, as in the mma kernel: two calls give the same
@@ -78,6 +81,7 @@ struct Args {
   float scale, softcap;    // softcap 0: off
   int window;              // 0: global
   int causal, two_pass;
+  int p_e4m3;              // two_pass: P rounded to e4m3 (else bf16)
   int qp, kp, vp;          // parts of q, K, V
   int splits;              // the cluster's blocks along the keys
 };
@@ -353,13 +357,18 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
             }
             m[h2] = mn;
           }
-        } else {                   // P = exp(s - M) / L rounded to bf16
+        } else {                   // P = exp(s - M) / L rounded to V's type
 #pragma unroll
           for (int i = 0; i < 32; ++i) {
             const int h2 = (i >> 1) & 1;
             const float pe =
                 s[i] == -INFINITY ? 0.0f : expf(s[i] - m[h2]) / l[h2];
-            s[i] = __bfloat162float(__float2bfloat16_rn(pe));
+            s[i] = a.p_e4m3
+                       ? __half2float(__half(__nv_cvt_fp8_to_halfraw(
+                             __nv_cvt_float_to_fp8(pe, __NV_SATFINITE,
+                                                   __NV_E4M3),
+                             __NV_E4M3)))
+                       : __bfloat162float(__float2bfloat16_rn(pe));
           }
         }
         // P's parts into pbuf (rows in M, keys in K), once every warp's
@@ -543,7 +552,8 @@ extern "C" int flash_attention_wgmma_smem(int D) {
 // q: (B, Sq, Hq, D), k, v: (B, Skv, Hkv, D), out: (B, Sq, Hq, D) float32,
 // each by its (batch, sequence, head) element strides with the D axis
 // contiguous (out's rows 8-byte aligned); q_start: (B,) int32 on the
-// card; q_bf16, kv_bf16: 0 = float32, 1 = bfloat16; D in 112, 128, 256.
+// card; q_bf16: 0 = float32, 1 = bfloat16; kv_type: 0 = float32, 1 =
+// bfloat16, 2 = float8_e4m3fn; D in 112, 128, 256.
 // round_p, window, softcap as in flash_attention_launch; splits: the
 // cluster's blocks along the keys (1..8); packed: bf16 scratch of B * Hkv
 // * 64 * D * (rtiles * QP + ktiles * (KP + VP)) elements (rtiles =
@@ -552,11 +562,13 @@ extern "C" int flash_attention_wgmma_smem(int D) {
 // 1), 16-byte aligned.  Returns the first refused launch's CUDA error, or 0.
 extern "C" int flash_attention_wgmma_launch(
     const void* q, const void* k, const void* v, void* out,
-    const void* q_start, int q_bf16, int kv_bf16, int B, int Sq, int Skv,
+    const void* q_start, int q_bf16, int kv_type, int B, int Sq, int Skv,
     int Hq, int Hkv, int D, const long long* q_strides,
     const long long* k_strides, const long long* v_strides,
     const long long* o_strides, float scale, int causal, int round_p,
     int window, float softcap, int splits, void* packed, void* stream) {
+  if (kv_type < kSrcF32 || kv_type > kSrcE4m3)
+    return (int)cudaErrorInvalidValue;
   if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
   if (Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || B > 65535 || Hkv > 65535)
     return (int)cudaErrorInvalidValue;
@@ -568,8 +580,9 @@ extern "C" int flash_attention_wgmma_launch(
   const long long rtiles = ((long long)G * Sq + kTile - 1) / kTile;
   const long long ktiles = ((long long)Skv + kTile - 1) / kTile;
   if (rtiles * splits > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int qp = q_bf16 ? 1 : 3, kp = (!q_bf16 && !kv_bf16) ? 3 : 1,
-            vp = kv_bf16 ? 1 : 3;
+  const bool kv_f32 = kv_type == kSrcF32;
+  const int qp = q_bf16 ? 1 : 3, kp = (!q_bf16 && kv_f32) ? 3 : 1,
+            vp = kv_f32 ? 3 : 1;
   const long long plane = (long long)B * Hkv * kTile * D;
   bf16* pq = static_cast<bf16*>(packed);
   bf16* pk = pq + plane * rtiles * qp;
@@ -579,9 +592,9 @@ extern "C" int flash_attention_wgmma_launch(
   pa.B = B; pa.Hkv = Hkv; pa.D = D;
   pa.job[0] = PackJob{q, q_bf16, q_strides[0], q_strides[1], q_strides[2],
                       Sq, G, qp, (int)rtiles, pq};
-  pa.job[1] = PackJob{k, kv_bf16, k_strides[0], k_strides[1], k_strides[2],
+  pa.job[1] = PackJob{k, kv_type, k_strides[0], k_strides[1], k_strides[2],
                       Skv, 1, kp, (int)ktiles, pk};
-  pa.job[2] = PackJob{v, kv_bf16, v_strides[0], v_strides[1], v_strides[2],
+  pa.job[2] = PackJob{v, kv_type, v_strides[0], v_strides[1], v_strides[2],
                       Skv, 1, vp, (int)ktiles, pv};
   int rc = pack(pa, 3, s);
   if (rc) return rc;
@@ -596,7 +609,8 @@ extern "C" int flash_attention_wgmma_launch(
   a.softcap = softcap;
   a.window = window;
   a.causal = causal;
-  a.two_pass = round_p && kv_bf16;
+  a.two_pass = round_p && !kv_f32;
+  a.p_e4m3 = kv_type == kSrcE4m3;
   a.qp = qp; a.kp = kp; a.vp = vp;
   a.splits = splits;
   const bool mask = window > 0 || softcap > 0.0f;

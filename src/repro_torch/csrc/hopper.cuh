@@ -8,7 +8,8 @@
 // + g of one KV head, or K or V by keys) is cut into tiles of 64 rows, and
 // each tile is stored as P bf16 parts (a float32 value is three: hi + mid
 // + lo == x exactly, `split3`; a bfloat16 value, or K rounded to a
-// bfloat16 q, is one), each part a 64 x D plane of 8 x 8 core matrices:
+// bfloat16 q, is one, and so is an e4m3 value: exact in bf16), each part a
+// 64 x D plane of 8 x 8 core matrices:
 // element (row, col) of a part sits at
 //
 //   ((col / 8) * 8 + row / 8) * 64 + (row % 8) * 8 + col % 8
@@ -30,6 +31,8 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 namespace hop {
@@ -84,9 +87,12 @@ __device__ __forceinline__ int packed_at(int row, int col) {
 // Packing
 // ---------------------------------------------------------------------------
 
+// A source's type (PackJob.src_type).
+enum SrcType { kSrcF32 = 0, kSrcBf16 = 1, kSrcE4m3 = 2 };
+
 struct PackJob {
   const void* src;
-  int bf16_src;              // 1: bfloat16 source, else float32
+  int src_type;              // SrcType: float32, bfloat16 or float8_e4m3fn
   long long sb, ss, sh;      // element strides of (batch, sequence, head)
   int S;                     // positions of the sequence axis
   int G;                     // rows a position a KV head (G query heads, or 1)
@@ -144,8 +150,27 @@ __global__ void __launch_bounds__(256) pack_kernel(const PackArgs a) {
     float x[8];
     if (pos < j.S) {
       const long long off = b * j.sb + pos * j.ss + h * j.sh + cb * 8LL;
-      // one or two 16-byte loads where the row's columns are aligned
-      if (j.bf16_src) {
+      // one or two 16-byte loads (one 8-byte load of e4m3) where the
+      // row's columns are aligned
+      if (j.src_type == kSrcE4m3) {
+        const uint8_t* p = static_cast<const uint8_t*>(j.src) + off;
+        uint32_t w[2];
+        if ((reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+          const uint2 u = *reinterpret_cast<const uint2*>(p);
+          w[0] = u.x;
+          w[1] = u.y;
+        } else {
+          w[0] = p[0] | p[1] << 8 | p[2] << 16 | (uint32_t)p[3] << 24;
+          w[1] = p[4] | p[5] << 8 | p[6] << 16 | (uint32_t)p[7] << 24;
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {   // cvt.f16x2.e4m3x2: exact
+          const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+              (__nv_fp8x2_storage_t)(w[c / 2] >> (16 * (c % 2))), __NV_E4M3)));
+          x[2 * c] = f.x;
+          x[2 * c + 1] = f.y;
+        }
+      } else if (j.src_type == kSrcBf16) {
         const bf16* p = static_cast<const bf16*>(j.src) + off;
         if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
           const uint4 u = *reinterpret_cast<const uint4*>(p);

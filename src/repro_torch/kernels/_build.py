@@ -28,9 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-I", str(CSRC))
 
 SOURCES = ("fake_quant", "quant_matmul", "flash_attention",
-           "flash_attention_masked", "flash_attention_bwd",
-           "flash_attention_wgmma", "flash_attention_bwd_wgmma",
-           "flash_attention_bwd_wgmma_masked")
+           "flash_attention_masked", "flash_attention_fp8",
+           "flash_attention_bwd", "flash_attention_wgmma",
+           "flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_masked")
 
 
 def library_path(name: str) -> Path:
@@ -52,36 +52,70 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(names=SOURCES) -> dict:
-    """Compile every missing library in ``names``, one ``nvcc`` per source,
-    all started together.  Returns ``{name: (seconds, compiler output)}``
-    for the libraries it built; raises if any build fails."""
+# name -> (thread, result) of the builds in flight (``start``); the thread
+# waits for its nvcc and fills result with (seconds, compiler output,
+# return code)
+_running: dict = {}
+
+
+def start(names=SOURCES) -> None:
+    """Start one ``nvcc`` for each missing library of ``names``, all
+    together, and return at once: ``wait`` (or ``load``) collects them."""
+    import threading
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started = {}
     for name in names:
         lib = library_path(name)
-        if lib.exists():
+        if lib.exists() or name in _running:
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        started[name] = (proc, tmp, lib, time.perf_counter())
+        result: list = []
+
+        def collect(proc=proc, tmp=tmp, lib=lib, result=result,
+                    t0=time.perf_counter()):
+            output, _ = proc.communicate()
+            if proc.returncode == 0:
+                os.replace(tmp, lib)  # atomic: a loader never sees half
+            result.append((time.perf_counter() - t0, output,
+                           proc.returncode))
+
+        thread = threading.Thread(target=collect, daemon=True)
+        thread.start()
+        _running[name] = (thread, result)
+
+
+def wait(names=SOURCES) -> dict:
+    """Wait for the builds of ``names`` in flight.  Returns ``{name:
+    (seconds, compiler output)}`` for the libraries they built, each
+    build's own seconds; raises if any build failed."""
     built, failed = {}, []
-    for name, (proc, tmp, lib, t0) in started.items():
-        output, _ = proc.communicate()
-        if proc.returncode != 0:
+    for name in names:
+        if name not in _running:
+            continue
+        thread, result = _running.pop(name)
+        thread.join()
+        secs, output, rc = result[0]
+        if rc != 0:
             failed.append(f"{name}:\n{output}")
             continue
-        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
-        built[name] = (time.perf_counter() - t0, output)
+        built[name] = (secs, output)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return built
 
 
+def build(names=SOURCES) -> dict:
+    """Compile every missing library in ``names``, one ``nvcc`` per source,
+    all started together, and wait for them (``start``, ``wait``)."""
+    start(names)
+    return wait(names)
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library ``name`` (built first if missing)."""
+    """The built library ``name`` (built first if missing, or waited for
+    if ``start`` is building it)."""
     build((name,))
     return ctypes.CDLL(str(library_path(name)))

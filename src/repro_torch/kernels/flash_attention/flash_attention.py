@@ -1,9 +1,16 @@
 """Flash attention forward: the wrapper of the CUDA kernels in
 ``repro_torch/csrc/flash_attention_fwd.cuh`` (built by
-``csrc/flash_attention.cu`` without a window or a soft-cap and by
-``csrc/flash_attention_masked.cu`` with them) and
-``csrc/flash_attention_wgmma.cu``, which replace the Pallas kernel
+``csrc/flash_attention.cu`` without a window or a soft-cap, by
+``csrc/flash_attention_masked.cu`` with them, and for an fp8 K/V cache
+by ``csrc/flash_attention_fp8.cu``) and ``csrc/flash_attention_wgmma.cu``,
+which replace the Pallas kernel
 ``repro.kernels.flash_attention.flash_attention``.
+
+q is float32 or bfloat16; K and V share a type, float32, bfloat16 or
+``float8_e4m3fn`` (the reference's fp8 cache: the kernels convert the
+e4m3 codes in registers, exactly, and sum P V in float32; with
+``round_p`` the normalized P is rounded to e4m3 as the reference rounds
+it).  The backward takes float32 or bfloat16 only.
 
 Three entry points, one launch a call:
 
@@ -26,7 +33,9 @@ stand-in declares its work: the plain version's
 products (dense, as the reference's einsums count them: 4*B*Hq*Sq*Skv*D
 forward, 8*B*Hq*Sq*Skv*D backward) and the bytes it reads and writes.
 ``flash_attention.launches`` counts the kernels' launches through any of
-the three (``flash_attention.wgmma_launches`` those of the wgmma variant).
+the three (``flash_attention.wgmma_launches`` those of the wgmma variant,
+``flash_attention.fp8_launches`` those of the split and mma kernels on
+e4m3 K and V).
 
 The gradient: on CUDA tensors that need one (autograd on),
 ``flash_attention_gqa`` is a ``torch.autograd.Function`` whose forward is
@@ -88,7 +97,9 @@ from repro_torch.kernels.flash_attention.ref import (CLUSTER_MAX, SMS,
 _HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 BWD_HEAD_DIMS = _HEAD_DIMS   # the backward kernels' instances
 WGMMA_DIMS = (112, 128, 256)  # the wgmma kernels' (forward and backward)
-_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TYPES = {torch.float32: 0, torch.bfloat16: 1}   # q's (and the backward's)
+FP8 = torch.float8_e4m3fn
+_KV_TYPES = {**_TYPES, FP8: 2}                     # K and V's
 _VARIANTS = {"split": 0, "mma": 1}   # the split / mma entry's variants
 _Strides = ctypes.c_longlong * 3
 
@@ -255,11 +266,13 @@ def _tiles(n: int) -> int:
     return _ceil(n, TILE)
 
 
-def fwd_packed_elems(b, sq, skv, hq, hkv, d, q_bf16, kv_bf16) -> int:
-    """bf16 elements of the forward wgmma kernel's packed q, K, V."""
+def fwd_packed_elems(b, sq, skv, hq, hkv, d, q_bf16, kv_exact) -> int:
+    """bf16 elements of the forward wgmma kernel's packed q, K, V
+    (``kv_exact``: K and V are bfloat16 or e4m3, one exact bf16 part
+    each)."""
     qp = 1 if q_bf16 else 3
-    kp = 3 if not q_bf16 and not kv_bf16 else 1
-    vp = 1 if kv_bf16 else 3
+    kp = 3 if not q_bf16 and not kv_exact else 1
+    vp = 1 if kv_exact else 3
     plane = b * hkv * TILE * d
     return plane * (_tiles(hq // hkv * sq) * qp + _tiles(skv) * (kp + vp))
 
@@ -272,11 +285,13 @@ def bwd_packed_elems(b, sq, skv, hq, hkv, d, bf16) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(masked: bool):
+def _entry(masked: bool, fp8: bool = False):
     """The split / mma kernels' entry: built without the window and the
     soft-cap (``csrc/flash_attention.cu``) or with them
-    (``csrc/flash_attention_masked.cu``)."""
-    name = "flash_attention_masked" if masked else "flash_attention"
+    (``csrc/flash_attention_masked.cu``); on e4m3 K and V, with or
+    without them (``csrc/flash_attention_fp8.cu``)."""
+    name = ("flash_attention_fp8" if fp8 else
+            "flash_attention_masked" if masked else "flash_attention")
     fn = getattr(_build.load(name), f"{name}_launch")
     fn.argtypes = ([ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 8
@@ -309,6 +324,7 @@ def _check(q, k, v, q_start):
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    check_types(q, k, v)
     if k.shape[1] < 1 or k.shape[2] < 1 or hq % k.shape[2]:
         raise ValueError(f"flash attention needs Skv >= 1 and Hq a multiple "
                          f"of Hkv, got {tuple(k.shape)} for Hq={hq}")
@@ -317,6 +333,17 @@ def _check(q, k, v, q_start):
         raise ValueError(f"flash attention needs q_start of shape ({b},) on "
                          f"{q.device}, got {tuple(q_start.shape)} on "
                          f"{q_start.device}")
+
+
+def check_types(q, k, v):
+    """What the forward kernels take: a float32 or bfloat16 q, and K and
+    V of one type, float32, bfloat16 or float8_e4m3fn (an fp8 cache)."""
+    if q.dtype not in _TYPES or k.dtype not in _KV_TYPES \
+            or v.dtype != k.dtype:
+        raise ValueError(f"flash attention takes a float32 or bfloat16 q "
+                         f"and k, v of one type, float32, bfloat16 or "
+                         f"float8_e4m3fn, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
 
 
 def _one_type(q, k, v):
@@ -351,10 +378,6 @@ def _launch(q, k, v, q_start, causal: bool, scale: float, round_p: bool,
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
-    if q.dtype not in _TYPES or k.dtype not in _TYPES or v.dtype != k.dtype:
-        raise ValueError(f"flash attention takes float32 or bfloat16 q and "
-                         f"k, v of one type, float32 or bfloat16, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.stride(3) != 1:
             raise ValueError(f"flash attention needs {name} on {q.device} "
@@ -384,18 +407,18 @@ def _launch(q, k, v, q_start, causal: bool, scale: float, round_p: bool,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  q_start.data_ptr(), _TYPES[q.dtype], _TYPES[k.dtype],
+                  q_start.data_ptr(), _TYPES[q.dtype], _KV_TYPES[k.dtype],
                   b, sq, skv, hq, hkv, d, *strides, scale or d ** -0.5,
                   int(causal), int(round_p), int(window), float(softcap))
         if p.variant == "wgmma":
             packed = torch.empty(fwd_packed_elems(
                 b, sq, skv, hq, hkv, d, q.dtype == torch.bfloat16,
-                k.dtype == torch.bfloat16), dtype=torch.bfloat16,
+                k.dtype != torch.float32), dtype=torch.bfloat16,
                 device=q.device)
             rc = _wgmma_entry()(*common, p.splits, packed.data_ptr(),
                                 stream)
         else:
-            rc = _entry(bool(window or softcap))(
+            rc = _entry(bool(window or softcap), k.dtype == FP8)(
                 *common, _VARIANTS[p.variant], p.rows, p.splits,
                 int(_vec_ok(k) and _vec_ok(v)), stream)
     if rc != 0:
@@ -404,6 +427,8 @@ def _launch(q, k, v, q_start, causal: bool, scale: float, round_p: bool,
     flash_attention.launches += 1
     if p.variant == "wgmma":
         flash_attention.wgmma_launches += 1
+    elif k.dtype == FP8:
+        flash_attention.fp8_launches += 1
     _declare("flash_attention", 2, q, k, (q, k, v, q_start), (out,))
     return out
 
@@ -601,6 +626,9 @@ flash_attention.backward_launches = 0
 # forward's prefill kernel, or the backward's two)
 flash_attention.wgmma_launches = 0
 flash_attention.backward_wgmma_launches = 0
+# and those of the split / mma kernels on an e4m3 K/V cache
+# (``csrc/flash_attention_fp8.cu``)
+flash_attention.fp8_launches = 0
 
 
 def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

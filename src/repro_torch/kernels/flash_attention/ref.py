@@ -127,6 +127,29 @@ def _visible(q_start, sq: int, skv: int, device,
     return ok
 
 
+def attention_probs(q, k, q_start, causal: bool = True, scale: float = 0.0,
+                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """``ref_attention_gqa``'s normalized probabilities P (B, Hkv, G, Sq,
+    Skv), float32, before any rounding: exactly 0 at a hidden key."""
+    check_mask(causal, window, softcap)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.to(torch.float32).reshape(b, sq, hkv, hq // hkv, d)
+    kq = k.to(q.dtype).to(torch.float32)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kq) * _scale(d, scale)
+    logits = soft_cap(logits, softcap)
+    if causal:
+        ok = _visible(q_start, sq, skv, q.device, window)       # (B, Sq, Skv)
+        logits = torch.where(ok[:, None, None], logits, MASKED)
+    return torch.softmax(logits, dim=-1)
+
+
+def round_probs(probs: torch.Tensor, dtype) -> torch.Tensor:
+    """The normalized probabilities (B, Hkv, G, Sq, Skv) rounded to V's
+    type (``round_p``); to e4m3 to nearest even (P lies in [0, 1])."""
+    return probs.to(dtype)
+
+
 def ref_attention_gqa(q, k, v, q_start, causal: bool = True,
                       scale: float = 0.0, round_p: bool = False,
                       window: int = 0,
@@ -139,20 +162,17 @@ def ref_attention_gqa(q, k, v, q_start, causal: bool = True,
     ``_attention_dynwin``): the logits are q . (K rounded to q's type),
     summed in float32, scaled, soft-capped, masked; with ``round_p`` the
     probabilities are rounded to V's type before P V (a no-op for float32
-    V)."""
-    check_mask(causal, window, softcap)
+    V).  K and V may be float8_e4m3fn (an fp8 cache): they widen exactly,
+    and the normalized P, in [0, 1], rounds to e4m3 to nearest even, as
+    JAX's ``astype`` rounds it (torch's cast saturates past 448 where JAX
+    gives NaN, which no probability reaches).  Without ``round_p`` and
+    with a float32 q this is the reference's ``layers._attend`` on such a
+    cache: every operand upcast to float32, float32 P."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    qg = q.to(torch.float32).reshape(b, sq, hkv, hq // hkv, d)
-    kq = k.to(q.dtype).to(torch.float32)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kq) * _scale(d, scale)
-    logits = soft_cap(logits, softcap)
-    if causal:
-        ok = _visible(q_start, sq, skv, q.device, window)       # (B, Sq, Skv)
-        logits = torch.where(ok[:, None, None], logits, MASKED)
-    probs = torch.softmax(logits, dim=-1)
+    probs = attention_probs(q, k, q_start, causal, scale, window, softcap)
     if round_p:
-        probs = probs.to(v.dtype)
+        probs = round_probs(probs, v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(torch.float32),
                        v.to(torch.float32))
     return out.reshape(b, sq, hq, d)
@@ -374,12 +394,12 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
     ``flash_attention.py``), in float32 torch: every block's rows (query,
     head of the group) against its keys, split across the ranks of its
     cluster by the kernel's own formulas; each rank's partial softmax
-    (m, l, acc) merged in rank order, or, with ``round_p`` and bfloat16
-    V, two passes (global (M, L) first, then P = exp(s - M) / L rounded
-    to V's type).  The ``mma`` and ``wgmma`` variants multiply bf16
-    operands: K
-    rounded to bf16 for a bfloat16 q; a float32 q and K, P and a float32
-    V as their three bf16 parts, each product exact.  It follows the
+    (m, l, acc) merged in rank order, or, with ``round_p`` and a bfloat16
+    or e4m3 V, two passes (global (M, L) first, then P = exp(s - M) / L
+    rounded to V's type).  The ``mma`` and ``wgmma`` variants multiply
+    bf16 operands: K rounded to bf16 for a bfloat16 q, and e4m3 K and V,
+    as one exact part; a float32 q and K, P and a float32 V as their
+    three bf16 parts, each product exact.  It follows the
     kernels' split points and merge order, not the order of the sums
     inside a block.  A window starts each block's keys at the first one
     its first row sees (``block_keys``), and a soft-cap takes the scaled
@@ -391,7 +411,7 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     sc = _scale(d, scale)
-    two_pass = round_p and v.dtype == torch.bfloat16
+    two_pass = round_p and v.dtype != torch.float32
     out = torch.zeros((b, sq, hq, d), dtype=torch.float32)
     kq = k.to(q.dtype).to(torch.float32)
     vf = v.to(torch.float32)
@@ -415,7 +435,7 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
                     s = sum(a.to(torch.float32) @ c.to(torch.float32).T
                             for a in _parts(qt, q_exact)
                             for c in _parts(kr, q_exact
-                                            or k.dtype == torch.bfloat16))
+                                            or k.dtype != torch.float32))
                     s = s * sc                                   # (R, kend)
                 else:
                     s = (qt @ kr.T) * sc                         # (R, kend)
@@ -455,7 +475,7 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
                         term = sum(pp.to(torch.float32) @ vv.to(torch.float32)
                                    for pp in _parts(p, two_pass)
                                    for vv in _parts(vr, v.dtype
-                                                    == torch.bfloat16))
+                                                    != torch.float32))
                     else:
                         term = p @ vr
                     acc = acc + (term if two_pass else term * f[:, None])

@@ -10,9 +10,11 @@ cell (``dryrun.train_cell`` / ``dryrun.serve_cell``, one rank of the
 production mesh over the fake process group), and written to
 ``results/torch_perf/<arch>__<shape>__<variant>.json``.  Serving
 variants keep float32 weights, as the reference's runner does, unless
-they are packed.  A variant the card's kernels refuse (an fp8 cache:
-``flash_attention`` takes float32 or bfloat16 K/V) is recorded as
-``status: error`` with the kernel's message.  No card is needed:
+they are packed.  The fp8 cache variants (``v1b_f8_cache_seqshard``,
+``v3_f8_cache``) count as the others do: ``flash_attention`` takes
+float8_e4m3fn K and V (read at a byte an element).  A variant that
+fails is recorded as ``status: error`` with its message.  No card is
+needed:
 
   PYTHONPATH=src python -m repro_torch.launch.perf \\
       [--cell qwen3-32b:decode_32k] [--variant v2_int4_weights]

@@ -306,10 +306,15 @@ def _attend(q, k, v, spec: AttnSpec, q_start, mask_mode: str):
     reference's ``_attend``).  q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv,
     Dh).  mask_mode "causal": query i of row b sits at q_start[b] + i and
     sees keys 0 .. that position (and its window); "full": every key
-    (bidirectional / cross).  One ``flash_attention`` launch on the card."""
+    (bidirectional / cross).  One ``flash_attention`` launch on the card.
+    An fp8 cache goes to the kernel as it is (its codes widen exactly in
+    the kernel, as in the plain version's upcast): no float32 copy of the
+    whole cache a step."""
     f32 = torch.float32
+    if k.dtype != FP8:
+        k, v = k.to(f32), v.to(f32)
     out = flash_attention_gqa(
-        q.to(f32), k.to(f32), v.to(f32), q_start,
+        q.to(f32), k, v, q_start,
         causal=mask_mode == "causal",
         scale=spec.query_scale or 1.0 / math.sqrt(q.shape[-1]),
         round_p=False, window=spec.window, softcap=spec.softcap)
@@ -373,8 +378,8 @@ def attention(params: Params, x: torch.Tensor, spec: AttnSpec,
         if s > max_len:
             raise ValueError(f"{s} tokens do not fit a cache of {max_len}")
         at = min(max(idx, 0), max_len - s)
-        ck[:, at:at + s] = k.to(ck.dtype)
-        cv[:, at:at + s] = v.to(cv.dtype)
+        ck[:, at:at + s] = to_cache(k, ck.dtype)
+        cv[:, at:at + s] = to_cache(v, cv.dtype)
         new_cache = {"k": ck, "v": cv, "index": idx + s}
         k, v = ck, cv
     mode = "full" if cross_kv is not None else mask_mode
@@ -386,6 +391,25 @@ def attention(params: Params, x: torch.Tensor, spec: AttnSpec,
     out = _attend(q, k, v, spec, q_start if mode == "causal" else None, mode)
     out = qdense(out.reshape(b, s, hq * dh), params["wo"], qcfg)
     return out, new_cache
+
+
+FP8 = torch.float8_e4m3fn
+# e4m3fn's largest finite value is 448; halfway to the next step (480, a
+# NaN code) lies 464, which rounds to even, 448
+_E4M3_TIE = 464.0
+
+
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x in a cache of ``dtype``, as the reference's ``astype`` writes it.
+    To float8_e4m3fn: to nearest even, NaN for |x| past 464 and for inf
+    (464 itself ties to 448), where torch's cast saturates to 448; a NaN
+    keeps its sign.  Else the plain cast.  Elementwise torch, on the card
+    too."""
+    if dtype != FP8:
+        return x.to(dtype)
+    out = torch.where(x.abs() > _E4M3_TIE, torch.copysign(
+        torch.full_like(x, math.nan), x), x)
+    return out.to(dtype)
 
 
 def make_cache(batch: int, max_len: int, spec: AttnSpec,

@@ -239,6 +239,12 @@ def init_cache(cfg, batch: int, max_len: int = 0, dtype=torch.float32,
 
 
 def _apply_with_state(params, tokens, cfg, cache, chunk=16):
+    state = cache["tm_last"].dtype
+    if state.is_floating_point and state.itemsize == 1:
+        raise ValueError(
+            f"RWKV6 token-shift states of {state}: the "
+            f"reference refuses 8-bit float states (jnp.concatenate with "
+            f"the hidden states has no float8 type promotion path)")
     qcfg = preset(cfg.pe_type)
     x = _embed(params, tokens, cfg)
     states = []

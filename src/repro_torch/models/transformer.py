@@ -319,8 +319,8 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
         if s > max_len:
             raise ValueError(f"{s} tokens do not fit a cache of {max_len}")
         at = min(max(idx, 0), max_len - s)
-        ck[:, at:at + s] = k.to(ck.dtype)
-        cv[:, at:at + s] = v.to(cv.dtype)
+        ck[:, at:at + s] = L.to_cache(k, ck.dtype)
+        cv[:, at:at + s] = L.to_cache(v, cv.dtype)
         new_cache = {"k": ck, "v": cv, "index": idx + s}
         k, v = ck, cv
 

@@ -386,3 +386,140 @@ class RoundPins:
         self.pinned += int(differ.sum())
         out = _first(res)
         return _with_first(res, torch.where(differ, want.to(out.dtype), out))
+
+
+# The normalized attention probabilities P of the decoder family's
+# attention on a bfloat16 or fp8 cache are rounded to V's type before P V
+# (``round_p``), and K and V to the cache's type as a step writes them:
+# an e4m3 code is 1/16 of its value wide, and a float32 value at a
+# rounding midpoint whose last bits differ between the packages (float32
+# sums in other orders; RoPE's rotation cancels) takes codes one apart,
+# which moves the reduced models' logits by ~0.04.  Such a tie is taken
+# where the two values lie within ``ROUND_TIE`` of the call's largest
+# |value| of the midpoint, as ``RoundPins`` takes bfloat16 ties.
+
+
+@contextlib.contextmanager
+def jax_probs_log():
+    """While open, every float32 softmax of 5-D logits in the JAX package
+    (the decoder attention's (B, Hkv, G, Sq, Skv) probabilities, before
+    they are rounded to V's type) reports to the host as a numpy array,
+    in call order."""
+    import jax
+
+    log = _Log()
+    inner = jax.nn.softmax
+
+    def logged(x, axis=-1, *args, **kwargs):
+        out = inner(x, axis, *args, **kwargs)
+        if out.ndim == 5 and out.dtype == np.float32:
+            jax.debug.callback(lambda h: log.calls.append(
+                np.asarray(h, np.float32)), jax.lax.stop_gradient(out),
+                ordered=True)
+        return out
+
+    jax.clear_caches()
+    jax.nn.softmax = logged
+    try:
+        yield log
+    finally:
+        jax.nn.softmax = inner
+        jax.clear_caches()
+
+
+class ProbPins:
+    """The port's rounding of P to V's type (``ref.round_probs``, the
+    plain attention's ``round_p``), pinned to a JAX log
+    (``jax_probs_log``): ``load(calls)`` gives the next run's JAX P's, one
+    a call; where the port's P rounds to another code than the JAX P, the
+    two must lie within ``ROUND_TIE`` of the call's largest P of each
+    other (a rounding tie); there the JAX code is taken, counted in
+    ``pinned``.  Any other difference fails."""
+
+    def __init__(self, monkeypatch):
+        from repro_torch.kernels.flash_attention import ref
+        self.calls, self.n, self.pinned = [], 0, 0
+        inner = ref.round_probs
+
+        def pinned(probs, dtype):
+            got = inner(probs, dtype)
+            if dtype == probs.dtype:
+                return got
+            import torch
+            assert self.n < len(self.calls), (
+                f"P call {self.n}: the JAX log has {len(self.calls)}")
+            w = torch.as_tensor(np.array(self.calls[self.n])).reshape(
+                probs.shape)
+            self.n += 1
+            want = inner(w, dtype)
+            # float8 has no comparison or where: its bits do
+            bits = (lambda t: t.view(torch.uint8)) \
+                if got.element_size() == 1 else (lambda t: t)
+            differ = bits(got) != bits(want)
+            if not bool(differ.any()):
+                return got
+            tie = (probs - w).abs() <= ROUND_TIE * float(w.abs().max())
+            bad = differ & ~tie
+            assert not bool(bad.any()), (
+                f"P call {self.n - 1}: codes differ away from a rounding "
+                f"tie at {probs[bad][:4].tolist()} (JAX {w[bad][:4].tolist()})")
+            self.pinned += int(differ.sum())
+            return torch.where(differ, bits(want), bits(got)).view(dtype)
+
+        monkeypatch.setattr(ref, "round_probs", pinned)
+
+    def load(self, calls):
+        self.calls, self.n = list(calls), 0
+
+    def done(self) -> bool:
+        return self.n == len(self.calls)
+
+
+class CachePins:
+    """The port's writes to an fp8 cache (``layers.to_cache``), pinned to
+    the JAX run's final cache codes: ``k_bits`` / ``v_bits`` (L, B, T, H,
+    D) uint8 of its L cache layers, every position written once (a
+    prefill of ``prompt`` rows, then one row a decode step).  The port's
+    n-th fp8 write is pass n // (2 L) (the prefill, then a step each),
+    layer (n // 2) % L, K then V; where its code differs from the JAX
+    code, the value written must lie within ``ROUND_TIE`` of the write's
+    largest |value| of the midpoint between the two codes' values (a
+    rounding tie); there the JAX code is taken, counted in ``pinned``.
+    Any other difference fails."""
+
+    def __init__(self, monkeypatch, k_bits, v_bits, prompt: int):
+        import torch
+        from repro_torch.models import layers as L
+        self.want, self.prompt = (k_bits, v_bits), prompt
+        self.n, self.pinned = 0, 0
+        inner = L.to_cache
+
+        def pinned(x, dtype):
+            got = inner(x, dtype)
+            if dtype != torch.float8_e4m3fn:
+                return got
+            layers = self.want[0].shape[0]
+            step, rest = divmod(self.n, 2 * layers)
+            layer, kind = divmod(rest, 2)
+            self.n += 1
+            rows = (slice(0, prompt) if step == 0
+                    else slice(prompt + step - 1, prompt + step))
+            w = torch.from_numpy(np.ascontiguousarray(
+                self.want[kind][layer][:, rows])).view(dtype)
+            assert w.shape == got.shape, (self.n - 1, w.shape, got.shape)
+            differ = got.view(torch.uint8) != w.view(torch.uint8)
+            if not bool(differ.any()):
+                return got
+            mid = (got.float() + w.float()) / 2
+            xf = x.float()
+            tie = (xf - mid).abs() <= ROUND_TIE * float(xf.abs().max())
+            bad = differ & ~tie
+            assert not bool(bad.any()), (
+                f"cache write {self.n - 1}: codes differ away from a "
+                f"rounding tie at {xf[bad][:4].tolist()} (JAX "
+                f"{w.float()[bad][:4].tolist()})")
+            self.pinned += int(differ.sum())
+            return torch.where(differ, w.view(torch.uint8),
+                               got.view(torch.uint8)).view(dtype)
+
+        monkeypatch.setattr(L, "to_cache", pinned)

@@ -23,7 +23,12 @@ Three parts:
     x 64) on a (2, 2) mesh;
   * ``full``: every cell of ``repro.launch.shapes.SHAPES`` x the ten full
     configs on a (1, 1) mesh, skipped cells as the reference skips them
-    (several minutes; ``--reduced-only`` keeps the file's ``full``).
+    (several minutes; ``--reduced-only`` keeps the file's ``full``);
+  * ``fp8``: the perf runner's fp8-cache variants of Qwen3-32B
+    (``FP8_VARIANTS``, built by ``repro.launch.perf.build_variant``) on a
+    (1, 1) mesh: ``decode_32k`` at full size, and the reduced config at
+    ``REDUCED_SHAPES``' serving shapes (~1 min; ``--fp8-only`` rebuilds
+    this part alone and keeps the others).
 
 The JAX package is not edited: ``build_cell`` reads its config and shape
 through ``get_cfg`` and ``SHAPES``, which this script points at the
@@ -47,6 +52,8 @@ MESH_SHAPE = (2, 2)
 MESH_CELLS = (("smollm-135m", ("train_m", 64, 4, "train")),
               ("deepseek-moe-16b", ("train_m", 64, 4, "train")))
 MESH_OVERRIDES = {"head_dim": 64}
+FP8_CELL = ("qwen3-32b", "decode_32k")
+FP8_VARIANTS = ("v1b_f8_cache_seqshard", "v3_f8_cache")
 
 
 def mesh_config(arch: str, reduced):
@@ -78,6 +85,75 @@ def _cell(D, HA, arch, shape_name, mesh):
                        ("argument_size_in_bytes", "output_size_in_bytes",
                         "temp_size_in_bytes")},
             "compile_s": round(time.time() - t0, 2)}
+
+
+def _variant_cell(HA, P, arch, shape_name, mesh, overrides, options):
+    """One perf variant's counts, built and compiled as the reference's
+    ``repro.launch.perf.run_variant`` does, kept as ``_cell`` keeps a
+    cell's."""
+    import jax
+    from repro.launch.mesh import dp_axes
+    from repro.models.layers import activation_sharding, compute_dtype
+    dp = dp_axes(mesh)
+    n_dp = 1
+    for a in dp:
+        n_dp *= mesh.shape[a]
+    t0 = time.time()
+    with jax.set_mesh(mesh), activation_sharding(dp, n_dp, mesh=mesh):
+        cfg, step, shardings, specs, donate = P.build_variant(
+            arch, shape_name, mesh, overrides, options)
+        with compute_dtype(cfg.dtype if cfg.mixed_precision else None):
+            compiled = jax.jit(step, in_shardings=shardings,
+                               donate_argnums=donate).lower(*specs).compile()
+    mem = compiled.memory_analysis()
+    hlo = compiled.as_text()
+    ana = HA.analyze(hlo)
+    return {"status": "ok", "flops": float(ana["flops"]),
+            "matvec_flops": _matvec_flops(HA, hlo),
+            "bytes_out": float(ana["bytes_out"]),
+            "memory": {k: int(getattr(mem, k, 0)) for k in
+                       ("argument_size_in_bytes", "temp_size_in_bytes")},
+            "compile_s": round(time.time() - t0, 2)}
+
+
+def _fp8_part() -> dict:
+    """{variant: {"full": decode_32k, "reduced": {shape: result}}} of
+    ``FP8_VARIANTS`` on a (1, 1) mesh."""
+    from repro.configs import get, reduced as get_reduced
+    from repro.launch import hlo_analysis as HA
+    from repro.launch import perf as P
+    from repro.launch import shapes as SH
+    mesh = _mesh((1, 1))
+    arch, shape_name = FP8_CELL
+    variants = {v[0]: v for v in P.CELLS[FP8_CELL]}
+    out = {}
+    for vname in FP8_VARIANTS:
+        _, overrides, options = variants[vname]
+        res = {"full": _variant_cell(HA, P, arch, shape_name, mesh,
+                                     overrides, options), "reduced": {}}
+        P.get_cfg = get_reduced
+        try:
+            for name, seq, batch, kind in REDUCED_SHAPES:
+                if kind == "train":
+                    continue
+                SH.SHAPES[name] = SH.ShapeSpec(name, seq, batch, kind)
+                try:
+                    res["reduced"][name] = _variant_cell(
+                        HA, P, arch, name, mesh, overrides, options)
+                except Exception as e:  # noqa: BLE001 -- kept as data
+                    # v3's 16 replicated KV heads exceed the reduced
+                    # config's 4 query heads
+                    res["reduced"][name] = {
+                        "status": "error",
+                        "error": f"{type(e).__name__}: {e}"[:300]}
+                finally:
+                    del SH.SHAPES[name]
+        finally:
+            P.get_cfg = get
+        out[vname] = res
+        print(vname, res["full"]["flops"],
+              res["full"]["memory"]["argument_size_in_bytes"], flush=True)
+    return out
 
 
 def _matvec_flops(HA, hlo: str) -> float:
@@ -169,6 +245,7 @@ def build_reference(full: bool = True, old: dict | None = None) -> dict:
                            reduced=False)
     else:
         ref["full"] = (old or {}).get("full", {})
+    ref["fp8"] = _fp8_part()
     return ref
 
 
@@ -182,6 +259,9 @@ if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     only = "--reduced-only" in sys.argv[1:]
     old = json.loads(REF_PATH.read_text()) if REF_PATH.exists() else None
-    ref = build_reference(full=not only, old=old)
+    if "--fp8-only" in sys.argv[1:]:
+        ref = dict(old, fp8=_fp8_part())
+    else:
+        ref = build_reference(full=not only, old=old)
     REF_PATH.write_text(json.dumps(ref, indent=0))
     print(f"wrote {REF_PATH} ({REF_PATH.stat().st_size} bytes)")

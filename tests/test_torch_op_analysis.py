@@ -278,6 +278,12 @@ def test_meta_runs_the_cards_checks():
         out = flash_attention_gqa(q, q, q, window=2, softcap=30.0)
         assert out.device.type == "meta"
         assert torch.autograd.grad(out.sum(), q)[0].shape == q.shape
+    # an fp8 cache: e4m3 K and V are taken (and read at 1 byte an
+    # element); an fp8 q, or K and V of two types, are refused
     k = torch.empty(1, 4, 2, 64, device="meta", dtype=torch.float8_e4m3fn)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        flash_attention_gqa(q.detach(), k, k)
+    assert flash_attention_gqa(q.detach(), k, k, round_p=True).shape == \
+        q.shape
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        flash_attention_gqa(k, k, k)
+    with pytest.raises(ValueError, match="one type"):
+        flash_attention_gqa(q.detach(), k, k.to(torch.bfloat16))

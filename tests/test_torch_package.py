@@ -129,7 +129,14 @@ CREATORS = {
     "cifar_pipeline": lambda: _data().cifar_pipeline(2),
     "run_lm": lambda: _qat().run_lm("reduced", steps=1),
     "run_cnn": lambda: _qat().run_cnn(steps=1, trials=1, out=None),
+    "tensor_from_numpy": lambda: _convert().tensor_from_numpy([1.0]),
+    "hashed_params": lambda: _fp8_check().hashed_params(_reduced()),
 }
+
+
+def _fp8_check():
+    from repro_torch import fp8_check
+    return fp8_check
 
 
 def _cnn():
