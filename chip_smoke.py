@@ -269,7 +269,26 @@
    launches counted exactly and each run held to the same run on the
    kernels' plain versions, with step times, decode tokens/s and peak
    memory;
-18. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
+18. the tensor-parallel split of the decoder family: 18.1 two ranks of
+   one ``model`` group, two processes on the one card over gloo (NCCL
+   refuses two ranks on one GPU; the transport is printed): Gemma-3-1B
+   trained as 16.2 (8 layers, 2 x 1,024, LightPE-1, 3 AdamW steps; 2 + 2
+   q heads over the replicated KV head, the MLP and the 262,144-row tied
+   vocabulary split), the same under FP32 in float32 (the sum order's
+   noise floor) and a control that must fail (``q_norm`` / ``k_norm``
+   not summed over the group), SmolLM-135M (its attention whole, the
+   weight gradients over each rank's tokens) timed beside the plain
+   whole-layer step, and Qwen3-32B served as 17.2's v3 (int4 codes, the
+   16 replicated KV heads split 8 + 8 with the fp8 cache), each held to
+   the same run on one rank with its launches a step and rank exactly
+   the one rank's and every leaf equal on the two ranks, step ms and
+   peak memory a rank beside; 18.2 the
+   forward kernels on one KV head of a cache of eight read as a strided
+   view (no copy), at pod16x16's local shapes (Qwen3-32B's 4 q heads at
+   decode_32k and at prefill, Gemma-2-9B's 1 local-layer q head), and the
+   backward at Qwen3-32B's training shape a rank, against the plain
+   versions, timed;
+19. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
    last, the device line.
 
 Phases 3, 4, 8 and 9.1-9.5 launch ``fake_quant`` or no kernel: they run
@@ -516,6 +535,42 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# The numpy weight draws of 11.2, 11.3 and 13.2-13.3 (the JAX package's
+# references were written from them): made from phase 10 on by one thread
+# of their own (numpy's draws release the GIL), beside the card's phases,
+# and taken by ``numpy_draw`` where the phases used to draw
+_DRAWS = {}
+
+
+def prefetch_draws() -> None:
+    """Start the numpy draws of 11.2, 11.3, 13.2 and 13.3 on a thread."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.configs import get
+    from repro_torch.models import family_module
+    jobs = []
+    for path in (GEMMA_REF, MOE_REF):
+        ref = json.loads(path.read_text())
+        cfg = get(ref["config"])
+        if "n_layers" in ref:
+            cfg = cfg.replace(n_layers=ref["n_layers"])
+        jobs.append((cfg, ref["param_seed"]))
+    for ref in json.loads(SSM_REF.read_text())["dense"].values():
+        jobs.append((get(ref["config"]).replace(n_layers=ref["n_layers"]),
+                     ref["param_seed"]))
+    pool = ThreadPoolExecutor(1)
+    for cfg, seed in jobs:
+        _DRAWS[(repr(cfg), seed)] = pool.submit(
+            family_module(cfg).numpy_params, cfg, seed)
+    pool.shutdown(wait=False)
+
+
+def numpy_draw(mod, cfg, seed: int):
+    """``mod.numpy_params(cfg, seed)``, the prefetched draw where
+    ``prefetch_draws`` made it."""
+    fut = _DRAWS.pop((repr(cfg), seed), None)
+    return fut.result() if fut is not None else mod.numpy_params(cfg, seed)
 
 
 _FLEX = []     # torch.compile(flex_attention), made at its first use
@@ -2310,7 +2365,7 @@ def run_gemma(torch, dev):
     mod = family_module(cfg)
     t0 = time.perf_counter()
     params = convert.params_from_numpy(
-        mod.numpy_params(cfg, ref["param_seed"]), dev)
+        numpy_draw(mod, cfg, ref["param_seed"]), dev)
     packs = {pe: quantize_params(params, pe, min_size=ref["min_size"])
              for pe in sorted({m["pe_type"] for m in ref["modes"].values()})}
     del params
@@ -2541,7 +2596,7 @@ def run_moe(torch, dev):
     mod = family_module(cfg)
     t0 = time.perf_counter()
     params = convert.params_from_numpy(
-        mod.numpy_params(cfg, ref["param_seed"]), dev)
+        numpy_draw(mod, cfg, ref["param_seed"]), dev)
     torch.cuda.synchronize()
     print(f"moe: {cfg.name} at full width ({cfg.n_layers} layers: "
           f"{cfg.first_dense} dense + {cfg.n_layers - cfg.first_dense} MoE of "
@@ -3456,7 +3511,7 @@ def run_ssm_model(torch, dev, ref):
     mod = family_module(cfg)
     t0 = time.perf_counter()
     params = convert.params_from_numpy(
-        mod.numpy_params(cfg, ref["param_seed"]), dev)
+        numpy_draw(mod, cfg, ref["param_seed"]), dev)
     torch.cuda.synchronize()
     print(f"{name}: full width ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}); dense weights {ref['dense_bytes']} B drawn in "
@@ -3507,7 +3562,7 @@ def run_ssm_packed(torch, dev, ref):
     cfg = reduced(name)
     mod = family_module(cfg)
     params = convert.params_from_numpy(
-        mod.numpy_params(cfg, ref["param_seed"]), dev)
+        numpy_draw(mod, cfg, ref["param_seed"]), dev)
     packs = {}
     for key, m in ref["modes"].items():
         packs[m["pe_type"]] = quantize_params(params, m["pe_type"],
@@ -5242,6 +5297,385 @@ def run_fp8(torch, dev):
                 seconds=t2 - t0)
 
 
+# 18.1: the tensor-parallel split on TP_RANKS ranks of one model group,
+# both on the one card, each its own process (``repro_torch.launch.ranks``
+# running ``repro_torch.tp_check``'s tasks, the launcher the CPU tests
+# use) over gloo: NCCL refuses two ranks on one GPU, and gloo stages the
+# card's tensors through the host.  Training: Gemma-3-1B at 16.2's depth,
+# batch and steps under LightPE-1 (2 + 2 q heads over the replicated KV
+# head, the MLP 3,456 columns a rank, the 262,144-row tied vocabulary
+# split), the same under FP32 in float32 (the sum order's noise floor),
+# and a control that must fail (``q_norm`` / ``k_norm`` not summed over
+# the group: ``tp_check.variant("unsummed_norms")``); SmolLM-135M (9 / 3
+# heads: its attention whole, each whole layer's weight gradients over
+# the rank's half of the tokens, summed) beside the plain whole-layer
+# step (``variant("whole_layers")``: every token on every rank, no
+# collective), timed; serving: Qwen3-32B as 17.2's v3 (int4 codes, 16
+# replicated KV heads split 8 + 8 with the fp8 cache).  Each held to the
+# same run on one rank (``tp_check``'s runs without a mesh: the (1, 1)
+# mesh step is the plain trainer bit for bit, 14.2): the steps at
+# TRAIN_LM_RTOL (8-bit activation and pow2 codes at ties move with the
+# sum order, as the plain kernels' do in 16.2), the params' change
+# (``tp_check.change_gap`` on fixed elements of every leaf) within
+# TP_PARAM_GAP (TP_FP32_GAP under FP32), every leaf equal on the two
+# ranks bit for bit (a replicated leaf whose gradient is a rank's part
+# parts the ranks), the launches a step and rank exactly the one rank's;
+# the logits within FP8_PLAIN_TOL and the greedy tokens equal up to each
+# row's first step whose top-2 margin is below it.  The gap limits:
+# AdamW's first steps move an element by about lr times the sign of its
+# gradient, so an element whose gradient is near 0 moves either way
+# between two sum orders (one flip among a leaf's n elements reads
+# 2 / sqrt(n)); on an NVIDIA H100 80GB HBM3 at 700 W the LightPE-1 splits
+# read 0.1673 (Gemma-3-1B) and 0.1763 (SmolLM-135M), the FP32 split
+# 5.367e-05, the control 0.8392 with 4 leaves parting the ranks
+TP_RANKS = 2
+TP_TRANSPORT = "gloo (two processes on the one card)"
+TP_TRAIN = dict(name="train", kind="train", arch="gemma3-1b",
+                overrides={"n_layers": 8, "pe_type": "lightpe1"}, batch=2,
+                seq=1024, steps=3)
+TP_FP32 = dict(TP_TRAIN, name="train_fp32", overrides={
+    "n_layers": 8, "pe_type": "fp32", "dtype": "float32"})
+TP_CONTROL = dict(TP_TRAIN, name="control", variant="unsummed_norms")
+TP_SMOLLM = dict(name="smollm", kind="train", arch="smollm-135m",
+                 overrides={"n_layers": 8, "pe_type": "lightpe1"}, batch=2,
+                 seq=1024, steps=4)
+TP_WHOLE = dict(TP_SMOLLM, name="smollm_whole", variant="whole_layers")
+TP_SERVE = dict(name="serve", kind="serve", arch="qwen3-32b",
+                overrides={"n_layers": FP8_LAYERS, "kv_replicate_to": 16},
+                quant="int4", batch=FP8_BATCH, prompt=FP8_PROMPT,
+                steps=FP8_STEPS, cache_rows=FP8_CACHE, token_seed=17)
+TP_PARAM_GAP = 0.4
+TP_FP32_GAP = 1e-3
+TP_DEADLINE_S = 480
+# 18.2: the kernels at pod16x16's local shapes: (name, b, sq, skv, hq, the
+# KV heads of the cache, the one a rank reads, d, start, window, softcap,
+# q scale); e4m3 K/V and a float32 q, round_p (v1b's dp-only fp8 cache,
+# whose 8 KV heads do not divide 16: each rank's q heads read one of them
+# as a strided view), Qwen3-32B's peaked at decode as 17.1's decode_32k
+TP_SHAPES = [
+    ("qwen3-32b decode_32k, rank 6", 8, 1, 32768, 4, 8, 3, 128, 32767, 0,
+     0.0, 4.0),
+    ("qwen3-32b prefill, rank 6", 2, 1024, 32768, 4, 8, 3, 128, 0, 0, 0.0,
+     1.0),
+    ("gemma2-9b decode_32k local layer, rank 6", 8, 1, 32768, 1, 8, 3, 256,
+     32767, 4096, 50.0, 1.0)]
+# the backward at Qwen3-32B's train_4k: a rank's 2 x 4,096 rows of a
+# microbatch, 4 q heads over one of 8 replicated KV heads, float32
+TP_BWD = ("qwen3-32b train_4k, rank 6", 2, 4096, 4, 8, 3, 128)
+
+
+def check_tp_kernels(torch, dev):
+    """Phase 18.2: the forward kernels on one KV head of a cache of eight
+    (a strided view: no copy of the cache), held to the plain version
+    within ``FA_TOL`` plus the allowance for P at e4m3 ties (17.1's), two
+    calls bitwise equal, the memory a call takes beside the slice's
+    bytes, timed beside the plain version and the bound; the backward at
+    a rank's training shape within phase 10.1's tolerances."""
+    from repro_torch import fp8_check as F
+    from repro_torch.kernels.flash_attention import (attention_backward,
+                                                     flash_attention,
+                                                     flash_attention_gqa)
+    from repro_torch.kernels.flash_attention import plan as fa_plan
+    from repro_torch.kernels.flash_attention.ref import (
+        ref_attention_gqa, ref_attention_gqa_bwd)
+    from repro_torch.train_check import attention_grad_errors
+
+    f8 = torch.float8_e4m3fn
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rows = []
+    for (name, b, sq, skv, hq, heads, j, d, start, window, softcap,
+         q_scale) in TP_SHAPES:
+        kc = torch.randn((b, skv, heads, d), generator=gen,
+                         device=dev).to(f8)
+        vc = torch.randn((b, skv, heads, d), generator=gen,
+                         device=dev).to(f8)
+        k, v = kc[:, :, j:j + 1], vc[:, :, j:j + 1]
+        assert k.data_ptr() != kc.data_ptr() and not k.is_contiguous()
+        q = torch.randn((b, sq, hq, d), generator=gen, device=dev) * q_scale
+        st = torch.full((b,), start, dtype=torch.int32, device=dev)
+        kw = dict(round_p=True, window=window, softcap=softcap)
+
+        def kernel():
+            return flash_attention_gqa(q, k, v, st, **kw)
+
+        def plain():
+            return ref_attention_gqa(q, k, v, st, True, 0.0, True, window,
+                                     softcap)
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = flash_attention.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        took = torch.cuda.max_memory_allocated() - base
+        again = kernel()
+        launches = flash_attention.launches - before
+        want = plain()
+        seen = start + sq
+        ties = F.p_ties(q, k[:, :seen], v[:, :seen], st, window=window,
+                        softcap=softcap)
+        err = (got - want).abs()
+        excess = float((err - ties["allowance"]).max())
+        max_err = float(err.max())
+        p = fa_plan(b, sq, skv, hq, 1, d, False, window)
+        slice_bytes = 2 * b * skv * d          # the rank's K and V, e4m3
+        copied = p.variant != "wgmma" and took >= slice_bytes // 4
+        if launches != 2 or not torch.equal(got, again) \
+                or not bool(torch.isfinite(got).all()) or excess > FA_TOL \
+                or not ties["nonzero_share"] or copied:
+            fail(f"18.2 {name}: max_abs_err {max_err}, {excess} past "
+                 f"{FA_TOL}; {launches} launches for 2; bitwise repeat "
+                 f"{torch.equal(got, again)}; nonzero P share "
+                 f"{ties['nonzero_share']}; {took} bytes taken beside a "
+                 f"{slice_bytes}-byte slice")
+        del got, again, want, err, ties
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, plain, reps=3, warmup=1)
+        lo = [max(0, start + i - window + 1) if window else 0
+              for i in range(sq)]
+        bound, by, nbytes = fp8_attention_bound(
+            b, hq, 1, d, [(lo[i], start + i + 1) for i in range(sq)], False,
+            1, True)
+        rows.append(dict(name=name, b=b, sq=sq, skv=skv, hq=hq,
+                         cache_heads=heads, kv_head=j, d=d, start=start,
+                         window=window, softcap=softcap, q_scale=q_scale,
+                         max_abs_err=max_err, past_tolerance=excess,
+                         bitwise_repeat=True, launches=launches,
+                         bytes_taken=took, slice_bytes=slice_bytes, ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                         bound_by=by, bytes=nbytes, variant=p.variant,
+                         splits=p.splits))
+        print(f"18.2 flash_attention {name} ({b} x {sq} x {hq} q heads over "
+              f"KV head {j} of {heads} as a view, {skv} e4m3 keys, "
+              f"{p.variant}, {p.splits} splits): max_abs_err {max_err:.3g} "
+              f"within FA_TOL past the P-tie allowance ({excess:.3g}), two "
+              f"calls bitwise equal, {took} bytes taken beside the "
+              f"{slice_bytes}-byte slice; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+        del q, k, v, kc, vc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    name, b, s, hq, heads, j, d = TP_BWD
+    qkv = [torch.randn((b, s, n, d), generator=gen, device=dev)
+           for n in (hq, heads, heads)]
+    q, k, v = qkv[0], qkv[1][:, :, j:j + 1], qkv[2][:, :, j:j + 1]
+    dout = torch.randn((b, s, hq, d), generator=gen, device=dev)
+    st = torch.zeros(b, dtype=torch.int32, device=dev)
+    before = flash_attention.backward_launches
+
+    def kernel_bwd():
+        return attention_backward(q, k, v, st, dout, round_p=True)
+
+    got, again = kernel_bwd(), kernel_bwd()
+    launches = flash_attention.backward_launches - before
+    want = ref_attention_gqa_bwd(q, k, v, st, dout, True, 0.0, True)
+    held = attention_grad_errors(got, want, dout)
+    if launches != 2 or not held["ok"] or not all(
+            torch.equal(a, c) for a, c in zip(got, again)):
+        fail(f"18.2 backward {name}: {held}, {launches} launches for 2")
+    del got, again, want
+    ms = time_ms(torch, kernel_bwd)
+    plain_ms = time_ms(torch, lambda: ref_attention_gqa_bwd(
+        q, k, v, st, dout, True, 0.0, True), reps=3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tq, tk, tv = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    tdo = dout.transpose(1, 2).contiguous()
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(tq, tk, tv, is_causal=True, enable_gqa=True), (tq, tk, tv),
+        tdo))
+    pairs = b * hq * s * (s + 1) // 2
+    nbytes = 4 * (2 * q.numel() + 2 * dout.numel() + 4 * b * s * d)
+    bound, by = bound_ms(nbytes, 2.0 * d * pairs
+                         * bwd_part_products(False, False), H100_BF16_FLOPS)
+    bwd = dict(name=name, b=b, s=s, hq=hq, cache_heads=heads, kv_head=j, d=d,
+               max_abs_err=held["max_abs_err"], launches=launches, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library="SDPA forward and backward through autograd "
+                       "(float32, is_causal, enable_gqa)",
+               bound_ms=bound, bound_by=by)
+    print(f"18.2 flash_attention backward {name} ({b} x {s}, {hq} q heads "
+          f"over KV head {j} of {heads}, float32): max_abs_err "
+          f"{held['max_abs_err']:.3g} within phase 10.1's tolerances, two "
+          f"calls bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, SDPA forward + backward {library_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by})")
+    del q, k, v, qkv, dout, tq, tk, tv, tdo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, bwd
+
+
+def _tp_ranks(tmp: Path, tasks) -> dict:
+    """Every task on TP_RANKS ranks on the card over gloo: {task name:
+    [(numbers, arrays) a rank]}.  A rank that fails, or outlives
+    TP_DEADLINE_S, fails the phase (every rank stopped)."""
+    from repro_torch.launch import ranks
+    try:
+        return ranks.run_ranks(TP_RANKS, tasks, tmp, device="cuda:0",
+                               backend="gloo", deadline_s=TP_DEADLINE_S,
+                               timeout_s=TP_DEADLINE_S)
+    except RuntimeError as e:
+        fail(f"18.1: {e}")
+
+
+def _digests(arr, part):
+    return {k[len(part) + 1:]: v for k, v in arr.items()
+            if k.startswith(part + "/")}
+
+
+def _tp_train_held(meta, arr, one, other) -> dict:
+    """A rank's training run against the one-rank run ``one``: the steps
+    at TRAIN_LM_RTOL, the params' change gap, the leaves that differ from
+    the other rank's, the launches a step."""
+    import numpy as np
+    from repro_torch import tp_check
+    from repro_torch.train_check import compare
+    ref_meta, ref_arr = one
+    final, theirs = _digests(arr, "final"), _digests(other, "final")
+    return dict(
+        held=compare(meta["rows"], ref_meta["rows"], TRAIN_LM_RTOL),
+        param_gap=tp_check.change_gap(_digests(ref_arr, "start"), final,
+                                      _digests(ref_arr, "final")),
+        ranks_differ=sorted(k for k in final
+                            if not np.array_equal(final[k], theirs[k])),
+        finite=all(math.isfinite(x) for row in meta["rows"] for x in row),
+        launches_equal=meta["launches"] == ref_meta["launches"])
+
+
+def run_tp(torch, dev, tmp: Path):
+    """Phase 18.1: the split's training and serving on TP_RANKS ranks of
+    one model group against the same runs on one rank (the TP_TRAIN /
+    TP_SERVE note)."""
+    import numpy as np
+    from repro_torch import tp_check
+
+    print(f"18.1 transport: {TP_TRANSPORT}, {TP_RANKS} ranks of a (1, "
+          f"{TP_RANKS}) ('data', 'model') mesh on {card_line()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = {}
+    for task in (TP_TRAIN, TP_FP32, TP_SMOLLM, TP_SERVE):
+        one[task["name"]] = tp_check.run_task(task, dev, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    ranks = _tp_ranks(tmp, [TP_TRAIN, TP_FP32, TP_CONTROL, TP_SMOLLM,
+                            TP_WHOLE, TP_SERVE])
+
+    res = {}
+    for task, base in ((TP_TRAIN, "train"), (TP_FP32, "train_fp32"),
+                       (TP_CONTROL, "train"), (TP_SMOLLM, "smollm"),
+                       (TP_WHOLE, "smollm")):
+        name = task["name"]
+        (m0, a0), (m1, a1) = ranks[name]
+        for r, (meta, arr, other) in enumerate(((m0, a0, a1),
+                                                (m1, a1, a0))):
+            h = _tp_train_held(meta, arr, one[base], other)
+            gap = TP_FP32_GAP if task is TP_FP32 else TP_PARAM_GAP
+            sound = h["held"]["ok"] and h["param_gap"] <= gap \
+                and not h["ranks_differ"] and h["finite"] \
+                and h["launches_equal"]
+            if sound != (name != "control"):
+                fail(f"18.1 {name} rank {r} "
+                     f"{'passed, a control' if sound else 'failed'}: "
+                     f"steps {meta['rows']} against one rank's "
+                     f"{one[base][0]['rows']}: {h['held']}; params' change "
+                     f"gap {h['param_gap']} (within {gap}); "
+                     f"leaves differing between the ranks "
+                     f"{h['ranks_differ']}; launches a step "
+                     f"{meta['launches']}, one rank's "
+                     f"{one[base][0]['launches']}")
+            res[f"{name}_rank{r}"] = dict(
+                rows=meta["rows"], param_gap=h["param_gap"],
+                ranks_differ=h["ranks_differ"], step_ms=meta["step_ms"],
+                peak_gib=meta["peak_gib"],
+                launches_per_step=meta["launches"][-1], **h["held"])
+        if name != "control":
+            ref = one[base][0]
+            res[f"{base}_one_rank"] = dict(
+                rows=ref["rows"], step_ms=ref["step_ms"],
+                peak_gib=ref["peak_gib"],
+                launches_per_step=ref["launches"][-1])
+        t, ref_rows = res[f"{name}_rank0"], one[base][0]["rows"]
+        print(f"18.1 {name} {task['arch']} ({task['overrides']}, "
+              f"{task['batch']} x {task['seq']}, AdamW, {task['steps']} "
+              f"steps{', ' + task['variant'] if 'variant' in task else ''}) "
+              f"on (1, {TP_RANKS}): rank 0 "
+              f"{[[round(x, 5) for x in row] for row in t['rows']]}, one "
+              f"rank {[[round(x, 5) for x in row] for row in one[base][0]['rows']]}: "
+              f"loss rel {t['loss_rel']:.3g}, grad norm rel "
+              f"{t['gnorm_rel']:.3g} (within {TRAIN_LM_RTOL}); params' "
+              f"change gap {t['param_gap']:.4g} (within {gap}); "
+              f"leaves differing between the ranks {len(t['ranks_differ'])} "
+              f"{t['ranks_differ'][:4]}; step ms a rank "
+              f"{[round(x, 1) for x in t['step_ms']]} (one rank "
+              f"{[round(x, 1) for x in one[base][0]['step_ms']]}); peak "
+              f"{t['peak_gib']:.2f} GiB a rank (one rank "
+              f"{one[base][0]['peak_gib']:.2f}); launches a step and rank "
+              f"{t['launches_per_step']}")
+    split, whole = (float(np.median(res[f"{n}_rank0"]["step_ms"][1:]))
+                    for n in ("smollm", "smollm_whole"))
+    res["token_split_ms"], res["whole_layers_ms"] = split, whole
+    print(f"18.1 smollm-135m a step after the first (median, rank 0): the "
+          f"token split {split:.2f} ms, the plain whole-layer step "
+          f"{whole:.2f} ms ({TP_TRANSPORT})")
+
+    (ref_meta, ref_arr) = one["serve"]
+    want = ref_arr["logits"]
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]            # (steps, B)
+    for r, (meta, arr) in enumerate(ranks["serve"]):
+        err = float(np.abs(arr["logits"] - want).max())
+        # each row's tokens up to its first near tie
+        sure = np.cumprod(margin > FP8_PLAIN_TOL, axis=0).astype(bool)
+        same = bool((arr["greedy"] == np.argmax(want, -1))[sure].all())
+        compared = int(sure.sum())
+        finite = bool(np.isfinite(arr["logits"]).all())
+        if err > FP8_PLAIN_TOL or not same or not finite or not compared \
+                or meta["launches"] != ref_meta["launches"]:
+            fail(f"18.1 serve rank {r}: max logit err {err} (within "
+                 f"{FP8_PLAIN_TOL}), greedy tokens equal where sure {same} "
+                 f"({compared} compared); launches {meta['launches']}, one "
+                 f"rank's {ref_meta['launches']}")
+        res[f"serve_rank{r}"] = dict(max_abs_err=err, tokens_compared=compared,
+                                     step_ms=meta["step_ms"],
+                                     peak_gib=meta["peak_gib"],
+                                     launches=meta["launches"])
+    res["serve_one_rank"] = dict(step_ms=ref_meta["step_ms"],
+                                 peak_gib=ref_meta["peak_gib"],
+                                 launches=ref_meta["launches"])
+    s_ = res["serve_rank0"]
+    print(f"18.1 serve qwen3-32b v3 ({TP_SERVE['overrides']}, int4 codes, a "
+          f"{FP8_CACHE}-row fp8 cache, batch {FP8_BATCH}, {FP8_PROMPT} + "
+          f"{FP8_STEPS} tokens) on (1, {TP_RANKS}): max logit err against one "
+          f"rank {s_['max_abs_err']:.4g} (within {FP8_PLAIN_TOL}), greedy "
+          f"tokens equal ({s_['tokens_compared']} of "
+          f"{margin.size} row steps before a near tie); step ms a rank "
+          f"{[round(x, 2) for x in s_['step_ms']]} (one rank "
+          f"{[round(x, 2) for x in ref_meta['step_ms']]}); peak "
+          f"{s_['peak_gib']:.2f} GiB a rank (one rank "
+          f"{ref_meta['peak_gib']:.2f}); launches a rank {s_['launches']} "
+          f"(one rank's: equal)")
+    return res
+
+
+def run_split(torch, dev):
+    """Phase 18: the tensor-parallel split (18.1 two ranks of one model
+    group on the card, 18.2 the kernels at pod16x16's local shapes)."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        runs = run_tp(torch, dev, Path(tmp))
+    t1 = time.perf_counter()
+    kernels, bwd = check_tp_kernels(torch, dev)
+    t2 = time.perf_counter()
+    return dict(transport=TP_TRANSPORT, runs=runs, kernels=kernels,
+                backward=bwd, ranks_s=t1 - t0, kernels_s=t2 - t1,
+                seconds=t2 - t0)
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     t_start = time.perf_counter()
@@ -5324,6 +5758,7 @@ def _phases(torch, t_start, workers) -> int:
     print(f"phase 9 (DSE at scale: 9.1-9.5 {walks_s:.2f} s beside the "
           f"build, 9.6 {time.perf_counter() - t9:.2f} s)")
     t10 = time.perf_counter()
+    prefetch_draws()         # 11.2-13.3's numpy weights, beside phase 10 on
     training = run_training(torch, dev)
     print(f"phase 10 (training): {time.perf_counter() - t10:.2f} s")
     t11 = time.perf_counter()
@@ -5357,6 +5792,10 @@ def _phases(torch, t_start, workers) -> int:
     fp8 = run_fp8(torch, dev)
     print(f"phase 17 (the fp8 K/V cache: 17.1 {fp8['kernels_s']:.2f} s, 17.2 "
           f"{fp8['serve_s']:.2f} s): {fp8['seconds']:.2f} s")
+    split = run_split(torch, dev)
+    print(f"phase 18 (the tensor-parallel split: 18.1 "
+          f"{split['ranks_s']:.2f} s, 18.2 {split['kernels_s']:.2f} s): "
+          f"{split['seconds']:.2f} s")
 
     # the row's main numbers: one grouped launch over the 15 VGG-16
     # weights, affine-8, float32; the bfloat16 and per-weight times beside
@@ -5570,6 +6009,30 @@ def _phases(torch, t_start, workers) -> int:
              "replicated KV heads of 128, 32,768 e4m3 keys, float32 q, "
              "round_p",
         shapes=fp8["kernels"]))
+    # the split's kernels at a rank's local shapes (18.2), and the
+    # launches a rank made on 18.1's split runs
+    tp_main = split["kernels"][0]
+    tp_runs = split["runs"]
+    tp_launches = {k: v * TP_TRAIN["steps"] for k, v in
+                   tp_runs["train_rank0"]["launches_per_step"].items()}
+    for k, v in tp_runs["serve_rank0"]["launches"].items():
+        tp_launches[k] = tp_launches.get(k, 0) + v
+    kernels.append(dict(
+        name="flash_attention_tp", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_fp8.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:71",
+        launches=tp_launches["flash_attention"],
+        max_abs_err=max(r["max_abs_err"] for r in split["kernels"]),
+        past_tolerance=max(r["past_tolerance"] for r in split["kernels"]),
+        ms=tp_main["ms"], plain_ms=tp_main["plain_ms"],
+        bound_ms=tp_main["bound_ms"], bound_by=tp_main["bound_by"],
+        library_ms=None,
+        library="none computes it (P rounded to e4m3)",
+        unit="Qwen3-32B decode_32k at pod16x16, one rank: 8 x 1 x 4 q heads "
+             "over one of 8 e4m3 KV heads read as a strided view, 32,768 "
+             "keys, float32 q, round_p",
+        rank_launches_18_1=tp_launches,
+        shapes=split["kernels"], backward=split["backward"]))
     print(f"smoke: {time.perf_counter() - t_start:.2f} s, the build "
           f"included")
     print(json.dumps({"kernels": kernels, "serving": serving, "qat": qat,
@@ -5583,7 +6046,9 @@ def _phases(torch, t_start, workers) -> int:
                       "families": {k: v for k, v in families.items()
                                    if k != "backward"},
                       "fp8": {k: v for k, v in fp8.items()
-                              if k != "kernels"}}))
+                              if k != "kernels"},
+                      "split": {k: v for k, v in split.items()
+                                if k not in ("kernels", "backward")}}))
     print(json.dumps({"train": {k: v for k, v in training.items()
                                 if k != "backward"}}))
     print(json.dumps({"ok": True, "device": {

@@ -26,10 +26,15 @@ The steps are the port's: training is ``trainer.jit_train_step`` with the
 reference's microbatch rule; serving is a mesh step built here as the
 reference builds its own (params in the "serve" shardings, bfloat16 where
 the reference's are, gathered as the training step gathers them; the
-batch and the cache split over the dp axes only).  The products are not
-split over ``model`` (ROADMAP A): every rank of a ``model`` group
-computes the whole layer, and the counts say so.  Ranks are symmetric
-under these rules: rank 0 stands for all.  A cell the card's kernels
+batch over the dp axes).  The decoder family runs the tensor-parallel
+split in both (``transformer.keeps_model_shard``: each rank computes its
+heads, columns, vocabulary rows and experts); its serving cache follows
+``cache_spec`` where that splits the heads, and stays split over the dp
+axes only where the reference would split its sequence (not built:
+``NOTE_SERVE``).  The other families gather every leaf over ``model`` and
+compute the whole layer on every rank of a ``model`` group
+(``NOTE_TP``).  Ranks are symmetric under these rules: rank 0 stands for
+all.  A cell the card's kernels
 refuse fails here with the kernel's own message, recorded as data
 (``status: error``), as the reference records a failed compile.
 
@@ -68,13 +73,19 @@ MESHES = {"pod16x16": ((16, 16), ("data", "model")),
 HBM_BYTES = 80e9            # an H100's 80 GB
 INDEX_BYTES = 4             # the reference's int32 cache index
 NOTE_TP = ("products not split over 'model': every rank of a model group "
-           "computes the whole layer (the tensor-parallel split is later "
-           "work, ROADMAP A)")
+           "computes the whole layer (the tensor-parallel split of this "
+           "family is later work, ROADMAP A)")
 NOTE_GATHER = ("each param leaf all-gathered over the mesh axes of its spec "
                "before the step")
-NOTE_SERVE = ("the batch and the cache split over the dp axes only: without "
-              "the TP split each rank of a model group needs the whole "
-              "cache of its rows")
+NOTE_SPLIT = ("the products split over 'model': each rank computes its "
+              "attention heads, MLP columns, vocabulary rows and experts; "
+              "the product leaves gathered over the dp axes of their spec "
+              "alone, the others (norm scales, the router) over every axis "
+              "of theirs before the step")
+NOTE_SERVE = ("the cache split over the dp axes only: each rank of a model "
+              "group holds every head of its rows (the reference splits "
+              "the heads over 'model', or where they do not divide it the "
+              "sequence, which the port's split does not build yet)")
 NOTE_META = ("counted on meta tensors over the fake process group: no "
              "kernel launched, each declared its work")
 
@@ -199,20 +210,26 @@ def serve_cell(cfg, shape, mesh, device="meta", params=None, cache=None):
     params ("serve" rules), its dp slice of the tokens and the cache; the
     step gathers the params and runs the family's ``prefill`` /
     ``decode_step`` under the mesh context, with no gradient."""
+    from repro_torch.train.trainer import model_kept
     mod = family_module(cfg)
     dp, n_dp = M.dp_axes(mesh), M.dp_total(mesh)
     if params is None:
         params = serve_params(cfg, mod, device)
     p_shard = make_param_shardings(cfg, params, mesh, "serve")
+    kept = model_kept(cfg, mod, p_shard)
+    split = splits(cfg) and M.model_split(mesh) is not None
     local = tree_map(lambda x, s: s.shard(x), params, p_shard)
     if cache is None:
         cache = _on(device, SH.cache_shape(cfg, mod, shape))
-    kv = getattr(cfg, "kv_replicate_to", 0) or cfg.kv_heads
-    seq_shard = bool(kv and kv % M.axis_sizes(mesh)["model"] != 0)
-    cache = map_with_path(
-        lambda path, x: Sharding(mesh, _dp_only(cache_spec(
-            cfg, mesh, path, tuple(x.shape), seq_shard), dp)).shard(x)
-        if torch.is_tensor(x) else x, cache)
+    seq_shard = seq_sharded(cfg, mesh)
+
+    def cache_sharding(path, x):
+        spec = cache_spec(cfg, mesh, path, tuple(x.shape), seq_shard)
+        return Sharding(mesh, spec if split and not seq_shard
+                        else _dp_only(spec, dp))
+
+    cache = map_with_path(lambda path, x: cache_sharding(path, x).shard(x)
+                          if torch.is_tensor(x) else x, cache)
 
     def dp_slice(x):
         return _batch_sharding(mesh, x).shard(x)
@@ -257,11 +274,28 @@ def serve_cell(cfg, shape, mesh, device="meta", params=None, cache=None):
                 return mod.decode_step(p, token, cfg, cache)
 
     def step(params, *rest):
-        full = tree_map(lambda x, s: s.gather(x), params, p_shard)
-        with torch.no_grad(), M.activation_sharding(dp, n_dp, mesh=mesh):
+        full = tree_map(lambda x, s, k: s.gather(x, keep=k), params, p_shard,
+                        kept)
+        with torch.no_grad(), M.activation_sharding(dp, n_dp, mesh=mesh,
+                                                    split=split):
             return call(full, *rest)
 
     return step, (local, *inputs, cache)
+
+
+def splits(cfg) -> bool:
+    """The config runs the tensor-parallel split: its model module keeps
+    product leaves' ``model`` shards (``keeps_model_shard``)."""
+    keeps = getattr(family_module(cfg), "keeps_model_shard", None)
+    return keeps is not None and keeps(cfg, "embed")
+
+
+def seq_sharded(cfg, mesh) -> bool:
+    """The reference splits this config's KV cache over its sequence on
+    ``mesh``: its KV heads (``kv_replicate_to`` where set) do not divide
+    the ``model`` axis."""
+    kv = getattr(cfg, "kv_replicate_to", 0) or cfg.kv_heads
+    return bool(kv and kv % M.axis_sizes(mesh)["model"] != 0)
 
 
 def build_cell(arch: str, shape_name: str, mesh, *, cfg=None, shape=None,
@@ -270,15 +304,25 @@ def build_cell(arch: str, shape_name: str, mesh, *, cfg=None, shape=None,
     the arch's full config and ``SHAPES[shape_name]``."""
     cfg = cfg or get_cfg(arch)
     shape = shape or SH.SHAPES[shape_name]
-    notes = [NOTE_TP, NOTE_GATHER]
+    notes = cell_notes(cfg, shape, mesh)
     if torch.device(device).type == "meta":
         notes.append(NOTE_META)
     if shape.kind == "train":
         step, args = train_cell(cfg, shape, mesh, device)
     else:
         step, args = serve_cell(cfg, shape, mesh, device)
-        notes.append(NOTE_SERVE)
     return step, args, notes
+
+
+def cell_notes(cfg, shape, mesh) -> list:
+    """What a cell's counts are of: the split or the whole layer, the
+    gathers, and a serving cache kept on the dp axes where the reference
+    splits its sequence."""
+    split = splits(cfg)
+    notes = [NOTE_SPLIT] if split else [NOTE_TP, NOTE_GATHER]
+    if shape.kind != "train" and (not split or seq_sharded(cfg, mesh)):
+        notes.append(NOTE_SERVE)
+    return notes
 
 
 def analyze_cell(step, args) -> dict:

@@ -24,6 +24,18 @@ reference's ``layers.activation_sharding``) is kept here too: the one
 place that knows which ranks share a batch.  The EP MoE layer reads its
 mesh (``current_mesh``); the activation quantization takes its absmax
 over the dp ranks (``dp_max``).
+
+With ``split=True`` the context also says that the params hold their
+``model`` shards (the tensor-parallel split): ``current_split`` gives
+the ``model`` group (``ModelSplit``: group, size, rank) to the layers,
+which compute their heads, columns, vocab rows and experts only and
+meet through autograd-aware collectives over that group:
+``copy_to_model`` (the identity; its gradient the sum over the group)
+where a replicated tensor enters a split region, ``reduce_from_model``
+(the sum over the group; its gradient the identity) where a region's
+partial sums leave it, and ``model_max`` for a quantization scale that
+spans a split dimension.  Over a ``model`` axis of one rank there is no
+split: ``current_split`` is None and nothing runs.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ import dataclasses
 import datetime
 import math
 import threading
-from typing import Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 import torch.distributed as dist
@@ -78,36 +90,41 @@ def backend_for(device) -> str:
 
 def init_process_group(device, rank: int, world_size: int, *, store=None,
                        init_method: str | None = None,
-                       timeout_s: float = TIMEOUT_S) -> None:
+                       timeout_s: float = TIMEOUT_S,
+                       backend: str | None = None) -> None:
     """The default process group for a mesh of ``device``'s type: NCCL
     for a card, gloo for the CPU, with a timeout.  ``store`` (e.g. a
     ``FileStore``) or ``init_method`` (``env://`` under ``torchrun``,
     ``tcp://localhost:<port>``) says how the ranks meet.  ``meta``: the
     fake backend, this process alone standing for ``rank`` of
     ``world_size`` (its store a ``FakeStore`` unless ``store`` is
-    given)."""
+    given).  ``backend`` names another backend explicitly (gloo for
+    two ranks on one card, which NCCL refuses); nothing picks it by
+    itself, and ``make_mesh`` then needs the same ``backend``."""
     if torch.device(device).type == "meta":
         # importing the module registers the "fake" backend
         from torch.testing._internal.distributed.fake_pg import FakeStore
         store = store if store is not None else FakeStore()
-    kwargs = dict(backend=backend_for(device), rank=rank,
+    kwargs = dict(backend=backend or backend_for(device), rank=rank,
                   world_size=world_size,
                   timeout=datetime.timedelta(seconds=timeout_s))
     if store is not None:
         kwargs["store"] = store
     else:
         kwargs["init_method"] = init_method or "env://"
-    if torch.device(device).type == "cuda":
+    if kwargs["backend"] == "nccl":
         kwargs["device_id"] = torch.device("cuda", torch.cuda.current_device())
     dist.init_process_group(**kwargs)
 
 
-def make_mesh(shape, axes, device=None):
+def make_mesh(shape, axes, device=None, backend: str | None = None):
     """A ``DeviceMesh`` of ``shape`` with the named ``axes`` over the
     ranks of the default process group (already initialized, its size
     the product of ``shape``), on ``device``'s type (default: the card).
     Ranks fill the mesh in row-major order, as ``jax.make_mesh`` fills
-    its devices."""
+    its devices.  The group's backend must be the device's, or
+    ``backend`` where the caller named another one to
+    ``init_process_group``."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.device import resolve_device
@@ -118,7 +135,7 @@ def make_mesh(shape, axes, device=None):
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(mesh.init_process_group, or torchrun's env://)")
-    want, have = backend_for(device), dist.get_backend()
+    want, have = backend or backend_for(device), dist.get_backend()
     if have != want:
         raise RuntimeError(f"a {device.type} mesh needs a {want} process "
                            f"group, not {have}: collectives do not fall "
@@ -200,18 +217,46 @@ def all_reduce(t: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM):
 _ctx = threading.local()
 
 
+class ModelSplit(NamedTuple):
+    """This rank's ``model`` group under the tensor-parallel split: the
+    process group, its size and this rank's index in it."""
+    group: Any
+    size: int
+    rank: int
+
+    def divides(self, n: int) -> bool:
+        """The sharding rules split a dimension of n over ``model``."""
+        return n % self.size == 0
+
+
+def model_split(mesh, tp_axis: str = TP_AXIS):
+    """The ``ModelSplit`` of ``mesh``'s ``model`` axis, or None where the
+    axis has one rank (or the mesh none)."""
+    if mesh is None or tp_axis not in axis_names(mesh):
+        return None
+    size = axis_sizes(mesh)[tp_axis]
+    if size == 1:
+        return None
+    return ModelSplit(mesh.get_group(tp_axis), size,
+                      coordinate(mesh)[tp_axis])
+
+
 def activation_sharding(dp_axes, dp_total: int, mesh=None,
-                        tp_axis: str = TP_AXIS):
+                        tp_axis: str = TP_AXIS, split: bool = False):
     """The launcher's mesh context: ``dp_axes`` carry the batch (each
     rank holds its slice), ``dp_total`` their product; ``mesh`` and
-    ``tp_axis`` are what the EP MoE layer (``moe.moe_apply_ep``) reads."""
+    ``tp_axis`` are what the EP MoE layer (``moe.moe_apply_ep``) reads.
+    ``split``: the params hold their ``model`` shards, and the layers
+    compute the rank's part (``current_split``)."""
     return in_context(((tuple(dp_axes), int(dp_total)) if dp_axes else None,
-                       (mesh, tp_axis)))
+                       (mesh, tp_axis),
+                       model_split(mesh, tp_axis) if split else None))
 
 
 def saved_context():
     """This thread's mesh context, as ``in_context`` takes it."""
-    return getattr(_ctx, "dp", None), getattr(_ctx, "mesh", None)
+    return (getattr(_ctx, "dp", None), getattr(_ctx, "mesh", None),
+            getattr(_ctx, "split", None))
 
 
 @contextlib.contextmanager
@@ -220,11 +265,11 @@ def in_context(saved):
     the thread's own restored after (a layer recomputed on autograd's
     thread runs in its forward's context)."""
     old = saved_context()
-    _ctx.dp, _ctx.mesh = saved
+    _ctx.dp, _ctx.mesh, _ctx.split = saved
     try:
         yield
     finally:
-        _ctx.dp, _ctx.mesh = old
+        _ctx.dp, _ctx.mesh, _ctx.split = old
 
 
 def current_mesh():
@@ -248,3 +293,78 @@ def dp_max(t: torch.Tensor) -> torch.Tensor:
     if mesh is None or dp is None or dp[1] == 1:
         return t
     return all_reduce(t, mesh, dp[0], dist.ReduceOp.MAX)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel split: collectives over the model group
+# ---------------------------------------------------------------------------
+
+def current_split():
+    """The context's ``ModelSplit`` when the params hold their ``model``
+    shards over more than one rank, else None."""
+    return getattr(_ctx, "split", None)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity on a tensor every rank of the group holds whole and
+    uses for its own part; its gradient, each rank's part, summed over
+    the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the group of each rank's partial tensor; its gradient
+    (the same on every rank, what follows being replicated) passes as it
+    is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` entering a split region (``_CopyToModel``); x itself off the
+    split."""
+    split = current_split()
+    return x if split is None else _CopyToModel.apply(x, split.group)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over the model group
+    (``_ReduceFromModel``); x itself off the split."""
+    split = current_split()
+    return x if split is None else _ReduceFromModel.apply(x, split.group)
+
+
+def model_max(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s max over the model group (in place, no gradient): a
+    quantization scale over a dimension the ranks split.  ``t`` itself
+    off the split."""
+    split = current_split()
+    if split is None:
+        return t
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=split.group)
+    return t
+
+
+def split_max(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s max over the dp ranks and the model group: the absmax of a
+    tensor of which each rank holds a slice of the batch and a slice of
+    the features."""
+    return model_max(dp_max(t))

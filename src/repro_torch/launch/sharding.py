@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 import torch.distributed as dist
@@ -132,6 +132,40 @@ def param_spec(cfg, mesh, path: str, shape, mode: str = "train") -> Spec:
 
     # ---- everything else (norm scales, biases, mu, u, ...): replicated -----
     return none
+
+
+class AttnHeads(NamedTuple):
+    """A rank's share of one attention layer under the tensor-parallel
+    split, by ``param_spec``'s attention rules: ``q`` query heads (the
+    rank's, from rank * q), ``q_split`` whether ``wq``'s columns and
+    ``wo``'s rows are split; ``kv_split`` whether ``wk`` / ``wv``'s
+    columns are; and the ``kv`` KV heads its queries read (of every KV
+    head after ``kv_replicate_to``), from ``kv_lo``."""
+    q: int
+    kv: int
+    kv_lo: int
+    q_split: bool
+    kv_split: bool
+
+
+def attn_heads(n_heads: int, kv_heads: int, kv_total: int,
+               split) -> AttnHeads:
+    """The ``AttnHeads`` of a layer of ``n_heads`` query and ``kv_heads``
+    KV heads (``kv_total`` after ``kv_replicate_to``) under ``split``
+    (``mesh.ModelSplit`` or None).  The three cases: q and kv split (the
+    GQA ratio kept), q split over a replicated kv (the rank's q heads
+    read ``kv_total / m`` heads, or one where fewer than a group), and
+    nothing split (the layer whole on every rank)."""
+    if split is None or not split.divides(n_heads):
+        return AttnHeads(n_heads, kv_total, 0, False, False)
+    q = n_heads // split.size
+    group = n_heads // kv_total
+    if q >= group:
+        kv = q // group
+        lo = split.rank * kv
+    else:
+        kv, lo = 1, split.rank * q // group
+    return AttnHeads(q, kv, lo, True, split.divides(kv_heads))
 
 
 def map_with_path(fn, tree, path: str = ""):
@@ -270,6 +304,10 @@ class Sharding:
     def replicated(self) -> bool:
         return all(not _entry_axes(e) for e in self.spec)
 
+    def names(self, axis: str) -> bool:
+        """The spec splits some dimension over ``axis``."""
+        return any(axis in _entry_axes(e) for e in self.spec)
+
     def slices(self, shape, coord: Dict[str, int]) -> tuple:
         """The slice of a global leaf of ``shape`` that the mesh
         coordinate ``coord`` ({axis: index}) holds; raises where an axis
@@ -297,10 +335,34 @@ class Sharding:
         """This process's slice of a global leaf of ``shape``."""
         return self.slices(shape, coordinate(self.mesh))
 
-    def shard(self, full: torch.Tensor) -> torch.Tensor:
+    def without(self, axes) -> "Sharding":
+        """This spec with the mesh ``axes`` dropped: the form of a leaf
+        gathered over every other axis (``gather(local, keep=axes)``),
+        whose own slices ``shard(full, keep=axes)`` leaves alone.  An
+        axis may be dropped only where it names a dimension alone."""
+        axes = tuple(axes)
+        out = []
+        for entry in self.spec:
+            names = _entry_axes(entry)
+            if any(a in axes for a in names) and len(names) > 1:
+                raise ValueError(f"spec {self.spec}: cannot keep {axes} of "
+                                 f"a dimension split over {names}")
+            out.append(None if names and names[0] in axes else entry)
+        return Sharding(self.mesh, tuple(out))
+
+    def local_shape(self, shape) -> tuple:
+        """The shape of this process's shard of a global leaf."""
+        return tuple(s.stop - s.start for s in self.local_slices(shape))
+
+    def shard(self, full: torch.Tensor, keep=()) -> torch.Tensor:
         """This process's shard of a global tensor: a copy in storage of
         its own (a view would keep the whole leaf alive), or ``full``
-        itself where the shard is the whole leaf."""
+        itself where the shard is the whole leaf.  ``keep``: mesh axes
+        along which ``full`` is this rank's shard already (a leaf that
+        ``gather(..., keep=)`` left split): it is sliced along the
+        others only."""
+        if keep:
+            return self.without(keep).shard(full)
         if self.replicated:
             return full
         part = full[self.local_slices(full.shape)]
@@ -308,13 +370,17 @@ class Sharding:
             return full
         return part.clone(memory_format=torch.contiguous_format)
 
-    def gather(self, local: torch.Tensor) -> torch.Tensor:
+    def gather(self, local: torch.Tensor, keep=()) -> torch.Tensor:
         """The global tensor from the shards of the ranks that share this
         rank's replica: for each dimension, an all-gather over the group
         of each mesh axis its spec names (the minor axis first), the
         parts joined along the dimension (a collective: every rank
         calls it).  Axes of size 1 move nothing; a replicated leaf is
-        returned as it is."""
+        returned as it is.  ``keep``: mesh axes not gathered, along
+        which the result stays this rank's shard (the tensor-parallel
+        split keeps ``model``)."""
+        if keep:
+            return self.without(keep).gather(local)
         if self.replicated:
             return local
         sizes = axis_sizes(self.mesh)

@@ -18,6 +18,18 @@ layer its mesh; each rank already holds its slice of the batch, so
 ``remat`` is the reference's ``jax.checkpoint`` of a layer: while a
 gradient is being taken the layer keeps only its inputs, and its
 backward runs the layer's forward again.
+
+Under the tensor-parallel split (``launch.mesh.current_split``) a
+projection takes ``split=``: "col" for a weight whose output columns
+the ``model`` group splits (its activation replicated), "row" for one
+whose input rows it splits (its activation the rank's slice, its
+product a partial sum); the quantization scales then span the group
+where the reference's span the logical tensor, and packed codes take
+the rank's columns of their replicated per-channel scales; "tokens" for
+a weight and an activation every rank holds whole (a layer the split
+leaves whole), whose weight gradient each rank takes over its slice of
+the tokens, summed over the group.  ``mlp`` splits its hidden columns,
+``softmax_xent`` its vocabulary.
 """
 
 from __future__ import annotations
@@ -29,13 +41,14 @@ import threading
 from typing import Any, Dict
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention_gqa
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.launch.mesh import (  # noqa: F401  (the reference's names)
-    activation_sharding, current_dp, current_mesh, in_context,
-    saved_context)
+    activation_sharding, copy_to_model, current_dp, current_mesh,
+    current_split, in_context, model_max, reduce_from_model, saved_context)
 from repro_torch.quant.fake_quant import fake_quant_act, fake_quant_weight
 from repro_torch.quant.pack import DEQUANTIZE
 from repro_torch.quant.qconfig import QuantConfig
@@ -151,8 +164,8 @@ def packed_mode(w: dict):
     return None, None
 
 
-def qdense(x: torch.Tensor, w, qcfg: QuantConfig,
-           cast=None) -> torch.Tensor:
+def qdense(x: torch.Tensor, w, qcfg: QuantConfig, cast=None,
+           split=None) -> torch.Tensor:
     """x @ w under the QuantConfig numerics (QAT fake-quant, STE grads).
 
     w may be a packed-code dict {"codes__<mode>": codes, "scale": scale}
@@ -165,11 +178,18 @@ def qdense(x: torch.Tensor, w, qcfg: QuantConfig,
     on packed codes the kernel takes a bfloat16 cast itself (each
     dequantized weight rounded to bfloat16, as the reference rounds code
     x scale), and a float32 one is its float32 product.
+
+    ``split`` (None, "col", "row" or "tokens"): how the ``model`` group
+    splits w under the tensor-parallel split (the module docstring).
     """
     ct = cast if cast is not None else current_compute_dtype()
     if isinstance(w, dict):
         mode, key = packed_mode(w)
         codes, scale = w[key], w["scale"]
+        if scale.shape[-1] != codes.shape[-1]:
+            # column-split codes: the rank's slice of the replicated scale
+            n, at = codes.shape[-1], current_split().rank
+            scale = scale[..., at * n:(at + 1) * n]
         if qcfg.is_identity:
             if codes.ndim != 2:
                 raise ValueError(f"qdense takes one layer's codes, got "
@@ -183,11 +203,47 @@ def qdense(x: torch.Tensor, w, qcfg: QuantConfig,
                              cast=ct if ct == torch.bfloat16 else None)
             return y.reshape(*x.shape[:-1], y.shape[-1])
         w = DEQUANTIZE[mode](codes, scale)
-    if not qcfg.is_identity:
+    if not qcfg.is_identity and split in (None, "tokens"):
         w = fake_quant_weight(w, qcfg)
         x = fake_quant_act(x, qcfg)
+    elif not qcfg.is_identity:
+        w = fake_quant_weight(w, qcfg, split)
+        x = fake_quant_act(x, qcfg, split == "row")
     dt = ct if ct is not None else torch.promote_types(x.dtype, w.dtype)
-    return torch.matmul(x.to(dt), w.to(dt))
+    x, w = x.to(dt), w.to(dt)
+    if split == "tokens" and torch.is_grad_enabled() and w.requires_grad:
+        return _TokenSplitGrad.apply(x, w, current_split())
+    return torch.matmul(x, w)
+
+
+class _TokenSplitGrad(torch.autograd.Function):
+    """x @ w for a weight and an activation that every rank of the model
+    group holds whole (a layer the split leaves whole): the gradient of x
+    in full, that of w summed over the group from each rank's slice of
+    the tokens (rows of x), so no rank computes the whole contraction."""
+
+    @staticmethod
+    def forward(ctx, x, w, split):
+        ctx.save_for_backward(x, w)
+        ctx.split = split
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        split = ctx.split
+        dx = torch.matmul(g, w.transpose(-1, -2)) \
+            if ctx.needs_input_grad[0] else None
+        x2 = x.reshape(-1, x.shape[-1])
+        g2 = g.reshape(-1, g.shape[-1])
+        t = x2.shape[0]
+        if t % split.size:
+            return dx, x2.transpose(0, 1) @ g2, None
+        rows = slice(split.rank * t // split.size,
+                     (split.rank + 1) * t // split.size)
+        dw = x2[rows].transpose(0, 1) @ g2[rows]
+        dist.all_reduce(dw, group=split.group)
+        return dx, dw, None
 
 
 # ---------------------------------------------------------------------------
@@ -444,13 +500,27 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def mlp(params: Params, x: torch.Tensor, qcfg: QuantConfig,
-        act: str = "silu") -> torch.Tensor:
-    up = qdense(x, params["w_up"], qcfg)
+        act: str = "silu", split: bool = False) -> torch.Tensor:
+    """The MLP on x.  ``split``: the params hold the rank's hidden columns
+    (``w_up`` / ``w_gate`` columns, ``w_down`` rows); x enters the split
+    region and the partial products are summed over the model group."""
+    if not split:
+        return mlp_part(params, x, qcfg, act)
+    return reduce_from_model(mlp_part(params, copy_to_model(x), qcfg, act,
+                                      True))
+
+
+def mlp_part(params: Params, x: torch.Tensor, qcfg: QuantConfig,
+             act: str = "silu", split: bool = False) -> torch.Tensor:
+    """The MLP on x inside a split region: with ``split`` the rank's
+    partial sum of its hidden columns."""
+    col, row = ("col", "row") if split else (None, None)
+    up = qdense(x, params["w_up"], qcfg, split=col)
     if "w_gate" in params:
-        h = _act(qdense(x, params["w_gate"], qcfg), act) * up
+        h = _act(qdense(x, params["w_gate"], qcfg, split=col), act) * up
     else:
         h = _act(up, act)
-    return qdense(h, params["w_down"], qcfg)
+    return qdense(h, params["w_down"], qcfg, split=row)
 
 
 # ---------------------------------------------------------------------------
@@ -458,11 +528,29 @@ def mlp(params: Params, x: torch.Tensor, qcfg: QuantConfig,
 # ---------------------------------------------------------------------------
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 softcap: float = 0.0) -> torch.Tensor:
-    """Mean next-token cross entropy. logits: (..., V); labels: (...) int."""
+                 softcap: float = 0.0, split: bool = False) -> torch.Tensor:
+    """Mean next-token cross entropy. logits: (..., V); labels: (...) int.
+
+    ``split``: logits are the rank's slice of the vocabulary (rank r's
+    V / m columns from r * V / m, the model group's ``current_split``):
+    the max, the sum of exponentials and the gold logit are each reduced
+    over the group, and no rank holds the whole (..., V)."""
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    labels = labels[..., None].to(torch.int64)
+    if not split:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels)[..., 0]
+        return torch.mean(logz - gold)
+    v = logits.shape[-1]
+    lo = current_split().rank * v
+    # the max only steadies the exponentials: it takes no gradient
+    top = model_max(torch.amax(logits.detach(), dim=-1))
+    total = reduce_from_model(torch.sum(torch.exp(logits - top[..., None]),
+                                        dim=-1))
+    logz = top + torch.log(total)
+    mine = (labels >= lo) & (labels < lo + v)
+    gold = torch.gather(logits, -1, torch.where(mine, labels - lo, 0))
+    gold = reduce_from_model(torch.where(mine, gold, 0.0)[..., 0])
     return torch.mean(logz - gold)

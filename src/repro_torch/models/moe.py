@@ -21,6 +21,12 @@ it (``_earlier_counts``).  DeepSeekMoE's
 always-on shared experts are one MLP of width moe_shared * moe_d_ff, added
 to the routed output.
 
+Under the tensor-parallel split (``launch.mesh.current_split``) every
+rank of a ``model`` group routes the same tokens alike (the router is
+replicated), runs only its E / m experts on their entries of the
+dispatch buffer and its columns of the shared experts, and the partial
+combine is summed over the group.
+
 The reference's numerics, held by ``tests/test_torch_moe.py``:
   * under a quantizing PE type every expert's weights and activations are
     fake-quantized on their own, as the reference's vmap over
@@ -59,8 +65,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import (axis_sizes, coordinate, current_dp,
-                                     current_mesh, dp_index, in_context,
+from repro_torch.launch.mesh import (axis_sizes, coordinate, copy_to_model,
+                                     current_dp, current_mesh, current_split,
+                                     dp_index, in_context, reduce_from_model,
                                      saved_context)
 from repro_torch.models import layers as L
 from repro_torch.quant.fake_quant import (fake_quant_expert_acts,
@@ -322,30 +329,58 @@ def moe_apply(p: Params, x: torch.Tensor, cfg,
     n_dp = math.prod(axis_sizes(mesh)[a] for a in axes) if mesh else 1
     dp = (mesh, axes) if n_dp > 1 else None
     c = capacity(t * (n_dp if dp else 1), cfg)
-    xf = x.reshape(t, d)
     dev = x.device
+    # the tensor-parallel split: the rank's experts and shared columns
+    split = current_split()
+    e_loc = p["experts"]["w_up"].shape[0]
+    ex = split if e_loc != e else None
+    sh = bool(split and "shared" in p and p["shared"]["w_up"].shape[-1]
+              != cfg.moe_shared * cfg.moe_d_ff)
+    router = p["router"]
+    if ex or sh:
+        x = copy_to_model(x)
+    if ex:
+        # the router's weights scale the rank's experts' outputs only
+        router = copy_to_model(router)
+    xf = x.reshape(t, d)
 
     # --- routing and sort-based dispatch --------------------------------------
-    top_ids, top_w, vals = _topk(xf, p["router"], k, (b, s))
+    top_ids, top_w, vals = _topk(xf, router, k, (b, s))
     dest_e, dest_p, keep = _dispatch(top_ids, e, c, dp)
     log = RouterLog.active
     if log is not None:
         margin = (vals[:, k - 1] - vals[:, k] if k < e
                   else torch.full((t,), torch.inf, device=dev))
         log.calls.append((top_ids.reshape(b, s, k), margin.reshape(b, s)))
+    if ex:
+        # the rank's experts lo .. lo + e_loc; every other assignment goes
+        # to the unused bucket e_loc and adds nothing here
+        lo = ex.rank * e_loc
+        keep = keep & (dest_e >= lo) & (dest_e < lo + e_loc)
+        dest_e = torch.where(keep, dest_e - lo, e_loc)
+        dest_p = torch.where(keep, dest_p, 0)
 
-    buf = torch.zeros((e + 1, c, d), dtype=x.dtype, device=dev)
-    buf[dest_e, dest_p] = xf.repeat_interleave(k, dim=0)  # bucket e: unused
+    buf = torch.zeros((e_loc + 1, c, d), dtype=x.dtype, device=dev)
+    buf[dest_e, dest_p] = xf.repeat_interleave(k, dim=0)  # last bucket: unused
 
     # --- every expert's FFN on its whole buffer ------------------------------
-    ybuf = _experts_ffn(p["experts"], buf[:e], qcfg, cfg.act)  # (E, C, d)
+    ybuf = _experts_ffn(p["experts"], buf[:e_loc], qcfg, cfg.act)
 
     # --- combine: a token's contributions one at a time, in expert order -----
     out = _combine(ybuf, dest_e, dest_p, keep, top_w, t, k, x.dtype)
 
     # --- shared experts (DeepSeekMoE) ----------------------------------------
+    # under the split the partial sums of the rank's experts and shared
+    # columns are summed over the group once
     if "shared" in p:
-        out = out + L.mlp(p["shared"], xf, qcfg, cfg.act)
+        shared = L.mlp_part(p["shared"], xf, qcfg, cfg.act, sh)
+        if ex and sh:
+            out = reduce_from_model(out + shared)
+        else:
+            out = (reduce_from_model(out) if ex else out) + (
+                reduce_from_model(shared) if sh else shared)
+    elif ex:
+        out = reduce_from_model(out)
     return out.reshape(b, s, d)
 
 
@@ -518,7 +553,7 @@ def moe_apply_ep(p: Params, x: torch.Tensor, cfg,
                for name, w in p["experts"].items()}
     # the reference's experts run inside its shard_map: their activation
     # scales span the rank's own buffers, not the dp ranks
-    with in_context((None, saved_context()[1])):
+    with in_context((None, *saved_context()[1:])):
         ybuf = _experts_ffn(experts, tokens_in, qcfg, cfg.act)
     back = _payload_all_to_all(
         ybuf.reshape(e_loc, n_tp, c, d).transpose(0, 1), group, int8)

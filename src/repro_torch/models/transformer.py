@@ -43,18 +43,36 @@ The perf variants, as the reference takes them:
 The KV cache is updated in place (the reference returns a new one; the
 port returns the same, written, object).  The families other than
 ``lm`` / ``moe`` / ``vlm`` raise here (``encdec`` has its own module).
+
+The tensor-parallel split (under ``mesh.activation_sharding(...,
+split=True)``, the params holding their ``model`` shards by the
+sharding rules; ``keeps_model_shard`` says which leaves): each rank
+computes its attention heads (``sharding.attn_heads``: q and kv split,
+q split over one or a few replicated KV heads read as a view of the
+cache, or the layer whole), its MLP columns, its experts
+(``moe.moe_apply``) and its vocabulary rows (the embedding looked up
+where a token is the rank's and summed over the group; the head's
+columns, whose logits stay the rank's: ``softmax_xent`` and
+``greedy_tokens`` reduce over the group).  A cache is the rank's heads
+where the rules split its heads, else every head (the sequence split
+of the reference's long-context caches is not built).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention_gqa, soft_cap
+from repro_torch.launch.mesh import (copy_to_model, current_split,
+                                     reduce_from_model)
+from repro_torch.launch.sharding import attn_heads
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.block_attn import block_local_attention
@@ -102,6 +120,37 @@ def replicated_kv(cfg) -> int:
     it exceeds the config's (the perf variant), else the config's."""
     rep = cfg.kv_replicate_to
     return rep if rep and rep > cfg.kv_heads else cfg.kv_heads
+
+
+_SPLIT_LEAVES = re.compile(
+    r"(attn/w[qkvo]|w_up|w_gate|w_down|embed|lm_head)(/codes__\w+)?$")
+
+
+def keeps_model_shard(cfg, path: str) -> bool:
+    """Whether the mesh steps keep this param leaf's ``model`` shard and
+    compute on it (the products: attention projections, MLP and expert
+    weights, the embedding and the head, packed codes alike), or gather
+    it over ``model`` first: the norm scales, which the rules split where
+    they divide yet every rank uses whole, and the router.  The
+    ``moe_ep_shard_map`` variant keeps no shard: its ``moe_apply_ep``
+    takes every expert and splits the tokens over the group itself, and
+    its step stays the whole layer on every rank (its split is later
+    work, ROADMAP A)."""
+    if cfg.moe_ep_shard_map:
+        return False
+    return _SPLIT_LEAVES.search(path) is not None
+
+
+def _vocab_split(cfg):
+    """The ``ModelSplit`` when the embedding's rows (and the head's
+    columns) are split, else None."""
+    split = current_split()
+    return split if split and split.divides(cfg.padded_vocab) else None
+
+
+def _width_split(width: int) -> bool:
+    split = current_split()
+    return bool(split and split.divides(width))
 
 
 # ---------------------------------------------------------------------------
@@ -231,12 +280,15 @@ def _layer(tree, i: int):
 
 
 def _block(p: Params, x, cfg, qcfg, positions, q_start, is_global: bool,
-           cache=None, moe: bool = False, attn_mode: str = "dyn"):
+           cache=None, moe: bool = False, attn_mode: str = "dyn",
+           d_ff: int = 0):
     """One transformer block.  attn_mode "dyn" (the baseline: a local
     layer's attention sees its window, a global one's every earlier key)
     or "local" (the grouped backbone's local layers: the block-local
     window, float32); the grouped backbone's global layers are "dyn"
-    ones, as the reference's static "global" mode computes the same."""
+    ones, as the reference's static "global" mode computes the same.
+    ``d_ff``: the dense MLP's width (split where the group divides it;
+    default the config's)."""
     h = L.rmsnorm(x, p["ln1"], zero_centered=cfg.zero_centered_norm)
     attn_out, new_cache = _attention_dynwin(
         p["attn"], h, attn_spec(cfg), qcfg, positions, q_start, cache,
@@ -247,7 +299,8 @@ def _block(p: Params, x, cfg, qcfg, positions, q_start, is_global: bool,
         moe_fn = MOE.moe_apply_ep if cfg.moe_ep_shard_map else MOE.moe_apply
         ff = moe_fn(p["moe"], h, cfg, qcfg)
     else:
-        ff = L.mlp(p["mlp"], h, qcfg, cfg.act)
+        ff = L.mlp(p["mlp"], h, qcfg, cfg.act,
+                   split=_width_split(d_ff or cfg.d_ff))
     return x + ff.to(x.dtype), new_cache
 
 
@@ -267,10 +320,26 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
     "local" the grouped backbone's local layers.
     """
     b, s, _ = x.shape
-    hq, hkv, dh = spec.n_heads, spec.kv_heads, spec.head_dim
-    q = L.qdense(x, p["wq"], qcfg).reshape(b, s, hq, dh)
-    k = L.qdense(x, p["wk"], qcfg).reshape(b, s, hkv, dh)
-    v = L.qdense(x, p["wv"], qcfg).reshape(b, s, hkv, dh)
+    dh = spec.head_dim
+    kv = replicated_kv(cfg) if cfg is not None else spec.kv_heads
+    heads = attn_heads(spec.n_heads, spec.kv_heads, kv, current_split())
+    hq = heads.q
+    hkv = spec.kv_heads // (current_split().size if heads.kv_split else 1)
+    # a layer left whole under the split: its weight gradients over the
+    # rank's tokens, summed over the group
+    whole = "tokens" if current_split() and not heads.q_split else None
+    col = "col" if heads.q_split else whole
+    if heads.q_split:
+        # a split region: x, and the replicated leaves used for the
+        # rank's heads only, take their gradients summed over the group
+        x = copy_to_model(x)
+        p = {name: copy_to_model(w) if torch.is_tensor(w) and name not in (
+            "wq", "wo", *(("wk", "wv") if heads.kv_split else ())) else w
+             for name, w in p.items()}
+    q = L.qdense(x, p["wq"], qcfg, split=col).reshape(b, s, hq, dh)
+    kv_col = "col" if heads.kv_split else whole
+    k = L.qdense(x, p["wk"], qcfg, split=kv_col).reshape(b, s, hkv, dh)
+    v = L.qdense(x, p["wv"], qcfg, split=kv_col).reshape(b, s, hkv, dh)
     if spec.qk_norm:
         q = L.rmsnorm(q, p["q_norm"])
         k = L.rmsnorm(k, p["k_norm"])
@@ -287,20 +356,46 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
 
     # perf variant: K/V heads padded up to the TP degree (replicated GQA
     # groups), so that decode caches shard on heads
-    kv = replicated_kv(cfg) if cfg is not None else hkv
-    if kv > hkv:
-        k = torch.repeat_interleave(k, kv // hkv, dim=2)
-        v = torch.repeat_interleave(v, kv // hkv, dim=2)
-        hkv = kv
+    if kv > spec.kv_heads:
+        k = torch.repeat_interleave(k, kv // spec.kv_heads, dim=2)
+        v = torch.repeat_interleave(v, kv // spec.kv_heads, dim=2)
+        hkv = k.shape[2]
+    # the KV heads the rank's queries read: all it computed, or a slice
+    # of the replicated ones (a view)
+    lo, hkv = (0, hkv) if hkv == heads.kv else (heads.kv_lo, heads.kv)
     scale = spec.query_scale or 1.0 / float(np.sqrt(dh))
+    row = "row" if heads.q_split else whole
+
+    def out_proj(out):
+        out = L.qdense(out.reshape(b, s, hq * dh).to(x.dtype), p["wo"],
+                       qcfg, split=row)
+        return reduce_from_model(out) if heads.q_split else out
+
+    new_cache = cache
+    if cache is not None:
+        ck, cv, idx = cache["k"], cache["v"], cache["index"]
+        max_len = ck.shape[1]
+        if s > max_len:
+            raise ValueError(f"{s} tokens do not fit a cache of {max_len}")
+        if ck.shape[2] not in (k.shape[2], hkv):
+            raise ValueError(f"a cache of {ck.shape[2]} KV heads for a rank "
+                             f"that computes {k.shape[2]} and reads {hkv}")
+        if ck.shape[2] != k.shape[2]:       # the cache holds the rank's heads
+            k, v, lo = k[:, :, lo:lo + hkv], v[:, :, lo:lo + hkv], 0
+        at = min(max(idx, 0), max_len - s)
+        ck[:, at:at + s] = L.to_cache(k, ck.dtype)
+        cv[:, at:at + s] = L.to_cache(v, cv.dtype)
+        new_cache = {"k": ck, "v": cv, "index": idx + s}
+        k, v = ck, cv
+    # the rank's KV heads: a view, no copy of a cache
+    k, v = k[:, :, lo:lo + hkv], v[:, :, lo:lo + hkv]
 
     if attn_mode == "local" and cache is None:
         # perf variant: static block-banded window, float32 throughout
         out = block_local_attention(q.reshape(b, s, hkv, hq // hkv, dh), k,
                                     v, pos2d, cfg.window, spec.softcap,
                                     spec.query_scale, checked=True)
-        out = out.reshape(b, s, hq * dh).to(x.dtype)
-        return L.qdense(out, p["wo"], qcfg), cache
+        return out_proj(out), cache
     if (cfg is not None and cfg.attn_flash and cache is None
             and (cfg.layer_pattern == "all_global" or cfg.window <= 0)):
         # perf variant: chunked online-softmax prefill (all-global
@@ -309,20 +404,7 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
                                 pos2d, pos2d, 1 << 30, spec.softcap,
                                 spec.query_scale,
                                 q_start=torch.zeros_like(q_start))
-        out = out.reshape(b, s, hq * dh).to(x.dtype)
-        return L.qdense(out, p["wo"], qcfg), cache
-
-    new_cache = cache
-    if cache is not None:
-        ck, cv, idx = cache["k"], cache["v"], cache["index"]
-        max_len = ck.shape[1]
-        if s > max_len:
-            raise ValueError(f"{s} tokens do not fit a cache of {max_len}")
-        at = min(max(idx, 0), max_len - s)
-        ck[:, at:at + s] = L.to_cache(k, ck.dtype)
-        cv[:, at:at + s] = L.to_cache(v, cv.dtype)
-        new_cache = {"k": ck, "v": cv, "index": idx + s}
-        k, v = ck, cv
+        return out_proj(out), cache
 
     # the reference's type rules: K is rounded to q's type inside the
     # product, P to V's type before P V; the kernel takes K and V as they
@@ -330,8 +412,7 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
     out = flash_attention_gqa(q, k, v, q_start, causal=True, scale=scale,
                               round_p=True, window=window,
                               softcap=spec.softcap)
-    out = out.reshape(b, s, hq * dh).to(x.dtype)
-    return L.qdense(out, p["wo"], qcfg), new_cache
+    return out_proj(out), new_cache
 
 
 def _backbone(params, x, cfg, positions, q_start, caches=None):
@@ -343,7 +424,8 @@ def _backbone(params, x, cfg, positions, q_start, caches=None):
     for i in range(cfg.first_dense):
         cache = None if caches is None else caches["dense"][i]
         x, cache = _block(params["dense_layers"][i], x, cfg, qcfg, positions,
-                          q_start, True, cache)
+                          q_start, True, cache,
+                          d_ff=cfg.dense_d_ff or cfg.d_ff)
         if caches is not None:
             caches["dense"][i] = cache
     flags = layer_is_global(cfg)[cfg.first_dense:]
@@ -411,17 +493,31 @@ def _grouped_flags(cfg):
 
 
 def _logits(params, x, cfg):
+    """The head's logits; under a vocabulary split the rank's columns."""
     qcfg = preset(cfg.pe_type)
     x = L.rmsnorm(x, params["final_norm"], zero_centered=cfg.zero_centered_norm)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = L.qdense(x, w, qcfg)
+    split = _vocab_split(cfg)
+    if split:
+        x = copy_to_model(x)
+    logits = L.qdense(x, w, qcfg, split="col" if split else None)
     if cfg.final_softcap > 0.0:
         logits = soft_cap(logits, cfg.final_softcap)
     return logits
 
 
 def _embed(params, tokens, cfg):
-    x = params["embed"][tokens]
+    split = _vocab_split(cfg)
+    if split:
+        # the rank's rows: each token looked up where it is the rank's,
+        # zeros elsewhere, summed over the group (one term is nonzero)
+        rows = params["embed"].shape[0]
+        lo = split.rank * rows
+        mine = (tokens >= lo) & (tokens < lo + rows)
+        x = params["embed"][torch.where(mine, tokens - lo, 0)]
+        x = reduce_from_model(torch.where(mine[..., None], x, 0.0))
+    else:
+        x = params["embed"][tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -467,7 +563,30 @@ def loss_fn(params, batch, cfg):
     checkpoints it: the backward keeps a layer's inputs and runs its
     forward again, which changes no value."""
     logits = forward(params, batch["tokens"], cfg, batch.get("positions"))
-    return L.softmax_xent(logits, batch["labels"])
+    return L.softmax_xent(logits, batch["labels"],
+                          split=_vocab_split(cfg) is not None)
+
+
+def greedy_tokens(logits: torch.Tensor, cfg) -> torch.Tensor:
+    """The argmax over the vocabulary of (..., V) logits, int64, the
+    lowest index among equal maxima, as the reference's ``argmax``; under
+    a vocabulary split over the ranks' slices (each rank's best gathered
+    over the group)."""
+    split = _vocab_split(cfg)
+    if split is None:
+        return torch.argmax(logits, dim=-1)
+    at = torch.argmax(logits, dim=-1)
+    best = torch.gather(logits, -1, at[..., None])[..., 0].to(torch.float32)
+    at = at + split.rank * logits.shape[-1]
+    both = torch.stack([best, at.to(torch.float32)]).contiguous()
+    parts = [torch.empty_like(both) for _ in range(split.size)]
+    dist.all_gather(parts, both, group=split.group)
+    vals = torch.stack([q[0] for q in parts])        # (m, ...): rank order
+    ids = torch.stack([q[1] for q in parts]).to(torch.int64)
+    top = torch.amax(vals, dim=0)
+    # among the ranks holding the max, the lowest index: the lowest rank
+    first = torch.argmax((vals == top).to(torch.int8), dim=0)
+    return torch.gather(ids, 0, first[None])[0]
 
 
 # ---------------------------------------------------------------------------

@@ -121,18 +121,28 @@ def adamw(lr_fn: Callable, b1: float = 0.9, b2: float = 0.95,
     return Optimizer(init, update)
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, split=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, summed leaf
-    by leaf in the reference's leaf order."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree_leaves(grads)))
+    by leaf in the reference's leaf order.  ``split`` = (flags, reduce):
+    the leaves flagged (``tree_leaves`` order) are each rank's shard of a
+    leaf split over a group, whose squares ``reduce`` sums over it; the
+    others are whole on every rank and count once."""
+    squares = [torch.sum(torch.square(g.to(torch.float32)))
+               for g in tree_leaves(grads)]
+    if split is None:
+        return torch.sqrt(sum(squares))
+    flags, reduce = split
+    parts = sum(q for q, f in zip(squares, flags) if f)
+    whole = sum(q for q, f in zip(squares, flags) if not f)
+    return torch.sqrt(whole + reduce(torch.zeros_like(squares[0]) + parts))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, split=None):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
-    before clipping).  The grads are scaled in place."""
+    before clipping).  The grads are scaled in place.  ``split`` as
+    ``global_norm``'s."""
     leaves = tree_leaves(grads)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, split)
     cap = torch.tensor(max_norm, dtype=torch.float32, device=gnorm.device)
     scale = torch.clamp(torch.div(cap, torch.clamp(gnorm, min=1e-9)),
                         max=1.0)

@@ -19,6 +19,13 @@ slice with its own scale (``fake_quant_experts``,
 ``fake_quant_expert_acts``: the reference vmaps over the experts).  The STE keeps the
 reference's expression ``x + (q - x).detach()``, which is not bitwise
 ``q`` in float32.
+
+Under the tensor-parallel split (``launch.mesh.current_split``) a rank
+holds a slice of a weight or an activation, and the reference takes the
+scale over the logical tensor: a row-split weight's per-channel absmax
+(and so pow2's ``e_max``), a split activation's per-tensor absmax, and
+a split weight's per-tensor absmax are maxima over the ``model`` group
+(``split=`` of ``fake_quant_weight`` / ``fake_quant_act``).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 
 from repro_torch.kernels.fake_quant import fake_quant_group
 from repro_torch.kernels.fake_quant.ref import POW2_LEVELS
-from repro_torch.launch.mesh import dp_max
+from repro_torch.launch.mesh import dp_max, model_max, split_max
 from repro_torch.quant.qconfig import QuantConfig
 
 
@@ -100,7 +107,11 @@ def affine_fake_quant(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
 
 def pow2_emax(x: torch.Tensor, axis=None) -> torch.Tensor:
     """Top exponent of the representable window, from the absmax."""
-    return torch.round(torch.log2(torch.clamp_min(_absmax(x, axis), 1e-8)))
+    return _emax_of(_absmax(x, axis))
+
+
+def _emax_of(absmax: torch.Tensor) -> torch.Tensor:
+    return torch.round(torch.log2(torch.clamp_min(absmax, 1e-8)))
 
 
 def pow2_round(x: torch.Tensor, e_max: torch.Tensor) -> torch.Tensor:
@@ -152,24 +163,21 @@ def pow2x2_fake_quant(x: torch.Tensor, axis=None) -> torch.Tensor:
 def _quantize_group(ds, scheme: str, bits: int, axes, reduce=None) -> list:
     """The quantize-dequantize of each (detached) x under ``scheme``, x's
     scale reduced over its own axes, in one launch (two for pow2x2, whose
-    second pass needs the residuals).  ``reduce`` (affine, one absmax a
-    tensor) takes the stacked absmaxes to those the scales come from, as
-    ``dp_max`` takes them over the dp ranks."""
-    if scheme == "affine":
-        absmax = [_absmax(d, a) for d, a in zip(ds, axes)]
-        if reduce is not None:
-            absmax = reduce(torch.stack(absmax)).unbind(0)
-        qs = _fused_group(ds, [_scale_of(m, bits) for m in absmax],
-                          "affine", bits)
-    elif scheme == "pow2":
-        qs = _fused_group(ds, [pow2_emax(d, a) for d, a in zip(ds, axes)],
-                          "pow2")
-    elif scheme == "pow2x2":
-        qs = _pow2x2_round_group(ds, [pow2_emax(d, a)
-                                      for d, a in zip(ds, axes)])
-    else:
+    second pass needs the residuals).  ``reduce`` takes the stacked
+    absmaxes (of one shape) to those the scales come from, as ``dp_max``
+    takes them over the dp ranks and ``model_max`` over the model
+    group."""
+    if scheme not in ("affine", "pow2", "pow2x2"):
         raise ValueError(f"unknown weight scheme {scheme}")
-    return qs
+    absmax = [_absmax(d, a) for d, a in zip(ds, axes)]
+    if reduce is not None:
+        absmax = reduce(torch.stack(absmax)).unbind(0)
+    if scheme == "affine":
+        return _fused_group(ds, [_scale_of(m, bits) for m in absmax],
+                            "affine", bits)
+    if scheme == "pow2":
+        return _fused_group(ds, [_emax_of(m) for m in absmax], "pow2")
+    return _pow2x2_round_group(ds, [_emax_of(m) for m in absmax])
 
 
 def _fake_quant_group(xs, scheme: str, bits: int, axes, reduce=None) -> list:
@@ -182,32 +190,43 @@ def _fake_quant_group(xs, scheme: str, bits: int, axes, reduce=None) -> list:
     return [_ste(x, q) for x, q in zip(xs, qs)]
 
 
-def fake_quant_weights(ws, qcfg: QuantConfig) -> list:
+def fake_quant_weights(ws, qcfg: QuantConfig, split=None) -> list:
     """``[fake_quant_weight(w, qcfg) for w in ws]``, bit for bit, in one
-    launch of the kernel (two for pow2x2)."""
+    launch of the kernel (two for pow2x2).  ``split``: None, or how the
+    model group splits every w ("row": its input rows, "col": its output
+    columns), whose scales then span the group where they span the
+    split dimension."""
     ws = list(ws)
     if qcfg.weight_scheme == "none":
         return ws
     # per-channel = last axis (output features)
     axes = [tuple(range(w.ndim - 1)) if qcfg.per_channel else None
             for w in ws]
-    return _fake_quant_group(ws, qcfg.weight_scheme, qcfg.weight_bits, axes)
+    spans = split == "row" or (split == "col" and not qcfg.per_channel)
+    return _fake_quant_group(ws, qcfg.weight_scheme, qcfg.weight_bits, axes,
+                             model_max if spans else None)
 
 
-def fake_quant_weight(w: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
-    """Quantize a weight tensor; per-channel = last axis (output features)."""
-    return fake_quant_weights([w], qcfg)[0]
+def fake_quant_weight(w: torch.Tensor, qcfg: QuantConfig,
+                      split=None) -> torch.Tensor:
+    """Quantize a weight tensor; per-channel = last axis (output features).
+    ``split`` as ``fake_quant_weights``'."""
+    return fake_quant_weights([w], qcfg, split)[0]
 
 
-def fake_quant_act(x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
+def fake_quant_act(x: torch.Tensor, qcfg: QuantConfig,
+                   split: bool = False) -> torch.Tensor:
     """Per-tensor dynamic activation quantization.  Under the launcher's
     mesh context (``launch.mesh.activation_sharding``) x is this rank's
     slice of the batch, and its absmax is the max over the dp ranks
-    (``dp_max``): the scale spans the global batch, as on one device."""
+    (``dp_max``): the scale spans the global batch, as on one device.
+    ``split``: x is also this rank's slice of the features (a split
+    region's output, the input of a row-split weight), and the max spans
+    the model group too."""
     if qcfg.act_scheme == "none" or not qcfg.quantize_acts:
         return x
     return _fake_quant_group([x], "affine", qcfg.act_bits, [None],
-                             dp_max)[0]
+                             split_max if split else dp_max)[0]
 
 
 def _stacked(x: torch.Tensor, scheme: str, bits: int, per_channel: bool,

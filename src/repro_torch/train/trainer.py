@@ -22,13 +22,24 @@ On a mesh (``state_shardings_for``, ``shard_state``, ``jit_train_step``)
 the step is the reference's SPMD contract on one process a device: the
 same function as on one device.  Params and optimizer state are stored
 as the sharding rules say, one local shard a rank (``step``
-replicated).  Each step all-gathers every leaf to a plain full tensor
-(the kernel wrappers launch on ``data_ptr()``: no distributed tensor
-reaches them), takes the rank's dp slice of the batch (the pipeline
-makes it), averages the gradients over the dp group in float32, clips
-the average and updates only the rank's own shard.  The products are
-not split over ``model``: each rank of a ``model`` group computes the
-whole layer (a tensor-parallel split is later work, ROADMAP A).
+replicated).  Each step all-gathers every leaf over its dp axes to a
+plain tensor (the kernel wrappers launch on ``data_ptr()``: no
+distributed tensor reaches them), takes the rank's dp slice of the
+batch (the pipeline makes it), averages the gradients over the dp group
+in float32, clips the average on the global norm and updates only the
+rank's own shard.
+
+The tensor-parallel split: where the model module says a leaf keeps its
+``model`` shard (``keeps_model_shard``: the decoder family's product
+leaves), the leaf is not gathered over ``model``, and the forward and backward run under the mesh context's
+split (``mesh.activation_sharding(..., split=True)``): each rank
+computes its heads, columns, vocabulary rows and experts, its model-
+split leaves' gradients are its shards', and the gradients of
+replicated leaves used for the rank's part alone are summed over the
+group inside the backward (``mesh.copy_to_model``).  The global norm
+sums the model-split leaves' squares over the group and counts the
+others once.  The other families gather every leaf over ``model`` and
+compute the whole layer on every rank of a ``model`` group.
 """
 
 from __future__ import annotations
@@ -81,6 +92,7 @@ class StepParts(NamedTuple):
     optimizer: Optimizer
     n_micro: int
     clip_norm: float
+    mod: Any = None
 
 
 def _grads_and_loss(parts: StepParts, params, batch: dict):
@@ -113,7 +125,7 @@ def make_train_step(cfg, mod, optimizer: Optimizer, n_micro: int = 1,
     clipping), "step"}, device scalars.  ``jit_train_step`` makes the
     mesh step of it (``train_step.parts``)."""
     parts = StepParts(cfg, loss_fn or mod.loss_fn, optimizer, n_micro,
-                      clip_norm)
+                      clip_norm, mod)
 
     def train_step(state: TrainState, batch: dict):
         params = state.params
@@ -184,32 +196,56 @@ def gather_state(state: TrainState, shardings: TrainState) -> TrainState:
         step=state.step)
 
 
+def model_kept(cfg, mod, p_shard):
+    """The tree of the axes each param leaf keeps through the mesh step:
+    ("model",) where the module's ``keeps_model_shard`` says the leaf
+    runs split, else () (gathered over every axis)."""
+    from repro_torch.launch.mesh import TP_AXIS
+    from repro_torch.launch.sharding import map_with_path
+    keeps = getattr(mod, "keeps_model_shard", None)
+    return map_with_path(
+        lambda path, sh: (TP_AXIS,) if keeps is not None
+        and keeps(cfg, path) else (), p_shard)
+
+
 def jit_train_step(train_step, state_shardings: TrainState, mesh):
     """The step of ``make_train_step`` on ``mesh``: step(state of local
     shards, this rank's slice of the batch) -> (state, metrics), the
     same function as ``train_step`` on the global batch.  The forward
     runs under the mesh context (``mesh.activation_sharding``): the
-    activations' quantization scales span the dp ranks, and the EP MoE
-    layer finds its mesh."""
-    from repro_torch.launch.mesh import (activation_sharding, all_reduce,
-                                         dp_axes, dp_total)
+    activations' quantization scales span the dp ranks, the EP MoE layer
+    finds its mesh, and the model module's leaves that keep their
+    ``model`` shards run split (the module docstring)."""
+    from repro_torch.launch.mesh import (TP_AXIS, activation_sharding,
+                                         all_reduce, dp_axes, dp_total,
+                                         model_split)
     parts = train_step.parts
     p_shard = state_shardings.params
     dp, n_dp = dp_axes(mesh), dp_total(mesh)
+    kept = model_kept(parts.cfg, parts.mod, p_shard)
+    # the leaves each rank holds a model shard of, in ``tree_leaves`` order
+    flags = tree_leaves(tree_map(lambda sh, k: bool(k) and sh.names(TP_AXIS),
+                                 p_shard, kept))
+    split = model_split(mesh) is not None and any(flags)
+
+    def reduce(t):
+        return all_reduce(t, mesh, (TP_AXIS,))
 
     def step_fn(state: TrainState, batch: dict):
-        full = tree_map(lambda x, sh: sh.gather(x).detach(), state.params,
-                        p_shard)
-        with activation_sharding(dp, n_dp, mesh=mesh):
+        full = tree_map(lambda x, sh, k: sh.gather(x, keep=k).detach(),
+                        state.params, p_shard, kept)
+        with activation_sharding(dp, n_dp, mesh=mesh, split=split):
             grads, loss = _grads_and_loss(parts, full, batch)
         n = torch.tensor(float(n_dp), dtype=torch.float32,
                          device=loss.device)
         # the dp mean in float32: a sum over the dp ranks, then / n
         grads = [torch.div(all_reduce(g, mesh, dp), n) for g in grads]
         loss = torch.div(all_reduce(loss.clone(), mesh, dp), n)
-        grads, gnorm = clip_by_global_norm(tree_unflatten(full, grads),
-                                           parts.clip_norm)
-        local = tree_map(lambda g, sh: sh.shard(g), grads, p_shard)
+        grads, gnorm = clip_by_global_norm(
+            tree_unflatten(full, grads), parts.clip_norm,
+            (flags, reduce) if split else None)
+        local = tree_map(lambda g, sh, k: sh.shard(g, keep=k), grads,
+                         p_shard, kept)
         new_params, new_opt = parts.optimizer.update(local, state.opt_state,
                                                      state.params)
         step = state.step + 1

@@ -143,8 +143,8 @@ class ActPins:
         import torch
         from repro_torch.quant.fake_quant import affine_scale
 
-        def act(x, qcfg):
-            out = fn(x, qcfg)
+        def act(x, qcfg, *split):
+            out = fn(x, qcfg, *split)
             if qcfg.act_scheme == "none" or not qcfg.quantize_acts \
                     or self.diverged:
                 return out
@@ -523,3 +523,169 @@ class CachePins:
                                got.view(torch.uint8)).view(dtype)
 
         monkeypatch.setattr(L, "to_cache", pinned)
+
+
+# ---------------------------------------------------------------------------
+# every affine code at a round(x / s) tie, located by position (training)
+# ---------------------------------------------------------------------------
+
+FINGERPRINT = 64      # elements of x / s that tell one quantization from another
+
+
+def _fingerprint_at(n: int) -> np.ndarray:
+    """FINGERPRINT fixed flat positions of a tensor of n elements."""
+    k = min(FINGERPRINT, n)
+    return (np.arange(k, dtype=np.int64) * 7919) % n
+
+
+def code_record(ratio: np.ndarray, codes: np.ndarray, bits: int,
+                tie: float = TIE) -> dict:
+    """One affine quantization's record: its shape, x / s at
+    ``_fingerprint_at``'s positions, and the flat positions whose x / s
+    lies within ``tie`` of a half-integer (inside the clip) with their
+    codes."""
+    flat = np.asarray(ratio, np.float32).reshape(-1)
+    mag = np.abs(flat.astype(np.float64))
+    near = (np.abs(mag - np.floor(mag) - 0.5) < tie) & (
+        mag < 2.0 ** (bits - 1) - 1)
+    at = np.flatnonzero(near).astype(np.int32)
+    return {"shape": list(np.shape(ratio)),
+            "fp": flat[_fingerprint_at(flat.size)].astype(np.float32),
+            "at": at, "codes": np.asarray(codes).reshape(-1)[at]
+            .astype(np.int16)}
+
+
+@contextlib.contextmanager
+def jax_code_log():
+    """While open, every affine quantization of the JAX package
+    (``repro.quant.fake_quant.affine_quantize``: weights per channel,
+    activations per tensor, an MoE layer's experts one call an expert
+    under vmap; in a training step's forward and its rematerialized
+    replay alike) adds its ``code_record`` to the yielded list, in the
+    order the host sees them (the records are matched by position and
+    fingerprint, not by order)."""
+    import jax
+    from repro.quant import fake_quant as JFQ
+
+    log = []
+    inner = JFQ.affine_quantize
+    jax.clear_caches()
+
+    def logged(x, scale, bits):
+        out = inner(x, scale, bits)
+        ratio = jax.lax.stop_gradient(x / scale)
+
+        def host(r, c):
+            log.append(code_record(np.asarray(r), np.asarray(c), bits))
+
+        jax.debug.callback(host, ratio, jax.lax.stop_gradient(out))
+        return out
+
+    JFQ.affine_quantize = logged
+    try:
+        yield log
+    finally:
+        JFQ.affine_quantize = inner
+        jax.clear_caches()
+
+
+def unique_records(log) -> list:
+    """The log without the replays of a quantization (the same shape and
+    fingerprint, bit for bit)."""
+    seen, out = set(), []
+    for r in log:
+        key = (tuple(r["shape"]), r["fp"].tobytes())
+        if key not in seen:
+            seen.add(key)
+            out.append(r)
+    return out
+
+
+class CodePins:
+    """The port's affine quantizations (the ``fake_quant`` kernel's plain
+    version, through ``quant.fake_quant._fused_group``) pinned to a JAX
+    log of ``code_record``s: each call finds the record of its shape
+    whose fingerprint matches its x / s within ``match`` (the two
+    packages read up to 1.2e-3 of a code apart there on the MoE capacity
+    run; two steps' quantizations differ by 0.6 and more), and at the
+    record's tie positions where its own
+    code differs from JAX's takes JAX's, counted in ``pinned``.  A call
+    with no record counts in ``unmatched``."""
+
+    def __init__(self, records, match: float = 1e-2):
+        self.match = match
+        self.by_shape = {}
+        for r in records:
+            self.by_shape.setdefault(tuple(r["shape"]), []).append(r)
+        self.pinned = self.calls = self.unmatched = 0
+
+    @contextlib.contextmanager
+    def installed(self):
+        from repro_torch.quant import fake_quant as FQ
+        inner = FQ._fused_group
+
+        def fused(xs, scales, mode, bits=8):
+            outs = inner(xs, scales, mode, bits)
+            if mode != "affine":
+                return outs
+            return [self._pin(x, s, o, bits) for x, s, o in
+                    zip(xs, scales, outs)]
+
+        FQ._fused_group = fused
+        try:
+            yield self
+        finally:
+            FQ._fused_group = inner
+
+    def _pin(self, x, scale, out, bits):
+        import torch
+        self.calls += 1
+        s = scale.reshape(-1) if scale.numel() == 1 else scale
+        ratio = (x / s).reshape(-1)
+        fp = ratio[torch.as_tensor(_fingerprint_at(ratio.numel()))].numpy()
+        best, gap = None, self.match
+        for r in self.by_shape.get(tuple(x.shape), ()):
+            d = float(np.abs(r["fp"] - fp).max()) if fp.size else 0.0
+            if d < gap:
+                best, gap = r, d
+        if best is None:
+            self.unmatched += 1
+            return out
+        at = torch.as_tensor(best["at"].astype(np.int64))
+        if not at.numel():
+            return out
+        qmax = 2.0 ** (bits - 1) - 1.0
+        mine = torch.clamp(torch.round(ratio[at]), -qmax, qmax)
+        want = torch.as_tensor(best["codes"].astype(np.float32)).to(
+            mine.dtype)
+        differ = mine != want
+        if not bool(differ.any()):
+            return out
+        assert bool(((mine - want).abs() <= 1)[differ].all()), \
+            "a code away from JAX's by more than one level at a tie"
+        self.pinned += int(differ.sum())
+        steps = torch.broadcast_to(s, x.shape).reshape(-1)[at]
+        flat = out.reshape(-1).clone()
+        flat[at] = torch.where(differ, want * steps, flat[at])
+        return flat.reshape(out.shape)
+
+
+def records_to_json(records) -> list:
+    import base64
+
+    def b64(a):
+        return base64.b64encode(np.ascontiguousarray(a).tobytes()).decode()
+
+    return [{"shape": r["shape"], "fp": b64(r["fp"]), "at": b64(r["at"]),
+             "codes": b64(r["codes"])} for r in records]
+
+
+def records_from_json(items) -> list:
+    import base64
+
+    def un(s, dt):
+        return np.frombuffer(base64.b64decode(s), dt)
+
+    return [{"shape": r["shape"], "fp": un(r["fp"], np.float32),
+             "at": un(r["at"], np.int32), "codes": un(r["codes"], np.int16)}
+            for r in items]

@@ -1,18 +1,14 @@
-"""One rank of the launch layer's multi-process tests (``_torch_dist``):
-
-  python tests/_torch_dist_worker.py <spec.json> <rank>
-
-It joins a gloo process group through a ``FileStore`` in the spec's
-directory (with a timeout), runs the spec's tasks in order and writes
-each task's result as ``<task>.<rank>.json`` (numbers) and
-``<task>.<rank>.npz`` (arrays).  It imports torch and the port, never
-JAX: the JAX side of each comparison is in the test process or in
-``tests/data/torch_launch_ref.json``.
+"""The tasks of the launch layer's multi-process tests (``_torch_dist``),
+each ``TASKS[kind](task, at)`` on one rank of ``repro_torch.launch.ranks``
+(``at`` its ``Rank``): a task's ``kind`` (default its name) picks its
+function, so one spec may run a kind several times.  It imports torch
+and the port, never JAX: the JAX side of each comparison is in the test
+process or in ``tests/data/torch_launch_ref.json``.
 """
 
+import contextlib
 import json
 import os
-import sys
 
 import numpy as np
 import torch
@@ -28,8 +24,6 @@ from repro_torch.launch.shapes import ShapeSpec, batch_specs
 from repro_torch.models import family_module
 from repro_torch.models import layers as L
 from repro_torch.optim import tree_leaves
-
-TIMEOUT_S = 120
 
 
 def _slices(tree, shardings, out, prefix=""):
@@ -48,10 +42,10 @@ def _slices(tree, shardings, out, prefix=""):
     return out
 
 
-def task_sharding(rank, task):
+def task_sharding(task, at):
     """Each reduced config's param (train, serve), batch and cache slices
     on the task's mesh, and a shard / gather round trip."""
-    mesh = M.make_mesh(task["mesh"], ("data", "model"), "cpu")
+    mesh = at.mesh(task["mesh"])
     b, s = task["batch"], task["seq"]
     meta = {"coord": M.coordinate(mesh), "configs": {}}
     for arch in list_archs():
@@ -74,7 +68,7 @@ def task_sharding(rank, task):
     # shard then gather gives back every leaf of a real model
     cfg = reduced("qwen3-32b")
     params = family_module(cfg).init_params(
-        cfg, torch.Generator().manual_seed(0), device="cpu")
+        cfg, torch.Generator().manual_seed(0), device=at.device)
     sh = make_param_shardings(cfg, params, mesh, "train")
     from repro_torch.optim import tree_map
     back = tree_map(lambda x, s_: s_.gather(s_.shard(x)), params, sh)
@@ -84,7 +78,7 @@ def task_sharding(rank, task):
     return meta, {}
 
 
-def task_grad_compress(rank, task):
+def task_grad_compress(task, at):
     """This rank's shard of every leaf of ``_torch_launch_ref.gc_inputs``
     through ``compressed_psum_mean`` over ("data",), the codes it sends,
     and ``make_compressed_allreduce`` on the leaves as one tree."""
@@ -92,7 +86,7 @@ def task_grad_compress(rank, task):
     from repro_torch.optim.grad_compress import (compressed_psum_mean,
                                                  make_compressed_allreduce,
                                                  quantize, shared_scale)
-    mesh = M.make_mesh((dist.get_world_size(),), ("data",), "cpu")
+    mesh = at.mesh((at.world,), ("data",))
     gs, errs = gc_inputs()
     i = M.dp_index(mesh)
     arrays = {}
@@ -116,7 +110,7 @@ def task_grad_compress(rank, task):
     return {"dp_index": i, "tree_same": tree_same}, arrays
 
 
-def task_moe_ep(rank, task):
+def task_moe_ep(task, at):
     """Reduced DeepSeek-MoE-16B's forward with ``moe_ep_shard_map`` on a
     (1, n) mesh under the float32 and the int8 payload, the reference's
     routing pinned at router near ties and its payload codes at rounding
@@ -126,9 +120,9 @@ def task_moe_ep(rank, task):
     from repro_torch.models.moe import PayloadPins, RoutePins
     ref = json.loads(REF_PATH.read_text())["moe_ep"]
     n = dist.get_world_size()
-    mesh = M.make_mesh((1, n), ("data", "model"), "cpu")
+    mesh = at.mesh((1, n))
     cfg, arrays, tokens = moe_inputs()
-    params = convert.params_from_numpy(arrays, "cpu")
+    params = convert.params_from_numpy(arrays, at.device)
     tokens = torch.from_numpy(tokens).to(torch.int64)
     meta, out = {"coord": M.coordinate(mesh)}, {}
     for name, int8 in (("float32", False), ("int8", True)):
@@ -162,7 +156,7 @@ def task_moe_ep(rank, task):
     return meta, out
 
 
-def task_ep_train(rank, task):
+def task_ep_train(task, at):
     """Training steps of reduced DeepSeek-MoE-16B with ``moe_ep_shard_map``
     on the task's mesh (its capacity factor E / k: no assignment is
     dropped, so the layer is ``moe_apply``'s function): each step's
@@ -174,14 +168,14 @@ def task_ep_train(rank, task):
                                    state_shardings_for)
     cfg = ep_train_config()
     mod = family_module(cfg)
-    mesh = M.make_mesh(task["mesh"], ("data", "model"), "cpu")
+    mesh = at.mesh(task["mesh"])
     opt = adamw(warmup_cosine(task["lr"], 20, task["steps"]))
     sh = state_shardings_for(cfg, mod, mesh, opt)
     state = shard_state(init_state(cfg, mod, opt,
                                    torch.Generator().manual_seed(0),
-                                   device="cpu"), sh)
+                                   device=at.device), sh)
     step = jit_train_step(make_train_step(cfg, mod, opt), sh, mesh)
-    pipe = lm_pipeline(cfg, task["batch"], task["seq"], device="cpu",
+    pipe = lm_pipeline(cfg, task["batch"], task["seq"], device=at.device,
                        mesh=mesh)
     metrics = []
     for _ in range(task["steps"]):
@@ -190,7 +184,7 @@ def task_ep_train(rank, task):
     return {"metrics": metrics}, _full_params(state, sh)
 
 
-def task_moe_capacity(rank, task):
+def task_moe_capacity(task, at):
     """``_torch_launch_ref.run_moe_capacity``'s run on the task's (n, 1)
     mesh: the same numpy params and global batch, this rank's dp slice,
     the baseline MoE layer with drops past capacity.  Each step's
@@ -205,17 +199,17 @@ def task_moe_capacity(rank, task):
     cfg, params, tokens, labels = capacity_inputs(task.get("pe_type",
                                                            "fp32"))
     mod = family_module(cfg)
-    mesh = M.make_mesh(task["mesh"], ("data", "model"), "cpu")
+    mesh = at.mesh(task["mesh"])
     opt = adamw(constant(CAP_LR))
-    p = convert.params_from_numpy(params, device="cpu")
+    p = convert.params_from_numpy(params, device=at.device)
     state = TrainState(params=p, opt_state=opt.init(p),
                        step=torch.zeros((), dtype=torch.int32))
     sh = state_shardings_for(cfg, mod, mesh, opt)
     state = shard_state(state, sh)
     rows = tokens.shape[0] // task["mesh"][0]
-    at = M.dp_index(mesh) * rows
-    batch = {"tokens": torch.from_numpy(tokens[at:at + rows]),
-             "labels": torch.from_numpy(labels[at:at + rows])}
+    lo = M.dp_index(mesh) * rows
+    batch = {"tokens": torch.from_numpy(tokens[lo:lo + rows]),
+             "labels": torch.from_numpy(labels[lo:lo + rows])}
     step = jit_train_step(make_train_step(cfg, mod, opt), sh, mesh)
     drops, inner = [], moe._dispatch
 
@@ -225,23 +219,36 @@ def task_moe_capacity(rank, task):
         return out
 
     metrics = []
+    pins = None
+    if task.get("pins"):
+        # the reference's codes at rounding ties (``CodePins``), located in
+        # the global batch's tensors: one rank only
+        assert task["mesh"] == [1, 1], "pins locate codes on one rank"
+        from _torch_act_pins import CodePins, records_from_json
+        from _torch_launch_ref import REF_PATH
+        ref = json.loads(REF_PATH.read_text())["moe_capacity_qat"]["pins"]
+        pins = CodePins(records_from_json(ref["records"]))
     moe._dispatch = counted
     try:
-        for i in range(CAP_STEPS):
-            state, m = step(state, batch)
-            metrics.append([float(m["loss"]), float(m["grad_norm"])])
-            if i == 0:
-                first = list(drops)
+        with pins.installed() if pins else contextlib.nullcontext():
+            for i in range(CAP_STEPS):
+                state, m = step(state, batch)
+                metrics.append([float(m["loss"]), float(m["grad_norm"])])
+                if i == 0:
+                    first = list(drops)
     finally:
         moe._dispatch = inner
     n_moe = cfg.n_layers - cfg.first_dense
     meta = {"metrics": metrics, "drops": first[:n_moe]}
+    if pins:
+        meta["pins"] = dict(pinned=pins.pinned, calls=pins.calls,
+                            unmatched=pins.unmatched)
     full = _full_params(state, sh)
     if task.get("plain"):
         # the trainer without a mesh on the same batch: one dp rank is
         # the same function, bit for bit
         from repro_torch.train import make_train_step as plain_step
-        p = convert.params_from_numpy(params, device="cpu")
+        p = convert.params_from_numpy(params, device=at.device)
         st = TrainState(params=p, opt_state=opt.init(p),
                         step=torch.zeros((), dtype=torch.int32))
         plain = plain_step(cfg, mod, opt)
@@ -256,7 +263,7 @@ def task_moe_capacity(rank, task):
     return meta, full
 
 
-def task_all_reduce(rank, task):
+def task_all_reduce(task, at):
     """``op_analysis`` of one ``all_reduce`` of ``n`` float32 values."""
     from repro_torch.launch import op_analysis
     x = torch.ones(task["n"], dtype=torch.float32)
@@ -264,17 +271,17 @@ def task_all_reduce(rank, task):
     return {"collectives": rep["collectives"], "sum": float(x[0])}, {}
 
 
-def task_dryrun_cell(rank, task):
+def task_dryrun_cell(task, at):
     """The dry run's step of ``_torch_dryrun_ref.MESH_CELLS``' first cell
     on this gloo group (CPU tensors: the kernels' plain versions), counted
     by ``op_analysis``."""
     from _torch_dryrun_ref import MESH_CELLS, mesh_config
     from repro_torch.launch import dryrun
     arch, (name, seq, batch, kind) = MESH_CELLS[task["cell"]]
-    mesh = M.make_mesh(task["mesh"], ("data", "model"), "cpu")
+    mesh = at.mesh(task["mesh"])
     step, args, _ = dryrun.build_cell(
         arch, name, mesh, cfg=mesh_config(arch, reduced),
-        shape=ShapeSpec(name, seq, batch, kind), device="cpu")
+        shape=ShapeSpec(name, seq, batch, kind), device=at.device)
     counts = dryrun.analyze_cell(step, args)
     return {k: counts[k] for k in ("flops", "collectives", "memory")}, {}
 
@@ -305,7 +312,7 @@ def _flat(tree, prefix=()):
         yield prefix, tree
 
 
-def task_train_cli(rank, task):
+def task_train_cli(task, at):
     """``python -m repro_torch.launch.train``'s ``main`` on this group
     (the mesh it picks), then the final params gathered."""
     from repro_torch.launch import train as cli
@@ -316,31 +323,35 @@ def task_train_cli(rank, task):
     cfg = reduced(args.arch).replace(pe_type=args.pe_type)
     n = dist.get_world_size()
     mp = cli.model_parallel(n, cfg)
-    mesh = M.make_mesh((n // mp, mp), ("data", "model"), "cpu")
+    mesh = at.mesh((n // mp, mp))
     opt = adamw(warmup_cosine(args.lr, 20, args.steps))
     sh = state_shardings_for(cfg, family_module(cfg), mesh, opt)
     return {"mesh": [n // mp, mp], "step": int(state.step)}, \
         _full_params(state, sh)
 
 
-def task_train_mesh(rank, task):
+def task_train_mesh(task, at):
     """The trainer's mesh functions on the task's mesh: the same run as
-    the CLI's, each step's metrics, a checkpoint at the last step."""
+    the CLI's, each step's metrics, a checkpoint at the last step; under
+    the task's ``variant`` (``tp_check.variant``), a control."""
+    from repro_torch import tp_check
     from repro_torch.data import lm_pipeline
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.train import (fit, init_state, jit_train_step,
                                    make_train_step, shard_state,
                                    state_shardings_for)
     cfg = reduced(task["arch"]).replace(pe_type=task["pe_type"])
+    if "dtype" in task:
+        cfg = cfg.replace(dtype=task["dtype"])
     mod = family_module(cfg)
-    mesh = M.make_mesh(task["mesh"], ("data", "model"), "cpu")
+    mesh = at.mesh(task["mesh"])
     opt = adamw(warmup_cosine(task["lr"], 20, task["steps"]))
     sh = state_shardings_for(cfg, mod, mesh, opt)
     state = shard_state(init_state(cfg, mod, opt,
                                    torch.Generator().manual_seed(0),
-                                   device="cpu"), sh)
+                                   device=at.device), sh)
     step = jit_train_step(make_train_step(cfg, mod, opt), sh, mesh)
-    pipe = lm_pipeline(cfg, task["batch"], task["seq"], device="cpu",
+    pipe = lm_pipeline(cfg, task["batch"], task["seq"], device=at.device,
                        mesh=mesh)
     metrics = []
 
@@ -351,14 +362,15 @@ def task_train_mesh(rank, task):
 
     local = {"/".join(map(str, k)): list(v.shape)
              for k, v in _flat(state.params)}
-    state = fit(state, logged, pipe, task["steps"],
-                ckpt_dir=task.get("ckpt_dir"), ckpt_every=task["steps"],
-                log_fn=lambda _m: None, shardings=sh)
+    with tp_check.variant(task.get("variant")):
+        state = fit(state, logged, pipe, task["steps"],
+                    ckpt_dir=task.get("ckpt_dir"), ckpt_every=task["steps"],
+                    log_fn=lambda _m: None, shardings=sh)
     return {"metrics": metrics, "local_shapes": local,
             "coord": M.coordinate(mesh)}, _full_params(state, sh)
 
 
-def task_restore(rank, task):
+def task_restore(task, at):
     """``trainer.resume`` of a checkpoint onto the task's mesh: this
     rank's shards, held to the saved arrays' slices, and gathered."""
     from repro_torch.checkpoint import manager as ckpt
@@ -366,9 +378,10 @@ def task_restore(rank, task):
     from repro_torch.train import resume, state_shardings_for
     cfg = reduced(task["arch"]).replace(pe_type=task["pe_type"])
     mod = family_module(cfg)
-    mesh = M.make_mesh(task["mesh"], ("data", "model"), "cpu")
+    mesh = at.mesh(task["mesh"])
     opt = adamw(warmup_cosine(task["lr"], 20, task["steps"]))
-    state = resume(cfg, mod, opt, task["ckpt_dir"], device="cpu", mesh=mesh)
+    state = resume(cfg, mod, opt, task["ckpt_dir"], device=at.device,
+                   mesh=mesh)
     sh = state_shardings_for(cfg, mod, mesh, opt)
     step = ckpt.latest_step(task["ckpt_dir"])
     root = os.path.join(task["ckpt_dir"], f"step_{step}")
@@ -389,33 +402,99 @@ def task_restore(rank, task):
         _full_params(state, sh)
 
 
+def _tp_case(task, at):
+    from _torch_tp_ref import PARAM_SEED, config
+    from repro_torch.models import transformer as T
+    cfg = config(task["arch"], task.get("pe_type", "fp32"),
+                 task.get("overrides"))
+    mesh = at.mesh(task["mesh"])
+    params = convert.params_from_numpy(T.numpy_params(cfg, PARAM_SEED),
+                                       at.device)
+    return cfg, mesh, params
+
+
+def task_tp_train(task, at):
+    """A ``_torch_tp_ref.TRAIN`` case on the task's mesh through the
+    tensor-parallel split (``tp_check.train_run``): each step's loss and
+    gradient norm, the FLOPs and collectives of a step, and the final
+    params' digest; under its ``variant`` (``tp_check.variant``) the
+    control run (``steps`` and ``count`` may cut it)."""
+    from _torch_tp_ref import DIGEST, STEPS, tp_batches
+    from repro_torch import tp_check
+    cfg, mesh, params = _tp_case(task, at)
+    steps = task.get("steps", STEPS)
+    with tp_check.variant(task.get("variant")):
+        r = tp_check.train_run(cfg, steps, 0, 0, at.device, mesh,
+                               params=params,
+                               batches=tp_batches(cfg)[:steps],
+                               count=task.get("count", True))
+    return ({"rows": r["rows"], "flops": r.get("flops"),
+             "collectives": r.get("collectives"),
+             "coord": M.coordinate(mesh)},
+            {k: v[:DIGEST] for k, v in r["final"].items()})
+
+
+def task_tp_serve(task, at):
+    """A ``_torch_tp_ref.SERVE`` case on (1, 2): each step's last logits
+    (gathered over the vocabulary split) and greedy tokens."""
+    from _torch_tp_ref import CACHE, PACK_MIN, PROMPT, serve_tokens
+    from repro_torch import tp_check
+    cfg, mesh, params = _tp_case(task, at)
+    r = tp_check.serve_run(cfg, torch.from_numpy(serve_tokens(cfg)), PROMPT,
+                           CACHE, at.device, mesh, quant=task.get("quant"),
+                           cache_dtype=torch.float32, params=params,
+                           pack_min=PACK_MIN)
+    return {"launches": r["launches"]}, {"logits": r["logits"],
+                                         "greedy": r["greedy"]}
+
+
+def task_tp_resume(task, at):
+    """A ``_torch_tp_ref.TRAIN`` case's split run checkpointed after its
+    first step, resumed onto a fresh state on the same mesh and run to
+    the end: its final params' digest and the steps after the resume."""
+    from _torch_tp_ref import DIGEST, STEPS, tp_batches
+    from repro_torch import tp_check
+    from repro_torch.data import DataPipeline
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import (TrainState, fit, jit_train_step,
+                                   make_train_step, resume, shard_state,
+                                   state_shardings_for)
+    from repro_torch.train_check import LM_SCHEDULE
+    cfg, mesh, params = _tp_case(task, at)
+    mod = family_module(cfg)
+    opt = adamw(warmup_cosine(*LM_SCHEDULE))
+    sh = state_shardings_for(cfg, mod, mesh, opt)
+    batches = tp_batches(cfg)
+
+    def pipe():
+        return DataPipeline(lambda s, i: tp_check._dp_slice(
+            batches[i % len(batches)], mesh, at.device), 0, at.device)
+
+    step = jit_train_step(make_train_step(cfg, mod, opt), sh, mesh)
+    rows = []
+
+    def logged(st, b):
+        st, m = step(st, b)
+        rows.append([float(m["loss"]), float(m["grad_norm"])])
+        return st, m
+
+    state = shard_state(TrainState(params, opt.init(params),
+                                   torch.zeros((), dtype=torch.int32)), sh)
+    fit(state, logged, pipe(), 1, ckpt_dir=task["ckpt_dir"], ckpt_every=1,
+        log_fn=lambda _m: None, shardings=sh)
+    p = pipe()
+    state = resume(cfg, mod, opt, task["ckpt_dir"], p, device=at.device,
+                   mesh=mesh)
+    state = fit(state, logged, p, STEPS, log_fn=lambda _m: None,
+                shardings=sh)
+    final = tp_check.param_digest(state.params, sh.params, k=DIGEST)
+    return {"rows": rows, "step": int(state.step)}, final
+
+
 TASKS = {"sharding": task_sharding, "grad_compress": task_grad_compress,
          "moe_ep": task_moe_ep, "train_cli": task_train_cli,
          "train_mesh": task_train_mesh, "restore": task_restore,
          "ep_train": task_ep_train, "moe_capacity": task_moe_capacity,
-         "all_reduce": task_all_reduce, "dryrun_cell": task_dryrun_cell}
-
-
-def main():
-    spec_path, rank = sys.argv[1], int(sys.argv[2])
-    with open(spec_path) as f:
-        spec = json.load(f)
-    workdir, world = spec["workdir"], spec["world"]
-    torch.set_num_threads(1)
-    store = dist.FileStore(os.path.join(workdir, "store"), world)
-    M.init_process_group("cpu", rank, world, store=store,
-                         timeout_s=TIMEOUT_S)
-    try:
-        for task in spec["tasks"]:
-            meta, arrays = TASKS[task["name"]](rank, task)
-            with open(os.path.join(workdir, f"{task['name']}.{rank}.json"),
-                      "w") as f:
-                json.dump(meta, f)
-            np.savez(os.path.join(workdir, f"{task['name']}.{rank}.npz"),
-                     **arrays)
-    finally:
-        dist.destroy_process_group()
-
-
-if __name__ == "__main__":
-    main()
+         "all_reduce": task_all_reduce, "dryrun_cell": task_dryrun_cell,
+         "tp_train": task_tp_train, "tp_serve": task_tp_serve,
+         "tp_resume": task_tp_resume}

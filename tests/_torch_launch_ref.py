@@ -31,7 +31,10 @@ axes and runs under ``jax.set_mesh``, the reference's
     layer in a forward of the global batch (capacity over the global
     tokens, places token-major over the batch);
   * ``moe_capacity_qat``: the same run under ``CAP_QAT``'s numerics, whose
-    experts' activation scales span the global batch's buffers.
+    experts' activation scales span the global batch's buffers, and its
+    ``pins``: the same steps again with every affine quantization logged
+    (``_torch_act_pins.jax_code_log``), each one's codes at rounding
+    ties, by position.
 
 ``PYTHONPATH=src:tests python tests/_torch_launch_ref.py --only
 moe_capacity`` rewrites those two parts alone.
@@ -142,16 +145,25 @@ def run_moe_capacity(pe_type: str = "fp32", n_dev: int = N_DEV):
 
     with jax.set_mesh(mesh), activation_sharding(("data",), n_dev,
                                                  mesh=mesh):
-        state = jax.device_put(state, state_shardings_for(jcfg, JT, mesh,
-                                                          opt))
-        step = jax.jit(make_train_step(jcfg, JT, opt, dp=("data",)))
-        losses, gnorms = [], []
-        for _ in range(CAP_STEPS):
-            state, m = step(state, batch)
-            losses.append(float(m["loss"]))
-            gnorms.append(float(m["grad_norm"]))
+        state0 = jax.device_put(state, state_shardings_for(jcfg, JT, mesh,
+                                                           opt))
+        losses, gnorms, state = _capacity_steps(jcfg, JT, opt, state0, batch)
         routers = np.asarray(state.params["layers"]["moe"]["router"],
                              np.float32)
+        pins = None
+        if pe_type != "fp32":
+            # the same steps again with every affine code logged: where a
+            # code sits at a rounding tie (``_torch_act_pins.CodePins``)
+            from _torch_act_pins import (jax_code_log, records_to_json,
+                                         unique_records)
+            with jax_code_log() as log:
+                again = _capacity_steps(jcfg, JT, opt, state0, batch)
+                jax.effects_barrier()
+            assert again[:2] == (losses, gnorms), (again[:2], losses,
+                                                   gnorms)
+            records = unique_records(log)
+            pins = {"records": records_to_json(records),
+                    "ties": int(sum(len(r["at"]) for r in records))}
         JM.moe_apply = logged
         jax.clear_caches()
         try:
@@ -170,7 +182,21 @@ def run_moe_capacity(pe_type: str = "fp32", n_dev: int = N_DEV):
             "lr": CAP_LR, "steps": CAP_STEPS, "losses": losses,
             "grad_norms": gnorms, "capacity": c, "drops": drops,
             "min_router_margin": float(min(m.min() for _, m in routes)),
-            "routers": _b64(routers), "routers_shape": list(routers.shape)}
+            "routers": _b64(routers), "routers_shape": list(routers.shape),
+            **({"pins": pins} if pins else {})}
+
+
+def _capacity_steps(jcfg, JT, opt, state, batch):
+    """(losses, gradient norms, final state) of CAP_STEPS jitted steps."""
+    import jax
+    from repro.train.trainer import make_train_step
+    step = jax.jit(make_train_step(jcfg, JT, opt, dp=("data",)))
+    losses, gnorms = [], []
+    for _ in range(CAP_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    return losses, gnorms, state
 
 
 def _b64(a) -> str:

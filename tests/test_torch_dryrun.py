@@ -21,9 +21,22 @@ its HLO counted by ``hlo_analysis.analyze``).
 * Two full-size cells (SmolLM-135M ``train_4k``, Gemma-3-1B
   ``decode_32k``) on ``meta``.
 * A 2 x 2 mesh (reduced, head_dim 64, batch 4 x 64): the argument bytes a
-  rank equal the reference's ``memory_analysis`` on 4 devices, rank 0
-  and rank 3 count alike, and the fake group's collectives equal those
-  of a real 4-rank gloo run.
+  rank equal the reference's ``memory_analysis`` on 4 devices, its FLOPs
+  a rank are at most ``SPLIT_FLOPS`` x the reference's (the
+  tensor-parallel split: each rank computes its heads, columns,
+  vocabulary rows and experts; GSPMD partitions some of what the split
+  leaves whole, as SmolLM's 3 heads, and the dp ranks' MoE buffers hold
+  the global capacity), rank 0 and rank 3 count alike, and the fake
+  group's collectives equal those of a real 4-rank gloo run.
+* Qwen3-32B at pod16x16 on ``meta``: ``train_4k`` below ``TRAIN_4K_FLOPS``
+  a device (64 equal layers: counted at 1 and 2 layers and taken to 64,
+  as each layer and microbatch counts alike; 1.782e16 before the split)
+  and ``decode_32k`` below ``DECODE_32K_TEMP`` bytes of temporaries
+  (79.4 GB of them before, most of them the bfloat16 params gathered
+  over ``model``), its 4 query heads a rank reading one KV head of the
+  dp-only cache as a view; the split families' cells carry no
+  ``NOTE_TP``, and ``NOTE_SERVE`` only where the reference splits the
+  cache's sequence.
 * At pod16x16 a leaf sharded over ``data`` is all-gathered over the
   ``data`` group alone: its own bytes, not 16 x.
 
@@ -42,12 +55,16 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch import op_analysis as OA
 from repro_torch.launch import shapes as SH
 from repro_torch.launch.sharding import Sharding
+from repro_torch.models import transformer as T
 
 from _torch_dist import run_ranks
 from _torch_dryrun_ref import (MESH_CELLS, MESH_SHAPE, REDUCED_SHAPES,
                                REF_PATH, mesh_config)
 
 ONE = ((1, 1), ("data", "model"))
+SPLIT_FLOPS = 1.10
+TRAIN_4K_FLOPS = 2.0e15
+DECODE_32K_TEMP = 20e9
 
 
 @pytest.fixture(scope="module")
@@ -127,6 +144,8 @@ def test_a_2x2_mesh_holds_the_references_argument_bytes(i, ref):
     want = ref["mesh2x2"]["cells"][arch][name]
     assert r0["memory"]["argument_size_in_bytes"] == \
         want["memory"]["argument_size_in_bytes"]
+    assert r0["flops"] <= SPLIT_FLOPS * want["flops"], (r0["flops"],
+                                                        want["flops"])
     for key in ("flops", "bytes_out", "collectives", "memory", "launches"):
         assert r0[key] == r3[key], key
 
@@ -196,3 +215,48 @@ def test_the_cli_writes_every_cell(tmp_path, monkeypatch):
     assert r["status"] == "ok" and r["devices"] == 256
     assert r["fits_80gb"] and r["launches"] == {"flash_attention": 26}
     assert r["collectives"]["all-gather"] > 0
+
+
+def test_qwen3_32b_at_pod16x16_splits_its_products():
+    """A device's ``train_4k`` FLOPs and ``decode_32k`` temporaries under
+    the split (module docstring)."""
+    cfg = get("qwen3-32b")
+    flops = []
+    for n in (1, 2):
+        r = D.run_cell("qwen3-32b", "train_4k", save=False, verbose=False,
+                       cfg=cfg.replace(n_layers=n))
+        assert r["status"] == "ok", r.get("error")
+        assert D.NOTE_TP not in r["notes"] and D.NOTE_SPLIT in r["notes"]
+        flops.append(r["flops"])
+    per_layer = flops[1] - flops[0]
+    assert per_layer > 0
+    assert flops[0] + (cfg.n_layers - 1) * per_layer < TRAIN_4K_FLOPS
+
+    views = []
+
+    def attend(q, k, v, *args, **kwargs):
+        views.append((q.shape[2], k.shape[2], k._base is not None))
+        return flash_attention_gqa(q, k, v, *args, **kwargs)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(T, "flash_attention_gqa", attend)
+        r = D.run_cell("qwen3-32b", "decode_32k", save=False, verbose=False)
+    assert r["status"] == "ok", r.get("error")
+    assert r["memory"]["temp_size_in_bytes"] < DECODE_32K_TEMP
+    # 8 KV heads do not divide 16: the cache keeps every head (the
+    # reference splits its sequence), and each rank's 4 q heads read one
+    assert D.NOTE_SERVE in r["notes"] and D.NOTE_TP not in r["notes"]
+    assert views == [(4, 1, True)] * cfg.n_layers
+
+
+def test_serving_cells_note_only_what_they_leave_out():
+    """The head-split cache of ``kv_replicate_to=16`` carries no
+    ``NOTE_SERVE``; a family the split does not take keeps ``NOTE_TP``."""
+    mesh = D.start_mesh(*D.MESHES["pod16x16"])
+    decode = SH.SHAPES["decode_32k"]
+    assert D.NOTE_SERVE not in D.cell_notes(
+        get("qwen3-32b").replace(kv_replicate_to=16), decode, mesh)
+    assert D.NOTE_SERVE in D.cell_notes(get("qwen3-32b"), decode, mesh)
+    for arch in ("rwkv6-1.6b", "zamba2-7b", "whisper-medium"):
+        notes = D.cell_notes(get(arch), SH.SHAPES["train_4k"], mesh)
+        assert D.NOTE_TP in notes and D.NOTE_SPLIT not in notes

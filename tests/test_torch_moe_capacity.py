@@ -33,6 +33,17 @@ Tolerances: losses and gradient norms rtol 1e-5, the routers after the
 steps atol 1e-5 (float32 across the packages; a different drop moves the
 loss by ~1e-2).  The drops must be equal, summed over the ranks.  One dp
 rank is the plain trainer's function bit for bit.
+
+Every step held to the reference: the reference file also holds, of the
+same INT8 steps, every affine code of the JAX package at a rounding tie
+(x / s within ``_torch_act_pins.TIE`` of a half-integer, located by
+position in each quantization, found by a fingerprint of its x / s:
+``jax_code_log``, ``CodePins``).  The port on one rank with those codes
+pinned (4 of them in the 3 steps) equals the reference at every step at
+rtol 2e-5 and its routers at ATOL (measured 1.6e-7 and 3e-8; unpinned it
+parts by 7.1e-3 after the first step).  A dp rank's tensors are slices of
+the reference's (its expert buffers hold its own assignments), which the
+pins do not locate: the dp runs stay held to the one-rank port.
 """
 
 import json
@@ -71,13 +82,22 @@ def test_dp_ranks_match_the_reference_pjit_step(n, ref, tmp_path):
 
 
 @pytest.fixture(scope="module")
-def one_rank_qat(ref_qat, tmp_path_factory):
-    """The QAT run on one dp rank, and the plain trainer's beside it."""
-    (meta, params), = run_ranks(
+def one_rank_runs(ref_qat, tmp_path_factory):
+    """The QAT run on one dp rank with the plain trainer's beside it, and
+    the same run with the reference's codes at ties pinned, in one
+    process."""
+    out = run_ranks(
         1, [{"name": "moe_capacity", "mesh": [1, 1], "plain": True,
-             "pe_type": ref_qat["pe_type"]}],
-        tmp_path_factory.mktemp("one_rank_qat"))["moe_capacity"]
-    return meta, params
+             "pe_type": ref_qat["pe_type"]},
+            {"name": "pinned", "kind": "moe_capacity", "mesh": [1, 1],
+             "pins": True, "pe_type": ref_qat["pe_type"]}],
+        tmp_path_factory.mktemp("one_rank_qat"))
+    return out["moe_capacity"][0], out["pinned"][0]
+
+
+@pytest.fixture(scope="module")
+def one_rank_qat(one_rank_runs):
+    return one_rank_runs[0]
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -129,3 +149,17 @@ def test_one_dp_rank_is_the_plain_step_bitwise_under_qat(one_rank_qat):
     meta, _ = one_rank_qat
     assert meta["plain_differing"] == 0
     assert meta["metrics"] == meta["plain_metrics"]
+
+
+def test_qat_one_rank_pinned_at_ties_matches_the_reference_every_step(
+        ref_qat, one_rank_runs):
+    meta, params = one_rank_runs[1]
+    pins = meta["pins"]
+    assert pins["unmatched"] == 0 and pins["pinned"] > 0, pins
+    assert meta["drops"] == ref_qat["drops"]
+    np.testing.assert_allclose(
+        meta["metrics"], np.array([ref_qat["losses"],
+                                   ref_qat["grad_norms"]]).T, rtol=2e-5)
+    want = unb64(ref_qat["routers"], np.float32, ref_qat["routers_shape"])
+    np.testing.assert_allclose(params["layers/moe/router"], want, atol=ATOL,
+                               rtol=0)

@@ -131,7 +131,37 @@ CREATORS = {
     "run_cnn": lambda: _qat().run_cnn(steps=1, trials=1, out=None),
     "tensor_from_numpy": lambda: _convert().tensor_from_numpy([1.0]),
     "hashed_params": lambda: _fp8_check().hashed_params(_reduced()),
+    "run_ranks": lambda: _ranks().run_ranks(1, [], _unused_dir()),
+    "ranks.main": lambda: _rank_main_without_device(),
+    "train_run": lambda: _tp_check().train_run(_reduced(), 1, 2, 8),
+    "serve_run": lambda: _tp_check().serve_run(
+        _reduced(), torch.zeros((1, 4), dtype=torch.int64), 2, 8),
 }
+
+
+def _ranks():
+    from repro_torch.launch import ranks
+    return ranks
+
+
+def _tp_check():
+    from repro_torch import tp_check
+    return tp_check
+
+
+def _unused_dir():
+    import tempfile
+    return Path(tempfile.gettempdir()) / "repro_torch_unused"
+
+
+def _rank_main_without_device():
+    """One rank of a spec that names no device."""
+    import json
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        spec = Path(d) / "spec.json"
+        spec.write_text(json.dumps({"world": 1, "workdir": d, "tasks": []}))
+        return _ranks().main([str(spec), "0"])
 
 
 def _fp8_check():
