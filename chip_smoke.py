@@ -108,7 +108,8 @@
    ``fake_quant``, 60 forward and 30 backward ``flash_attention`` launches
    a step (each layer recomputed in the backward) and a falling loss (step time, tokens/s, peak memory); 10 steps
    straight against 5, a checkpoint, a restore and 5 more, bitwise; and
-   the Figs. 5-6 run (``--mode cnn``, 150 steps, one trial), its table
+   the Figs. 5-6 run (``--mode cnn``, 150 steps, one trial), after two
+   runs of its LightPE-1 step from one seed held bitwise equal, its table
    loaded by the port's ``AccuracySurrogate`` and held to the paper's
    story;
 11. the decoder family (``models/moe``, windows, soft-caps and head_dim
@@ -288,7 +289,20 @@
    decode_32k and at prefill, Gemma-2-9B's 1 local-layer q head), and the
    backward at Qwen3-32B's training shape a rank, against the plain
    versions, timed;
-19. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
+19. the sequence-sharded cache: 19.1 two ranks of one ``model`` group on
+   the one card over gloo (18.1's launcher), the cache's rows split
+   between them where its KV heads do not divide the group: Gemma-3-1B
+   at full width (8 of 26 layers; its q heads gathered for the
+   attention) on a bfloat16 and an e4m3 cache and on int4 codes, and
+   SmolLM-135M (8 layers, its attention whole), a prefill spanning both
+   slices and decode steps, each held to the same run on one rank with
+   its launches a rank exactly the one rank's, each attention launch a
+   stats and a pass-2 launch; 19.2 the slice forms at pod16x16's local
+   shapes (Qwen3-32B v1b_f8_cache_seqshard decode_32k in 16 slices of
+   2,048 keys, and a prefill slice on the wgmma kernel), combined by
+   ``layers.seq_attention`` on one thread a slice and held to the
+   unsharded kernel and the plain version, one slice's launches timed;
+20. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
    last, the device line.
 
 Phases 3, 4, 8 and 9.1-9.5 launch ``fake_quant`` or no kernel: they run
@@ -404,6 +418,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 256, 20
 # 150 steps of one trial (0.90 / 0.98 / 0.90 / 1.0 after 100), within the
 # paper's story
 FIGS56_STEPS, FIGS56_TRIALS = 150, 1
+# Its constant learning rate keeps the loss spiking late in the run, so a
+# card run whose sums fall in another order reads another table: with
+# cuDNN's default (non-deterministic) convolutions LightPE-1 read top-1
+# 0.43 / 1.0 / 1.0 in three runs of one seed (scripts/torch_cnn_repeat.py,
+# NVIDIA H100 80GB HBM3, 700.00 W).  The port's convolutions are
+# deterministic; the LightPE-1 step is run twice for FIGS56_REPEAT_STEPS
+# steps from one seed and every leaf must be bitwise equal.
+FIGS56_REPEAT_STEPS = 20
 # LightPE-1: 211 projections x (w, x), and each layer's 210 again in its
 # recomputation (``layers.remat``)
 TRAIN_FQ_PER_STEP = (30 * 7 * 2 + 1) * 2
@@ -2101,7 +2123,18 @@ def run_training(torch, dev):
 
     # 5. the Figs. 5-6 run: examples/torch_train_qat.py --mode cnn, cut
     # to FIGS56_STEPS steps and one trial, and the port's AccuracySurrogate
-    # loads the table
+    # loads the table; first, one seed gives one run
+    t0 = time.perf_counter()
+    runs = [tree_leaves(qat.train_cnn("lightpe1", FIGS56_REPEAT_STEPS,
+                                      device=dev)) for _ in range(2)]
+    differing = sum(int((a != b).sum()) for a, b in zip(*runs))
+    if differing:
+        fail(f"Figs. 5-6: two LightPE-1 CNN runs of {FIGS56_REPEAT_STEPS} "
+             f"steps from one seed differ in {differing} elements")
+    print(f"Figs. 5-6: two LightPE-1 CNN runs of {FIGS56_REPEAT_STEPS} "
+          f"steps from one seed are bitwise equal ({len(runs[0])} tensors, "
+          f"{time.perf_counter() - t0:.1f} s)")
+    del runs
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "torch_qat_pareto.json")
@@ -5676,6 +5709,267 @@ def run_split(torch, dev):
                 seconds=t2 - t0)
 
 
+# 19.1: the sequence-sharded cache on SEQ_RANKS ranks of one model group,
+# both on the one card, each its own process over gloo (18.1's launcher
+# and transport): a cache whose KV heads do not divide the group splits
+# its rows (``cache_spec(..., seq_shard=True)``), each rank writes the
+# rows of its slice and attends over them, and the softmax is combined
+# across the group (``layers.seq_attention``: the slice forms' stats
+# launch, then with round_p on a bfloat16 or e4m3 cache the pass-2 launch
+# under the group's (M, L)).  Gemma-3-1B at full width, SEQ_LAYERS of its
+# 26 layers (one KV head; its 4 q heads split 2 + 2 and gathered for the
+# attention), on a bfloat16 and on an e4m3 cache, and on int4 codes (so
+# that quant_matmul runs on the path); SmolLM-135M at SEQ_LAYERS layers
+# (3 KV heads over 2; its attention whole).  A prefill of SEQ_PROMPT
+# tokens into a SEQ_CACHE-row cache (the prompt spans both slices) and
+# SEQ_STEPS decode steps (written into the second slice).  Each held to
+# the same run on one rank: the logits within SEQ_TOL (P codes round to
+# the cache's type under the group's (M, L), which parts from one rank's
+# in the last bits, so a code at a tie moves, as in 18.1's serving), the
+# greedy tokens equal up to each row's first near tie, and the launches a
+# rank exactly the one rank's with each attention launch a stats and a
+# pass-2 launch (``seq_want``); step ms and peak memory a rank beside
+SEQ_RANKS = 2
+SEQ_LAYERS, SEQ_BATCH, SEQ_PROMPT, SEQ_STEPS, SEQ_CACHE = 8, 2, 300, 4, 512
+SEQ_TOL = FP8_PLAIN_TOL
+SEQ_GEMMA = dict(kind="serve", arch="gemma3-1b",
+                 overrides={"n_layers": SEQ_LAYERS}, batch=SEQ_BATCH,
+                 prompt=SEQ_PROMPT, steps=SEQ_STEPS, cache_rows=SEQ_CACHE,
+                 token_seed=19)
+SEQ_TASKS = [dict(SEQ_GEMMA, name="gemma_bf16", cache_dtype="bfloat16"),
+             dict(SEQ_GEMMA, name="gemma_e4m3", cache_dtype="float8_e4m3fn"),
+             dict(SEQ_GEMMA, name="gemma_int4", quant="int4",
+                  cache_dtype="bfloat16"),
+             dict(SEQ_GEMMA, name="smollm", arch="smollm-135m",
+                  cache_dtype="bfloat16")]
+# 19.2: the slice forms at pod16x16's local shapes: (name, b, sq, start,
+# slices of keys, rows a slice, hq, hkv, d, q scale): Qwen3-32B's
+# v1b_f8_cache_seqshard decode_32k (a rank's 8 rows, every q head
+# gathered, 8 KV heads of 128, a 32,768-row e4m3 cache cut into 16
+# slices of 2,048) on peaked logits, and a prefill slice on the wgmma
+# kernel (2,048 queries, a sixteenth of prefill_32k's, against two
+# slices of 2,048 keys: one whole, one on the diagonal)
+SEQ_SHAPES = [("qwen3-32b decode_32k", 8, 1, 32767, 16, 2048, 64, 8, 128,
+               4.0),
+              ("qwen3-32b prefill slice", 1, 2048, 2048, 2, 2048, 64, 8, 128,
+               1.0)]
+
+
+def seq_slice_bound(b, hq, hkv, d, rows, pass2: bool):
+    """(bound ms, what bounds it) of one slice's launch on an e4m3 cache
+    with round_p, float32 q.  The two-pass stats launch reads q and the
+    slice's K once and writes each row's (M, L); it forms Q K^T over the
+    visible keys.  Pass 2 reads q, K, V and the group's (M, L) once and
+    writes the float32 output; it forms Q K^T and P V.  Part products as
+    ``fp8_attention_bound``'s (q three bf16 parts, K, V and the rounded P
+    one).  ``rows``: each query's visible keys of the slice."""
+    sq = len(rows)
+    visible = sum(hi - lo for lo, hi in rows)
+    keys = max(hi for _, hi in rows)
+    stats = 2 * 4 * b * sq * hq
+    nbytes = b * sq * hq * d * 4 + b * keys * hkv * d + stats
+    flops = 2 * b * hq * d * visible * kept_part_products(3, 1)
+    if pass2:
+        nbytes += b * keys * hkv * d + b * sq * hq * d * 4
+        flops += 2 * b * hq * d * visible * kept_part_products(1, 1)
+    return bound_ms(nbytes, flops, H100_BF16_FLOPS)
+
+
+def seq_want(one: dict) -> dict:
+    """The launches a rank of the sequence split on a bfloat16 or e4m3
+    cache makes where one rank made ``one``: each attention launch becomes
+    a stats and a pass-2 launch of the same kernel."""
+    fa = ("flash_attention", "flash_attention_wgmma", "flash_attention_fp8")
+    want = {k: (2 * v if k in fa else v) for k, v in one.items()}
+    want["flash_attention_stats"] = one["flash_attention"]
+    want["flash_attention_pass2"] = one["flash_attention"]
+    return want
+
+
+def run_seq(torch, dev, tmp: Path):
+    """Phase 19.1 (the SEQ_TASKS note)."""
+    import numpy as np
+    from repro_torch import tp_check
+    from repro_torch.launch import ranks
+
+    print(f"19.1 transport: {TP_TRANSPORT}, {SEQ_RANKS} ranks of a (1, "
+          f"{SEQ_RANKS}) ('data', 'model') mesh on {card_line()}")
+    one = {}
+    for task in SEQ_TASKS:
+        one[task["name"]] = tp_check.run_task(task, dev, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    try:
+        out = ranks.run_ranks(SEQ_RANKS, SEQ_TASKS, tmp, device="cuda:0",
+                              backend="gloo", deadline_s=TP_DEADLINE_S,
+                              timeout_s=TP_DEADLINE_S)
+    except RuntimeError as e:
+        fail(f"19.1: {e}")
+    res = {}
+    for task in SEQ_TASKS:
+        name = task["name"]
+        ref_meta, ref_arr = one[name]
+        want = ref_arr["logits"]
+        top2 = np.sort(want, axis=-1)[..., -2:]
+        sure = np.cumprod(top2[..., 1] - top2[..., 0] > SEQ_TOL,
+                          axis=0).astype(bool)
+        want_launches = seq_want(ref_meta["launches"])
+        for r, (meta, arr) in enumerate(out[name]):
+            err = float(np.abs(arr["logits"] - want).max())
+            same = bool((arr["greedy"] == np.argmax(want, -1))[sure].all())
+            finite = bool(np.isfinite(arr["logits"]).all())
+            if err > SEQ_TOL or not same or not finite or not sure.any() \
+                    or meta["launches"] != want_launches:
+                fail(f"19.1 {name} rank {r}: max logit err {err} (within "
+                     f"{SEQ_TOL}), greedy tokens equal where sure {same} "
+                     f"({int(sure.sum())} compared); launches "
+                     f"{meta['launches']}, want {want_launches}")
+            res[f"{name}_rank{r}"] = dict(
+                max_abs_err=err, tokens_compared=int(sure.sum()),
+                step_ms=meta["step_ms"], peak_gib=meta["peak_gib"],
+                launches=meta["launches"])
+        res[f"{name}_one_rank"] = dict(step_ms=ref_meta["step_ms"],
+                                       peak_gib=ref_meta["peak_gib"],
+                                       launches=ref_meta["launches"])
+        t = res[f"{name}_rank0"]
+        print(f"19.1 {name} {task['arch']} ({task['overrides']}, "
+              f"{task.get('quant') or 'dense'}, a {SEQ_CACHE}-row "
+              f"{task['cache_dtype']} cache split {SEQ_RANKS} ways, batch "
+              f"{SEQ_BATCH}, {SEQ_PROMPT} + {SEQ_STEPS} tokens): max logit "
+              f"err against one rank {t['max_abs_err']:.4g} (within "
+              f"{SEQ_TOL}), greedy tokens equal ({t['tokens_compared']} of "
+              f"{sure.size} row steps before a near tie); step ms a rank "
+              f"{[round(x, 2) for x in t['step_ms']]} (one rank "
+              f"{[round(x, 2) for x in ref_meta['step_ms']]}); peak "
+              f"{t['peak_gib']:.2f} GiB a rank (one rank "
+              f"{ref_meta['peak_gib']:.2f}); launches a rank {t['launches']}")
+    return res
+
+
+def check_seq_kernels(torch, dev):
+    """Phase 19.2: the SEQ_SHAPES slices' stats and pass-2 launches,
+    combined by the model's own combine (``layers.seq_attention``, one
+    thread a slice over ``mesh.ThreadGroup``), held to the unsharded
+    kernel and to the plain version within FA_TOL plus the allowance for
+    P at e4m3 ties (17.1's); one slice's launches timed beside the plain
+    slice forms and the bound."""
+    import concurrent.futures
+    from repro_torch import fp8_check as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_gqa, flash_attention_pass2,
+        flash_attention_stats)
+    from repro_torch.kernels.flash_attention import plan as fa_plan
+    from repro_torch.kernels.flash_attention.ref import (
+        ref_attention_gqa, ref_attention_pass2, ref_attention_stats)
+    from repro_torch.launch.mesh import ThreadGroup
+    from repro_torch.models import layers as L
+
+    f8 = torch.float8_e4m3fn
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows = []
+    for name, b, sq, start, n, per, hq, hkv, d, q_scale in SEQ_SHAPES:
+        skv = n * per
+        k = torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(f8)
+        v = torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(f8)
+        q = torch.randn((b, sq, hq, d), generator=gen, device=dev) * q_scale
+        st = torch.full((b,), start, dtype=torch.int32, device=dev)
+        group = ThreadGroup(n)
+        before = (flash_attention.stats_launches,
+                  flash_attention.pass2_launches)
+
+        def one_slice(i):
+            with torch.cuda.device(dev):
+                return L.seq_attention(
+                    q, k[:, i * per:(i + 1) * per],
+                    v[:, i * per:(i + 1) * per], st - i * per,
+                    group.member(i), round_p=True)
+        with concurrent.futures.ThreadPoolExecutor(n) as pool:
+            outs = list(pool.map(one_slice, range(n)))
+        torch.cuda.synchronize()
+        launched = (flash_attention.stats_launches - before[0],
+                    flash_attention.pass2_launches - before[1])
+        got = outs[0]
+        same = all(torch.equal(o, got) for o in outs[1:])
+        whole = flash_attention_gqa(q, k, v, st, round_p=True)
+        want = ref_attention_gqa(q, k, v, st, True, 0.0, True)
+        ties = F.p_ties(q, k[:, :start + sq], v[:, :start + sq], st)
+        err = (got - want).abs()
+        excess = float((err - ties["allowance"]).max())
+        kernel_gap = float((got - whole).abs().max())
+        kernel_excess = float(((got - whole).abs()
+                               - 2 * ties["allowance"]).max())
+        max_err = float(err.max())
+        nonzero = ties["nonzero_share"]
+        # (the counters are not locked: threads may lose an increment)
+        if min(launched) < 1 or not same or excess > FA_TOL \
+                or kernel_excess > FA_TOL or not nonzero \
+                or not bool(torch.isfinite(got).all()):
+            fail(f"19.2 {name}: max_abs_err {max_err} ({excess} past "
+                 f"{FA_TOL} and the P-tie allowance), against the unsharded "
+                 f"kernel {kernel_gap} ({kernel_excess} past); launches "
+                 f"{launched} of ({n}, {n}); slices agree {same}; nonzero P "
+                 f"share {nonzero}")
+        del outs, whole, want, err, ties
+        # one slice's launches: the last one that the queries reach
+        i = min(n - 1, start // per)
+        ks, vs = k[:, i * per:(i + 1) * per], v[:, i * per:(i + 1) * per]
+        s_st = st - i * per
+        _, stats = flash_attention_stats(q, ks, vs, s_st, round_p=True)
+        stats_ms = time_ms(torch, lambda: flash_attention_stats(
+            q, ks, vs, s_st, round_p=True))
+        pass2_ms = time_ms(torch, lambda: flash_attention_pass2(
+            q, ks, vs, s_st, stats, round_p=True))
+        stats_plain_ms = time_ms(torch, lambda: ref_attention_stats(
+            q, ks, vs, s_st, True, 0.0, True), reps=3, warmup=1)
+        pass2_plain_ms = time_ms(torch, lambda: ref_attention_pass2(
+            q, ks, vs, s_st, stats, True, 0.0, True), reps=3, warmup=1)
+        vis = [(0, min(per, start - i * per + r + 1)) for r in range(sq)]
+        stats_bound, stats_by = seq_slice_bound(b, hq, hkv, d, vis, False)
+        pass2_bound, pass2_by = seq_slice_bound(b, hq, hkv, d, vis, True)
+        p = fa_plan(b, sq, per, hq, hkv, d, False, 0)
+        rows.append(dict(name=name, b=b, sq=sq, start=start, slices=n,
+                         slice_keys=per, hq=hq, hkv=hkv, d=d,
+                         q_scale=q_scale, max_abs_err=max_err,
+                         past_tolerance=excess, kernel_gap=kernel_gap,
+                         nonzero_p_share=nonzero,
+                         launches=list(launched), slice=i,
+                         stats_ms=stats_ms, stats_plain_ms=stats_plain_ms,
+                         stats_bound_ms=stats_bound, stats_bound_by=stats_by,
+                         pass2_ms=pass2_ms, pass2_plain_ms=pass2_plain_ms,
+                         pass2_bound_ms=pass2_bound, pass2_bound_by=pass2_by,
+                         library_ms=None, variant=p.variant,
+                         splits=p.splits))
+        print(f"19.2 {name} ({b} x {sq} x {hq} q heads over {hkv} KV heads "
+              f"of {d}, {skv} e4m3 keys in {n} slices of {per}, {p.variant} "
+              f"with {p.splits} splits, round_p): combined max_abs_err "
+              f"{max_err:.3g} against the plain version ({excess:.3g} past "
+              f"the P-tie allowance, within {FA_TOL}), {kernel_gap:.3g} "
+              f"against the unsharded kernel, every slice's result equal, "
+              f"nonzero P codes {nonzero:.3g} of the visible keys; "
+              f"slice {i}'s stats launch {stats_ms:.4f} ms (plain "
+              f"{stats_plain_ms:.4f}, bound {stats_bound:.4f}, {stats_by}), "
+              f"pass 2 {pass2_ms:.4f} ms (plain {pass2_plain_ms:.4f}, bound "
+              f"{pass2_bound:.4f}, {pass2_by})")
+        del q, k, v, ks, vs, stats
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_seqshard(torch, dev):
+    """Phase 19: the sequence-sharded cache (19.1 two ranks on the card,
+    19.2 the slice forms at pod16x16's local shapes)."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        runs = run_seq(torch, dev, Path(tmp))
+    t1 = time.perf_counter()
+    kernels = check_seq_kernels(torch, dev)
+    t2 = time.perf_counter()
+    return dict(transport=TP_TRANSPORT, runs=runs, kernels=kernels,
+                ranks_s=t1 - t0, kernels_s=t2 - t1, seconds=t2 - t0)
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     t_start = time.perf_counter()
@@ -5796,6 +6090,10 @@ def _phases(torch, t_start, workers) -> int:
     print(f"phase 18 (the tensor-parallel split: 18.1 "
           f"{split['ranks_s']:.2f} s, 18.2 {split['kernels_s']:.2f} s): "
           f"{split['seconds']:.2f} s")
+    seq = run_seqshard(torch, dev)
+    print(f"phase 19 (the sequence-sharded cache: 19.1 "
+          f"{seq['ranks_s']:.2f} s, 19.2 {seq['kernels_s']:.2f} s): "
+          f"{seq['seconds']:.2f} s")
 
     # the row's main numbers: one grouped launch over the 15 VGG-16
     # weights, affine-8, float32; the bfloat16 and per-weight times beside
@@ -6033,6 +6331,32 @@ def _phases(torch, t_start, workers) -> int:
              "keys, float32 q, round_p",
         rank_launches_18_1=tp_launches,
         shapes=split["kernels"], backward=split["backward"]))
+    # the slice forms (19): launches a rank made on 19.1's runs, the main
+    # numbers one slice's of Qwen3-32B's decode_32k at pod16x16 (19.2)
+    seq_launches = {}
+    for task in SEQ_TASKS:
+        for k, v in seq["runs"][f"{task['name']}_rank0"]["launches"].items():
+            seq_launches[k] = seq_launches.get(k, 0) + v
+    seq_main = seq["kernels"][0]
+    for form, source in (("stats", "flash_attention_fwd.cuh"),
+                         ("pass2", "flash_attention_fwd.cuh")):
+        kernels.append(dict(
+            name=f"flash_attention_{form}", route="cuda",
+            source=f"src/repro_torch/csrc/{source}",
+            replaces="src/repro/kernels/flash_attention/flash_attention.py:71",
+            launches=seq_launches[f"flash_attention_{form}"],
+            max_abs_err=max(r["max_abs_err"] for r in seq["kernels"]),
+            past_tolerance=max(r["past_tolerance"] for r in seq["kernels"]),
+            ms=seq_main[f"{form}_ms"], plain_ms=seq_main[f"{form}_plain_ms"],
+            bound_ms=seq_main[f"{form}_bound_ms"],
+            bound_by=seq_main[f"{form}_bound_by"], library_ms=None,
+            library="none computes it (a slice's (M, L), or P rounded to "
+                    "e4m3 under a group's (M, L))",
+            unit=f"one slice of Qwen3-32B v1b_f8_cache_seqshard decode_32k "
+                 f"at pod16x16: 8 x 1 x 64 q heads over 8 e4m3 KV heads of "
+                 f"128, 2,048 of 32,768 keys, float32 q, round_p "
+                 f"({seq_main['variant']} kernel)",
+            rank_launches_19_1=seq_launches, shapes=seq["kernels"]))
     print(f"smoke: {time.perf_counter() - t_start:.2f} s, the build "
           f"included")
     print(json.dumps({"kernels": kernels, "serving": serving, "qat": qat,
@@ -6048,7 +6372,9 @@ def _phases(torch, t_start, workers) -> int:
                       "fp8": {k: v for k, v in fp8.items()
                               if k != "kernels"},
                       "split": {k: v for k, v in split.items()
-                                if k not in ("kernels", "backward")}}))
+                                if k not in ("kernels", "backward")},
+                      "seqshard": {k: v for k, v in seq.items()
+                                   if k != "kernels"}}))
     print(json.dumps({"train": {k: v for k, v in training.items()
                                 if k != "backward"}}))
     print(json.dumps({"ok": True, "device": {

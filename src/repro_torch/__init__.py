@@ -9,10 +9,13 @@ everything else is eager torch.
 
 Float32 matrix products stay full float32: the surrogate's ridge normal
 equations are poorly conditioned, and in TF32 the degree chosen by
-cross-validation can change.
+cross-validation can change.  cuDNN's convolutions are deterministic,
+as XLA's are: the CNN's QAT step (Figs. 5-6) adds its weight gradients
+in one order, so one seed gives one table on the card.
 """
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True

@@ -17,6 +17,27 @@
 
 #include "flash_attention_fwd.cuh"
 
+// The arguments of flash_attention_slice_launch (flash_attention.cu),
+// kv_type 2 (float8_e4m3fn K and V); the window and the soft-cap taken.
+extern "C" int flash_attention_fp8_slice_launch(
+    const void* q, const void* k, const void* v, void* out,
+    const void* q_start, int q_bf16, int kv_type, int B, int Sq, int Skv,
+    int Hq, int Hkv, int D, const long long* q_strides,
+    const long long* k_strides, const long long* v_strides,
+    const long long* o_strides, float scale, int causal, int round_p,
+    int window, float softcap, int variant, int rows, int splits, int vec,
+    int mode, void* stats, void* stream) {
+  if (window > 0 || softcap > 0.0f)
+    return launch_impl<true, true>(
+        q, k, v, out, q_start, q_bf16, kv_type, B, Sq, Skv, Hq, Hkv, D,
+        q_strides, k_strides, v_strides, o_strides, scale, causal, round_p,
+        window, softcap, variant, rows, splits, vec, mode, stats, stream);
+  return launch_impl<false, true>(
+      q, k, v, out, q_start, q_bf16, kv_type, B, Sq, Skv, Hq, Hkv, D,
+      q_strides, k_strides, v_strides, o_strides, scale, causal, round_p,
+      window, softcap, variant, rows, splits, vec, mode, stats, stream);
+}
+
 // The arguments of flash_attention_launch (flash_attention.cu), kv_type 2
 // (float8_e4m3fn K and V); the window and the soft-cap taken.
 extern "C" int flash_attention_fp8_launch(
@@ -27,13 +48,8 @@ extern "C" int flash_attention_fp8_launch(
     const long long* o_strides, float scale, int causal, int round_p,
     int window, float softcap, int variant, int rows, int splits, int vec,
     void* stream) {
-  if (window > 0 || softcap > 0.0f)
-    return launch_impl<true, true>(
-        q, k, v, out, q_start, q_bf16, kv_type, B, Sq, Skv, Hq, Hkv, D,
-        q_strides, k_strides, v_strides, o_strides, scale, causal, round_p,
-        window, softcap, variant, rows, splits, vec, stream);
-  return launch_impl<false, true>(
+  return flash_attention_fp8_slice_launch(
       q, k, v, out, q_start, q_bf16, kv_type, B, Sq, Skv, Hq, Hkv, D,
       q_strides, k_strides, v_strides, o_strides, scale, causal, round_p,
-      window, softcap, variant, rows, splits, vec, stream);
+      window, softcap, variant, rows, splits, vec, 0, nullptr, stream);
 }

@@ -77,6 +77,18 @@
 // is still summed in float32 (no fp8 tensor-core product, whose
 // accumulator keeps fewer bits).
 //
+// One rank's slice of the keys (the sequence-sharded cache): `mode` 1
+// (stats) and 2 (pass 2) take K and V as the rank's rows and a q_start
+// shifted by the slice's first row, so that q_start may be negative and a
+// row may see no key of the slice.  Such a row has M = -inf, L = 0 and
+// adds exactly 0.  Mode 1 writes each row's (M, L) over the slice to
+// `stats` (M at [row], L at [stat_plane + row], row = (b * Sq + i) * Hq +
+// h) and, unless round_p needs two passes, the slice's output normalized
+// by its own L (0 for an empty row); with two passes it runs the first
+// pass alone.  Mode 2 reads the group's (M, L) from `stats` and runs the
+// second pass over the slice: p = exp(s - M) / L (rounded with round_p),
+// out = the slice's P V.  The ranks' outputs then sum to the group's.
+//
 // Both kernels run one online-softmax pass, except with round_p and a
 // bfloat16 or e4m3 V: the rounding needs the final max M and sum L
 // before any P V, so a first pass computes (M, L) (merged as above) and a
@@ -115,6 +127,7 @@ constexpr int kMmaWarps = 8;     // 4 row groups x 2 key halves
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaKeys = 64;     // keys of a chunk
 constexpr long long kAll = 1LL << 62;
+enum Mode { kWhole = 0, kStats = 1, kPass2 = 2 };   // Args::mode
 
 struct Strides {
   long long b, s, h;  // element strides of the batch, sequence, head axes
@@ -129,7 +142,28 @@ struct Args {
   int window;             // 0: global
   int causal, round_p, two_pass, vec;
   int splits;   // the cluster's blocks along the keys
+  int mode;     // kWhole, kStats or kPass2 (the header)
+  float* stats;              // modes 1 and 2: M then L, stat_plane each
+  long long stat_plane;      // B * Sq * Hq
 };
+
+// The index of row r (query r / G, head hk * G + r % G) of batch row b in
+// a (B, Sq, Hq) plane of `stats`.
+__device__ __forceinline__ long long stat_at(const Args& a, int b, int hk,
+                                             int r) {
+  const int i = r / a.G, h = hk * a.G + r % a.G;
+  return ((long long)b * a.Sq + i) * ((long long)a.Hkv * a.G) + h;
+}
+__device__ __forceinline__ void put_stats(const Args& a, int b, int hk, int r,
+                                          float m, float l) {
+  const long long at = stat_at(a, b, hk, r);
+  a.stats[at] = m;
+  a.stats[a.stat_plane + at] = l;
+}
+// acc / l, or 0 for a row that saw no key of the slice (l = 0).
+__device__ __forceinline__ float normalized(float acc, float l) {
+  return l > 0.0f ? acc / l : 0.0f;
+}
 
 // An e4m3 code as a float (exact: through the f16 conversion).
 __device__ __forceinline__ float e4m3_float(__nv_fp8_storage_t x) {
@@ -334,7 +368,7 @@ split_kernel(const Args a) {
   }
   const int last = min(rows, r0 + RB) - 1;
   const long long kv_end =
-      a.causal ? min((long long)a.Skv, start + last / a.G + 1)
+      a.causal ? max(0LL, min((long long)a.Skv, start + last / a.G + 1))
                : (long long)a.Skv;
   const long long kv_begin =
       min(kv_end, max(0LL, first_key<MASK>(start + r0 / a.G, a)));
@@ -490,8 +524,17 @@ split_kernel(const Args a) {
     __syncthreads();
   };
 
-  const bool two = a.two_pass;
-  if (two) {   // pass 1: the cluster's (M, L) before any p is formed
+  const int mode = a.mode;
+  const bool two = a.two_pass || mode == kPass2;
+  if (mode == kPass2) {   // the group's (M, L) of each row
+#pragma unroll
+    for (int rr = 0; rr < RB; ++rr) {
+      const bool valid = r0 + rr < rows;
+      const long long at = valid ? stat_at(a, b, hk, r0 + rr) : 0;
+      m[rr] = valid ? a.stats[at] : 0.0f;
+      l[rr] = valid ? a.stats[a.stat_plane + at] : 1.0f;
+    }
+  } else if (two) {   // pass 1: the cluster's (M, L) before any p is formed
     for (int c = 0; c < nchunks; ++c) {
       load(c);
       scores(c);
@@ -499,6 +542,12 @@ split_kernel(const Args a) {
     }
     block_merge(false, stat_m, stat_l);
     cluster_merge(stat_m, stat_l);
+    if (mode == kStats) {   // the slice's (M, L) alone
+      if (rank == 0 && tid < RB && r0 + tid < rows)
+        put_stats(a, b, hk, r0 + tid, fin_m[tid], fin_l[tid]);
+      if (S > 1) cluster_barrier_relaxed();   // no block leaves while read
+      return;
+    }
 #pragma unroll
     for (int rr = 0; rr < RB; ++rr) {
       m[rr] = fin_m[rr];
@@ -506,7 +555,8 @@ split_kernel(const Args a) {
     }
   }
   for (int c = 0; c < nchunks; ++c) {
-    if (!two || nchunks > 1) {   // one chunk stays in registers
+    // one chunk stays in registers from pass 1
+    if (!two || nchunks > 1 || mode == kPass2) {
       load(c);
       scores(c);
     }
@@ -535,6 +585,8 @@ split_kernel(const Args a) {
   }
   block_merge(true, part_m, part_l);
   cluster_merge(part_m, part_l);
+  if (mode == kStats && rank == 0 && tid < RB && r0 + tid < rows)
+    put_stats(a, b, hk, r0 + tid, fin_m[tid], fin_l[tid]);
 
   // rank q of S writes elements q * kThreads + tid, ... of the tile
   for (int e = rank * kThreads + tid; e < RB * D; e += S * kThreads) {
@@ -546,7 +598,7 @@ split_kernel(const Args a) {
       if (q2 < S) sum += remote(part, q2)[e] * fin_f[q2 * RB + rr];
     const int i = r / a.G, h = hk * a.G + r % a.G;
     a.out[b * a.os.b + (long long)i * a.os.s + (long long)h * a.os.h + d] =
-        two ? sum : sum / fin_l[rr];
+        two ? sum : normalized(sum, fin_l[rr]);
   }
   if (S > 1) cluster_barrier_relaxed();   // no block leaves while read
 }
@@ -667,7 +719,8 @@ mma_kernel(const Args a) {
   const int r0 = (blockIdx.x / S) * kMmaRows;
   const int hk = blockIdx.y, b = blockIdx.z;
   const long long start = a.causal ? (long long)a.q_start[b] : 0;
-  const bool vec = a.vec, two = a.two_pass;
+  const int mode = a.mode;
+  const bool vec = a.vec, two = a.two_pass || mode == kPass2;
 
   // The thread's rows and their q as A fragments (QP bf16 parts).
   long long lim[2], lo[2];
@@ -698,7 +751,7 @@ mma_kernel(const Args a) {
   }
   const int last = min(rows, r0 + kMmaRows) - 1;
   const long long kv_end =
-      a.causal ? min((long long)a.Skv, start + last / a.G + 1)
+      a.causal ? max(0LL, min((long long)a.Skv, start + last / a.G + 1))
                : (long long)a.Skv;
   const long long kv_begin =
       min(kv_end, max(0LL, first_key<MASK>(start + r0 / a.G, a)));
@@ -869,6 +922,15 @@ mma_kernel(const Args a) {
   };
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  if (mode == kPass2) {   // the group's (M, L) of the thread's rows
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int r = r0 + row0 + 8 * h2;
+      const long long at = r < rows ? stat_at(a, b, hk, r) : 0;
+      m[h2] = r < rows ? a.stats[at] : 0.0f;
+      l[h2] = r < rows ? a.stats[a.stat_plane + at] : 1.0f;
+    }
+  }
   float acc[DT][4];
 #pragma unroll
   for (int j = 0; j < DT; ++j)
@@ -1035,7 +1097,7 @@ mma_kernel(const Args a) {
   // Pass 0 (round_p with a bfloat16 V only): (M, L) of every row, over the
   // whole cluster, before any p is formed.  Pass 1: P V.  Chunk c + 1 is
   // copied while chunk c is multiplied.
-  for (int pass = two ? 0 : 1; pass < 2; ++pass) {
+  for (int pass = (two && mode != kPass2) ? 0 : 1; pass < 2; ++pass) {
     const bool with_v = pass == 1;
     if (c_lo < c_hi) copy(c_lo, with_v);
     for (int c = c_lo; c < c_hi; ++c) {
@@ -1075,6 +1137,12 @@ mma_kernel(const Args a) {
     if (pass == 0) {   // the cluster's (M, L) for pass 1
       halves_merge(false, stat_m, stat_l);
       cluster_merge(stat_m, stat_l);
+      if (mode == kStats) {   // the slice's (M, L) alone
+        if (rank == 0 && tid < kMmaRows && r0 + tid < rows)
+          put_stats(a, b, hk, r0 + tid, fin_m[tid], fin_l[tid]);
+        if (S > 1) cluster_barrier_relaxed();   // no block leaves while read
+        return;
+      }
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
         m[h2] = fin_m[row0 + 8 * h2];
@@ -1120,6 +1188,7 @@ mma_kernel(const Args a) {
       const float mx = fmaxf(m[h2], m1);
       const float f0 = rescale(m[h2], mx), f1 = rescale(m1, mx);
       const float sum_l = l[h2] * f0 + red_l[row] * f1;
+      if (mode == kStats && t4 == 0) put_stats(a, b, hk, r, mx, sum_l);
       const int i = r / a.G, h = hk * a.G + r % a.G;
       float* ob = a.out + b * a.os.b + (long long)i * a.os.s
                   + (long long)h * a.os.h;
@@ -1130,8 +1199,8 @@ mma_kernel(const Args a) {
         float x0 = acc[dn][2 * h2] * f0 + o.x * f1;
         float x1 = acc[dn][2 * h2 + 1] * f0 + o.y * f1;
         if (!two) {
-          x0 = x0 / sum_l;
-          x1 = x1 / sum_l;
+          x0 = normalized(x0, sum_l);
+          x1 = normalized(x1, sum_l);
         }
         // the wrapper's output: contiguous, so the pair is 8-byte aligned
         *reinterpret_cast<float2*>(ob + dn * 8 + 2 * t4) =
@@ -1145,6 +1214,8 @@ mma_kernel(const Args a) {
   // q + S, ..., each the sum over ranks 0..S-1 in order.
   halves_merge(true, part_m, part_l);
   cluster_merge(part_m, part_l);
+  if (mode == kStats && rank == 0 && tid < kMmaRows && r0 + tid < rows)
+    put_stats(a, b, hk, r0 + tid, fin_m[tid], fin_l[tid]);
   for (int row = rank + S * warp; row < kMmaRows; row += S * kMmaWarps) {
     const int r = r0 + row;
     if (r >= rows) break;
@@ -1158,7 +1229,7 @@ mma_kernel(const Args a) {
         if (q2 < S)
           sum += cluster.map_shared_rank(part, q2)[row * D + d]
                  * fin_f[q2 * kMmaRows + row];
-      ob[d] = two ? sum : sum / fin_l[row];
+      ob[d] = two ? sum : normalized(sum, fin_l[row]);
     }
   }
   cluster_barrier_relaxed();   // no block leaves while read
@@ -1256,8 +1327,10 @@ int launch_impl(
     const long long* k_strides, const long long* v_strides,
     const long long* o_strides, float scale, int causal, int round_p,
     int window, float softcap, int variant, int rows, int splits, int vec,
-    void* stream) {
+    int mode, void* stats, void* stream) {
   if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
+  if (mode < kWhole || mode > kPass2 || (mode != kWhole && stats == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (window < 0 || !(softcap >= 0.0f) || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
@@ -1287,6 +1360,9 @@ int launch_impl(
   a.two_pass = round_p && kv_type != kKvF32;
   a.vec = vec;
   a.splits = splits;
+  a.mode = mode;
+  a.stats = static_cast<float*>(stats);
+  a.stat_plane = (long long)B * Sq * Hq;
   const long long total = (long long)a.G * Sq;
   const Launch c{B, (int)((total + rows - 1) / rows), splits,
                  static_cast<cudaStream_t>(stream)};

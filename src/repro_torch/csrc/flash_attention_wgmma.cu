@@ -43,6 +43,9 @@
 //   cluster, the ranks' partial (m, l, O) meet through distributed shared
 //   memory in rank order, as in the mma kernel: two calls give the same
 //   bits.
+// - One rank's slice of the keys (the sequence-sharded cache): modes 1
+//   (stats) and 2 (pass 2) as flash_attention_fwd.cuh's header states
+//   them, with a q_start shifted by the slice's first row.
 //
 // Nothing is allocated; the wrapper passes the packed buffer.  The launches
 // run on the caller's stream.  IEEE float32, expf and division; no
@@ -66,6 +69,7 @@ constexpr int kStageBytes = 24 * 1024;
 constexpr int kMaxSplits = 8;
 constexpr int kWgBar = 1;              // the warpgroup's named barrier
 constexpr long long kAll = 1LL << 62;
+enum Mode { kWhole = 0, kStats = 1, kPass2 = 2 };   // Args::mode
 
 struct Strides {
   long long b, s, h;
@@ -81,10 +85,31 @@ struct Args {
   float scale, softcap;    // softcap 0: off
   int window;              // 0: global
   int causal, two_pass;
-  int p_e4m3;              // two_pass: P rounded to e4m3 (else bf16)
+  int rnd;                 // P rounded to V's type (round_p, V not f32)
+  int p_e4m3;              // rnd: P rounded to e4m3 (else bf16)
   int qp, kp, vp;          // parts of q, K, V
   int splits;              // the cluster's blocks along the keys
+  int mode;                // kWhole, kStats or kPass2
+  float* stats;            // modes 1 and 2: M then L, stat_plane each
+  long long stat_plane;    // B * Sq * Hq
 };
+
+// Row r of batch row b's KV head hk in a (B, Sq, Hq) plane of `stats`.
+__device__ __forceinline__ long long stat_at(const Args& a, int b, int hk,
+                                             int r) {
+  const int i = r / a.G, h = hk * a.G + r % a.G;
+  return ((long long)b * a.Sq + i) * ((long long)a.Hkv * a.G) + h;
+}
+__device__ __forceinline__ void put_stats(const Args& a, int b, int hk, int r,
+                                          float m, float l) {
+  const long long at = stat_at(a, b, hk, r);
+  a.stats[at] = m;
+  a.stats[a.stat_plane + at] = l;
+}
+// acc / l, or 0 for a row that saw no key of the slice (l = 0).
+__device__ __forceinline__ float normalized(float acc, float l) {
+  return l > 0.0f ? acc / l : 0.0f;
+}
 
 // Shared memory; the wrapper's `plan` states the same number.
 template <int D>
@@ -171,7 +196,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
   const long long start = a.causal ? (long long)a.q_start[b] : 0;
   const int last = min(rows, r0 + kTile) - 1;
   const long long kv_end =
-      a.causal ? min((long long)a.Skv, start + last / a.G + 1)
+      a.causal ? max(0LL, min((long long)a.Skv, start + last / a.G + 1))
                : (long long)a.Skv;
   const long long kv_begin =
       min(kv_end, max(0LL, first_key<MASK>(start + r0 / a.G, a)));
@@ -180,7 +205,9 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
   const int span = (c_end - c_first + S - 1) / S;
   const int c_lo = min(c_end, c_first + rank * span);
   const int c_hi = min(c_end, c_lo + span);
-  const bool two = a.two_pass;
+  const int mode = a.mode;
+  const bool two = a.two_pass || mode == kPass2;
+  const int first = (two && mode != kPass2) ? 0 : 1;   // the first pass
 
   if (tid == 0) {
     ring.init();
@@ -249,24 +276,33 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
     lo[h2] = valid ? first_key<MASK>(start + i, a) : 0;
   }
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  if (mode == kPass2) {   // the group's (M, L) of the thread's rows
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int r = r0 + 16 * wl + g + 8 * h2;
+      const long long at = r < rows ? stat_at(a, b, hk, r) : 0;
+      m[h2] = r < rows ? a.stats[at] : 0.0f;
+      l[h2] = r < rows ? a.stats[a.stat_plane + at] : 1.0f;
+    }
+  }
   float s[32], o[NS][32];
 #pragma unroll
   for (int p = 0; p < NS; ++p) zero(o[p]);
   const uint32_t q_addr = smem_u32(qs), p_addr = smem_u32(pbuf);
-  const int pp = two ? 1 : 3;   // parts of P
+  const int pp = a.rnd ? 1 : 3;   // parts of P
 
   if (consumer) mbar_wait(&qbar, 0);
-  for (int pass = two ? 0 : 1; pass < 2; ++pass) {
+  for (int pass = first; pass < 2; ++pass) {
     if (warp == 4) {              // the producer: this pass's chunks
       if (lane == 0) {
-        if (pass == (two ? 0 : 1)) {
+        if (pass == first) {
           mbar_expect_tx(&qbar, a.qp * kTile * D * 2);
           const bf16* qt = a.q + (bh * a.rtiles + tile) * a.qp * kTile * D;
           for (int p = 0; p < a.qp; ++p)
             bulk_copy(qs + p * kTile * D * 2, qt + (long long)p * kTile * D,
                       kTile * D * 2, &qbar);
         }
-        int pit = pass == 1 && two ? (c_hi - c_lo) * NS : 0;
+        int pit = pass == 1 && first == 0 ? (c_hi - c_lo) * NS : 0;
         for (int c = c_lo; c < c_hi; ++c) {
           const bf16* kt = a.k + (bh * a.ktiles + c) * a.kp * kTile * D;
           for (int sl = 0; sl < NS; ++sl, ++pit) {
@@ -363,7 +399,8 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
             const int h2 = (i >> 1) & 1;
             const float pe =
                 s[i] == -INFINITY ? 0.0f : expf(s[i] - m[h2]) / l[h2];
-            s[i] = a.p_e4m3
+            s[i] = !a.rnd ? pe
+                   : a.p_e4m3
                        ? __half2float(__half(__nv_cvt_fp8_to_halfraw(
                              __nv_cvt_float_to_fp8(pe, __NV_SATFINITE,
                                                    __NV_E4M3),
@@ -418,12 +455,15 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
         }
       }
       cluster_merge();
+      if (mode == kStats && rank == 0 && tid < kTile && r0 + tid < rows)
+        put_stats(a, b, hk, r0 + tid, fin_m[tid], fin_l[tid]);
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
         m[h2] = fin_m[16 * wl + g + 8 * h2];
         l[h2] = fin_l[16 * wl + g + 8 * h2];
       }
       if (S > 1) cluster_barrier_relaxed();   // pm, pl read everywhere
+      if (mode == kStats) return;             // the slice's (M, L) alone
     }
   }
 
@@ -434,6 +474,13 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
   }
   if (S == 1) {
     if (!consumer) return;
+    if (mode == kStats && t4 == 0) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int r = r0 + 16 * wl + g + 8 * h2;
+        if (r < rows) put_stats(a, b, hk, r, m[h2], l[h2]);
+      }
+    }
 #pragma unroll
     for (int p = 0; p < NS; ++p) {
       const int w = piece_w<D>(p);
@@ -446,8 +493,8 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
         const int h2 = (i >> 1) & 1;
         float x0 = o[p][i], x1 = o[p][i + 1];
         if (!two) {
-          x0 = x0 / l[h2];
-          x1 = x1 / l[h2];
+          x0 = normalized(x0, l[h2]);
+          x1 = normalized(x1, l[h2]);
         }
         const int qi = r / a.G, h = hk * a.G + r % a.G;
         float* ob = a.out + b * a.os.b + (long long)qi * a.os.s
@@ -482,6 +529,8 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
     }
   }
   cluster_merge();
+  if (mode == kStats && rank == 0 && tid < kTile && r0 + tid < rows)
+    put_stats(a, b, hk, r0 + tid, fin_m[tid], fin_l[tid]);
   if (consumer) {
     for (int row = rank + S * warp; row < kTile; row += S * 4) {
       const int r = r0 + row;
@@ -496,7 +545,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(const Args a) {
           if (q2 < S)
             sum += cluster.map_shared_rank(part, q2)[row * D + d]
                    * fin_f[q2 * kTile + row];
-        ob[d] = two ? sum : sum / fin_l[row];
+        ob[d] = two ? sum : normalized(sum, fin_l[row]);
       }
     }
   }
@@ -560,13 +609,20 @@ extern "C" int flash_attention_wgmma_smem(int D) {
 // ceil(G * Sq / 64), ktiles = ceil(Skv / 64); QP = 3 for a float32 q, else
 // 1; KP = 3 when q and K are float32, else 1; VP = 3 for a float32 V, else
 // 1), 16-byte aligned.  Returns the first refused launch's CUDA error, or 0.
-extern "C" int flash_attention_wgmma_launch(
+// This entry also takes a launch on one rank's slice of the keys: mode 1
+// (stats) or 2 (pass 2) with stats (two float32 planes of B * Sq * Hq, M
+// then L), as flash_attention_slice_launch (flash_attention.cu) takes
+// them; flash_attention_wgmma_launch below is mode 0 (the whole keys).
+extern "C" int flash_attention_wgmma_slice_launch(
     const void* q, const void* k, const void* v, void* out,
     const void* q_start, int q_bf16, int kv_type, int B, int Sq, int Skv,
     int Hq, int Hkv, int D, const long long* q_strides,
     const long long* k_strides, const long long* v_strides,
     const long long* o_strides, float scale, int causal, int round_p,
-    int window, float softcap, int splits, void* packed, void* stream) {
+    int window, float softcap, int splits, int mode, void* stats,
+    void* packed, void* stream) {
+  if (mode < kWhole || mode > kPass2 || (mode != kWhole && stats == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (kv_type < kSrcF32 || kv_type > kSrcE4m3)
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
@@ -610,10 +666,27 @@ extern "C" int flash_attention_wgmma_launch(
   a.window = window;
   a.causal = causal;
   a.two_pass = round_p && !kv_f32;
+  a.rnd = round_p && !kv_f32;
   a.p_e4m3 = kv_type == kSrcE4m3;
   a.qp = qp; a.kp = kp; a.vp = vp;
   a.splits = splits;
+  a.mode = mode;
+  a.stats = static_cast<float*>(stats);
+  a.stat_plane = (long long)B * Sq * Hq;
   const bool mask = window > 0 || softcap > 0.0f;
   rc = mask ? dispatch_d<true>(D, a, B, s) : dispatch_d<false>(D, a, B, s);
   return rc ? rc : (int)cudaGetLastError();
+}
+
+extern "C" int flash_attention_wgmma_launch(
+    const void* q, const void* k, const void* v, void* out,
+    const void* q_start, int q_bf16, int kv_type, int B, int Sq, int Skv,
+    int Hq, int Hkv, int D, const long long* q_strides,
+    const long long* k_strides, const long long* v_strides,
+    const long long* o_strides, float scale, int causal, int round_p,
+    int window, float softcap, int splits, void* packed, void* stream) {
+  return flash_attention_wgmma_slice_launch(
+      q, k, v, out, q_start, q_bf16, kv_type, B, Sq, Skv, Hq, Hkv, D,
+      q_strides, k_strides, v_strides, o_strides, scale, causal, round_p,
+      window, softcap, splits, kWhole, nullptr, packed, stream);
 }

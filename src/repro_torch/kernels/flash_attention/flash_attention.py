@@ -23,6 +23,22 @@ Three entry points, one launch a call:
                                   cache index), the model's type rules and
                                   its sliding window and logit soft-cap.
 
+and two on one rank's slice of the keys (a cache split over its sequence,
+``models.layers.seq_attention`` combines the ranks), each one launch of
+the same kernels, q_start shifted by the slice's first row (it may be
+negative: a row may see no key of the slice, and then has M = -inf, L = 0
+and adds exactly 0):
+
+  flash_attention_stats(q, k, v, q_start, round_p=...)
+                                  each row's (M, L) over the slice, and
+                                  where P needs no rounding (float32 V, or
+                                  no round_p) the slice's output
+                                  normalized by its own L;
+  flash_attention_pass2(q, k, v, q_start, stats, round_p=...)
+                                  given the group's (M, L), the slice's
+                                  P V with P = exp(s - M) / L rounded to
+                                  V's type: the second of two passes.
+
 A CUDA tensor launches a kernel, or raises: there is no fallback.  A CPU
 tensor takes the plain torch version in ``ref.py``, which the kernels are
 held to on the card.  A ``meta`` tensor (the dry run) takes the CUDA
@@ -33,9 +49,14 @@ stand-in declares its work: the plain version's
 products (dense, as the reference's einsums count them: 4*B*Hq*Sq*Skv*D
 forward, 8*B*Hq*Sq*Skv*D backward) and the bytes it reads and writes.
 ``flash_attention.launches`` counts the kernels' launches through any of
-the three (``flash_attention.wgmma_launches`` those of the wgmma variant,
+them (``flash_attention.wgmma_launches`` those of the wgmma variant,
 ``flash_attention.fp8_launches`` those of the split and mma kernels on
-e4m3 K and V).
+e4m3 K and V, ``flash_attention.stats_launches`` and
+``pass2_launches`` those of the two slice forms).  A slice launch
+declares the plain version's products over the slice's keys: 2 for the
+one-pass stats form (Q K^T and P V), 1 each for the two-pass stats form
+(Q K^T) and pass 2 (P V), so that a group's slices declare what one
+device's launch declares.
 
 The gradient: on CUDA tensors that need one (autograd on),
 ``flash_attention_gqa`` is a ``torch.autograd.Function`` whose forward is
@@ -92,6 +113,8 @@ from repro_torch.kernels.flash_attention.ref import (CLUSTER_MAX, SMS,
                                                      check_mask,
                                                      ref_attention_gqa,
                                                      ref_attention_gqa_bwd,
+                                                     ref_attention_pass2,
+                                                     ref_attention_stats,
                                                      ref_flash_attention)
 
 _HEAD_DIMS = (16, 32, 64, 112, 128, 256)
@@ -101,6 +124,7 @@ _TYPES = {torch.float32: 0, torch.bfloat16: 1}   # q's (and the backward's)
 FP8 = torch.float8_e4m3fn
 _KV_TYPES = {**_TYPES, FP8: 2}                     # K and V's
 _VARIANTS = {"split": 0, "mma": 1}   # the split / mma entry's variants
+WHOLE, STATS, PASS2 = 0, 1, 2        # the slice entries' modes
 _Strides = ctypes.c_longlong * 3
 
 THREADS = 128                # threads of a block, both variants
@@ -203,10 +227,11 @@ def block_keys(p: Plan, tile: int, rank: int, g: int, sq: int, skv: int,
     """The keys that block ``rank`` of row tile ``tile``'s cluster visits:
     [kv_begin, kv_end) cut into ``splits`` equal spans (of whole 64-key
     chunks for the mma kernel), where kv_end is past the last key the
-    tile's last query can see and kv_begin the first key its first query
-    sees (0 without a window) (the kernels' formulas)."""
+    tile's last query can see (0 at least: a slice of the keys may start
+    past it) and kv_begin the first key its first query sees (0 without a
+    window) (the kernels' formulas)."""
     last = min(g * sq, (tile + 1) * p.rows) - 1
-    kv_end = min(skv, start + last // g + 1) if causal else skv
+    kv_end = max(0, min(skv, start + last // g + 1)) if causal else skv
     kv_begin = 0
     if window:
         first = tile * p.rows // g
@@ -285,32 +310,41 @@ def bwd_packed_elems(b, sq, skv, hq, hkv, d, bf16) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(masked: bool, fp8: bool = False):
+def _entry(masked: bool, fp8: bool = False, part: bool = False):
     """The split / mma kernels' entry: built without the window and the
     soft-cap (``csrc/flash_attention.cu``) or with them
     (``csrc/flash_attention_masked.cu``); on e4m3 K and V, with or
-    without them (``csrc/flash_attention_fp8.cu``)."""
+    without them (``csrc/flash_attention_fp8.cu``).  ``part``: the
+    source's ``*_slice_launch``, which also takes a mode and the stats
+    buffer (one rank's slice of the keys)."""
     name = ("flash_attention_fp8" if fp8 else
             "flash_attention_masked" if masked else "flash_attention")
-    fn = getattr(_build.load(name), f"{name}_launch")
+    fn = getattr(_build.load(name),
+                 f"{name}_slice_launch" if part else f"{name}_launch")
     fn.argtypes = ([ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong)] * 4
                    + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + ([ctypes.c_int, ctypes.c_void_p] if part else [])
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _wgmma_entry():
-    fn = _build.load("flash_attention_wgmma").flash_attention_wgmma_launch
+def _wgmma_entry(part: bool = False):
+    """The wgmma kernel's entry; ``part``: the one that also takes a
+    mode and the stats buffer."""
+    lib = _build.load("flash_attention_wgmma")
+    fn = (lib.flash_attention_wgmma_slice_launch if part
+          else lib.flash_attention_wgmma_launch)
     fn.argtypes = ([ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong)] * 4
                    + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_float] + [ctypes.c_int]
+                   + ([ctypes.c_int, ctypes.c_void_p] if part else [])
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
@@ -372,9 +406,19 @@ def _vec_ok(t: torch.Tensor) -> bool:
             and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3]))
 
 
+def two_passes(round_p: bool, v) -> bool:
+    """P is rounded to V's type (round_p with a bfloat16 or e4m3 V): the
+    kernels need the final (M, L) before any P V."""
+    return bool(round_p) and v.dtype != torch.float32
+
+
 def _launch(q, k, v, q_start, causal: bool, scale: float, round_p: bool,
-            window: int = 0, softcap: float = 0.0) -> torch.Tensor:
-    """A kernel on (B, S, H, D) views; returns (B, Sq, Hq, D) float32."""
+            window: int = 0, softcap: float = 0.0, mode: int = WHOLE,
+            stats=None):
+    """A kernel on (B, S, H, D) views; returns (B, Sq, Hq, D) float32
+    (None for the two-pass stats form, which writes ``stats`` alone).
+    ``mode`` STATS / PASS2: one rank's slice of the keys, ``stats`` (2, B,
+    Sq, Hq) float32 written / read."""
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
@@ -395,18 +439,25 @@ def _launch(q, k, v, q_start, causal: bool, scale: float, round_p: bool,
     elif q_start.dtype != torch.int32 or not q_start.is_contiguous():
         raise ValueError(f"flash attention needs a contiguous int32 q_start, "
                          f"got {q_start.dtype}")
-    out = torch.empty((b, sq, hq, d), dtype=torch.float32, device=q.device)
+    stats_only = mode == STATS and two_passes(round_p, v)
+    out = None if stats_only else torch.empty(
+        (b, sq, hq, d), dtype=torch.float32, device=q.device)
     p = plan(b, sq, skv, hq, hkv, d, q.dtype == torch.bfloat16, window)
     if max(p.grid[1], p.grid[2]) > 65535:
         raise ValueError(f"flash attention: grid {p.grid} exceeds the "
                          f"card's 65535 blocks in y or z")
+    work = _slice_work(mode, stats_only, q, k, v, q_start, out, stats)
     if q.device.type == "meta":
-        _declare("flash_attention", 2, q, k, (q, k, v, q_start), (out,))
+        _declare(*work)
         return out
-    strides = [_Strides(*t.stride()[:3]) for t in (q, k, v, out)]
+    strides = [_Strides(*t.stride()[:3]) for t in (q, k, v)]
+    strides.append(_Strides(0, 0, 0) if out is None
+                   else _Strides(*out.stride()[:3]))
+    part = (mode, stats.data_ptr()) if mode != WHOLE else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  0 if out is None else out.data_ptr(),
                   q_start.data_ptr(), _TYPES[q.dtype], _KV_TYPES[k.dtype],
                   b, sq, skv, hq, hkv, d, *strides, scale or d ** -0.5,
                   int(causal), int(round_p), int(window), float(softcap))
@@ -415,12 +466,12 @@ def _launch(q, k, v, q_start, causal: bool, scale: float, round_p: bool,
                 b, sq, skv, hq, hkv, d, q.dtype == torch.bfloat16,
                 k.dtype != torch.float32), dtype=torch.bfloat16,
                 device=q.device)
-            rc = _wgmma_entry()(*common, p.splits, packed.data_ptr(),
-                                stream)
+            rc = _wgmma_entry(bool(part))(*common, p.splits, *part,
+                                          packed.data_ptr(), stream)
         else:
-            rc = _entry(bool(window or softcap), k.dtype == FP8)(
+            rc = _entry(bool(window or softcap), k.dtype == FP8, bool(part))(
                 *common, _VARIANTS[p.variant], p.rows, p.splits,
-                int(_vec_ok(k) and _vec_ok(v)), stream)
+                int(_vec_ok(k) and _vec_ok(v)), *part, stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error "
                            f"{rc}")
@@ -429,8 +480,24 @@ def _launch(q, k, v, q_start, causal: bool, scale: float, round_p: bool,
         flash_attention.wgmma_launches += 1
     elif k.dtype == FP8:
         flash_attention.fp8_launches += 1
-    _declare("flash_attention", 2, q, k, (q, k, v, q_start), (out,))
+    if mode == STATS:
+        flash_attention.stats_launches += 1
+    elif mode == PASS2:
+        flash_attention.pass2_launches += 1
+    _declare(*work)
     return out
+
+
+def _slice_work(mode: int, stats_only: bool, q, k, v, q_start, out, stats):
+    """``_declare``'s arguments for a launch of ``mode``: the products and
+    the tensors read and written (the module docstring)."""
+    if mode == WHOLE:
+        return "flash_attention", 2, q, k, (q, k, v, q_start), (out,)
+    if mode == PASS2:
+        return "flash_attention", 1, q, k, (q, k, v, q_start, stats), (out,)
+    if stats_only:
+        return "flash_attention", 1, q, k, (q, k, q_start), (stats,)
+    return "flash_attention", 2, q, k, (q, k, v, q_start), (out, stats)
 
 
 @functools.lru_cache(maxsize=None)
@@ -604,6 +671,64 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    softcap)
 
 
+def _check_slice(q, k, v, q_start):
+    _check(q, k, v, q_start)
+    if q_start is None:
+        raise ValueError("a slice of the keys needs q_start (shifted by the "
+                         "slice's first row)")
+
+
+def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          q_start: torch.Tensor, *, causal: bool = True,
+                          scale: float = 0.0, round_p: bool = False,
+                          window: int = 0, softcap: float = 0.0):
+    """One rank's slice of the keys: k, v (B, Skv, Hkv, D) are the
+    slice's rows, q_start (B,) int32 the query positions less the slice's
+    first row (negative where the slice starts past the query).  Returns
+    (out, stats): stats (2, B, Sq, Hq) float32, each row's max M of the
+    scaled (soft-capped) visible logits over the slice and L = sum exp(s -
+    M) (-inf and 0 for a row that sees no key of the slice); out (B, Sq,
+    Hq, D) float32, the slice's P V normalized by its own L (0 for such a
+    row), or None where ``two_passes`` (then ``flash_attention_pass2``
+    takes the group's (M, L)).  One launch (``stats_launches``); no
+    gradient."""
+    _check_slice(q, k, v, q_start)
+    if q.device.type == "cpu":
+        return ref_attention_stats(q, k, v, q_start, causal, scale, round_p,
+                                   window, softcap)
+    b, sq, hq, _ = q.shape
+    stats = torch.empty((2, b, sq, hq), dtype=torch.float32, device=q.device)
+    out = _launch(q, k, v, q_start, causal, scale, round_p, window, softcap,
+                  STATS, stats)
+    return out, stats
+
+
+def flash_attention_pass2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          q_start: torch.Tensor, stats: torch.Tensor, *,
+                          causal: bool = True, scale: float = 0.0,
+                          round_p: bool = False, window: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """The second pass over one rank's slice of the keys (arguments as
+    ``flash_attention_stats``'s), given the group's (M, L) in ``stats``
+    (2, B, Sq, Hq) float32: the slice's sum over its visible keys of P V,
+    P = exp(s - M) / L, rounded to V's type with ``round_p``.  The ranks'
+    outputs sum to the group's attention.  One launch
+    (``pass2_launches``); no gradient."""
+    _check_slice(q, k, v, q_start)
+    b, sq, hq, _ = q.shape
+    if (tuple(stats.shape) != (2, b, sq, hq) or stats.dtype != torch.float32
+            or stats.device != q.device or not stats.is_contiguous()):
+        raise ValueError(f"flash attention pass 2 needs contiguous float32 "
+                         f"stats of shape {(2, b, sq, hq)} on {q.device}, got "
+                         f"{stats.dtype} {tuple(stats.shape)} on "
+                         f"{stats.device}")
+    if q.device.type == "cpu":
+        return ref_attention_pass2(q, k, v, q_start, stats, causal, scale,
+                                   round_p, window, softcap)
+    return _launch(q, k, v, q_start, causal, scale, round_p, window, softcap,
+                   PASS2, stats)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float = 0.0) -> torch.Tensor:
     """q: (Sq, D); k, v: (Skv, D) -> (Sq, D) float32.  One head; any Sq and
@@ -629,6 +754,9 @@ flash_attention.backward_wgmma_launches = 0
 # and those of the split / mma kernels on an e4m3 K/V cache
 # (``csrc/flash_attention_fp8.cu``)
 flash_attention.fp8_launches = 0
+# and the slice forms' (``flash_attention_stats``, ``flash_attention_pass2``)
+flash_attention.stats_launches = 0
+flash_attention.pass2_launches = 0
 
 
 def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

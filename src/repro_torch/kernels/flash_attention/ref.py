@@ -3,9 +3,11 @@
 softmax in the model's layout, with grouped KV heads and a query start
 position per batch row (the attention of ``repro.models.transformer``);
 its gradient by autograd (``ref_attention_gqa_bwd``, the backward
-kernel's plain version); and the kernels' own arithmetic written out
-(``emulate_attention``, ``emulate_attention_bwd``), so that the CPU can
-test it.
+kernel's plain version); the same softmax over one rank's slice of the
+keys (``ref_attention_stats``, ``ref_attention_pass2``: the slice forms'
+plain versions, for a cache split over its sequence); and the kernels' own
+arithmetic written out (``emulate_attention``, ``emulate_attention_bwd``),
+so that the CPU can test it.
 
 The forward takes the reference model's sliding window and logit
 soft-cap (``src/repro/models/transformer.py``, ``_attention_dynwin``):
@@ -176,6 +178,94 @@ def ref_attention_gqa(q, k, v, q_start, causal: bool = True,
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(torch.float32),
                        v.to(torch.float32))
     return out.reshape(b, sq, hq, d)
+
+
+def _slice_logits(q, k, q_start, causal, scale, window, softcap):
+    """The scaled, soft-capped logits (B, Hkv, G, Sq, Skv) of q against a
+    slice of the keys (key j at position j - q_start's shift), -inf where
+    hidden, and the visibility mask."""
+    check_mask(causal, window, softcap)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.to(torch.float32).reshape(b, sq, hkv, hq // hkv, d)
+    kq = k.to(q.dtype).to(torch.float32)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kq) * _scale(d, scale)
+    s = soft_cap(s, softcap)
+    if causal:
+        ok = _visible(q_start, sq, skv, q.device, window)[:, None, None]
+    else:
+        ok = torch.ones((1, 1, 1, 1, skv), dtype=torch.bool, device=q.device)
+    return torch.where(ok, s, -torch.inf), ok
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """(B, Hkv, G, Sq) -> (B, Sq, Hq), head h = hk * G + g."""
+    b, hkv, g, sq = x.shape
+    return x.permute(0, 3, 1, 2).reshape(b, sq, hkv * g)
+
+
+def _grouped(x: torch.Tensor, hkv: int) -> torch.Tensor:
+    """(B, Sq, Hq) -> (B, Hkv, G, Sq, 1)."""
+    b, sq, hq = x.shape
+    return x.reshape(b, sq, hkv, hq // hkv).permute(0, 2, 3, 1)[..., None]
+
+
+def ref_attention_stats(q, k, v, q_start, causal: bool = True,
+                        scale: float = 0.0, round_p: bool = False,
+                        window: int = 0, softcap: float = 0.0):
+    """The plain version of ``flash_attention_stats``: k, v one rank's
+    slice of the keys, q_start shifted by its first row (may be
+    negative).  Returns (out or None, stats (2, B, Sq, Hq) float32): each
+    row's M = max of the visible logits and L = sum exp(s - M) over the
+    slice (-inf and 0 for a row that sees none of its keys); out = the
+    slice's P V normalized by its own L (0 for such a row), None with
+    ``round_p`` and a bfloat16 or e4m3 V (two passes)."""
+    b, sq, hq, d = q.shape
+    s, _ = _slice_logits(q, k, q_start, causal, scale, window, softcap)
+    m = s.amax(dim=-1)
+    e = torch.where(s == -torch.inf, 0.0, torch.exp(s - m[..., None]))
+    l = e.sum(dim=-1)
+    stats = torch.stack([_rows(m), _rows(l)]).contiguous()
+    if round_p and v.dtype != torch.float32:
+        return None, stats
+    p = torch.where(l[..., None] > 0, e / l[..., None], 0.0)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    return out.reshape(b, sq, hq, d), stats
+
+
+def ref_attention_pass2(q, k, v, q_start, stats, causal: bool = True,
+                        scale: float = 0.0, round_p: bool = False,
+                        window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """The plain version of ``flash_attention_pass2``: given the group's
+    (M, L) (``stats``), the slice's sum of P V over its visible keys, P =
+    exp(s - M) / L rounded to V's type with ``round_p``."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    s, _ = _slice_logits(q, k, q_start, causal, scale, window, softcap)
+    m, l = _grouped(stats[0], hkv), _grouped(stats[1], hkv)
+    p = torch.where(s == -torch.inf, 0.0, torch.exp(s - m) / l)
+    if round_p:
+        p = round_probs(p, v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(torch.float32),
+                       v.to(torch.float32))
+    return out.reshape(b, sq, hq, d)
+
+
+def slice_weight(stats: torch.Tensor, big_m: torch.Tensor) -> torch.Tensor:
+    """A slice's share of a group's softmax sum: L e^(M - M_group) for its
+    (M, L) = ``stats`` and the group's max ``big_m``; exactly 0 for a row
+    that saw no key of the slice (L = 0, M = -inf)."""
+    m, l = stats[0], stats[1]
+    return torch.where(l > 0, l * torch.exp(m - big_m), 0.0)
+
+
+def group_stats(stats):
+    """The group's (M, L) (2, B, Sq, Hq) from each slice's, in slice
+    order: M the max, L = sum L_r e^(M_r - M)."""
+    big_m = torch.stack([st[0] for st in stats]).amax(dim=0)
+    big_l = sum(slice_weight(st, big_m) for st in stats)
+    return torch.stack([big_m, big_l]).contiguous()
 
 
 def ref_attention_gqa_bwd(q, k, v, q_start, dout, causal: bool = True,
@@ -388,8 +478,8 @@ def _parts(x: torch.Tensor, exact_bf16: bool):
 
 def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
                       scale: float = 0.0, round_p: bool = False,
-                      window: int = 0,
-                      softcap: float = 0.0) -> torch.Tensor:
+                      window: int = 0, softcap: float = 0.0,
+                      mode: int = 0, stats=None):
     """The kernels' arithmetic under launch plan ``plan`` (``Plan`` of
     ``flash_attention.py``), in float32 torch: every block's rows (query,
     head of the group) against its keys, split across the ranks of its
@@ -403,7 +493,15 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
     kernels' split points and merge order, not the order of the sums
     inside a block.  A window starts each block's keys at the first one
     its first row sees (``block_keys``), and a soft-cap takes the scaled
-    logits through c * tanh(s / c) before the mask."""
+    logits through c * tanh(s / c) before the mask.
+
+    ``mode`` 1 and 2 are the slice forms (``flash_attention_stats``,
+    ``flash_attention_pass2``: k, v a slice of the keys, q_start shifted,
+    possibly negative).  Mode 1 returns (out or None, stats (2, B, Sq,
+    Hq)): the merged (M, L) of each row (-inf, 0 where it sees no key)
+    and, without two passes, acc / L (0 for such a row).  Mode 2 takes
+    the group's (M, L) from ``stats`` and returns the second pass's P V
+    (P rounded with ``round_p``)."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         block_rows, block_keys)
     check_mask(causal, window, softcap)
@@ -411,8 +509,10 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     sc = _scale(d, scale)
-    two_pass = round_p and v.dtype != torch.float32
+    rnd = round_p and v.dtype != torch.float32     # P rounded to V's type
+    two_pass = rnd or mode == 2
     out = torch.zeros((b, sq, hq, d), dtype=torch.float32)
+    new_stats = torch.zeros((2, b, sq, hq), dtype=torch.float32)
     kq = k.to(q.dtype).to(torch.float32)
     vf = v.to(torch.float32)
     starts = [int(s) for s in q_start]
@@ -459,6 +559,14 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
                 fac = [torch.where(m == -torch.inf, 0.0, torch.exp(m - big_m))
                        for m, _, _ in parts]
                 big_l = sum(l * f for (_, l, _), f in zip(parts, fac))
+                if mode == 1:
+                    new_stats[0, bi, qi, heads] = big_m
+                    new_stats[1, bi, qi, heads] = big_l
+                    if rnd:
+                        continue
+                elif mode == 2:
+                    big_m, big_l = stats[0, bi, qi, heads], stats[1, bi, qi,
+                                                                  heads]
                 acc = torch.zeros((len(rows), d))
                 for (m, _, r), f in zip(parts, fac):
                     sr = s[:, r.start:r.stop]
@@ -466,19 +574,23 @@ def emulate_attention(q, k, v, q_start, plan, causal: bool = True,
                         p = torch.where(sr == -torch.inf, 0.0,
                                         torch.exp(sr - big_m[:, None])
                                         / big_l[:, None])
-                        p = p.to(v.dtype).to(torch.float32)
+                        if round_p:
+                            p = p.to(v.dtype).to(torch.float32)
                     else:
                         p = torch.where(sr == -torch.inf, 0.0,
                                         torch.exp(sr - m[:, None]))
                     vr = vf[bi, r.start:r.stop, hk]
                     if plan.variant != "split":
                         term = sum(pp.to(torch.float32) @ vv.to(torch.float32)
-                                   for pp in _parts(p, two_pass)
+                                   for pp in _parts(p, rnd)
                                    for vv in _parts(vr, v.dtype
                                                     != torch.float32))
                     else:
                         term = p @ vr
                     acc = acc + (term if two_pass else term * f[:, None])
-                res = acc if two_pass else acc / big_l[:, None]
+                res = acc if two_pass else torch.where(
+                    big_l[:, None] > 0, acc / big_l[:, None], 0.0)
                 out[bi, qi, heads] = res
+    if mode == 1:
+        return (None if rnd else out), new_stats
     return out

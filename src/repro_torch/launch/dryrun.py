@@ -29,11 +29,14 @@ the reference's are, gathered as the training step gathers them; the
 batch over the dp axes).  The decoder family runs the tensor-parallel
 split in both (``transformer.keeps_model_shard``: each rank computes its
 heads, columns, vocabulary rows and experts); its serving cache follows
-``cache_spec`` where that splits the heads, and stays split over the dp
-axes only where the reference would split its sequence (not built:
-``NOTE_SERVE``).  The other families gather every leaf over ``model`` and
-compute the whole layer on every rank of a ``model`` group
-(``NOTE_TP``).  Ranks are symmetric under these rules: rank 0 stands for
+``cache_spec`` as the reference's perf runner calls it: split over its
+heads where they divide ``model``, else over its sequence (over
+``model``, or ``("data", "model")`` where the batch does not divide the
+dp axes), each rank attending over its slice of the keys and the
+softmax combined across the group (``layers.seq_attention``).  The
+other families gather every leaf over ``model``, compute the whole layer
+on every rank of a ``model`` group (``NOTE_TP``) and keep their caches
+split over the dp axes only (``NOTE_SERVE``).  Ranks are symmetric under these rules: rank 0 stands for
 all.  A cell the card's kernels
 refuse fails here with the kernel's own message, recorded as data
 (``status: error``), as the reference records a failed compile.
@@ -62,8 +65,9 @@ from repro_torch.configs import get as get_cfg, list_archs
 from repro_torch.launch import mesh as M
 from repro_torch.launch import op_analysis as OA
 from repro_torch.launch import shapes as SH
-from repro_torch.launch.sharding import (Sharding, cache_spec,
-                                         make_param_shardings, map_with_path)
+from repro_torch.launch.sharding import (Sharding, cache_seq_axes,
+                                         cache_spec, make_param_shardings,
+                                         map_with_path, seq_sharded)
 from repro_torch.models import family_module
 from repro_torch.optim import adamw, constant, tree_map
 
@@ -85,7 +89,8 @@ NOTE_SPLIT = ("the products split over 'model': each rank computes its "
 NOTE_SERVE = ("the cache split over the dp axes only: each rank of a model "
               "group holds every head of its rows (the reference splits "
               "the heads over 'model', or where they do not divide it the "
-              "sequence, which the port's split does not build yet)")
+              "sequence; the port splits them for the decoder family "
+              "alone)")
 NOTE_META = ("counted on meta tensors over the fake process group: no "
              "kernel launched, each declared its work")
 
@@ -222,11 +227,13 @@ def serve_cell(cfg, shape, mesh, device="meta", params=None, cache=None):
     if cache is None:
         cache = _on(device, SH.cache_shape(cfg, mod, shape))
     seq_shard = seq_sharded(cfg, mesh)
+    # the split families' cache as the reference's perf runner splits it
+    seq_axes = cache_seq_axes(cfg, mesh, shape.batch,
+                              seq_shard) if split else None
 
     def cache_sharding(path, x):
         spec = cache_spec(cfg, mesh, path, tuple(x.shape), seq_shard)
-        return Sharding(mesh, spec if split and not seq_shard
-                        else _dp_only(spec, dp))
+        return Sharding(mesh, spec if split else _dp_only(spec, dp))
 
     cache = map_with_path(lambda path, x: cache_sharding(path, x).shard(x)
                           if torch.is_tensor(x) else x, cache)
@@ -277,7 +284,8 @@ def serve_cell(cfg, shape, mesh, device="meta", params=None, cache=None):
         full = tree_map(lambda x, s, k: s.gather(x, keep=k), params, p_shard,
                         kept)
         with torch.no_grad(), M.activation_sharding(dp, n_dp, mesh=mesh,
-                                                    split=split):
+                                                    split=split,
+                                                    seq_axes=seq_axes):
             return call(full, *rest)
 
     return step, (local, *inputs, cache)
@@ -288,14 +296,6 @@ def splits(cfg) -> bool:
     product leaves' ``model`` shards (``keeps_model_shard``)."""
     keeps = getattr(family_module(cfg), "keeps_model_shard", None)
     return keeps is not None and keeps(cfg, "embed")
-
-
-def seq_sharded(cfg, mesh) -> bool:
-    """The reference splits this config's KV cache over its sequence on
-    ``mesh``: its KV heads (``kv_replicate_to`` where set) do not divide
-    the ``model`` axis."""
-    kv = getattr(cfg, "kv_replicate_to", 0) or cfg.kv_heads
-    return bool(kv and kv % M.axis_sizes(mesh)["model"] != 0)
 
 
 def build_cell(arch: str, shape_name: str, mesh, *, cfg=None, shape=None,
@@ -317,10 +317,10 @@ def build_cell(arch: str, shape_name: str, mesh, *, cfg=None, shape=None,
 def cell_notes(cfg, shape, mesh) -> list:
     """What a cell's counts are of: the split or the whole layer, the
     gathers, and a serving cache kept on the dp axes where the reference
-    splits its sequence."""
+    splits it further (the families the split does not take)."""
     split = splits(cfg)
     notes = [NOTE_SPLIT] if split else [NOTE_TP, NOTE_GATHER]
-    if shape.kind != "train" and (not split or seq_sharded(cfg, mesh)):
+    if shape.kind != "train" and not split:
         notes.append(NOTE_SERVE)
     return notes
 

@@ -36,6 +36,16 @@ where a replicated tensor enters a split region, ``reduce_from_model``
 partial sums leave it, and ``model_max`` for a quantization scale that
 spans a split dimension.  Over a ``model`` axis of one rank there is no
 split: ``current_split`` is None and nothing runs.
+
+With ``seq_axes`` the context also says that the serving cache is split
+over its sequence (``sharding.cache_spec(..., seq_shard=True)``): over
+``model``, or over ``("data", "model")`` where the batch does not divide
+the dp axes.  ``current_seq`` gives that group (``SeqGroup``: group,
+size, this rank's slice) to the attention, which attends over its slice
+of the keys and combines the softmax across the group with
+``SeqGroup.max`` and ``SeqGroup.sum`` (all-reduces, no gradient:
+serving).  The ``model`` group is the split's own process group; a
+``data`` x ``model`` group is one made for it (``fold_group``).
 """
 
 from __future__ import annotations
@@ -242,21 +252,25 @@ def model_split(mesh, tp_axis: str = TP_AXIS):
 
 
 def activation_sharding(dp_axes, dp_total: int, mesh=None,
-                        tp_axis: str = TP_AXIS, split: bool = False):
+                        tp_axis: str = TP_AXIS, split: bool = False,
+                        seq_axes=None):
     """The launcher's mesh context: ``dp_axes`` carry the batch (each
     rank holds its slice), ``dp_total`` their product; ``mesh`` and
     ``tp_axis`` are what the EP MoE layer (``moe.moe_apply_ep``) reads.
     ``split``: the params hold their ``model`` shards, and the layers
-    compute the rank's part (``current_split``)."""
+    compute the rank's part (``current_split``).  ``seq_axes``: the mesh
+    axes (a name or a tuple, major first) over which the serving cache
+    splits its sequence (``current_seq``)."""
     return in_context(((tuple(dp_axes), int(dp_total)) if dp_axes else None,
                        (mesh, tp_axis),
-                       model_split(mesh, tp_axis) if split else None))
+                       model_split(mesh, tp_axis) if split else None,
+                       seq_group(mesh, seq_axes) if seq_axes else None))
 
 
 def saved_context():
     """This thread's mesh context, as ``in_context`` takes it."""
     return (getattr(_ctx, "dp", None), getattr(_ctx, "mesh", None),
-            getattr(_ctx, "split", None))
+            getattr(_ctx, "split", None), getattr(_ctx, "seq", None))
 
 
 @contextlib.contextmanager
@@ -265,11 +279,11 @@ def in_context(saved):
     the thread's own restored after (a layer recomputed on autograd's
     thread runs in its forward's context)."""
     old = saved_context()
-    _ctx.dp, _ctx.mesh, _ctx.split = saved
+    _ctx.dp, _ctx.mesh, _ctx.split, _ctx.seq = saved
     try:
         yield
     finally:
-        _ctx.dp, _ctx.mesh, _ctx.split = old
+        _ctx.dp, _ctx.mesh, _ctx.split, _ctx.seq = old
 
 
 def current_mesh():
@@ -361,6 +375,122 @@ def model_max(t: torch.Tensor) -> torch.Tensor:
         return t
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=split.group)
     return t
+
+
+# ---------------------------------------------------------------------------
+# the sequence-sharded cache: collectives over the cache's sequence group
+# ---------------------------------------------------------------------------
+
+class SeqGroup(NamedTuple):
+    """The ranks over which the serving cache splits its sequence: the
+    process group, its size and this rank's slice (rows [rank * n, +n) of
+    the cache's n * size); ``rest``, the group of the fold's ``data``
+    axis (None over ``model`` alone).
+    Its collectives reduce in place, with no gradient."""
+    group: Any
+    size: int
+    rank: int
+    rest: Any = None
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t, group=self.group)
+        return t
+
+
+_FOLD_GROUPS: Dict[Any, Any] = {}
+
+
+def fold_group(mesh, axes: tuple):
+    """This rank's process group over the mesh ``axes`` together (the
+    cache's ``("data", "model")`` fold): the whole default group where
+    they span the mesh, else one group a coordinate of the other axes,
+    every such group made on every rank in the same order (as
+    ``new_group`` asks), once a mesh."""
+    names, sizes = axis_names(mesh), axis_sizes(mesh)
+    if math.prod(sizes[a] for a in axes) == dist.get_world_size():
+        return dist.group.WORLD
+    key = (id(mesh), tuple(axes))
+    if key not in _FOLD_GROUPS:
+        ids = mesh.mesh.permute(
+            *[names.index(a) for a in names if a not in axes],
+            *[names.index(a) for a in axes])
+        ids = ids.reshape(-1, math.prod(sizes[a] for a in axes))
+        mine = None
+        for row in ids.tolist():
+            g = dist.new_group(ranks=row)
+            if dist.get_rank() in row:
+                mine = g
+        _FOLD_GROUPS[key] = mine
+    return _FOLD_GROUPS[key]
+
+
+def seq_group(mesh, axes):
+    """The ``SeqGroup`` of the mesh ``axes`` (a name or a tuple, major
+    first), or None where they hold one rank."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    sizes = axis_sizes(mesh)
+    size = math.prod(sizes[a] for a in axes)
+    if size == 1:
+        return None
+    coord = coordinate(mesh)
+    rank = 0
+    for a in axes:
+        rank = rank * sizes[a] + coord[a]
+    if len(axes) == 1:
+        return SeqGroup(mesh.get_group(axes[0]), size, rank)
+    # the fold, ("data", "model"): ``rest`` is the data axis's group
+    return SeqGroup(fold_group(mesh, axes), size, rank,
+                    mesh.get_group(axes[0]))
+
+
+class ThreadGroup:
+    """n slices of a sequence group in one process, each served on a
+    thread of its own: ``member(i)`` is slice i's stand-in for its
+    ``SeqGroup``, whose ``max`` / ``sum`` wait for every slice's tensor and
+    reduce them in slice order (the combine checked on one device, as
+    ``chip_smoke.py`` checks it on the card)."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.barrier = threading.Barrier(n)
+        self.held = [None] * n
+
+    def member(self, i: int):
+        return _ThreadMember(self, i)
+
+    def reduce(self, i: int, t: torch.Tensor, op) -> torch.Tensor:
+        self.held[i] = t.clone()
+        self.barrier.wait()
+        total = self.held[0]
+        for x in self.held[1:]:
+            total = op(total, x)
+        self.barrier.wait()
+        return t.copy_(total)
+
+
+class _ThreadMember(NamedTuple):
+    group: ThreadGroup
+    rank: int
+
+    @property
+    def size(self) -> int:
+        return self.group.n
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        return self.group.reduce(self.rank, t, torch.maximum)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.group.reduce(self.rank, t, torch.add)
+
+
+def current_seq():
+    """The context's ``SeqGroup`` when the serving cache splits its
+    sequence over more than one rank, else None."""
+    return getattr(_ctx, "seq", None)
 
 
 def split_max(t: torch.Tensor) -> torch.Tensor:

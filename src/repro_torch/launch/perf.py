@@ -12,8 +12,12 @@ production mesh over the fake process group), and written to
 variants keep float32 weights, as the reference's runner does, unless
 they are packed.  The fp8 cache variants (``v1b_f8_cache_seqshard``,
 ``v3_f8_cache``) count as the others do: ``flash_attention`` takes
-float8_e4m3fn K and V (read at a byte an element).  A variant that
-fails is recorded as ``status: error`` with its message.  No card is
+float8_e4m3fn K and V (read at a byte an element).  The cache is split
+as the reference's runner splits it (``cache_spec(..., seq_shard)``, in
+``dryrun.serve_cell``): ``v1b_f8_cache_seqshard``'s 8 KV heads do not
+divide 16, so its cache splits its sequence and each rank attends over
+its slice of the keys.  A variant that fails is recorded as ``status:
+error`` with its message.  No card is
 needed:
 
   PYTHONPATH=src python -m repro_torch.launch.perf \\

@@ -262,6 +262,24 @@ def cache_spec(cfg, mesh, path: str, shape, seq_shard: bool = False) -> Spec:
     return (None,) * rank
 
 
+def seq_sharded(cfg, mesh) -> bool:
+    """The reference splits this config's KV cache over its sequence on
+    ``mesh`` (its perf runner's rule): its KV heads (``kv_replicate_to``
+    where set) do not divide the ``model`` axis."""
+    kv = getattr(cfg, "kv_replicate_to", 0) or cfg.kv_heads
+    return bool(kv and kv % axis_sizes(mesh)["model"] != 0)
+
+
+def cache_seq_axes(cfg, mesh, batch: int, seq_shard: bool):
+    """The mesh axes over which ``cache_spec`` splits a KV cache of
+    ``batch`` rows along its sequence: ``"model"``, or ``("data",
+    "model")`` where the batch does not divide the dp axes; None without
+    ``seq_shard``."""
+    if not seq_shard:
+        return None
+    return cache_spec(cfg, mesh, "k", (batch, 1, 1, 1), True)[1]
+
+
 def make_cache_shardings(cfg, cache, mesh, seq_shard: bool = False):
     """Shardings of a cache tree's tensors (its host-int ``index``
     entries, which the port keeps outside tensors, map to None)."""

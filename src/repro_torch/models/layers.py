@@ -30,6 +30,10 @@ a weight and an activation every rank holds whole (a layer the split
 leaves whole), whose weight gradient each rank takes over its slice of
 the tokens, summed over the group.  ``mlp`` splits its hidden columns,
 ``softmax_xent`` its vocabulary.
+
+Under a serving cache split over its sequence (``launch.mesh.current_seq``)
+``seq_attention`` attends over the rank's slice of the keys and combines
+the softmax across the group.
 """
 
 from __future__ import annotations
@@ -44,7 +48,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.flash_attention import flash_attention_gqa
+from repro_torch.kernels.flash_attention import (flash_attention_gqa,
+                                                 flash_attention_pass2,
+                                                 flash_attention_stats,
+                                                 two_passes)
+from repro_torch.kernels.flash_attention.ref import slice_weight
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.launch.mesh import (  # noqa: F401  (the reference's names)
     activation_sharding, copy_to_model, current_dp, current_mesh,
@@ -389,6 +397,40 @@ def query_start(positions: torch.Tensor) -> torch.Tensor:
             pos2d.to(torch.long), q_start.to(torch.long)[:, None] + ar[None]):
         raise ValueError("positions must be start + arange(S) on every row")
     return q_start
+
+
+def seq_attention(q, k, v, q_start, group, *, causal: bool = True,
+                  scale: float = 0.0, round_p: bool = False, window: int = 0,
+                  softcap: float = 0.0, reduce: bool = True) -> torch.Tensor:
+    """The attention of q over the keys of every rank of ``group``
+    (``launch.mesh.SeqGroup``, or any object with its in-place ``max`` and
+    ``sum``), of which k and v are this rank's slice and q_start the
+    queries' positions less the slice's first row.  Every rank returns the
+    group's (B, Sq, Hq, D) float32 result.
+
+    The slice's (M, L) (``flash_attention_stats``), the group's M = max of
+    the ranks', each rank's weight w = L e^(M_r - M) and the group's L = sum
+    w.  Where P is not rounded (a float32 cache) that is one pass: the
+    slice's output, normalized by its own L, times w / L, summed over the
+    group.  With ``round_p`` on a bfloat16 or e4m3 cache P = exp(s - M) / L
+    must be rounded with the group's (M, L): a second pass over the slice
+    (``flash_attention_pass2``), its P V summed over the group.  Three
+    all-reduces: the max, the sum of w, the outputs; without ``reduce``
+    the rank's partial output is returned unsummed (the caller sums the
+    part it keeps)."""
+    opts = dict(causal=causal, scale=scale, round_p=round_p, window=window,
+                softcap=softcap)
+    out, stats = flash_attention_stats(q, k, v, q_start, **opts)
+    big_m = group.max(stats[0].clone())
+    w = slice_weight(stats, big_m)
+    if two_passes(round_p, v):
+        big_l = group.sum(w)
+        out = flash_attention_pass2(q, k, v, q_start,
+                                    torch.stack([big_m, big_l]), **opts)
+    else:
+        big_l = group.sum(w.clone())
+        out = out * torch.div(w, big_l)[..., None]
+    return group.sum(out) if reduce else out
 
 
 def attention(params: Params, x: torch.Tensor, spec: AttnSpec,

@@ -54,8 +54,17 @@ cache, or the layer whole), its MLP columns, its experts
 where a token is the rank's and summed over the group; the head's
 columns, whose logits stay the rank's: ``softmax_xent`` and
 ``greedy_tokens`` reduce over the group).  A cache is the rank's heads
-where the rules split its heads, else every head (the sequence split
-of the reference's long-context caches is not built).
+where the rules split its heads.  Where its KV heads do not divide
+``model`` the serving cache splits its sequence instead (under
+``activation_sharding(..., seq_axes=...)``, ``mesh.current_seq``): each
+rank holds every head of its slice of the rows, writes only this step's
+rows that fall in its slice (the write's start clamped on the whole
+cache first), and attends over its slice with q_start shifted by the
+slice's first row; ``layers.seq_attention`` combines the softmax across
+the group.  A q-split rank gathers every query head over the split
+first (its keys serve them all), and takes the sum of the ranks'
+partial outputs for its own heads alone (a reduce-scatter over the
+split, ``_own_heads``).
 """
 
 from __future__ import annotations
@@ -70,7 +79,8 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention_gqa, soft_cap
-from repro_torch.launch.mesh import (copy_to_model, current_split,
+from repro_torch.launch.mesh import (copy_to_model, current_seq,
+                                     current_split,
                                      reduce_from_model)
 from repro_torch.launch.sharding import attn_heads
 from repro_torch.models import layers as L
@@ -372,9 +382,13 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
         return reduce_from_model(out) if heads.q_split else out
 
     new_cache = cache
+    seq = current_seq() if cache is not None else None
     if cache is not None:
         ck, cv, idx = cache["k"], cache["v"], cache["index"]
-        max_len = ck.shape[1]
+        # under a sequence-split cache the rank holds rows [first, +rows)
+        rows = ck.shape[1]
+        max_len = rows * (seq.size if seq else 1)
+        first = seq.rank * rows if seq else 0
         if s > max_len:
             raise ValueError(f"{s} tokens do not fit a cache of {max_len}")
         if ck.shape[2] not in (k.shape[2], hkv):
@@ -382,11 +396,34 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
                              f"that computes {k.shape[2]} and reads {hkv}")
         if ck.shape[2] != k.shape[2]:       # the cache holds the rank's heads
             k, v, lo = k[:, :, lo:lo + hkv], v[:, :, lo:lo + hkv], 0
+        # the write's rows clamped on the whole cache, then the rank's part
         at = min(max(idx, 0), max_len - s)
-        ck[:, at:at + s] = L.to_cache(k, ck.dtype)
-        cv[:, at:at + s] = L.to_cache(v, cv.dtype)
+        w0, w1 = max(at, first), min(at + s, first + rows)
+        kc, vc = L.to_cache(k, ck.dtype), L.to_cache(v, cv.dtype)
+        if w0 < w1:
+            ck[:, w0 - first:w1 - first] = kc[:, w0 - at:w1 - at]
+            cv[:, w0 - first:w1 - first] = vc[:, w0 - at:w1 - at]
         new_cache = {"k": ck, "v": cv, "index": idx + s}
         k, v = ck, cv
+    if seq is not None:
+        # every query head against the rank's rows: q gathered over the
+        # split, the group's softmax combined, the rank's heads kept
+        split = current_split()
+        if heads.kv_split:
+            raise ValueError("a sequence-split cache holds every KV head: "
+                             "the KV heads are not split")
+        if heads.q_split:
+            parts = [torch.empty_like(q.contiguous())
+                     for _ in range(split.size)]
+            dist.all_gather(parts, q.contiguous(), group=split.group)
+            q = torch.cat(parts, dim=2)
+        out = L.seq_attention(q, k, v, q_start - first, seq, causal=True,
+                              scale=scale, round_p=True, window=window,
+                              softcap=spec.softcap,
+                              reduce=not heads.q_split)
+        if heads.q_split:
+            out = _own_heads(out, split, seq)
+        return out_proj(out), new_cache
     # the rank's KV heads: a view, no copy of a cache
     k, v = k[:, :, lo:lo + hkv], v[:, :, lo:lo + hkv]
 
@@ -413,6 +450,19 @@ def _attention_dynwin(p, x, spec: L.AttnSpec, qcfg, positions, q_start,
                               round_p=True, window=window,
                               softcap=spec.softcap)
     return out_proj(out), new_cache
+
+
+def _own_heads(out, split, seq):
+    """The sequence group's sum of every rank's partial attention output
+    (B, S, Hq, D), this rank's heads of it: a reduce-scatter of the heads
+    over the split, then, where the cache's sequence also splits over the
+    dp axes, the sum over them (``SeqGroup.rest``)."""
+    parts = out.permute(2, 0, 1, 3).contiguous()           # (Hq, B, S, D)
+    mine = parts.new_empty((parts.shape[0] // split.size, *parts.shape[1:]))
+    dist.reduce_scatter_tensor(mine, parts, group=split.group)
+    if seq.rest is not None:
+        dist.all_reduce(mine, group=seq.rest)
+    return mine.permute(1, 2, 0, 3)
 
 
 def _backbone(params, x, cfg, positions, q_start, caches=None):

@@ -15,9 +15,10 @@ through the host, since NCCL refuses two ranks on one GPU):
   * "serve" (``serve_run``): a prompt then decode steps on given tokens
     (teacher-forced) with the params in the "serve" shardings (packed by
     ``quantize_params`` if asked) and the cache as ``cache_spec`` splits
-    its heads: each step's last logits gathered over the vocabulary
-    split, the greedy tokens (``transformer.greedy_tokens``), step
-    times, launches, peak memory.
+    it (its heads over ``model``, or where they do not divide it its
+    sequence, as the reference's perf runner asks): each step's last
+    logits gathered over the vocabulary split, the greedy tokens
+    (``transformer.greedy_tokens``), step times, launches, peak memory.
 
 A task's ``variant`` (``variant``) runs another function on purpose: the
 plain whole-layer step the token split is timed against, or a control
@@ -60,6 +61,8 @@ def _counters():
                                           "backward_launches"),
                 flash_attention_wgmma=(flash_attention, "wgmma_launches"),
                 flash_attention_fp8=(flash_attention, "fp8_launches"),
+                flash_attention_stats=(flash_attention, "stats_launches"),
+                flash_attention_pass2=(flash_attention, "pass2_launches"),
                 quant_matmul=(quant_matmul, "launches"))
 
 
@@ -199,18 +202,23 @@ def _dp_slice(batch: dict, mesh, device) -> dict:
 def serve_run(cfg, tokens, prompt: int, cache_rows: int, device=None,
               mesh=None,
               quant=None, cache_dtype=torch.float8_e4m3fn,
-              params=None, pack_min: int = 1 << 14) -> dict:
+              params=None, pack_min: int = 1 << 14,
+              keep_cache: bool = False) -> dict:
     """A prefill of ``tokens[:, :prompt]`` into a cache of ``cache_rows``
     rows, then a decode step on each later token (teacher-forced), with
     seed-0 params drawn on ``device`` (or ``params``), packed by
     ``quant`` (leaves of at least ``pack_min`` elements); on ``mesh`` each
-    rank holds its "serve" shards and its
-    heads of the cache.  Each step's last logits (gathered over the
-    vocabulary split) and greedy tokens, on the host."""
+    rank holds its "serve" shards and its part of the cache (its heads,
+    or where they do not divide ``model`` its slice of the rows; every
+    rank holds the whole batch).  Each step's last logits (gathered over
+    the vocabulary split) and greedy tokens, on the host; with
+    ``keep_cache`` also the rank's cache at the end ({path: float32
+    numpy}, "cache")."""
     from repro_torch.launch import mesh as M
-    from repro_torch.launch.sharding import (Sharding, cache_spec,
+    from repro_torch.launch.sharding import (Sharding, cache_seq_axes,
+                                             cache_spec,
                                              make_param_shardings,
-                                             map_with_path)
+                                             map_with_path, seq_sharded)
     from repro_torch.models import transformer as T
     from repro_torch.optim import tree_map
     from repro_torch.serve.engine import quantize_params
@@ -226,7 +234,11 @@ def serve_run(cfg, tokens, prompt: int, cache_rows: int, device=None,
         params = quantize_params(params, quant, min_size=pack_min)
     b = tokens.shape[0]
     shapes = T.init_cache(cfg, b, cache_rows, cache_dtype, device="meta")
-    ctx = M.activation_sharding((), 1, mesh=mesh, split=mesh is not None)
+    seq_shard = mesh is not None and seq_sharded(cfg, mesh)
+    ctx = M.activation_sharding(
+        (), 1, mesh=mesh, split=mesh is not None,
+        seq_axes=cache_seq_axes(cfg, mesh, b, seq_shard) if seq_shard
+        else None)
     if mesh is not None:
         p_shard = make_param_shardings(cfg, params, mesh, "serve")
         kept = model_kept(cfg, T, p_shard)
@@ -236,9 +248,14 @@ def serve_run(cfg, tokens, prompt: int, cache_rows: int, device=None,
         def local(path, x):
             if not torch.is_tensor(x):
                 return x
-            sh = Sharding(mesh, cache_spec(cfg, mesh, path, tuple(x.shape)))
-            return torch.zeros(sh.local_shape(x.shape), dtype=x.dtype,
-                               device=device)
+            sh = Sharding(mesh, cache_spec(cfg, mesh, path, tuple(x.shape),
+                                           seq_shard))
+            shape = sh.local_shape(x.shape)
+            if shape[-4] != x.shape[-4]:
+                raise ValueError(f"serve_run holds the whole batch on every "
+                                 f"rank, not a cache split over the dp axes "
+                                 f"({sh.spec})")
+            return torch.zeros(shape, dtype=x.dtype, device=device)
         cache = map_with_path(local, shapes)
     else:
         cache = map_with_path(lambda _, x: torch.zeros(
@@ -265,8 +282,15 @@ def serve_run(cfg, tokens, prompt: int, cache_rows: int, device=None,
             _sync(device)
             times.append((time.perf_counter() - t0) * 1e3)
             logits_all.append(_whole_vocab(last.float(), split()))
-    return dict(logits=np.stack(logits_all), greedy=np.stack(greedy),
-                step_ms=times, launches=launches(), peak_gib=_peak(device))
+    out = dict(logits=np.stack(logits_all), greedy=np.stack(greedy),
+               step_ms=times, launches=launches(), peak_gib=_peak(device))
+    if keep_cache:
+        kept_cache = {}
+        map_with_path(lambda path, x: kept_cache.__setitem__(
+            path, x.to(torch.float32).cpu().numpy())
+            if torch.is_tensor(x) else None, cache)
+        out["cache"] = kept_cache
+    return out
 
 
 def _whole_vocab(x: torch.Tensor, split) -> np.ndarray:

@@ -6,10 +6,11 @@ of ``examples/train_qat.py``), as functions:
              stream, with AdamW, warmup-cosine and checkpoint/restart;
   run_cnn -- the paper's Figs. 5-6 experiment: a CIFAR ResNet trained on
              the CIFAR-like set under FP32, INT16, LightPE-1 and
-             LightPE-2 (SGD-Nesterov, Sec. IV-B), each with its top-1 on
-             a held-out set beside the normalized hardware efficiency of
-             that PE type's best design for ResNet-20/CIFAR-10, written
-             as the table ``AccuracySurrogate.load_qat_results`` reads.
+             LightPE-2 (SGD-Nesterov, Sec. IV-B; one trial is
+             ``train_cnn``), each with its top-1 on a held-out set beside
+             the normalized hardware efficiency of that PE type's best
+             design for ResNet-20/CIFAR-10, written as the table
+             ``AccuracySurrogate.load_qat_results`` reads.
 """
 
 from __future__ import annotations
@@ -85,6 +86,23 @@ def top1(params, images, labels, pe_type: str) -> float:
                              == labels.to(torch.int64)).to(torch.float32)))
 
 
+def train_cnn(pe_type: str, steps: int, depth: int = 8, trial: int = 0,
+              device=None):
+    """One trial of the Figs. 5-6 run: ResNet-``depth`` from seed
+    ``trial``, ``steps`` SGD-Nesterov steps under ``pe_type``'s QAT
+    numerics on the CIFAR-like stream; returns the trained params."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(trial)
+    params = cnn.resnet_init(gen, depth=depth, n_classes=10, device=device)
+    opt = sgd_nesterov(paper_step_decay(0.05, steps // 3), weight_decay=5e-4)
+    ostate = opt.init(params)
+    step = make_cnn_step(opt, pe_type)
+    pipe = cifar_pipeline(64, 10, seed=trial, device=device)
+    for _ in range(steps):
+        params, ostate, _loss = step(params, ostate, next(pipe))
+    return params
+
+
 def run_cnn(steps: int = 300, depth: int = 8, trials: int = 2,
             out: str | None = "results/torch_qat_pareto.json",
             device=None) -> dict:
@@ -104,16 +122,7 @@ def run_cnn(steps: int = 300, depth: int = 8, trials: int = 2,
     for pe in CNN_PE_TYPES:
         accs = []
         for trial in range(trials):
-            gen = torch.Generator(device=device).manual_seed(trial)
-            params = cnn.resnet_init(gen, depth=depth, n_classes=10,
-                                     device=device)
-            opt = sgd_nesterov(paper_step_decay(0.05, steps // 3),
-                               weight_decay=5e-4)
-            ostate = opt.init(params)
-            step = make_cnn_step(opt, pe)
-            pipe = cifar_pipeline(64, 10, seed=trial, device=device)
-            for _ in range(steps):
-                params, ostate, _loss = step(params, ostate, next(pipe))
+            params = train_cnn(pe, steps, depth, trial, device)
             accs.append(top1(params, images, labels, pe))
         table[pe] = dict(
             top1_mean=float(np.mean(accs)), top1_std=float(np.std(accs)),

@@ -525,6 +525,58 @@ class CachePins:
         monkeypatch.setattr(L, "to_cache", pinned)
 
 
+class WritePins:
+    """The port's writes to a bfloat16 or e4m3 cache (``layers.to_cache``,
+    called once a layer, K then V, on the step's rows: every rank of a
+    sequence-split cache converts the step's rows, then writes its own),
+    pinned to the JAX run's: ``writes`` [(k, v) a step], each (L, B, rows,
+    H, D) float32 of the cache's values
+    (``_torch_seqshard_ref.cache_writes``).  Where the port's code differs
+    from the JAX code the value written must lie within ``ROUND_TIE`` of
+    the write's largest |value| of the midpoint between the two codes'
+    values (a rounding tie); there the JAX code is taken, counted in
+    ``pinned``.  Any other difference fails."""
+
+    def __init__(self, monkeypatch, writes):
+        import torch
+        from repro_torch.models import layers as L
+        self.writes, self.n, self.pinned = writes, 0, 0
+        inner = L.to_cache
+
+        def pinned(x, dtype):
+            got = inner(x, dtype)
+            if dtype == torch.float32:
+                return got
+            layers = self.writes[0][0].shape[0]
+            step, rest = divmod(self.n, 2 * layers)
+            layer, kind = divmod(rest, 2)
+            self.n += 1
+            w = torch.tensor(np.asarray(self.writes[step][kind][layer],
+                                        np.float32)).to(dtype)
+            assert w.shape == got.shape, (self.n - 1, w.shape, got.shape)
+            view = torch.uint8 if got.element_size() == 1 else torch.int16
+            differ = got.view(view) != w.view(view)
+            if not bool(differ.any()):
+                return got
+            mid = (got.float() + w.float()) / 2
+            xf = x.float()
+            tie = (xf - mid).abs() <= ROUND_TIE * float(xf.abs().max())
+            bad = differ & ~tie
+            assert not bool(bad.any()), (
+                f"cache write {self.n - 1}: codes differ away from a "
+                f"rounding tie at {xf[bad][:4].tolist()} (JAX "
+                f"{w.float()[bad][:4].tolist()})")
+            self.pinned += int(differ.sum())
+            return torch.where(differ, w.view(view),
+                               got.view(view)).view(dtype)
+
+        monkeypatch.setattr(L, "to_cache", pinned)
+
+    def done(self) -> bool:
+        layers = self.writes[0][0].shape[0]
+        return self.n == 2 * layers * len(self.writes)
+
+
 # ---------------------------------------------------------------------------
 # every affine code at a round(x / s) tie, located by position (training)
 # ---------------------------------------------------------------------------

@@ -491,10 +491,69 @@ def task_tp_resume(task, at):
     return {"rows": rows, "step": int(state.step)}, final
 
 
+def task_seq_serve(task, at):
+    """A ``_torch_seqshard_ref.CASES`` case on one cache type through the
+    sequence-sharded cache (``tp_check.serve_run``): each step's last
+    logits and greedy tokens, the launches, and the rank's cache at the
+    end (``cache/<path>``)."""
+    from _torch_seqshard_ref import (CACHE, PARAM_SEED, PROMPT, config,
+                                     serve_tokens)
+    from repro_torch import tp_check
+    from repro_torch.models import transformer as T
+    cfg = config(task["arch"])
+    mesh = at.mesh(task["mesh"])
+    params = convert.params_from_numpy(T.numpy_params(cfg, PARAM_SEED),
+                                       at.device)
+    coord, shape = M.coordinate(mesh), task["mesh"]
+    slot = coord["data"] * shape[1] + coord["model"]   # the rank's slice
+    pins = writes = None
+    with _Patches() as patches:
+        if task.get("pin"):
+            # the JAX one-device run's P of every call, cut to this rank's
+            # keys (its slice of the cache's rows), and its cache writes
+            from _torch_act_pins import ProbPins, WritePins
+            from _torch_seqshard_ref import (REF_PATH, cache_writes,
+                                             unpack_probs)
+            one = json.loads(REF_PATH.read_text())["serve"][task["key"]][
+                "one"]
+            rows = CACHE // (shape[0] * shape[1])
+            pins = ProbPins(patches)
+            pins.load([c[..., slot * rows:(slot + 1) * rows]
+                       for c in unpack_probs(one["probs"])])
+            writes = WritePins(patches, cache_writes(one))
+        r = tp_check.serve_run(
+            cfg, torch.from_numpy(serve_tokens(cfg, task["batch"])), PROMPT,
+            CACHE, at.device, mesh,
+            cache_dtype=getattr(torch, task["cache_dtype"]), params=params,
+            keep_cache=True)
+    arrays = {"logits": r["logits"], "greedy": r["greedy"]}
+    arrays.update({f"cache/{k}": v for k, v in r["cache"].items()})
+    return {"launches": r["launches"], "coord": M.coordinate(mesh),
+            "pinned": pins and [pins.pinned, writes.pinned],
+            "pins_done": pins and pins.done() and writes.done()}, arrays
+
+
+class _Patches:
+    """``monkeypatch.setattr`` for a rank's task: the attributes set
+    while open, put back after."""
+
+    def __enter__(self):
+        self.saved = []
+        return self
+
+    def setattr(self, obj, name, value):
+        self.saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def __exit__(self, *exc):
+        for obj, name, value in reversed(self.saved):
+            setattr(obj, name, value)
+
+
 TASKS = {"sharding": task_sharding, "grad_compress": task_grad_compress,
          "moe_ep": task_moe_ep, "train_cli": task_train_cli,
          "train_mesh": task_train_mesh, "restore": task_restore,
          "ep_train": task_ep_train, "moe_capacity": task_moe_capacity,
          "all_reduce": task_all_reduce, "dryrun_cell": task_dryrun_cell,
          "tp_train": task_tp_train, "tp_serve": task_tp_serve,
-         "tp_resume": task_tp_resume}
+         "tp_resume": task_tp_resume, "seq_serve": task_seq_serve}

@@ -33,10 +33,15 @@ its HLO counted by ``hlo_analysis.analyze``).
   as each layer and microbatch counts alike; 1.782e16 before the split)
   and ``decode_32k`` below ``DECODE_32K_TEMP`` bytes of temporaries
   (79.4 GB of them before, most of them the bfloat16 params gathered
-  over ``model``), its 4 query heads a rank reading one KV head of the
-  dp-only cache as a view; the split families' cells carry no
-  ``NOTE_TP``, and ``NOTE_SERVE`` only where the reference splits the
-  cache's sequence.
+  over ``model``), its cache split over the sequence (8 KV heads do not
+  divide 16): each rank attends with every query head (gathered over the
+  split) over its 2,048 rows of every KV head, and holds 1/16 of the
+  dp-only cache's bytes; the split families' cells carry no ``NOTE_TP``
+  and no ``NOTE_SERVE``.
+* A reduced serving cell on the 2 x 2 mesh whose cache splits its
+  sequence (over ``model``, and over ("data", "model") at batch 1): the
+  argument bytes a rank equal the reference's ``memory_analysis``
+  (``tests/data/torch_seqshard_ref.json``).
 * At pod16x16 a leaf sharded over ``data`` is all-gathered over the
   ``data`` group alone: its own bytes, not 16 x.
 
@@ -44,6 +49,7 @@ Counts are exact.
 """
 
 import json
+import math
 
 import pytest
 import torch
@@ -55,11 +61,15 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch import op_analysis as OA
 from repro_torch.launch import shapes as SH
 from repro_torch.launch.sharding import Sharding
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 from _torch_dist import run_ranks
 from _torch_dryrun_ref import (MESH_CELLS, MESH_SHAPE, REDUCED_SHAPES,
                                REF_PATH, mesh_config)
+from _torch_seqshard_ref import DRYRUN_CELLS as SEQ_CELLS
+from _torch_seqshard_ref import DRYRUN_MESH as SEQ_MESH
+from _torch_seqshard_ref import REF_PATH as SEQ_REF_PATH
 
 ONE = ((1, 1), ("data", "model"))
 SPLIT_FLOPS = 1.10
@@ -150,6 +160,32 @@ def test_a_2x2_mesh_holds_the_references_argument_bytes(i, ref):
         assert r0[key] == r3[key], key
 
 
+@pytest.mark.parametrize("i", range(len(SEQ_CELLS)))
+def test_a_seq_sharded_serving_cell_on_2x2_holds_the_reference(i):
+    """The reference's ``memory_analysis`` argument bytes a device of a
+    serving cell whose cache splits its sequence (``SEQ_CELLS``), rank 0
+    and rank 3 alike; each rank attends over its slice (the slice forms
+    launched, no whole-key launch)."""
+    arch, (name, seq, batch, kind) = SEQ_CELLS[i]
+    want = json.loads(SEQ_REF_PATH.read_text())["dryrun"]["cells"][arch][
+        name]
+    assert want["status"] == "ok"
+    rs = [D.run_cell(arch, name, save=False, verbose=False,
+                     mesh_shape=(SEQ_MESH, ("data", "model")),
+                     cfg=reduced(arch),
+                     shape=SH.ShapeSpec(name, seq, batch, kind), rank=rank)
+          for rank in (0, 3)]
+    for r in rs:
+        assert r["status"] == "ok", r.get("error")
+        assert D.NOTE_SERVE not in r["notes"]
+        assert r["memory"]["argument_size_in_bytes"] == \
+            want["memory"]["argument_size_in_bytes"]
+        assert r["launches"] == {"flash_attention":
+                                 2 * reduced(arch).n_layers}
+    for key in ("flops", "collectives", "memory", "launches"):
+        assert rs[0][key] == rs[1][key], key
+
+
 def test_fake_collectives_are_those_of_four_gloo_ranks(tmp_path):
     fake = _mesh_cell(0, 0)
     dist.destroy_process_group()
@@ -213,7 +249,9 @@ def test_the_cli_writes_every_cell(tmp_path, monkeypatch):
     r = json.loads((tmp_path / "gemma3-1b__decode_32k__pod16x16.json")
                    .read_text())
     assert r["status"] == "ok" and r["devices"] == 256
-    assert r["fits_80gb"] and r["launches"] == {"flash_attention": 26}
+    # one KV head does not divide 16: the bfloat16 cache splits its
+    # sequence, and each layer attends in a stats and a pass-2 launch
+    assert r["fits_80gb"] and r["launches"] == {"flash_attention": 2 * 26}
     assert r["collectives"]["all-gather"] > 0
 
 
@@ -233,30 +271,43 @@ def test_qwen3_32b_at_pod16x16_splits_its_products():
     assert flops[0] + (cfg.n_layers - 1) * per_layer < TRAIN_4K_FLOPS
 
     views = []
+    seq_attention = L.seq_attention
 
     def attend(q, k, v, *args, **kwargs):
-        views.append((q.shape[2], k.shape[2], k._base is not None))
-        return flash_attention_gqa(q, k, v, *args, **kwargs)
+        views.append((q.shape[2], k.shape[1], k.shape[2]))
+        return seq_attention(q, k, v, *args, **kwargs)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(T, "flash_attention_gqa", attend)
+        mp.setattr(L, "seq_attention", attend)
         r = D.run_cell("qwen3-32b", "decode_32k", save=False, verbose=False)
     assert r["status"] == "ok", r.get("error")
     assert r["memory"]["temp_size_in_bytes"] < DECODE_32K_TEMP
-    # 8 KV heads do not divide 16: the cache keeps every head (the
-    # reference splits its sequence), and each rank's 4 q heads read one
-    assert D.NOTE_SERVE in r["notes"] and D.NOTE_TP not in r["notes"]
-    assert views == [(4, 1, True)] * cfg.n_layers
+    # 8 KV heads do not divide 16: the cache splits its sequence, and each
+    # rank's q heads, gathered, read its 32,768 / 16 rows of every KV head
+    assert D.NOTE_SERVE not in r["notes"] and D.NOTE_TP not in r["notes"]
+    assert views == [(cfg.n_heads, 32768 // 16, cfg.kv_heads)] * cfg.n_layers
+    assert r["launches"] == {"flash_attention": 2 * cfg.n_layers}
 
 
 def test_serving_cells_note_only_what_they_leave_out():
-    """The head-split cache of ``kv_replicate_to=16`` carries no
-    ``NOTE_SERVE``; a family the split does not take keeps ``NOTE_TP``."""
+    """Neither the head-split cache of ``kv_replicate_to=16`` nor the
+    sequence-split one of 8 KV heads carries ``NOTE_SERVE``, and the
+    latter's cache bytes a device are 1/16 of the dp-only layout's; a
+    family the split does not take keeps ``NOTE_TP``."""
     mesh = D.start_mesh(*D.MESHES["pod16x16"])
     decode = SH.SHAPES["decode_32k"]
     assert D.NOTE_SERVE not in D.cell_notes(
         get("qwen3-32b").replace(kv_replicate_to=16), decode, mesh)
-    assert D.NOTE_SERVE in D.cell_notes(get("qwen3-32b"), decode, mesh)
+    for arch in ("qwen3-32b", "gemma2-9b", "qwen2-vl-72b"):
+        cfg = get(arch)
+        assert D.seq_sharded(cfg, mesh)
+        assert D.NOTE_SERVE not in D.cell_notes(cfg, decode, mesh)
+        shape = (cfg.n_layers, decode.batch, decode.seq, cfg.kv_heads,
+                 cfg.head_dim)
+        spec = D.cache_spec(cfg, mesh, "scan/k", shape, True)
+        seq = Sharding(mesh, spec).local_shape(shape)
+        dp = Sharding(mesh, D._dp_only(spec, ("data",))).local_shape(shape)
+        assert spec[2] == "model" and 16 * math.prod(seq) == math.prod(dp)
     for arch in ("rwkv6-1.6b", "zamba2-7b", "whisper-medium"):
         notes = D.cell_notes(get(arch), SH.SHAPES["train_4k"], mesh)
         assert D.NOTE_TP in notes and D.NOTE_SPLIT not in notes

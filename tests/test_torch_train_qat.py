@@ -97,6 +97,28 @@ def test_cnn_mode_writes_a_table_both_packages_load(tmp_path):
             ref.predict("resnet20-cifar10", pe) == table[pe]["top1_mean"]
 
 
+def test_convolutions_are_deterministic():
+    """The Figs. 5-6 run's top-1 is one sample of a spiking loss: the
+    convolutions must add in one order for one seed to give one table."""
+    import torch
+
+    import repro_torch  # noqa: F401  (sets the backend flags)
+    assert torch.backends.cudnn.deterministic
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_one_seed_gives_one_cnn_trial():
+    import torch
+
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import qat
+    runs = [tree_leaves(qat.train_cnn("lightpe1", 2, device="cpu"))
+            for _ in range(2)]
+    other = tree_leaves(qat.train_cnn("lightpe1", 2, trial=1, device="cpu"))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert not torch.equal(runs[0][0], other[0])
+
+
 def test_lm_mode_trains_on_the_cpu(tmp_path):
     out = _run(["--mode", "lm", "--reduced", "--steps", "3", "--batch", "4",
                 "--seq", "16", "--ckpt-dir", str(tmp_path / "ck")], tmp_path)
