@@ -302,7 +302,22 @@
    2,048 keys, and a prefill slice on the wgmma kernel), combined by
    ``layers.seq_attention`` on one thread a slice and held to the
    unsharded kernel and the plain version, one slice's launches timed;
-20. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
+20. the tensor-parallel split of the SSM and hybrid families: 20.1 two
+   ranks of one ``model`` group on the one card over gloo (18.1's
+   launcher): RWKV6-1.6B (4 of 24 layers) and Zamba2-7B (7 of 81: a group
+   of 6 Mamba2 blocks, the shared block and the tail's first) at full
+   width, each rank computing its heads of the time and channel mix, of
+   each Mamba2 block and of the shared attention, trained 2 steps under
+   LightPE-1 and FP32 and served on a float32 cache, each held to the same
+   run on one rank (training within the larger of a fixed tolerance and
+   twice the spread of that run's two twins, the embedding moved by one
+   unit in the last place; a control with unsummed replicated leaves must
+   miss) with its launches a step and rank exactly the one rank's and
+   every leaf equal on the ranks; 20.2 the attention kernels at a
+   pod16x16 rank's shapes of Zamba2-7B (decode_32k, prefill_32k's last
+   4,096 queries, the backward at train_4k) and ``fake_quant`` on a rank's
+   shards, against the plain versions, timed;
+21. prints a ``{"kernels": [...]}`` line, a ``{"train": ...}`` line and,
    last, the device line.
 
 Phases 3, 4, 8 and 9.1-9.5 launch ``fake_quant`` or no kernel: they run
@@ -5970,6 +5985,444 @@ def run_seqshard(torch, dev):
                 ranks_s=t1 - t0, kernels_s=t2 - t1, seconds=t2 - t0)
 
 
+# 20.1: the tensor-parallel split of the SSM and hybrid families on
+# TP_RANKS ranks of one model group, both on the one card over gloo (18.1's
+# launcher and transport).  RWKV6-1.6B at full width, 4 of its 24 layers
+# (32 heads, 16 a rank: each rank's time mix on its heads, its channel
+# mix's 3,584 columns, the 65,536-row vocabulary split), and Zamba2-7B at
+# full width, 7 of its 81 layers (one group of 6 Mamba2 blocks, the shared
+# block and the tail's first block: 56 of 112 Mamba2 heads a rank, the
+# in_proj product gathered, the conv on the rank's channels; 16 of the
+# shared attention's 32 heads of 112, the MLP's 7,168 columns), each
+# trained SSM_TP_STEPS AdamW steps under LightPE-1 and under FP32 in
+# float32, and served in float32 (a prefill and decode steps on a float32
+# cache: the states over heads, the conv window over channels, the KV
+# cache over heads).  Each held to the same run on one rank: the logits
+# within SSM_TP_SERVE_TOL, the greedy tokens equal up to each row's first
+# near tie; the launches a step and rank exactly the one rank's, every
+# leaf equal on the two ranks, step ms and peak memory a rank beside.
+#
+# The training runs are held against the one-rank run's own spread.  At
+# full width RWKV6's gradient is ill-conditioned at a sequence's first
+# token: the state is empty there, so a head's output is c v with c the
+# scalar sum of r u k, the per-head norm divides it by |c| rms(v), and
+# the gradient reaching r, k and u through c grows as 1 / |c|.  A head
+# whose c lies near zero makes the gradient norm move with the last bits
+# of any sum, on one rank alone (``scripts/torch_rwkv_first_token.py``
+# prints each layer's smallest |c| and the gradient's move).  So
+# each training task also runs twice more on one rank with the embedding
+# scaled by 1 +/- one unit in the last place of its compute type (the
+# twins, ``tp_check.train_run``'s ``nudge``), and a step's loss and
+# gradient norm are held within the larger of the fixed tolerance
+# (TRAIN_LM_RTOL under LightPE-1, SSM_TP_FP32_RTOL under FP32) and
+# SSM_TP_FLOOR times the twins' largest relative spread up to that step;
+# the params' change within the larger of TP_PARAM_GAP (SSM_TP_FP32_GAP
+# under FP32: one sign flip in a leaf's digest) and SSM_TP_FLOOR times
+# the twins' change gap.  Where the run is well conditioned (Zamba2-7B,
+# RWKV6-1.6B's FP32 first step) the fixed tolerance is the bound.
+SSM_TP_STEPS, SSM_TP_BATCH, SSM_TP_SEQ = 2, 2, 256
+SSM_TP_TRAIN = [
+    dict(name=f"{short}{'_fp32' if fp32 else ''}", kind="train", arch=arch,
+         overrides={"n_layers": n, "pe_type": "fp32" if fp32 else "lightpe1",
+                    **({"dtype": "float32"} if fp32 else {})},
+         batch=SSM_TP_BATCH, seq=SSM_TP_SEQ, steps=SSM_TP_STEPS)
+    for short, arch, n in (("rwkv", "rwkv6-1.6b", 4), ("zamba", "zamba2-7b", 7))
+    for fp32 in (False, True)]
+SSM_TP_SERVE = [
+    dict(name=f"{short}_serve", kind="serve", arch=arch,
+         overrides={"n_layers": n, "dtype": "float32"}, batch=2, prompt=64,
+         steps=4, cache_rows=128, token_seed=20, cache_dtype="float32")
+    for short, arch, n in (("rwkv", "rwkv6-1.6b", 4), ("zamba", "zamba2-7b", 7))]
+SSM_TP_SERVE_TOL = 1e-3
+SSM_TP_FP32_RTOL = 1e-4
+SSM_TP_FP32_GAP = 2 / math.sqrt(4096)
+SSM_TP_FLOOR = 2.0
+# the control: RWKV6's FP32 run with the replicated leaves its mixes use
+# for the rank's heads alone taking their gradients unsummed (the CPU
+# tests' control, ``tp_check.variant``) must miss the one-rank run by
+# the same bounds
+SSM_TP_CONTROL = dict(next(t for t in SSM_TP_TRAIN if t["name"] == "rwkv_fp32"),
+                      name="rwkv_fp32_control", variant="unsummed_leaves")
+# 20.2: the kernels at pod16x16's local shapes of Zamba2-7B's shared
+# attention (2 q and 2 KV heads of 112 a rank, float32 q, K, V and P):
+# (name, b, sq, skv, hq, hkv, d, start): decode_32k (8 rows a device) and
+# prefill_32k's last 4,096 of a rank's 32,768 queries (2 rows a device;
+# the costliest rows, the plain version's scores of the whole prompt do
+# not fit beside it); the backward at train_4k (a rank's 2 x 4,096 rows
+# of a microbatch); fake_quant on a rank's LightPE-1 shards of both
+# models' products (one grouped launch)
+SSM_TP_SHAPES = [
+    ("zamba2-7b decode_32k, a rank", 8, 1, 32768, 2, 2, 112, 32767),
+    ("zamba2-7b prefill_32k, a rank's last 4,096 queries", 2, 4096, 32768,
+     2, 2, 112, 28672)]
+SSM_TP_BWD = ("zamba2-7b train_4k, a rank", 2, 4096, 2, 2, 112)
+SSM_TP_SHARDS = [("rwkv tm/wr", (2048, 128)), ("rwkv tm/wo", (128, 2048)),
+                 ("rwkv cm/wk", (2048, 448)), ("rwkv cm/wv", (448, 2048)),
+                 ("zamba in_proj", (3584, 911)), ("zamba out_proj", (448, 3584)),
+                 ("zamba attn/wq", (3584, 224)), ("zamba mlp/w_down",
+                                                  (896, 3584))]
+
+
+def _serve_held(name: str, ranks, one, tol: float) -> dict:
+    """Each rank's serving run against one rank's (``one``): the logits
+    within ``tol``, the greedy tokens equal up to each row's first step
+    whose top-2 margin is below it, the launches equal."""
+    import numpy as np
+    ref_meta, ref_arr = one
+    want = ref_arr["logits"]
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    sure = np.cumprod(top2[..., 1] - top2[..., 0] > tol,
+                      axis=0).astype(bool)
+    res = {}
+    for r, (meta, arr) in enumerate(ranks):
+        err = float(np.abs(arr["logits"] - want).max())
+        same = bool((arr["greedy"] == np.argmax(want, -1))[sure].all())
+        finite = bool(np.isfinite(arr["logits"]).all())
+        if err > tol or not same or not finite or not sure.any() \
+                or meta["launches"] != ref_meta["launches"]:
+            fail(f"{name} rank {r}: max logit err {err} (within {tol}), "
+                 f"greedy tokens equal where sure {same} ({int(sure.sum())} "
+                 f"compared), finite {finite}; launches {meta['launches']}, "
+                 f"one rank's {ref_meta['launches']}")
+        res[f"rank{r}"] = dict(max_abs_err=err,
+                               tokens_compared=int(sure.sum()),
+                               step_ms=meta["step_ms"],
+                               peak_gib=meta["peak_gib"],
+                               launches=meta["launches"])
+    res["one_rank"] = dict(step_ms=ref_meta["step_ms"],
+                           peak_gib=ref_meta["peak_gib"],
+                           launches=ref_meta["launches"])
+    return res
+
+
+def _ssm_twins(task) -> list:
+    """The task's two twins: the embedding scaled by 1 +/- one unit in
+    the last place of its compute type (the 20.1 note)."""
+    import torch
+    from repro_torch import tp_check
+    eps = torch.finfo(getattr(torch, tp_check._config(task).dtype)).eps
+    return [dict(task, name=f"{task['name']}_twin{i}", nudge=sign * eps)
+            for i, sign in enumerate((1.0, -1.0))]
+
+
+def _ssm_floor(one, twins, base_rtol: float, base_gap: float) -> dict:
+    """The bounds a split training run is held to: a step's loss and
+    gradient norm within the larger of ``base_rtol`` and SSM_TP_FLOOR
+    times the twins' largest relative spread from the one-rank run
+    ``one`` up to that step; the params' change within the larger of
+    ``base_gap`` and SSM_TP_FLOOR times the twins' change gap."""
+    import numpy as np
+    from repro_torch import tp_check
+    ref_meta, ref_arr = one
+    ref = np.asarray(ref_meta["rows"], np.float64)
+    spread = np.zeros_like(ref)
+    gaps = []
+    for meta, arr in twins:
+        rows = np.asarray(meta["rows"], np.float64)
+        spread = np.maximum(spread, np.abs(rows - ref) / np.abs(ref))
+        start, own = _digests(ref_arr, "start"), _digests(arr, "start")
+        moved = {k: v - own[k] + start[k]             # from its own start
+                 for k, v in _digests(arr, "final").items()}
+        gaps.append(tp_check.change_gap(start, moved,
+                                        _digests(ref_arr, "final")))
+    spread = np.maximum.accumulate(spread, axis=0)
+    return dict(rtol=np.maximum(base_rtol, SSM_TP_FLOOR * spread),
+                spread=spread.tolist(), twin_gaps=gaps,
+                gap=max(base_gap, SSM_TP_FLOOR * max(gaps)))
+
+
+def _ssm_train_held(meta, arr, one, other, floor) -> dict:
+    """A rank's training run against the one-rank run ``one`` within the
+    bounds ``floor`` (``_ssm_floor``), as ``_tp_train_held`` holds it."""
+    import numpy as np
+    h = _tp_train_held(meta, arr, one, other)
+    got = np.asarray(meta["rows"], np.float64)
+    ref = np.asarray(one[0]["rows"], np.float64)
+    rel = (np.abs(got - ref) / np.abs(ref) if got.shape == ref.shape
+           else np.full(ref.shape, np.inf))
+    h["held"] = dict(ok=bool((rel <= floor["rtol"]).all()),
+                     loss_rel=float(rel[:, 0].max()),
+                     gnorm_rel=float(rel[:, 1].max()),
+                     rel=rel.tolist(), rtol=floor["rtol"].tolist())
+    return h
+
+
+def run_ssm_tp(torch, dev, tmp: Path):
+    """Phase 20.1 (the SSM_TP_TRAIN / SSM_TP_SERVE note)."""
+    from repro_torch import tp_check
+
+    print(f"20.1 transport: {TP_TRANSPORT}, {TP_RANKS} ranks of a (1, "
+          f"{TP_RANKS}) ('data', 'model') mesh on {card_line()}")
+    tasks = SSM_TP_TRAIN + SSM_TP_SERVE
+    twins = {t["name"]: _ssm_twins(t) for t in SSM_TP_TRAIN}
+    one = {}
+    for task in tasks + [w for ws in twins.values() for w in ws]:
+        one[task["name"]] = tp_check.run_task(task, dev, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    ranks = _tp_ranks(tmp, tasks + [SSM_TP_CONTROL])
+    res = {}
+    for task in SSM_TP_TRAIN:
+        name = task["name"]
+        base = one[name]
+        (m0, a0), (m1, a1) = ranks[name]
+        fp32 = name.endswith("_fp32")
+        floor = _ssm_floor(base, [one[w["name"]] for w in twins[name]],
+                           SSM_TP_FP32_RTOL if fp32 else TRAIN_LM_RTOL,
+                           SSM_TP_FP32_GAP if fp32 else TP_PARAM_GAP)
+        for r, (meta, arr, other) in enumerate(((m0, a0, a1),
+                                                (m1, a1, a0))):
+            h = _ssm_train_held(meta, arr, base, other, floor)
+            if not (h["held"]["ok"] and h["param_gap"] <= floor["gap"]
+                    and not h["ranks_differ"] and h["finite"]
+                    and h["launches_equal"]):
+                fail(f"20.1 {name} rank {r}: steps {meta['rows']} against "
+                     f"one rank's {base[0]['rows']}: {h['held']} (the "
+                     f"twins' spread {floor['spread']}, their rows "
+                     f"{[one[w['name']][0]['rows'] for w in twins[name]]}); "
+                     f"params' change gap {h['param_gap']} (within "
+                     f"{floor['gap']}, the twins' {floor['twin_gaps']}); "
+                     f"leaves differing between the ranks "
+                     f"{h['ranks_differ']}; launches a step "
+                     f"{meta['launches']}, one rank's {base[0]['launches']}")
+            res[f"{name}_rank{r}"] = dict(
+                rows=meta["rows"], param_gap=h["param_gap"],
+                step_ms=meta["step_ms"], peak_gib=meta["peak_gib"],
+                launches_per_step=meta["launches"][-1], **h["held"])
+        res[f"{name}_one_rank"] = dict(
+            rows=base[0]["rows"], step_ms=base[0]["step_ms"],
+            peak_gib=base[0]["peak_gib"],
+            launches_per_step=base[0]["launches"][-1])
+        res[f"{name}_twins"] = dict(
+            nudge=[w["nudge"] for w in twins[name]],
+            rows=[one[w["name"]][0]["rows"] for w in twins[name]],
+            spread=floor["spread"], gaps=floor["twin_gaps"])
+        t = res[f"{name}_rank0"]
+        print(f"20.1 {name} {task['arch']} ({task['overrides']}, "
+              f"{task['batch']} x {task['seq']}, AdamW, {task['steps']} "
+              f"steps) on (1, {TP_RANKS}): rank 0 "
+              f"{[[round(x, 5) for x in row] for row in t['rows']]}, one "
+              f"rank {[[round(x, 5) for x in row] for row in base[0]['rows']]}"
+              f", its twins (embedding x 1 +/- {twins[name][0]['nudge']:.3g}) "
+              f"{[[[round(x, 5) for x in row] for row in one[w['name']][0]['rows']] for w in twins[name]]}"
+              f": loss / grad norm rel a step "
+              f"{[[float(f'{x:.3g}') for x in row] for row in t['rel']]} "
+              f"(within {[[float(f'{x:.3g}') for x in row] for row in t['rtol']]}"
+              f"); params' change gap {t['param_gap']:.4g} (within "
+              f"{floor['gap']:.4g}; the twins' "
+              f"{[round(g, 4) for g in floor['twin_gaps']]}); every leaf "
+              f"equal on the ranks; step ms a rank "
+              f"{[round(x, 1) for x in t['step_ms']]} (one rank "
+              f"{[round(x, 1) for x in base[0]['step_ms']]}); peak "
+              f"{t['peak_gib']:.2f} GiB a rank (one rank "
+              f"{base[0]['peak_gib']:.2f}); launches a step and rank "
+              f"{t['launches_per_step']} (one rank's: equal)")
+        if name == "rwkv_fp32":
+            (c0, ca0), (_, ca1) = ranks[SSM_TP_CONTROL["name"]]
+            c = _ssm_train_held(c0, ca0, base, ca1, floor)
+            if c["held"]["ok"] and c["param_gap"] <= floor["gap"]:
+                fail(f"20.1 control ({SSM_TP_CONTROL['variant']}) held to "
+                     f"one rank: steps {c0['rows']}, {c['held']}, params' "
+                     f"change gap {c['param_gap']} (within {floor['gap']})")
+            res["control"] = dict(variant=SSM_TP_CONTROL["variant"],
+                                  rows=c0["rows"], rel=c["held"]["rel"],
+                                  param_gap=c["param_gap"])
+            print(f"20.1 control {name} ({SSM_TP_CONTROL['variant']}): "
+                  f"loss / grad norm rel a step "
+                  f"{[[float(f'{x:.3g}') for x in row] for row in c['held']['rel']]}"
+                  f", params' change gap {c['param_gap']:.4g}: misses the "
+                  f"bounds (as it must)")
+    for task in SSM_TP_SERVE:
+        name = task["name"]
+        held = _serve_held(f"20.1 {name}", ranks[name], one[name],
+                           SSM_TP_SERVE_TOL)
+        res[name] = held
+        s_, o_ = held["rank0"], held["one_rank"]
+        print(f"20.1 {name} {task['arch']} ({task['overrides']}, batch "
+              f"{task['batch']}, {task['prompt']} + {task['steps']} tokens, "
+              f"float32, a float32 cache) on (1, {TP_RANKS}): max logit err "
+              f"against "
+              f"one rank {s_['max_abs_err']:.4g} (within {SSM_TP_SERVE_TOL}), "
+              f"greedy tokens equal ({s_['tokens_compared']} row steps "
+              f"before a near tie); step ms a rank "
+              f"{[round(x, 2) for x in s_['step_ms']]} (one rank "
+              f"{[round(x, 2) for x in o_['step_ms']]}); peak "
+              f"{s_['peak_gib']:.2f} GiB a rank (one rank "
+              f"{o_['peak_gib']:.2f}); launches a rank {s_['launches']} (one "
+              f"rank's: equal)")
+    return res
+
+
+def check_ssm_tp_kernels(torch, dev):
+    """Phase 20.2: ``flash_attention``'s forward at SSM_TP_SHAPES and its
+    backward at SSM_TP_BWD (float32, P not rounded: the unified
+    attention's) against the plain versions within ``FA_TOL`` / phase
+    10.1's tolerances, two calls bitwise equal, timed beside the plain
+    version, SDPA and the bound; ``fake_quant`` on SSM_TP_SHARDS under
+    LightPE-1 (one grouped launch) against its plain version, 0 elements
+    differing, timed."""
+    from repro_torch.kernels.fake_quant import fake_quant
+    from repro_torch.kernels.flash_attention import (attention_backward,
+                                                     flash_attention,
+                                                     flash_attention_gqa)
+    from repro_torch.kernels.flash_attention import plan as fa_plan
+    from repro_torch.kernels.flash_attention.ref import (
+        ref_attention_gqa, ref_attention_gqa_bwd)
+    from repro_torch.quant import fake_quant as quant_fq
+    from repro_torch.quant.qconfig import preset
+    from repro_torch.train_check import attention_grad_errors
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rows = []
+    for name, b, sq, skv, hq, hkv, d, start in SSM_TP_SHAPES:
+        q, k, v = (torch.randn((b, n, h, d), generator=gen, device=dev)
+                   for n, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+        st = torch.full((b,), start, dtype=torch.int32, device=dev)
+
+        def kernel():
+            return flash_attention_gqa(q, k, v, st)
+
+        def plain():
+            return ref_attention_gqa(q, k, v, st)
+
+        before = flash_attention.launches
+        got, again = kernel(), kernel()
+        launches = flash_attention.launches - before
+        want = plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if launches != 2 or not torch.equal(got, again) \
+                or not bool(torch.isfinite(got).all()) or err > FA_TOL:
+            fail(f"20.2 flash_attention {name}: max_abs_err {err} "
+                 f"(tolerance {FA_TOL}), {launches} launches for 2 calls, "
+                 f"bitwise repeat {torch.equal(got, again)}")
+        del got, again, want
+        ms = time_ms(torch, kernel)
+        plain_ms = time_ms(torch, plain, reps=3, warmup=1)
+        tq, tk, tv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        # query i of the cut sits at start + i and sees keys 0 .. that
+        mask = (torch.arange(skv, device=dev)[None]
+                <= start + torch.arange(sq, device=dev)[:, None])
+        library_ms = time_ms(torch, lambda: sdpa(tq, tk, tv, attn_mask=mask))
+        del tq, tk, tv, mask
+        bound, by, nbytes, _ = attention_bound(
+            b, hq, hkv, d, [(0, start + i + 1) for i in range(sq)], False)
+        p = fa_plan(b, sq, skv, hq, hkv, d, False)
+        rows.append(dict(name=name, b=b, sq=sq, skv=skv, hq=hq, hkv=hkv,
+                         d=d, start=start, max_abs_err=err,
+                         launches=launches, bitwise_repeat=True, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound, bound_by=by, bytes=nbytes,
+                         variant=p.variant, splits=p.splits))
+        print(f"20.2 flash_attention {name} ({b} x {sq} x {hq} q heads over "
+              f"{hkv} KV heads of {d}, {skv} float32 keys, float32 q, "
+              f"{p.variant}, {p.splits} splits): max_abs_err {err:.3g} "
+              f"(within {FA_TOL}), two calls bitwise equal; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+        del q, k, v
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    name, b, s, hq, hkv, d = SSM_TP_BWD
+    q, k, v, dout = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                     for h in (hq, hkv, hkv, hq))
+    st = torch.zeros(b, dtype=torch.int32, device=dev)
+
+    def kernel_bwd():
+        return attention_backward(q, k, v, st, dout)
+
+    before = flash_attention.backward_launches
+    got, again = kernel_bwd(), kernel_bwd()
+    launches = flash_attention.backward_launches - before
+    want = ref_attention_gqa_bwd(q, k, v, st, dout)
+    held = attention_grad_errors(got, want, dout)
+    if launches != 2 or not held["ok"] or not all(
+            torch.equal(a, c) for a, c in zip(got, again)):
+        fail(f"20.2 backward {name}: {held}, {launches} launches for 2")
+    del got, again, want
+    ms = time_ms(torch, kernel_bwd)
+    plain_ms = time_ms(torch, lambda: ref_attention_gqa_bwd(
+        q, k, v, st, dout), reps=3, warmup=1)
+    tq, tk, tv = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    tdo = dout.transpose(1, 2).contiguous()
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(tq, tk, tv, is_causal=True), (tq, tk, tv), tdo))
+    pairs = b * hq * s * (s + 1) // 2
+    nbytes = 4 * (2 * q.numel() + 2 * dout.numel() + 4 * b * s * hkv * d)
+    bound, by = bound_ms(nbytes, 2.0 * d * pairs
+                         * bwd_part_products(False, False), H100_BF16_FLOPS)
+    bwd = dict(name=name, b=b, s=s, hq=hq, hkv=hkv, d=d,
+               max_abs_err=held["max_abs_err"], launches=launches, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library="SDPA forward and backward through autograd "
+                       "(float32, is_causal)", bound_ms=bound, bound_by=by)
+    print(f"20.2 flash_attention backward {name} ({b} x {s}, {hq} q heads "
+          f"over {hkv} KV heads of {d}, float32): max_abs_err "
+          f"{held['max_abs_err']:.3g} within phase 10.1's tolerances, two "
+          f"calls bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, SDPA forward + backward {library_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by})")
+    del q, k, v, dout, tq, tk, tv, tdo
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    qcfg = preset("lightpe1")
+    ws = [torch.randn(shape, generator=gen, device=dev) / math.sqrt(shape[0])
+          for _, shape in SSM_TP_SHARDS]
+
+    def fq():
+        return quant_fq.fake_quant_weights(ws, qcfg)
+
+    def fq_plain():
+        with plain_kernels(torch):
+            return quant_fq.fake_quant_weights(ws, qcfg)
+
+    before = fake_quant.launches
+    got = fq()
+    fq_launches = fake_quant.launches - before
+    want = fq_plain()
+    differing = sum(int((a != c).sum()) for a, c in zip(got, want))
+    fq_err = max(float((a - c).abs().max()) for a, c in zip(got, want))
+    if differing or fq_launches != 1:
+        fail(f"20.2 fake_quant on a rank's shards: {differing} elements "
+             f"differ from the plain version, {fq_launches} launches for 1")
+    fq_ms = time_ms(torch, fq)
+    fq_plain_ms = time_ms(torch, fq_plain, reps=3, warmup=1)
+    n = sum(w.numel() for w in ws)
+    fq_bound, fq_by = bound_ms(sum(w.numel() * 8 + w.shape[1] * 4
+                                   for w in ws), 5 * n)
+    shards = dict(shapes=[[nm, list(sh)] for nm, sh in SSM_TP_SHARDS],
+                  elements=n, differing=differing, max_abs_err=fq_err,
+                  launches=fq_launches, ms=fq_ms, plain_ms=fq_plain_ms,
+                  bound_ms=fq_bound, bound_by=fq_by, library_ms=None)
+    print(f"20.2 fake_quant on a rank's LightPE-1 shards of RWKV6-1.6B and "
+          f"Zamba2-7B at 16 ({len(ws)} weights, {n} elements, one grouped "
+          f"launch): {differing} elements differing from the plain "
+          f"version; kernel {fq_ms:.4f} ms, plain {fq_plain_ms:.4f} ms, "
+          f"bound {fq_bound:.4f} ms ({fq_by})")
+    del ws, got, want
+    return rows, bwd, shards
+
+
+def run_ssm_split(torch, dev):
+    """Phase 20: the tensor-parallel split of the SSM and hybrid families
+    (20.1 two ranks of one model group on the card, 20.2 the kernels at
+    pod16x16's local shapes)."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        runs = run_ssm_tp(torch, dev, Path(tmp))
+    t1 = time.perf_counter()
+    kernels, bwd, shards = check_ssm_tp_kernels(torch, dev)
+    t2 = time.perf_counter()
+    return dict(transport=TP_TRANSPORT, runs=runs, kernels=kernels,
+                backward=bwd, fake_quant=shards, ranks_s=t1 - t0,
+                kernels_s=t2 - t1, seconds=t2 - t0)
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     t_start = time.perf_counter()
@@ -6094,6 +6547,10 @@ def _phases(torch, t_start, workers) -> int:
     print(f"phase 19 (the sequence-sharded cache: 19.1 "
           f"{seq['ranks_s']:.2f} s, 19.2 {seq['kernels_s']:.2f} s): "
           f"{seq['seconds']:.2f} s")
+    ssm_split = run_ssm_split(torch, dev)
+    print(f"phase 20 (the split of the SSM and hybrid families: 20.1 "
+          f"{ssm_split['ranks_s']:.2f} s, 20.2 "
+          f"{ssm_split['kernels_s']:.2f} s): {ssm_split['seconds']:.2f} s")
 
     # the row's main numbers: one grouped launch over the 15 VGG-16
     # weights, affine-8, float32; the bfloat16 and per-weight times beside
@@ -6357,6 +6814,47 @@ def _phases(torch, t_start, workers) -> int:
                  f"128, 2,048 of 32,768 keys, float32 q, round_p "
                  f"({seq_main['variant']} kernel)",
             rank_launches_19_1=seq_launches, shapes=seq["kernels"]))
+    # the SSM and hybrid split (20): launches a rank made on 20.1's
+    # runs, the main numbers Zamba2-7B's decode_32k attention at a
+    # pod16x16 rank (20.2)
+    ssm_runs = ssm_split["runs"]
+    ssm_launches = {}
+    for task in SSM_TP_TRAIN:
+        for k, v in ssm_runs[f"{task['name']}_rank0"][
+                "launches_per_step"].items():
+            ssm_launches[k] = ssm_launches.get(k, 0) + v * task["steps"]
+    for task in SSM_TP_SERVE:
+        for k, v in ssm_runs[task["name"]]["rank0"]["launches"].items():
+            ssm_launches[k] = ssm_launches.get(k, 0) + v
+    ssm_main = ssm_split["kernels"][0]
+    kernels.append(dict(
+        name="flash_attention_ssm_tp", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_fwd.cuh",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:71",
+        launches=ssm_launches["flash_attention"],
+        max_abs_err=max(r["max_abs_err"] for r in ssm_split["kernels"]),
+        ms=ssm_main["ms"], plain_ms=ssm_main["plain_ms"],
+        bound_ms=ssm_main["bound_ms"], bound_by=ssm_main["bound_by"],
+        library_ms=ssm_main["library_ms"],
+        library="SDPA (float32, the causal rows as a mask)",
+        unit="Zamba2-7B decode_32k at pod16x16, one rank: 8 x 1 x 2 q heads "
+             "over 2 KV heads of 112, 32,768 float32 keys, float32 q and P",
+        rank_launches_20_1=ssm_launches, shapes=ssm_split["kernels"],
+        backward=ssm_split["backward"]))
+    fq_shards = ssm_split["fake_quant"]
+    kernels.append(dict(
+        name="fake_quant_ssm_tp", route="cuda",
+        source="src/repro_torch/csrc/fake_quant.cu",
+        replaces="src/repro/kernels/fake_quant/fake_quant.py:45",
+        launches=ssm_launches["fake_quant"],
+        max_abs_err=fq_shards["max_abs_err"],
+        differing=fq_shards["differing"], ms=fq_shards["ms"],
+        plain_ms=fq_shards["plain_ms"], bound_ms=fq_shards["bound_ms"],
+        bound_by=fq_shards["bound_by"], library_ms=None,
+        library="none computes LightPE-1's pow2 weight codes",
+        unit="a pod16x16 rank's LightPE-1 shards of RWKV6-1.6B and "
+             "Zamba2-7B's products, one grouped launch",
+        shards=fq_shards["shapes"]))
     print(f"smoke: {time.perf_counter() - t_start:.2f} s, the build "
           f"included")
     print(json.dumps({"kernels": kernels, "serving": serving, "qat": qat,
@@ -6374,7 +6872,10 @@ def _phases(torch, t_start, workers) -> int:
                       "split": {k: v for k, v in split.items()
                                 if k not in ("kernels", "backward")},
                       "seqshard": {k: v for k, v in seq.items()
-                                   if k != "kernels"}}))
+                                   if k != "kernels"},
+                      "ssm_split": {k: v for k, v in ssm_split.items()
+                                    if k not in ("kernels", "backward",
+                                                 "fake_quant")}}))
     print(json.dumps({"train": {k: v for k, v in training.items()
                                 if k != "backward"}}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,18 @@
-"""Counts of the serving cells whose KV cache the reference splits over
-its sequence (every decoder whose KV heads do not divide ``model``), on
-``meta`` as rank 0 of pod16x16 (``launch.dryrun``), with the cache's own
-argument bytes a device beside the cell's counts; and the perf variant
-``v1b_f8_cache_seqshard`` of Qwen3-32B ``decode_32k``.  No card:
+"""Counts of dry-run cells on ``meta`` as rank 0 of pod16x16
+(``launch.dryrun``), with the cache's own argument bytes a device beside
+each cell's counts.  Two sets (``--cells``):
+
+  * ``seqshard``: the serving cells whose KV cache the reference splits
+    over its sequence (every decoder whose KV heads do not divide
+    ``model``), and the perf variant ``v1b_f8_cache_seqshard`` of
+    Qwen3-32B ``decode_32k``;
+  * ``ssm``: every cell of RWKV6-1.6B and Zamba2-7B (the tensor-parallel
+    split of the SSM and hybrid families).
+
+No card:
 
   PYTHONPATH=src python scripts/torch_seqshard_counts.py --out <json> \\
-      [--src <another checkout>/src]
+      [--cells seqshard|ssm] [--src <another checkout>/src]
 
 ``--src`` counts another tree's port (a parent commit, for a before /
 after table in one run).  Writes one JSON object a cell.
@@ -16,15 +23,21 @@ import json
 import sys
 import time
 
-CELLS = [(arch, shape) for arch in ("smollm-135m", "gemma3-1b", "gemma2-9b",
-                                    "qwen3-32b", "qwen2-vl-72b",
-                                    "phi3.5-moe-42b-a6.6b")
-         for shape in ("decode_32k", "prefill_32k")]
+CELLS = {
+    "seqshard": [(arch, shape, None) for arch in (
+        "smollm-135m", "gemma3-1b", "gemma2-9b", "qwen3-32b", "qwen2-vl-72b",
+        "phi3.5-moe-42b-a6.6b") for shape in ("decode_32k", "prefill_32k")]
+    + [("qwen3-32b", "decode_32k", "v1b_f8_cache_seqshard")],
+    "ssm": [(arch, shape, None) for arch in ("rwkv6-1.6b", "zamba2-7b")
+            for shape in ("train_4k", "prefill_32k", "decode_32k",
+                          "long_500k")],
+}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", required=True)
+    ap.add_argument("--cells", default="seqshard", choices=list(CELLS))
     ap.add_argument("--src", default=None)
     args = ap.parse_args(argv)
     if args.src:
@@ -38,9 +51,7 @@ def main(argv=None):
 
     out = []
     mesh = D.start_mesh(*D.MESHES["pod16x16"])
-    runs = [(a, s, None) for a, s in CELLS] + [
-        ("qwen3-32b", "decode_32k", "v1b_f8_cache_seqshard")]
-    for arch, shape, variant in runs:
+    for arch, shape, variant in CELLS[args.cells]:
         t0 = time.time()
         cfg = get(arch)
         if not SH.shape_runs(cfg, SH.SHAPES[shape]):
@@ -62,6 +73,7 @@ def main(argv=None):
                    fits_80gb=r["fits_80gb"], collectives=r["collectives"],
                    launches=r["launches"],
                    note_serve=D.NOTE_SERVE in notes,
+                   note_tp=D.NOTE_TP in notes,
                    seconds=round(time.time() - t0, 1))
         print(json.dumps(row), flush=True)
         out.append(row)

@@ -26,18 +26,21 @@ The steps are the port's: training is ``trainer.jit_train_step`` with the
 reference's microbatch rule; serving is a mesh step built here as the
 reference builds its own (params in the "serve" shardings, bfloat16 where
 the reference's are, gathered as the training step gathers them; the
-batch over the dp axes).  The decoder family runs the tensor-parallel
-split in both (``transformer.keeps_model_shard``: each rank computes its
-heads, columns, vocabulary rows and experts); its serving cache follows
-``cache_spec`` as the reference's perf runner calls it: split over its
-heads where they divide ``model``, else over its sequence (over
-``model``, or ``("data", "model")`` where the batch does not divide the
-dp axes), each rank attending over its slice of the keys and the
-softmax combined across the group (``layers.seq_attention``).  The
-other families gather every leaf over ``model``, compute the whole layer
-on every rank of a ``model`` group (``NOTE_TP``) and keep their caches
-split over the dp axes only (``NOTE_SERVE``).  Ranks are symmetric under these rules: rank 0 stands for
-all.  A cell the card's kernels
+batch over the dp axes).  The decoder, SSM and hybrid families run the
+tensor-parallel split in both (the model module's ``keeps_model_shard``:
+each rank computes its attention, RWKV6 and Mamba2 heads, columns,
+vocabulary rows and experts); their serving caches follow ``cache_spec``
+as the reference's perf runner calls it: a KV cache split over its heads
+where they divide ``model``, else over its sequence (over ``model``, or
+``("data", "model")`` where the batch does not divide the dp axes), each
+rank attending over its slice of the keys and the softmax combined
+across the group (``layers.seq_attention``); an SSM state over its
+heads, a Mamba2 conv window over its channels (an even split, gathered
+a step).  The encoder-decoder family gathers every leaf over ``model``,
+computes the whole layer on every rank of a ``model`` group
+(``NOTE_TP``) and keeps its cache split over the dp axes only
+(``NOTE_SERVE``).  Ranks are symmetric under these rules: rank 0 stands
+for all.  A cell the card's kernels
 refuse fails here with the kernel's own message, recorded as data
 (``status: error``), as the reference records a failed compile.
 
@@ -82,15 +85,16 @@ NOTE_TP = ("products not split over 'model': every rank of a model group "
 NOTE_GATHER = ("each param leaf all-gathered over the mesh axes of its spec "
                "before the step")
 NOTE_SPLIT = ("the products split over 'model': each rank computes its "
-              "attention heads, MLP columns, vocabulary rows and experts; "
-              "the product leaves gathered over the dp axes of their spec "
-              "alone, the others (norm scales, the router) over every axis "
-              "of theirs before the step")
+              "attention, RWKV6 and Mamba2 heads, MLP columns, vocabulary "
+              "rows and experts; the product leaves gathered over the dp "
+              "axes of their spec alone, the others (norm scales, the "
+              "router, the SSM layers' small leaves) over every axis of "
+              "theirs before the step")
 NOTE_SERVE = ("the cache split over the dp axes only: each rank of a model "
               "group holds every head of its rows (the reference splits "
               "the heads over 'model', or where they do not divide it the "
-              "sequence; the port splits them for the decoder family "
-              "alone)")
+              "sequence; the port splits them for every family it splits "
+              "the products of)")
 NOTE_META = ("counted on meta tensors over the fake process group: no "
              "kernel launched, each declared its work")
 

@@ -33,8 +33,10 @@ meet through autograd-aware collectives over that group:
 ``copy_to_model`` (the identity; its gradient the sum over the group)
 where a replicated tensor enters a split region, ``reduce_from_model``
 (the sum over the group; its gradient the identity) where a region's
-partial sums leave it, and ``model_max`` for a quantization scale that
-spans a split dimension.  Over a ``model`` axis of one rank there is no
+partial sums leave it, ``gather_from_model`` (the ranks' slices joined;
+its gradient the rank's slice) where a split result is needed whole,
+and ``model_max`` for a quantization scale that spans a split
+dimension.  Over a ``model`` axis of one rank there is no
 split: ``current_split`` is None and nothing runs.
 
 With ``seq_axes`` the context also says that the serving cache is split
@@ -350,6 +352,44 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The ranks' slices joined along ``dim`` in rank order (an all-gather
+    over the group).  Its gradient is this rank's slice: of its own
+    gradient where what follows is replicated (the same on every rank),
+    of the group's sum where what follows is split (``summed``: each
+    rank's gradient a part; a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, split, dim, summed):
+        ctx.split, ctx.dim, ctx.summed = split, dim, summed
+        part = x.contiguous()
+        parts = [torch.empty_like(part) for _ in range(split.size)]
+        dist.all_gather(parts, part, group=split.group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split, dim = ctx.split, ctx.dim
+        if not ctx.summed:
+            return g.chunk(split.size, dim)[split.rank], None, None, None
+        whole = g.movedim(dim, 0).contiguous()
+        mine = whole.new_empty((whole.shape[0] // split.size,
+                                *whole.shape[1:]))
+        dist.reduce_scatter_tensor(mine, whole, group=split.group)
+        return mine.movedim(0, dim), None, None, None
+
+
+def gather_from_model(x: torch.Tensor, dim: int = -1,
+                      into_split: bool = False) -> torch.Tensor:
+    """The group's slices of ``x`` joined along ``dim``
+    (``_GatherFromModel``); ``into_split``: the result enters a split
+    region.  x itself off the split."""
+    split = current_split()
+    if split is None:
+        return x
+    return _GatherFromModel.apply(x, split, dim % x.ndim, into_split)
 
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:

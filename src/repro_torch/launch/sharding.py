@@ -168,6 +168,28 @@ def attn_heads(n_heads: int, kv_heads: int, kv_total: int,
     return AttnHeads(q, kv, lo, True, split.divides(kv_heads))
 
 
+class SsmHeads(NamedTuple):
+    """A rank's share of one RWKV6 time mix or Mamba2 block under the
+    tensor-parallel split: ``n`` heads from ``lo``, and whether the layer
+    splits (``split``) or stays whole on every rank."""
+    n: int
+    lo: int
+    split: bool
+
+
+def ssm_heads(n_heads: int, split, *widths) -> SsmHeads:
+    """The ``SsmHeads`` of a layer of ``n_heads`` heads under ``split``
+    (``mesh.ModelSplit`` or None): the rank's ``n_heads / m`` where ``m``
+    divides the heads and every one of ``widths`` (the split leaves'
+    columns: RWKV6's channel-mix width, Mamba2's ``in_proj`` width), else
+    the layer whole."""
+    if split is None or not all(split.divides(n) for n in (n_heads,
+                                                            *widths)):
+        return SsmHeads(n_heads, 0, False)
+    n = n_heads // split.size
+    return SsmHeads(n, split.rank * n, True)
+
+
 def map_with_path(fn, tree, path: str = ""):
     """``fn(path, leaf)`` over a tree of dicts and lists, keeping its
     structure; paths join keys and list indices with "/", as the

@@ -12,6 +12,11 @@ ends on the ``flash_attention`` kernel on the card (Zamba2-7B: 32 / 32
 heads of 112, float32 q as the reference's ``_attend`` computes, the
 engine's float32 cache).
 
+Under the tensor-parallel split (``keeps_model_shard``) each rank
+computes its heads of every Mamba2 block (``mamba.mamba_apply``), its
+heads of the shared attention (``layers.attention``: its KV cache the
+rank's heads), its MLP columns and its vocabulary rows.
+
 Params keep the reference's layout: ``groups`` stacked (n_groups, period,
 ...), ``tail`` (tail, ...), ``shared`` a list of block trees.  The
 layers run as Python loops where JAX scans.  The cache: ``groups`` with
@@ -30,11 +35,13 @@ time for ``quant_matmul``.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import ModelSplit
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import params as P
@@ -112,6 +119,27 @@ def init_params(cfg, gen: torch.Generator, device=None) -> Params:
     return P.torch_params(param_shapes(cfg), gen, device)
 
 
+_SPLIT_LEAVES = re.compile(
+    r"(attn/w[qkvo]|mlp/w_(up|gate|down)|(^|/)embed|(^|/)lm_head)$")
+_MAMBA_SPLIT = re.compile(r"mamba/(in_proj|out_proj)$")
+
+
+def keeps_model_shard(cfg, path: str, model: int = 0) -> bool:
+    """Whether the mesh steps keep this param leaf's ``model`` shard (of a
+    ``model`` axis of ``model`` ranks; 0: any) and compute on it: the
+    embedding and the head, the shared blocks' attention and MLP
+    products, and the Mamba blocks' ``in_proj`` / ``out_proj`` where the
+    axis splits the blocks (``mamba.heads``).  The rest is gathered over
+    ``model`` first: the conv, ``a_log``, ``dt_bias``, ``d_skip``, the
+    gated norm's and the other norm scales, which every rank uses whole
+    or at its heads (the rules split the conv and the norm evenly, across
+    the heads' boundaries)."""
+    if _SPLIT_LEAVES.search(path):
+        return True
+    return bool(_MAMBA_SPLIT.search(path)) and (
+        model <= 1 or M.heads(cfg, ModelSplit(None, model, 0)).split)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -139,7 +167,9 @@ def _shared_layer(p, x, cfg, qcfg, positions, q_start, cache=None):
                                  positions, cache, q_start=q_start)
     x = x + att.to(x.dtype)
     h = L.rmsnorm(x, p["ln2"])
-    return x + L.mlp(p["mlp"], h, qcfg, cfg.act).to(x.dtype), new_cache
+    mlp = L.mlp(p["mlp"], h, qcfg, cfg.act,
+                split=L.split_over(cfg.d_ff) is not None)
+    return x + mlp.to(x.dtype), new_cache
 
 
 def _backbone(params, x, cfg, positions, q_start, caches=None, chunk=16):
@@ -189,12 +219,14 @@ def _backbone(params, x, cfg, positions, q_start, caches=None, chunk=16):
 
 
 def _embed(params, tokens, cfg):
-    return params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    return L.embed_rows(params["embed"], tokens, cfg.padded_vocab).to(
+        getattr(torch, cfg.dtype))
 
 
 def _logits(params, x, cfg):
     x = L.rmsnorm(x, params["final_norm"])
-    return L.qdense(x, params["lm_head"], preset(cfg.pe_type))
+    return L.head_logits(x, params["lm_head"], preset(cfg.pe_type),
+                         cfg.padded_vocab)
 
 
 def forward(params, tokens, cfg, positions=None):
@@ -212,7 +244,8 @@ def loss_fn(params, batch, cfg):
     the card the shared blocks' attention gradient (head_dim 112 at full
     size) is the ``flash_attention`` backward kernel."""
     logits = forward(params, batch["tokens"], cfg)
-    return L.softmax_xent(logits, batch["labels"])
+    return L.softmax_xent(logits, batch["labels"],
+                          split=L.split_over(cfg.padded_vocab) is not None)
 
 
 # ---------------------------------------------------------------------------

@@ -28,8 +28,11 @@ where the reference's span the logical tensor, and packed codes take
 the rank's columns of their replicated per-channel scales; "tokens" for
 a weight and an activation every rank holds whole (a layer the split
 leaves whole), whose weight gradient each rank takes over its slice of
-the tokens, summed over the group.  ``mlp`` splits its hidden columns,
-``softmax_xent`` its vocabulary.
+the tokens, summed over the group.  ``attention`` splits its heads
+(``sharding.attn_heads``), ``mlp`` its hidden columns, ``rmsnorm(...,
+split=True)`` a norm over the group's columns; ``embed_rows``,
+``head_logits``, ``softmax_xent`` and ``greedy_tokens`` split the
+vocabulary.
 
 Under a serving cache split over its sequence (``launch.mesh.current_seq``)
 ``seq_attention`` attends over the rank's slice of the keys and combines
@@ -56,7 +59,9 @@ from repro_torch.kernels.flash_attention.ref import slice_weight
 from repro_torch.kernels.quant_matmul import quant_matmul
 from repro_torch.launch.mesh import (  # noqa: F401  (the reference's names)
     activation_sharding, copy_to_model, current_dp, current_mesh,
-    current_split, in_context, model_max, reduce_from_model, saved_context)
+    current_split, gather_from_model, in_context, model_max,
+    reduce_from_model, saved_context)
+from repro_torch.launch.sharding import attn_heads
 from repro_torch.quant.fake_quant import fake_quant_act, fake_quant_weight
 from repro_torch.quant.pack import DEQUANTIZE
 from repro_torch.quant.qconfig import QuantConfig
@@ -254,15 +259,34 @@ class _TokenSplitGrad(torch.autograd.Function):
         return dx, dw, None
 
 
+def replicated_leaves(p: Params, names) -> Params:
+    """The replicated leaves ``names`` of ``p`` entering a split region,
+    where each rank uses them for its own heads or columns alone: their
+    gradients summed over the group (``copy_to_model``)."""
+    return {n: copy_to_model(p[n]) for n in names}
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
-            zero_centered: bool = False) -> torch.Tensor:
+            zero_centered: bool = False, split: bool = False) -> torch.Tensor:
+    """RMSNorm over x's last axis in float32.  ``split``: x and ``scale``
+    hold the rank's columns of a norm over the model group's (the mean
+    square summed over the group)."""
     dt = x.dtype
     x = x.to(torch.float32)
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    group = current_split() if split else None
+    if group:
+        # summed over the group, and used for the rank's columns: its
+        # gradient, each rank's part, summed too
+        total = copy_to_model(reduce_from_model(torch.sum(
+            torch.square(x), dim=-1, keepdim=True)))
+        var = torch.div(total, torch.tensor(float(x.shape[-1] * group.size),
+                                            device=x.device))
+    else:
+        var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     g = 1.0 + scale if zero_centered else scale  # gemma uses (1 + g)
     return (x * g).to(dt)
@@ -446,15 +470,38 @@ def attention(params: Params, x: torch.Tensor, spec: AttnSpec,
     ``make_cache``'s dict, written in place at its index (clamped as
     ``dynamic_update_slice`` clamps it) and attended over all its rows
     under the causal mask.  cross_kv: (B, Senc, D) encoder states: K and V
-    come from them, no RoPE, every key visible.  Returns (out, cache)."""
+    come from them, no RoPE, every key visible.  Returns (out, cache).
+
+    Under the tensor-parallel split the rank computes its heads
+    (``sharding.attn_heads``): ``wq`` / ``wo`` hold its columns / rows
+    where the group divides the query heads, ``wk`` / ``wv`` its columns
+    where it divides the KV heads too (else every KV head, of which its
+    queries read their own), and a cache the rank's KV heads where the
+    rules split them; x and the replicated leaves enter the split region
+    (``copy_to_model``) and the outputs' partial sums leave it
+    (``reduce_from_model``).  A layer left whole takes its weight
+    gradients over the rank's tokens."""
     b, s, _ = x.shape
-    hq, hkv, dh = spec.n_heads, spec.kv_heads, spec.head_dim
-    q = qdense(x, params["wq"], qcfg).reshape(b, s, hq, dh)
+    dh = spec.head_dim
+    split = current_split()
+    heads = attn_heads(spec.n_heads, spec.kv_heads, spec.kv_heads, split)
+    hq = heads.q
+    hkv = spec.kv_heads // (split.size if heads.kv_split else 1)
+    whole = "tokens" if split and not heads.q_split else None
     kv_src = cross_kv if cross_kv is not None else x
-    k = qdense(kv_src, params["wk"], qcfg).reshape(b, kv_src.shape[1], hkv,
-                                                   dh)
-    v = qdense(kv_src, params["wv"], qcfg).reshape(b, kv_src.shape[1], hkv,
-                                                   dh)
+    if heads.q_split:
+        own = ("wq", "wo", *(("wk", "wv") if heads.kv_split else ()))
+        params = {n: copy_to_model(w) if torch.is_tensor(w) and n not in own
+                  else w for n, w in params.items()}
+        x = copy_to_model(x)
+        kv_src = copy_to_model(kv_src) if cross_kv is not None else x
+    q = qdense(x, params["wq"], qcfg, split="col" if heads.q_split
+               else whole).reshape(b, s, hq, dh)
+    kv_col = "col" if heads.kv_split else whole
+    k = qdense(kv_src, params["wk"], qcfg, split=kv_col).reshape(
+        b, kv_src.shape[1], hkv, dh)
+    v = qdense(kv_src, params["wv"], qcfg, split=kv_col).reshape(
+        b, kv_src.shape[1], hkv, dh)
     if spec.qk_norm:
         q = rmsnorm(q, params["q_norm"])
         k = rmsnorm(k, params["k_norm"])
@@ -469,17 +516,23 @@ def attention(params: Params, x: torch.Tensor, spec: AttnSpec,
             q = apply_rope(q, pos2d, spec.rope_theta)
             k = apply_rope(k, pos2d, spec.rope_theta)
 
+    # the KV heads the rank's queries read: all it computed, or those of
+    # its queries among the replicated ones (a view)
+    lo, hkv = (0, hkv) if hkv == heads.kv else (heads.kv_lo, heads.kv)
     new_cache = cache
     if cache is not None and cross_kv is None:
         ck, cv, idx = cache["k"], cache["v"], cache["index"]
         max_len = ck.shape[1]
         if s > max_len:
             raise ValueError(f"{s} tokens do not fit a cache of {max_len}")
+        if ck.shape[2] != k.shape[2]:       # the cache holds the rank's heads
+            k, v, lo = k[:, :, lo:lo + hkv], v[:, :, lo:lo + hkv], 0
         at = min(max(idx, 0), max_len - s)
         ck[:, at:at + s] = to_cache(k, ck.dtype)
         cv[:, at:at + s] = to_cache(v, cv.dtype)
         new_cache = {"k": ck, "v": cv, "index": idx + s}
         k, v = ck, cv
+    k, v = k[:, :, lo:lo + hkv], v[:, :, lo:lo + hkv]
     mode = "full" if cross_kv is not None else mask_mode
     if mode == "causal" and q_start is None:
         q_start = query_start(pos2d)
@@ -487,8 +540,9 @@ def attention(params: Params, x: torch.Tensor, spec: AttnSpec,
         # the keys are the queries themselves: only their offsets matter
         q_start = torch.zeros_like(q_start)
     out = _attend(q, k, v, spec, q_start if mode == "causal" else None, mode)
-    out = qdense(out.reshape(b, s, hq * dh), params["wo"], qcfg)
-    return out, new_cache
+    out = qdense(out.reshape(b, s, hq * dh), params["wo"], qcfg,
+                 split="row" if heads.q_split else whole)
+    return (reduce_from_model(out) if heads.q_split else out), new_cache
 
 
 FP8 = torch.float8_e4m3fn
@@ -563,6 +617,66 @@ def mlp_part(params: Params, x: torch.Tensor, qcfg: QuantConfig,
     else:
         h = _act(up, act)
     return qdense(h, params["w_down"], qcfg, split=row)
+
+
+# ---------------------------------------------------------------------------
+# the vocabulary split: the embedding's rows, the head's columns
+# ---------------------------------------------------------------------------
+
+def split_over(n: int):
+    """The ``ModelSplit`` where the group splits a dimension of ``n`` (a
+    vocabulary's rows, an MLP's hidden columns), else None."""
+    split = current_split()
+    return split if split and split.divides(n) else None
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor,
+               vocab: int) -> torch.Tensor:
+    """The rows of ``table`` for ``tokens``; under the vocabulary split
+    the table holds the rank's rows: each token looked up where it is the
+    rank's, zeros elsewhere, summed over the group (one term is
+    nonzero)."""
+    split = split_over(vocab)
+    if not split:
+        return table[tokens]
+    rows = table.shape[0]
+    lo = split.rank * rows
+    mine = (tokens >= lo) & (tokens < lo + rows)
+    x = table[torch.where(mine, tokens - lo, 0)]
+    return reduce_from_model(torch.where(mine[..., None], x, 0.0))
+
+
+def head_logits(x: torch.Tensor, w, qcfg: QuantConfig,
+                vocab: int) -> torch.Tensor:
+    """x @ w, the output head; under the vocabulary split the rank's
+    columns (its logits stay the rank's: ``softmax_xent(split=True)`` and
+    ``greedy_tokens`` reduce over the group)."""
+    split = split_over(vocab)
+    if split:
+        x = copy_to_model(x)
+    return qdense(x, w, qcfg, split="col" if split else None)
+
+
+def greedy_tokens(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The argmax over the vocabulary of (..., V) logits, int64, the
+    lowest index among equal maxima, as the reference's ``argmax``; under
+    a vocabulary split over the ranks' slices (each rank's best gathered
+    over the group)."""
+    split = split_over(vocab)
+    if split is None:
+        return torch.argmax(logits, dim=-1)
+    at = torch.argmax(logits, dim=-1)
+    best = torch.gather(logits, -1, at[..., None])[..., 0].to(torch.float32)
+    at = at + split.rank * logits.shape[-1]
+    both = torch.stack([best, at.to(torch.float32)]).contiguous()
+    parts = [torch.empty_like(both) for _ in range(split.size)]
+    dist.all_gather(parts, both, group=split.group)
+    vals = torch.stack([q[0] for q in parts])        # (m, ...): rank order
+    ids = torch.stack([q[1] for q in parts]).to(torch.int64)
+    top = torch.amax(vals, dim=0)
+    # among the ranks holding the max, the lowest index: the lowest rank
+    first = torch.argmax((vals == top).to(torch.int8), dim=0)
+    return torch.gather(ids, 0, first[None])[0]
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,17 @@ the reference, the last-token states take the hidden states' type after
 the first step (bfloat16 for a bfloat16 model), whatever type the cache
 started in, and a prompt starts from whatever state the cache holds.
 
+Under the tensor-parallel split (``keeps_model_shard``; the collectives
+of ``launch.mesh``) each rank computes its heads of the time
+mix (``sharding.ssm_heads``: ``w[rkvg]`` its columns, the scan and the
+per-head norm on its heads, ``wo`` its rows, the partial sums summed)
+and its columns of the channel mix (``wk`` / ``wr`` its columns, ``wv``
+its rows: the value summed over the group, the receptance gathered), and
+its vocabulary rows; the replicated ``mu``, ``wa``, ``wb``, ``w0``,
+``u`` and ``ln_x`` enter the split region through ``copy_to_model``.
+Its serving state is the rank's heads of ``s``; ``tm_last`` /
+``cm_last`` stay whole.
+
 The serving packer packs by size: at full width it packs ``mu``, the
 decay LoRA ``wa`` / ``wb``, and at 24 layers ``u`` and ``ln_x``, which
 the reference then reads as dense tensors and fails on (ROADMAP C); the
@@ -27,11 +38,16 @@ port raises ``NotImplementedError`` there, naming that failure.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import (ModelSplit, copy_to_model,
+                                     current_split, gather_from_model,
+                                     reduce_from_model)
+from repro_torch.launch.sharding import ssm_heads
 from repro_torch.models import layers as L
 from repro_torch.models import params as P
 from repro_torch.models import ssm_common as SSM
@@ -104,6 +120,24 @@ def init_params(cfg, gen: torch.Generator, device=None) -> Params:
     return P.torch_params(param_shapes(cfg), gen, device)
 
 
+_SPLIT_LEAVES = re.compile(r"(tm/w[rkvgo]|cm/w[kvr])$")
+
+
+def keeps_model_shard(cfg, path: str, model: int = 0) -> bool:
+    """Whether the mesh steps keep this param leaf's ``model`` shard (of a
+    ``model`` axis of ``model`` ranks; 0: any) and compute on it: the
+    embedding and the head, and the time and channel mixes' products
+    where the axis divides the heads and the channel mix's width
+    (``sharding.ssm_heads``).  The rest is gathered over ``model`` first:
+    the token-shift ``mu``, the decay LoRA ``wa`` / ``wb`` and ``w0``,
+    ``u``, ``ln_x`` and the norm scales, which every rank uses whole or
+    at its heads."""
+    if re.search(r"(^|/)(embed|lm_head)$", path):
+        return True
+    return bool(_SPLIT_LEAVES.search(path)) and (
+        model <= 1 or _heads(cfg, ModelSplit(None, model, 0)).split)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -123,13 +157,28 @@ def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(dt), b.to(dt))
 
 
+def _heads(cfg, split):
+    """The rank's ``sharding.SsmHeads`` of a time mix under ``split`` (a
+    ``mesh.ModelSplit`` or None; the channel mix splits with it)."""
+    return ssm_heads(cfg.ssm_heads, split, cfg.d_ff)
+
+
 def _time_mix(p, x, cfg, qcfg, state=None, last=None, chunk=16):
-    """x: (B, S, D). state: (B, H, dh, dh) or None.  Returns (out,
-    state')."""
+    """x: (B, S, D). state: (B, H, dh, dh) or None (under the split the
+    rank's heads).  Returns (out, state').  Under the split the rank
+    computes its heads: ``w[rkvg]`` hold their columns, ``wo`` their
+    rows, and the decay, ``u`` and ``ln_x`` are taken at them."""
     P.refuse_packed(p, ("mu", "wa", "wb", "u", "ln_x"), _PACKED_TM)
     b, s, d = x.shape
-    h = cfg.ssm_heads
-    dh = d // h
+    dh = d // cfg.ssm_heads
+    heads = _heads(cfg, current_split())
+    h, cols = heads.n, slice(heads.lo * dh, (heads.lo + heads.n) * dh)
+    whole = "tokens" if current_split() and not heads.split else None
+    col = "col" if heads.split else whole
+    if heads.split:
+        x = copy_to_model(x)
+        p = {**p, **L.replicated_leaves(p, ("mu", "wa", "wb", "w0", "u",
+                                             "ln_x"))}
     xs = _shift(x, last)
     mu = p["mu"]
     mr = x + mu[0] * (xs - x)
@@ -138,37 +187,52 @@ def _time_mix(p, x, cfg, qcfg, state=None, last=None, chunk=16):
     mg = x + mu[3] * (xs - x)
     mw = x + mu[4] * (xs - x)
 
-    r = L.qdense(mr, p["wr"], qcfg).reshape(b, s, h, dh)
-    k = L.qdense(mk, p["wk"], qcfg).reshape(b, s, h, dh)
-    v = L.qdense(mv, p["wv"], qcfg).reshape(b, s, h, dh)
-    g = torch.nn.functional.silu(L.qdense(mg, p["wg"], qcfg))
+    r = L.qdense(mr, p["wr"], qcfg, split=col).reshape(b, s, h, dh)
+    k = L.qdense(mk, p["wk"], qcfg, split=col).reshape(b, s, h, dh)
+    v = L.qdense(mv, p["wv"], qcfg, split=col).reshape(b, s, h, dh)
+    g = torch.nn.functional.silu(L.qdense(mg, p["wg"], qcfg, split=col))
     # data-dependent decay (Finch): log w = -exp(w0 + tanh(x a) b) <= 0,
-    # two plain products, as the reference writes them
-    lw = -torch.exp(p["w0"] + _matmul(torch.tanh(_matmul(mw, p["wa"])),
-                                      p["wb"]))
+    # two plain products, as the reference writes them (b's columns and
+    # w0 at the rank's heads)
+    lw = -torch.exp(p["w0"][..., cols] + _matmul(
+        torch.tanh(_matmul(mw, p["wa"])), p["wb"][..., cols]))
     lw = lw.reshape(b, s, h, dh)
+    u = p["u"][heads.lo:heads.lo + h]
 
     if s == 1 and state is not None:
         o, new_state = SSM.single_step(r[:, 0], k[:, 0], v[:, 0], lw[:, 0],
-                                       p["u"], state)
+                                       u, state)
         o = o[:, None]
     else:
         o, new_state = SSM.chunked_linear_attention(
-            r, k, v, lw, p["u"], chunk=chunk, initial_state=state)
-    o = L.rmsnorm(o, p["ln_x"])                     # per-head norm
-    o = (o.reshape(b, s, d) * g).to(x.dtype)
-    return L.qdense(o, p["wo"], qcfg), new_state
+            r, k, v, lw, u, chunk=chunk, initial_state=state)
+    o = L.rmsnorm(o, p["ln_x"][heads.lo:heads.lo + h])   # per-head norm
+    o = (o.reshape(b, s, h * dh) * g).to(x.dtype)
+    out = L.qdense(o, p["wo"], qcfg, split="row" if heads.split else whole)
+    return (reduce_from_model(out) if heads.split else out), new_state
 
 
 def _channel_mix(p, x, cfg, qcfg, last=None):
+    """Under the split ``wk`` / ``wr`` hold the rank's columns and ``wv``
+    its rows: the value's partial sums are summed over the group and the
+    receptance gathered (both whole on every rank after)."""
     P.refuse_packed(p, ("mu",), _PACKED_CM)
+    split = _heads(cfg, current_split()).split
+    whole = "tokens" if current_split() and not split else None
+    col, row = ("col", "row") if split else (whole, whole)
+    if split:
+        x = copy_to_model(x)
+        p = {**p, **L.replicated_leaves(p, ("mu",))}
     xs = _shift(x, last)
     mu = p["mu"]
     mk = x + mu[0] * (xs - x)
     mr = x + mu[1] * (xs - x)
-    k = torch.square(torch.relu(L.qdense(mk, p["wk"], qcfg)))
-    r = torch.sigmoid(L.qdense(mr, p["wr"], qcfg))
-    return r * L.qdense(k, p["wv"], qcfg)
+    k = torch.square(torch.relu(L.qdense(mk, p["wk"], qcfg, split=col)))
+    r = torch.sigmoid(L.qdense(mr, p["wr"], qcfg, split=col))
+    kv = L.qdense(k, p["wv"], qcfg, split=row)
+    if split:
+        return gather_from_model(r) * reduce_from_model(kv)
+    return r * kv
 
 
 def _block(p, x, cfg, qcfg, state=None, chunk=16):
@@ -191,7 +255,13 @@ def _block(p, x, cfg, qcfg, state=None, chunk=16):
 
 
 def _embed(params, tokens, cfg):
-    return params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    return L.embed_rows(params["embed"], tokens, cfg.padded_vocab).to(
+        getattr(torch, cfg.dtype))
+
+
+def _logits(params, x, cfg, qcfg):
+    x = L.rmsnorm(x, params["final_norm"])
+    return L.head_logits(x, params["lm_head"], qcfg, cfg.padded_vocab)
 
 
 def forward(params, tokens, cfg, positions=None):
@@ -204,8 +274,7 @@ def forward(params, tokens, cfg, positions=None):
     for i in range(cfg.n_layers):
         x = L.remat(lambda p, x: _block(p, x, cfg, qcfg)[0],
                     P.layer(params["layers"], i), x)
-    x = L.rmsnorm(x, params["final_norm"])
-    return L.qdense(x, params["lm_head"], qcfg)
+    return _logits(params, x, cfg, qcfg)
 
 
 def loss_fn(params, batch, cfg):
@@ -213,7 +282,8 @@ def loss_fn(params, batch, cfg):
     layer is rematerialized (``layers.remat``), as the reference's
     ``jax.checkpoint``, which changes no value."""
     logits = forward(params, batch["tokens"], cfg)
-    return L.softmax_xent(logits, batch["labels"])
+    return L.softmax_xent(logits, batch["labels"],
+                          split=L.split_over(cfg.padded_vocab) is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -253,8 +323,7 @@ def _apply_with_state(params, tokens, cfg, cache, chunk=16):
                        P.layer(cache, i), chunk)
         states.append(st)
     new_cache = {k: torch.stack([st[k] for st in states]) for k in states[0]}
-    x = L.rmsnorm(x, params["final_norm"])
-    return L.qdense(x, params["lm_head"], qcfg), new_cache
+    return _logits(params, x, cfg, qcfg), new_cache
 
 
 def prefill(params, tokens, cfg, cache, positions=None):

@@ -53,7 +53,7 @@ cache, or the layer whole), its MLP columns, its experts
 (``moe.moe_apply``) and its vocabulary rows (the embedding looked up
 where a token is the rank's and summed over the group; the head's
 columns, whose logits stay the rank's: ``softmax_xent`` and
-``greedy_tokens`` reduce over the group).  A cache is the rank's heads
+``layers.greedy_tokens`` reduce over the group).  A cache is the rank's heads
 where the rules split its heads.  Where its KV heads do not divide
 ``model`` the serving cache splits its sequence instead (under
 ``activation_sharding(..., seq_axes=...)``, ``mesh.current_seq``): each
@@ -136,9 +136,10 @@ _SPLIT_LEAVES = re.compile(
     r"(attn/w[qkvo]|w_up|w_gate|w_down|embed|lm_head)(/codes__\w+)?$")
 
 
-def keeps_model_shard(cfg, path: str) -> bool:
-    """Whether the mesh steps keep this param leaf's ``model`` shard and
-    compute on it (the products: attention projections, MLP and expert
+def keeps_model_shard(cfg, path: str, model: int = 0) -> bool:
+    """Whether the mesh steps keep this param leaf's ``model`` shard (on
+    a ``model`` axis of any size: the argument is the SSM and hybrid
+    families') and compute on it (the products: attention projections, MLP and expert
     weights, the embedding and the head, packed codes alike), or gather
     it over ``model`` first: the norm scales, which the rules split where
     they divide yet every rank uses whole, and the router.  The
@@ -149,13 +150,6 @@ def keeps_model_shard(cfg, path: str) -> bool:
     if cfg.moe_ep_shard_map:
         return False
     return _SPLIT_LEAVES.search(path) is not None
-
-
-def _vocab_split(cfg):
-    """The ``ModelSplit`` when the embedding's rows (and the head's
-    columns) are split, else None."""
-    split = current_split()
-    return split if split and split.divides(cfg.padded_vocab) else None
 
 
 def _width_split(width: int) -> bool:
@@ -543,31 +537,19 @@ def _grouped_flags(cfg):
 
 
 def _logits(params, x, cfg):
-    """The head's logits; under a vocabulary split the rank's columns."""
+    """The head's logits; under a vocabulary split the rank's columns
+    (``layers.head_logits``)."""
     qcfg = preset(cfg.pe_type)
     x = L.rmsnorm(x, params["final_norm"], zero_centered=cfg.zero_centered_norm)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    split = _vocab_split(cfg)
-    if split:
-        x = copy_to_model(x)
-    logits = L.qdense(x, w, qcfg, split="col" if split else None)
+    logits = L.head_logits(x, w, qcfg, cfg.padded_vocab)
     if cfg.final_softcap > 0.0:
         logits = soft_cap(logits, cfg.final_softcap)
     return logits
 
 
 def _embed(params, tokens, cfg):
-    split = _vocab_split(cfg)
-    if split:
-        # the rank's rows: each token looked up where it is the rank's,
-        # zeros elsewhere, summed over the group (one term is nonzero)
-        rows = params["embed"].shape[0]
-        lo = split.rank * rows
-        mine = (tokens >= lo) & (tokens < lo + rows)
-        x = params["embed"][torch.where(mine, tokens - lo, 0)]
-        x = reduce_from_model(torch.where(mine[..., None], x, 0.0))
-    else:
-        x = params["embed"][tokens]
+    x = L.embed_rows(params["embed"], tokens, cfg.padded_vocab)
     if cfg.embed_scale:
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -614,29 +596,7 @@ def loss_fn(params, batch, cfg):
     forward again, which changes no value."""
     logits = forward(params, batch["tokens"], cfg, batch.get("positions"))
     return L.softmax_xent(logits, batch["labels"],
-                          split=_vocab_split(cfg) is not None)
-
-
-def greedy_tokens(logits: torch.Tensor, cfg) -> torch.Tensor:
-    """The argmax over the vocabulary of (..., V) logits, int64, the
-    lowest index among equal maxima, as the reference's ``argmax``; under
-    a vocabulary split over the ranks' slices (each rank's best gathered
-    over the group)."""
-    split = _vocab_split(cfg)
-    if split is None:
-        return torch.argmax(logits, dim=-1)
-    at = torch.argmax(logits, dim=-1)
-    best = torch.gather(logits, -1, at[..., None])[..., 0].to(torch.float32)
-    at = at + split.rank * logits.shape[-1]
-    both = torch.stack([best, at.to(torch.float32)]).contiguous()
-    parts = [torch.empty_like(both) for _ in range(split.size)]
-    dist.all_gather(parts, both, group=split.group)
-    vals = torch.stack([q[0] for q in parts])        # (m, ...): rank order
-    ids = torch.stack([q[1] for q in parts]).to(torch.int64)
-    top = torch.amax(vals, dim=0)
-    # among the ranks holding the max, the lowest index: the lowest rank
-    first = torch.argmax((vals == top).to(torch.int8), dim=0)
-    return torch.gather(ids, 0, first[None])[0]
+                          split=L.split_over(cfg.padded_vocab) is not None)
 
 
 # ---------------------------------------------------------------------------

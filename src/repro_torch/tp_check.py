@@ -1,5 +1,6 @@
 """The tensor-parallel split on ranks of one ``model`` group, held to one
-rank: the runs of ``chip_smoke.py`` phase 18.1 and of the CPU tests.
+rank: the runs of ``chip_smoke.py`` phases 18.1-20.1 and of the CPU
+tests.
 
 Its ``TASKS`` run on the ranks of ``repro_torch.launch.ranks`` (each
 rank on a (1, world) ("data", "model") mesh on its device; on a card the
@@ -13,12 +14,14 @@ through the host, since NCCL refuses two ranks on one GPU):
     of the params before and after (``param_digest``: fixed elements of
     every leaf, gathered over the mesh);
   * "serve" (``serve_run``): a prompt then decode steps on given tokens
-    (teacher-forced) with the params in the "serve" shardings (packed by
-    ``quantize_params`` if asked) and the cache as ``cache_spec`` splits
-    it (its heads over ``model``, or where they do not divide it its
-    sequence, as the reference's perf runner asks): each step's last
-    logits gathered over the vocabulary split, the greedy tokens
-    (``transformer.greedy_tokens``), step times, launches, peak memory.
+    (teacher-forced) of any family with the params in the "serve"
+    shardings (packed by ``quantize_params`` if asked) and the cache as
+    ``cache_spec`` splits it (its heads over ``model``, or where they do
+    not divide it its sequence, as the reference's perf runner asks; an
+    SSM state over its heads, a conv window over its channels): each
+    step's last logits gathered over the vocabulary split, the greedy
+    tokens (``layers.greedy_tokens``), step times, launches, peak
+    memory.
 
 A task's ``variant`` (``variant``) runs another function on purpose: the
 plain whole-layer step the token split is timed against, or a control
@@ -124,14 +127,16 @@ def change_gap(start: dict, got: dict, want: dict) -> float:
 
 def train_run(cfg, steps: int, batch: int, seq: int, device=None,
               mesh=None, params=None, batches=None,
-              count: bool = False) -> dict:
+              count: bool = False, nudge: float = 0.0) -> dict:
     """``steps`` AdamW steps (``train_check.LM_SCHEDULE``) of ``cfg`` on
     ``lm_pipeline``'s batches (or ``batches``, a global batch of numpy
     arrays a step, of which a rank takes its dp slice) from seed-0 params
     drawn on ``device`` (or ``params``, a full tree), through
     ``jit_train_step`` on ``mesh`` or the plain trainer.  ``count``: one
     more step after the run, under ``op_analysis.analyze``: its FLOPs and
-    collective bytes (this rank's)."""
+    collective bytes (this rank's).  ``nudge``: the embedding scaled by
+    (1 + nudge) before the first step (a twin run, the one-rank run's own
+    spread under a perturbation of the size of the sum order's)."""
     from repro_torch.data import lm_pipeline
     from repro_torch.models import family_module
     from repro_torch.optim import adamw, warmup_cosine
@@ -151,6 +156,9 @@ def train_run(cfg, steps: int, batch: int, seq: int, device=None,
     else:
         state = TrainState(params, opt.init(params),
                            torch.zeros((), dtype=torch.int32, device=device))
+    if nudge:
+        with torch.no_grad():
+            state.params["embed"].mul_(1 + nudge)
     start = param_digest(state.params)
     step = make_train_step(cfg, mod, opt)
     sh = None
@@ -219,12 +227,14 @@ def serve_run(cfg, tokens, prompt: int, cache_rows: int, device=None,
                                              cache_spec,
                                              make_param_shardings,
                                              map_with_path, seq_sharded)
-    from repro_torch.models import transformer as T
+    from repro_torch.models import family_module
+    from repro_torch.models import layers as L
     from repro_torch.optim import tree_map
     from repro_torch.serve.engine import quantize_params
     from repro_torch.train.trainer import model_kept
 
     device = resolve_device(device)
+    T = family_module(cfg)
     if params is None:
         dev = device
         gen = (torch.Generator(device=dev) if dev.type == "cuda"
@@ -250,12 +260,12 @@ def serve_run(cfg, tokens, prompt: int, cache_rows: int, device=None,
                 return x
             sh = Sharding(mesh, cache_spec(cfg, mesh, path, tuple(x.shape),
                                            seq_shard))
-            shape = sh.local_shape(x.shape)
-            if shape[-4] != x.shape[-4]:
+            if M.dp_total(mesh) > 1 and M.dp_axes(mesh) in sh.spec:
                 raise ValueError(f"serve_run holds the whole batch on every "
                                  f"rank, not a cache split over the dp axes "
                                  f"({sh.spec})")
-            return torch.zeros(shape, dtype=x.dtype, device=device)
+            return torch.zeros(sh.local_shape(x.shape), dtype=x.dtype,
+                               device=device)
         cache = map_with_path(local, shapes)
     else:
         cache = map_with_path(lambda _, x: torch.zeros(
@@ -278,7 +288,8 @@ def serve_run(cfg, tokens, prompt: int, cache_rows: int, device=None,
                 logits, cache = T.decode_step(params, tokens[:, at:at + 1],
                                               cfg, cache)
             last = logits[:, -1]
-            greedy.append(T.greedy_tokens(last, cfg).cpu().numpy())
+            greedy.append(L.greedy_tokens(last, cfg.padded_vocab).cpu()
+                          .numpy())
             _sync(device)
             times.append((time.perf_counter() - t0) * 1e3)
             logits_all.append(_whole_vocab(last.float(), split()))
@@ -321,7 +332,14 @@ def variant(name: str | None):
       ``copy_to_model``, so their gradients stay each rank's part;
     * "per_rank_scales" (a control): every quantization scale that spans
       the model group taken over the rank's own slice (``fake_quant``'s
-      model-group max made the identity).
+      model-group max made the identity);
+    * "unsummed_leaves" (a control): the replicated leaves that RWKV6's
+      mixes and Mamba2's blocks use for the rank's heads alone (``mu``,
+      the decay's ``wa`` / ``wb`` / ``w0``, ``u``, ``ln_x``, the conv,
+      ``a_log``, ``dt_bias``, ``d_skip``, the gated norm's scale) enter
+      the split region without ``copy_to_model``
+      (``layers.replicated_leaves`` made the identity), so their
+      gradients stay each rank's part.
     """
     from repro_torch.launch import mesh as M
     from repro_torch.models import layers as L
@@ -329,7 +347,7 @@ def variant(name: str | None):
     from repro_torch.quant import fake_quant as FQ
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr in (
         (L, "_TokenSplitGrad"), (T, "copy_to_model"), (FQ, "model_max"),
-        (FQ, "split_max"))]
+        (FQ, "split_max"), (L, "replicated_leaves"))]
     copy = T.copy_to_model
     if name == "whole_layers":
         L._TokenSplitGrad = _WholeLayer
@@ -337,6 +355,8 @@ def variant(name: str | None):
         T.copy_to_model = lambda t: t if t.ndim == 1 else copy(t)
     elif name == "per_rank_scales":
         FQ.model_max, FQ.split_max = (lambda t: t), M.dp_max
+    elif name == "unsummed_leaves":
+        L.replicated_leaves = lambda p, names: {n: p[n] for n in names}
     elif name is not None:
         raise ValueError(f"no variant {name!r}")
     try:
@@ -363,7 +383,7 @@ def run_task(task: dict, device, mesh) -> tuple:
     with variant(task.get("variant")):
         if task.get("kind", task["name"]) == "train":
             r = train_run(cfg, task["steps"], task["batch"], task["seq"],
-                          device, mesh)
+                          device, mesh, nudge=task.get("nudge", 0.0))
             arrays = {f"start/{k}": v for k, v in r.pop("start").items()}
             arrays.update({f"final/{k}": v
                            for k, v in r.pop("final").items()})

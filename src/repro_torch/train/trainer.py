@@ -30,16 +30,18 @@ in float32, clips the average on the global norm and updates only the
 rank's own shard.
 
 The tensor-parallel split: where the model module says a leaf keeps its
-``model`` shard (``keeps_model_shard``: the decoder family's product
-leaves), the leaf is not gathered over ``model``, and the forward and backward run under the mesh context's
+``model`` shard (``keeps_model_shard``: the product leaves of the
+decoder, SSM and hybrid families), the leaf is not gathered over
+``model``, and the forward and backward run under the mesh context's
 split (``mesh.activation_sharding(..., split=True)``): each rank
 computes its heads, columns, vocabulary rows and experts, its model-
 split leaves' gradients are its shards', and the gradients of
 replicated leaves used for the rank's part alone are summed over the
 group inside the backward (``mesh.copy_to_model``).  The global norm
 sums the model-split leaves' squares over the group and counts the
-others once.  The other families gather every leaf over ``model`` and
-compute the whole layer on every rank of a ``model`` group.
+others once.  The encoder-decoder family gathers every leaf over
+``model`` and computes the whole layer on every rank of a ``model``
+group.
 """
 
 from __future__ import annotations
@@ -199,13 +201,15 @@ def gather_state(state: TrainState, shardings: TrainState) -> TrainState:
 def model_kept(cfg, mod, p_shard):
     """The tree of the axes each param leaf keeps through the mesh step:
     ("model",) where the module's ``keeps_model_shard`` says the leaf
-    runs split, else () (gathered over every axis)."""
-    from repro_torch.launch.mesh import TP_AXIS
+    runs split on the mesh's ``model`` axis, else () (gathered over
+    every axis)."""
+    from repro_torch.launch.mesh import TP_AXIS, axis_sizes
     from repro_torch.launch.sharding import map_with_path
     keeps = getattr(mod, "keeps_model_shard", None)
     return map_with_path(
         lambda path, sh: (TP_AXIS,) if keeps is not None
-        and keeps(cfg, path) else (), p_shard)
+        and keeps(cfg, path, axis_sizes(sh.mesh).get(TP_AXIS, 1)) else (),
+        p_shard)
 
 
 def jit_train_step(train_step, state_shardings: TrainState, mesh):

@@ -139,6 +139,14 @@ class ActPins:
         self.n += k
         return (np.stack([r for r, _ in got]), np.stack([c for _, c in got]))
 
+    def _scale(self, x0, qcfg, split: bool):
+        from repro_torch.quant.fake_quant import affine_scale
+        return affine_scale(x0, qcfg.act_bits)
+
+    def _shaped(self, a, shape):
+        import torch
+        return torch.as_tensor(a).reshape(shape)
+
     def _wrap(self, fn, expert):
         import torch
         from repro_torch.quant.fake_quant import affine_scale
@@ -155,12 +163,15 @@ class ActPins:
                                      -1, *[1] * (x0.ndim - 1))
                 want_ratio, want = self._take(x0.shape[0])
             else:
-                s = affine_scale(x0, qcfg.act_bits)
-                want_ratio, want = (a[0] for a in self._take(1))
+                s = self._scale(x0, qcfg, bool(split and split[0]))
+                taken = self._take(1)
+                if taken is None:
+                    return out
+                want_ratio, want = (a[0] for a in taken)
             ratio = x0 / s
             codes = torch.round(ratio)
-            want_ratio = torch.as_tensor(want_ratio).reshape(ratio.shape)
-            want = torch.as_tensor(want).reshape(ratio.shape)
+            want_ratio = self._shaped(want_ratio, ratio.shape)
+            want = self._shaped(want, ratio.shape)
             differ = codes != want.to(codes.dtype)
             if not bool(differ.any()):
                 return out
@@ -179,6 +190,69 @@ class ActPins:
                               torch.zeros_like(out))
             return out + fix.detach()
         return act
+
+
+class SplitActPins(ActPins):
+    """A rank's activation codes under the tensor-parallel split pinned to
+    the one-rank port's (``port_act_log``) of the same run, call by call:
+    a column-split or whole product's activation is the one-rank call's
+    tensor, a row-split one's (``split``) the rank's block of its
+    features (its heads', its columns': the ``rank``-th of ``size`` equal
+    blocks of the last axis), scaled by the group's absmax.  Calls past
+    the log (a counting step after the run) are not pinned."""
+
+    def __init__(self, monkeypatch, rank: int, size: int):
+        super().__init__(monkeypatch)
+        self.rank, self.size = rank, size
+
+    def _take(self, k):
+        if self.n >= len(self.calls):
+            return None
+        return super()._take(k)
+
+    def _scale(self, x0, qcfg, split: bool):
+        if not split:
+            return super()._scale(x0, qcfg, split)
+        import torch
+        from repro_torch.launch.mesh import split_max
+        from repro_torch.quant.fake_quant import _scale_of
+        return _scale_of(split_max(torch.amax(torch.abs(x0))[None])[0],
+                         qcfg.act_bits)
+
+    def _shaped(self, a, shape):
+        import torch
+        a = torch.as_tensor(a).reshape(*shape[:-1], -1)
+        return a.chunk(self.size, -1)[self.rank] if a.shape[-1] != shape[-1] \
+            else a
+
+
+@contextlib.contextmanager
+def port_act_log():
+    """While open, every activation fake quantization of the port
+    (``layers.qdense``'s) records (x / s, codes) as float32 numpy arrays,
+    in call order: the one-rank run that ``SplitActPins`` pins a split
+    run to."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.quant.fake_quant import affine_scale
+
+    log = _Log()
+    inner = L.fake_quant_act
+
+    def logged(x, qcfg, *split):
+        out = inner(x, qcfg, *split)
+        if qcfg.act_scheme != "none" and qcfg.quantize_acts:
+            x0 = x.detach()
+            s = affine_scale(x0, qcfg.act_bits)
+            log.calls.append(((x0 / s).float().numpy(),
+                              torch.round(out.detach() / s).float().numpy()))
+        return out
+
+    L.fake_quant_act = logged
+    try:
+        yield log
+    finally:
+        L.fake_quant_act = inner
 
 
 # the roundings of a float32 result to bfloat16 in a decoder block, as

@@ -404,39 +404,53 @@ def task_restore(task, at):
 
 def _tp_case(task, at):
     from _torch_tp_ref import PARAM_SEED, config
-    from repro_torch.models import transformer as T
     cfg = config(task["arch"], task.get("pe_type", "fp32"),
                  task.get("overrides"))
     mesh = at.mesh(task["mesh"])
-    params = convert.params_from_numpy(T.numpy_params(cfg, PARAM_SEED),
-                                       at.device)
+    params = convert.params_from_numpy(
+        family_module(cfg).numpy_params(cfg, PARAM_SEED), at.device)
     return cfg, mesh, params
 
 
 def task_tp_train(task, at):
-    """A ``_torch_tp_ref.TRAIN`` case on the task's mesh through the
-    tensor-parallel split (``tp_check.train_run``): each step's loss and
-    gradient norm, the FLOPs and collectives of a step, and the final
-    params' digest; under its ``variant`` (``tp_check.variant``) the
-    control run (``steps`` and ``count`` may cut it)."""
+    """A ``_torch_tp_ref.TRAIN`` (or ``_torch_ssm_tp_ref.TRAIN``) case on
+    the task's mesh through the tensor-parallel split
+    (``tp_check.train_run``): each step's loss and gradient norm, the
+    FLOPs and collectives of a step, and the final params' digest; under
+    its ``variant`` (``tp_check.variant``) the control run (``steps`` and
+    ``count`` may cut it).  ``pins``: an ``.npz`` of the one-rank run's
+    activation log (``_torch_act_pins.port_act_log``, ``ratio<i>`` /
+    ``codes<i>`` a call), to which the rank's codes at rounding ties are
+    pinned (``SplitActPins``; the pins counted)."""
     from _torch_tp_ref import DIGEST, STEPS, tp_batches
     from repro_torch import tp_check
     cfg, mesh, params = _tp_case(task, at)
     steps = task.get("steps", STEPS)
-    with tp_check.variant(task.get("variant")):
+    with tp_check.variant(task.get("variant")), _Patches() as patches:
+        pins = None
+        if task.get("pins"):
+            from _torch_act_pins import SplitActPins
+            log = np.load(task["pins"])
+            split = M.model_split(mesh)
+            pins = SplitActPins(patches, split.rank, split.size)
+            pins.load([(log[f"ratio{i}"], log[f"codes{i}"])
+                       for i in range(len(log.files) // 2)])
         r = tp_check.train_run(cfg, steps, 0, 0, at.device, mesh,
                                params=params,
                                batches=tp_batches(cfg)[:steps],
                                count=task.get("count", True))
     return ({"rows": r["rows"], "flops": r.get("flops"),
              "collectives": r.get("collectives"),
-             "coord": M.coordinate(mesh)},
+             "coord": M.coordinate(mesh),
+             "pinned": pins and pins.pinned,
+             "pins_done": pins and pins.n == len(pins.calls)},
             {k: v[:DIGEST] for k, v in r["final"].items()})
 
 
 def task_tp_serve(task, at):
-    """A ``_torch_tp_ref.SERVE`` case on (1, 2): each step's last logits
-    (gathered over the vocabulary split) and greedy tokens."""
+    """A ``_torch_tp_ref.SERVE`` (or ``_torch_ssm_tp_ref.SERVE``) case on
+    (1, 2): each step's last logits (gathered over the vocabulary split)
+    and greedy tokens."""
     from _torch_tp_ref import CACHE, PACK_MIN, PROMPT, serve_tokens
     from repro_torch import tp_check
     cfg, mesh, params = _tp_case(task, at)

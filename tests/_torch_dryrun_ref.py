@@ -3,6 +3,7 @@ counts that the port's dry run (``repro_torch.launch.dryrun``) is held
 to.
 
   PYTHONPATH=src:tests python tests/_torch_dryrun_ref.py [--reduced-only]
+      [--mesh-only] [--fp8-only]
 
 It sets ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` before JAX
 is imported and builds each cell with the reference's own
@@ -20,7 +21,8 @@ Three parts:
     mesh (~1 min);
   * ``mesh2x2``: ``MESH_CELLS`` (reduced, head_dim 64, the attention
     backward kernel's, so that the port counts them on ``meta``; batch 4
-    x 64) on a (2, 2) mesh;
+    x 64) on a (2, 2) mesh (``--mesh-only`` rebuilds this part alone and
+    keeps the others);
   * ``full``: every cell of ``repro.launch.shapes.SHAPES`` x the ten full
     configs on a (1, 1) mesh, skipped cells as the reference skips them
     (several minutes; ``--reduced-only`` keeps the file's ``full``);
@@ -50,7 +52,9 @@ MESH_SHAPE = (2, 2)
 # (arch, (name, seq, batch, kind)) on the 2 x 2 mesh, reduced configs with
 # MESH_OVERRIDES
 MESH_CELLS = (("smollm-135m", ("train_m", 64, 4, "train")),
-              ("deepseek-moe-16b", ("train_m", 64, 4, "train")))
+              ("deepseek-moe-16b", ("train_m", 64, 4, "train")),
+              ("rwkv6-1.6b", ("train_m", 64, 4, "train")),
+              ("zamba2-7b", ("train_m", 64, 4, "train")))
 MESH_OVERRIDES = {"head_dim": 64}
 FP8_CELL = ("qwen3-32b", "decode_32k")
 FP8_VARIANTS = ("v1b_f8_cache_seqshard", "v3_f8_cache")
@@ -224,6 +228,12 @@ def _run(cells, mesh_shape, reduced: bool, overrides=None) -> dict:
     return out
 
 
+def _mesh_part() -> dict:
+    return {"mesh": list(MESH_SHAPE), "overrides": MESH_OVERRIDES,
+            "cells": _run(list(MESH_CELLS), MESH_SHAPE, reduced=True,
+                          overrides=MESH_OVERRIDES)}
+
+
 def build_reference(full: bool = True, old: dict | None = None) -> dict:
     import jax
     from repro.configs import list_archs
@@ -234,11 +244,7 @@ def build_reference(full: bool = True, old: dict | None = None) -> dict:
            "reduced_shapes": [list(s) for s in REDUCED_SHAPES],
            "reduced": _run([(a, s) for a in archs for s in REDUCED_SHAPES],
                            (1, 1), reduced=True),
-           "mesh2x2": {"mesh": list(MESH_SHAPE),
-                       "overrides": MESH_OVERRIDES,
-                       "cells": _run(list(MESH_CELLS), MESH_SHAPE,
-                                     reduced=True,
-                                     overrides=MESH_OVERRIDES)}}
+           "mesh2x2": _mesh_part()}
     if full:
         ref["full"] = _run([(a, (n, s.seq, s.batch, s.kind)) for a in archs
                             for n, s in SH.SHAPES.items()], (1, 1),
@@ -261,6 +267,8 @@ if __name__ == "__main__":
     old = json.loads(REF_PATH.read_text()) if REF_PATH.exists() else None
     if "--fp8-only" in sys.argv[1:]:
         ref = dict(old, fp8=_fp8_part())
+    elif "--mesh-only" in sys.argv[1:]:
+        ref = dict(old, mesh2x2=_mesh_part())
     else:
         ref = build_reference(full=not only, old=old)
     REF_PATH.write_text(json.dumps(ref, indent=0))

@@ -61,6 +61,7 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch import op_analysis as OA
 from repro_torch.launch import shapes as SH
 from repro_torch.launch.sharding import Sharding
+from repro_torch.models import family_module
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -289,11 +290,51 @@ def test_qwen3_32b_at_pod16x16_splits_its_products():
     assert r["launches"] == {"flash_attention": 2 * cfg.n_layers}
 
 
+@pytest.mark.parametrize("arch,layers", [("rwkv6-1.6b", 2),
+                                         ("zamba2-7b", 7)])
+def test_ssm_and_hybrid_training_at_pod16x16_split_their_layers(
+        arch, layers, monkeypatch):
+    """``train_4k`` as rank 0 of pod16x16 at a cut depth (RWKV6-1.6B 2 of
+    24 layers; Zamba2-7B a group of 6 Mamba2 blocks, the shared block and
+    a tail block): the split at least 8 x fewer FLOPs a device than the
+    same step with every layer whole (the module keeping no shard, as
+    before the split), and noted as the split."""
+    cfg = get(arch).replace(n_layers=layers)
+    split = D.run_cell(arch, "train_4k", save=False, verbose=False,
+                       cfg=cfg)
+    assert split["status"] == "ok", split.get("error")
+    assert split["notes"] == [D.NOTE_SPLIT, D.NOTE_META]
+    monkeypatch.setattr(family_module(cfg), "keeps_model_shard",
+                        lambda cfg, path, model=0: False)
+    whole = D.run_cell(arch, "train_4k", save=False, verbose=False,
+                       cfg=cfg)
+    assert whole["status"] == "ok", whole.get("error")
+    assert D.NOTE_TP in whole["notes"]
+    assert whole["flops"] >= 8 * split["flops"], (whole["flops"],
+                                                  split["flops"])
+
+
+def test_ssm_and_hybrid_serving_at_pod16x16_split_their_caches():
+    """Zamba2-7B's ``long_500k`` fits 80 GB at pod16x16 (its shared
+    attention's KV cache split over its 32 heads, 2 a device: 97.9 GB of
+    arguments before the split), ``decode_32k`` holds under 5 GB of
+    arguments, and RWKV6-1.6B's ``prefill_32k`` fits (81.3 GB of
+    temporaries before)."""
+    for arch, shape, most in (("zamba2-7b", "long_500k", 8e9),
+                              ("zamba2-7b", "decode_32k", 5e9),
+                              ("rwkv6-1.6b", "prefill_32k", 1e9)):
+        r = D.run_cell(arch, shape, save=False, verbose=False)
+        assert r["status"] == "ok", r.get("error")
+        assert r["fits_80gb"] and r["notes"] == [D.NOTE_SPLIT, D.NOTE_META]
+        assert r["memory"]["argument_size_in_bytes"] < most, (arch, shape)
+
+
 def test_serving_cells_note_only_what_they_leave_out():
     """Neither the head-split cache of ``kv_replicate_to=16`` nor the
     sequence-split one of 8 KV heads carries ``NOTE_SERVE``, and the
-    latter's cache bytes a device are 1/16 of the dp-only layout's; a
-    family the split does not take keeps ``NOTE_TP``."""
+    latter's cache bytes a device are 1/16 of the dp-only layout's; the
+    SSM and hybrid families split (``NOTE_SPLIT``), and the one family
+    the split does not take, Whisper's, keeps ``NOTE_TP``."""
     mesh = D.start_mesh(*D.MESHES["pod16x16"])
     decode = SH.SHAPES["decode_32k"]
     assert D.NOTE_SERVE not in D.cell_notes(
@@ -308,6 +349,9 @@ def test_serving_cells_note_only_what_they_leave_out():
         seq = Sharding(mesh, spec).local_shape(shape)
         dp = Sharding(mesh, D._dp_only(spec, ("data",))).local_shape(shape)
         assert spec[2] == "model" and 16 * math.prod(seq) == math.prod(dp)
-    for arch in ("rwkv6-1.6b", "zamba2-7b", "whisper-medium"):
-        notes = D.cell_notes(get(arch), SH.SHAPES["train_4k"], mesh)
-        assert D.NOTE_TP in notes and D.NOTE_SPLIT not in notes
+    for arch in ("rwkv6-1.6b", "zamba2-7b"):
+        for shape in ("train_4k", "decode_32k"):
+            notes = D.cell_notes(get(arch), SH.SHAPES[shape], mesh)
+            assert notes == [D.NOTE_SPLIT]
+    notes = D.cell_notes(get("whisper-medium"), SH.SHAPES["train_4k"], mesh)
+    assert D.NOTE_TP in notes and D.NOTE_SPLIT not in notes
